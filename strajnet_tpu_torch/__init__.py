@@ -6,17 +6,19 @@ Plain tensor code is PyTorch; the TPU's Pallas kernels become CUDA kernels
 written for ``sm_90a`` under ``csrc/``, each with a plain PyTorch version that
 CPU tensors take and a launch counter.
 
-- ``ops``       window helpers, the fused Swin-block kernel, attention, upconv
-- ``core``      bilinear sampling
+- ``config``    the dataclass tree of model, loss, train and task settings
+- ``ops``       the fused Swin-block kernels (forward and backward), the warp
+                gather kernels, window helpers, attention, upconv, dropout
+- ``core``      bilinear sampling and the flow warp
 - ``models``    Swin encoder, FG-MSA, TrajNet fusion, pyramid decoder, STrajNet
-- ``interop``   Flax parameter trees -> ``state_dict``
-- ``objective`` waypoint slicing and the occupancy sigmoid
-- ``train``     the predict step
+- ``objective`` the 4-term loss, LR schedules, waypoint slicing
+- ``train``     Keras Nadam, the train state, the train and predict steps
+- ``data``      synthetic batches, the TFRecord schema and host pipeline
 - ``infer``     batch inference and the challenge submission writer
+- ``interop``   Flax parameter trees and Nadam state -> ``state_dict``
 
-This package imports no JAX or Flax; it reuses the framework-free modules
-``strajnet_tpu.config``, ``strajnet_tpu.data.synthetic`` and
-``strajnet_tpu.infer.{submission,proto}``.
+This package imports no JAX, Flax or optax and nothing of ``strajnet_tpu``:
+it keeps its own copy of every module it needs. Only the tests import both.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

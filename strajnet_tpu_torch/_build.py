@@ -1,6 +1,7 @@
 """Builds the package's CUDA kernels with nvcc and loads them through ctypes.
 
-Each kernel lives in ``csrc/<name>.cu`` with a plain C interface. The first
+Each kernel lives in ``csrc/<name>.cu`` with a plain C interface; device code
+that several of them share is in ``csrc/*.cuh``. The first
 call of :func:`load_library` compiles it for Hopper (``sm_90a``) into
 ``build/strajnet_tpu_torch/`` at the repository root, under a file name keyed
 by a hash of the sources and flags, so an edited source is rebuilt and an
@@ -17,7 +18,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "strajnet_tpu_torch"
@@ -67,6 +70,12 @@ def build(name: str) -> Build:
                            f"{proc.stderr}")
     os.replace(tmp, out)
     return Build(out, seconds, proc.stdout + proc.stderr)
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Build]:
+    """Builds several kernels at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,8 @@
 """Bilinear image sampling with challenge-parity semantics.
 
-Counterpart of ``strajnet_tpu/core/sampling.py`` (``interpolate_bilinear``
-and ``sample``): TF-Addons bilinear interpolation, where floor indices are
+Counterpart of ``strajnet_tpu/core/sampling.py`` (``interpolate_bilinear``,
+``sample``, ``identity_warp_indices``, ``flow_warp_origin``): TF-Addons
+bilinear interpolation, where floor indices are
 clamped to ``[0, size-2]`` and weights to ``[0, 1]``; ``PixelType.INTEGER``
 puts pixel centres on integral coordinates; ``BorderType.ZERO`` pads one zero
 pixel on each side and shifts the warp by +1.
@@ -110,3 +111,37 @@ def rpe_bias(table: torch.Tensor, pos: torch.Tensor, q_hw) -> torch.Tensor:
     disp = q_grid - pos[:, None]                    # [S, h*w, K, 2]
     warp = torch.stack((disp[..., 1], disp[..., 0]), dim=-1)
     return sample(table.float(), warp).reshape(s, h * w, pos.shape[1], -1)
+
+
+def identity_warp_indices(height: int, width: int, dtype=torch.float32,
+                          device=None) -> torch.Tensor:
+    """[H, W, 2] grid of (x, y) self-indices."""
+    h_idx, w_idx = torch.meshgrid(
+        torch.arange(height, dtype=dtype, device=device),
+        torch.arange(width, dtype=dtype, device=device), indexing="ij")
+    return torch.stack((w_idx, h_idx), dim=-1)
+
+
+def flow_warp_origin(flow_origin_occupancy: torch.Tensor, flow: torch.Tensor,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Warps flow-origin occupancy by a (dx, dy) flow field.
+
+    Shared by the warp loss and the flow-grounded metrics: samples the origin
+    occupancy at ``identity + flow`` with INTEGER pixels and ZERO border.
+
+    Args:
+      flow_origin_occupancy: [B, H, W, 1].
+      flow: [B, H, W, 2] (dx, dy).
+      use_kernel: route the four-corner gather through
+        ``ops/warp_gather.py`` (the CUDA kernel on CUDA tensors, its plain
+        version on CPU tensors), which raises on any other shape than a
+        single-channel occupancy; False takes :func:`sample`. The two agree
+        up to f32 blend rounding, for any f32 occupancy values.
+    """
+    from strajnet_tpu_torch.ops import warp_gather
+
+    _, h, w, _ = flow_origin_occupancy.shape
+    warp = identity_warp_indices(h, w, flow.dtype, flow.device)[None] + flow
+    if use_kernel:
+        return warp_gather.sample_dense(flow_origin_occupancy, warp)
+    return sample(flow_origin_occupancy, warp)

@@ -7,7 +7,7 @@ Counterpart of ``strajnet_tpu/infer/runner.py``. Usage:
 
 ``--weight_path`` takes a ``.pt`` state dict, for example one written by
 ``tools/flax_to_torch.py`` from a checkpoint of the JAX package. The model
-runs on the first CUDA device when there is one, else on the CPU.
+runs on ``--device`` (default ``cuda``); a device that is not there raises.
 """
 
 from __future__ import annotations
@@ -16,14 +16,15 @@ import argparse
 import glob
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, Optional, Set
+from typing import Callable, Dict, Iterable, Optional, Sequence, Set
 
 import numpy as np
 import torch
 from torch import nn
 
-from strajnet_tpu.config import STRAJNET_CONFIG
-from strajnet_tpu.infer.submission import (
+from strajnet_tpu_torch.config import STRAJNET_CONFIG
+from strajnet_tpu_torch.device import resolve_device
+from strajnet_tpu_torch.infer.submission import (
     ChallengeSubmission,
     ScenarioPrediction,
     quantize_waypoints,
@@ -49,7 +50,7 @@ def load_scenario_ids(ids_dir: str, test: bool = True) -> Set[str]:
 def _tfrecord_batches(shard_path: str, batch_size: int,
                       compact: bool) -> Iterable[Dict[str, np.ndarray]]:
     # TensorFlow is needed only to read real shards, so it loads here.
-    from strajnet_tpu.data.pipeline import as_numpy, make_test_dataset
+    from strajnet_tpu_torch.data.pipeline import as_numpy, make_test_dataset
 
     return as_numpy(make_test_dataset(shard_path, batch_size=batch_size,
                                       compact=compact))
@@ -104,7 +105,7 @@ def run_shard(model: nn.Module, predict_step: Callable, shard_path: str,
     return count
 
 
-def main():
+def main(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description="STrajNet inference (PyTorch)")
     p.add_argument("--ids_dir", type=str,
                    default="./Waymo_Dataset/occupancy_flow_challenge/")
@@ -123,10 +124,12 @@ def main():
     p.add_argument("--split", type=str, default="test",
                    choices=["test", "val"],
                    help="scenario-id whitelist to validate against")
-    args = p.parse_args()
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the model; 'cpu' only when asked")
+    args = p.parse_args(argv)
 
     cfg = STRAJNET_CONFIG
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     model = STrajNet(cfg)
     if args.weight_path:
         state = torch.load(args.weight_path, map_location="cpu",

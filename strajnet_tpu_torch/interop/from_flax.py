@@ -1,4 +1,5 @@
-"""Flax parameter trees (of numpy arrays) -> the port's ``state_dict``.
+"""Flax parameter trees (of numpy arrays) -> the port's ``state_dict``, and
+the JAX package's Nadam state -> ``KerasNadam.state_dict()``.
 
 The port's modules carry the Flax module names, so each leaf maps by path:
 ``a/b/c`` becomes ``a.b.c`` with these layout changes:
@@ -13,11 +14,15 @@ The port's modules carry the Flax module names, so each leaf maps by path:
   ``[h, d, out]`` and the rel-pos tables keep their layout;
 - ``nn.vmap``-stacked subtrees (``cross_attn_obs``: one leading waypoint
   axis on every leaf) split into ``cross_attn_obs.<t>.`` entries.
+
+The optimizer's moments ``mu`` and ``nu`` are trees of the parameters' shape
+and convert leaf by leaf with the same mapping; the step count and the
+momentum-cache product are scalars.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,4 +80,59 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 put(*convert_leaf(sub, arr[t]))
         else:
             put(*convert_leaf(path, arr))
+    return out
+
+
+def find_nadam_state(opt_state: Any) -> Optional[Mapping]:
+    """The ``KerasNadamState`` inside an optax state, as a mapping with the
+    keys ``count``, ``mu``, ``nu`` and ``mu_product``. Walks tuples, lists,
+    named tuples and mappings (a checkpoint read back without a template
+    holds mappings), so chained transforms (gradient clipping, the
+    learning-rate scale) may wrap it."""
+    fields = ("count", "mu", "nu", "mu_product")
+    if isinstance(opt_state, Mapping):
+        if all(k in opt_state for k in fields):
+            return {k: opt_state[k] for k in fields}
+        children = list(opt_state.values())
+    elif all(hasattr(opt_state, k) for k in fields):
+        return {k: getattr(opt_state, k) for k in fields}
+    elif isinstance(opt_state, (tuple, list)):
+        children = list(opt_state)
+    else:
+        return None
+    for child in children:
+        found = find_nadam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def nadam_state_to_state_dict(model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer,
+                              nadam_state: Mapping) -> dict:
+    """A ``state_dict`` for ``optimizer`` (a ``KerasNadam`` over
+    ``model.parameters()``, in that order) that holds the JAX package's
+    optimizer state: ``load_state_dict`` of it continues the JAX run.
+
+    ``nadam_state`` has ``count``, ``mu_product`` (scalars) and ``mu``,
+    ``nu`` (Flax trees of numpy arrays shaped like the parameters). The
+    learning-rate schedule's own count equals ``count`` and is not stored
+    apart.
+    """
+    mu = flax_to_state_dict(nadam_state["mu"])
+    nu = flax_to_state_dict(nadam_state["nu"])
+    names = [name for name, _ in model.named_parameters()]
+    missing = [n for n in names if n not in mu or n not in nu]
+    if missing or len(mu) != len(names):
+        raise ValueError(f"optimizer state and model disagree: missing "
+                         f"{missing[:5]}, {len(mu)} leaves for {len(names)} "
+                         f"parameters")
+    out = optimizer.state_dict()
+    if sum(len(g["params"]) for g in out["param_groups"]) != len(names):
+        raise ValueError("the optimizer does not hold the model's parameters")
+    out["state"] = {i: {"mu": mu[n], "nu": nu[n]}
+                    for i, n in enumerate(names)}
+    for group in out["param_groups"]:
+        group["count"] = int(np.asarray(nadam_state["count"]))
+        group["mu_product"] = float(np.asarray(nadam_state["mu_product"]))
     return out

@@ -5,8 +5,9 @@ index 3 (3x3 offset conv), ``offset_range_factor`` 2, rel-pos bias on, the
 flow head on (``fg=True``) and the reference's ``deform_kv=False`` behaviour,
 where K/V come from the unsampled features and the deformation reaches only
 the rel-pos bias and the returned positions; the other variants are still
-to be ported (ROADMAP.md). Inference forward: attention and projection
-dropout are inactive.
+to be ported (ROADMAP.md). ``attn_drop`` and ``proj_drop`` (0 in every
+supported config) act in training mode, with noise from the generator handed
+to ``forward``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from strajnet_tpu_torch.core.sampling import ref_points, rpe_bias
 from strajnet_tpu_torch.models.swin import LayerNorm
+from strajnet_tpu_torch.ops.dropout import dropout
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc
 
 
@@ -32,8 +34,10 @@ class FGMSA(nn.Module):
     def __init__(self, q_size: Tuple[int, int] = (16, 16), n_heads: int = 8,
                  n_head_channels: int = 48, n_groups: int = 8,
                  out_dim: int = 384, in_dim: int = 384,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         nc = n_head_channels * n_heads
         if nc != in_dim:
             raise ValueError(f"heads*head_channels {nc} != in_dim {in_dim}")
@@ -51,7 +55,7 @@ class FGMSA(nn.Module):
         self.rpe_table = nn.Parameter(torch.zeros(2 * hk - 1, 2 * wk - 1,
                                                   n_heads))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator=None):
         """x: [B, h, w, C] -> (y [B, h, w, out], pos [B, G, h, w, 2],
         flow_hidden [B, G, h, w, out])."""
         dt = self.dtype
@@ -96,8 +100,10 @@ class FGMSA(nn.Module):
         bias = rpe_bias(rpe, pos.reshape(b * g, n, 2), (h, w)).to(dt)
         bias = bias.permute(0, 3, 1, 2).reshape(b * nh, n, n)
         attn = torch.softmax((attn + bias).float(), dim=2).to(dt)
+        attn = dropout(attn, self.attn_drop, self.training, generator)
 
         out = torch.einsum("bkv,bvc->bck", attn, vh)   # [B*heads, hc, N]
         out = out.reshape(b, c, h, w).permute(0, 2, 3, 1)
-        y = _conv1x1(self.proj_out, out, dt)
+        y = dropout(_conv1x1(self.proj_out, out, dt), self.proj_drop,
+                    self.training, generator)
         return y, pos.reshape(b, g, hk, wk, 2), flow_hidden

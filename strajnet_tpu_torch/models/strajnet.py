@@ -6,7 +6,8 @@ over the bottleneck -> waypoint-repeated query plus the flow-head injection
 waypoint-major output ``[B, H, W, T*4]`` (channel ``k*4 + {0: observed,
 1: occluded, 2: dx, 3: dy}``), f32.
 
-The port computes the inference forward of STrajNet's flag set
+The port computes the forward of STrajNet's flag set, in inference and in
+training mode (dropout and drop-path noise from an explicit generator),
 (``sep_encode``, ``flow_sep``, ``use_flow``, ``large_input``, ``fg_msa`` and
 ``fg`` on, ``actor_only``, pyramid decoder with ``flow_sep_decode`` and
 ``rep_res``); other flag values raise NotImplementedError.
@@ -20,7 +21,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from strajnet_tpu.config import ModelConfig
+from strajnet_tpu_torch.config import ModelConfig
 from strajnet_tpu_torch.models.decoder import Pyramid3DDecoder, TemporalConv
 from strajnet_tpu_torch.models.fgmsa import FGMSA
 from strajnet_tpu_torch.models.swin import SwinTransformerEncoder
@@ -36,29 +37,33 @@ _PORTED_FLAGS = dict(sep_encode=True, flow_sep=True, use_flow=True,
                      rep_res=True, stp_grad=False, spatial_shard=False)
 
 
-def resolve_kernel_knobs(cfg: ModelConfig) -> bool:
-    """Whether the Swin blocks go through ``ops/swin_block.swin_block``.
+def resolve_kernel_knobs(cfg: ModelConfig):
+    """The Swin blocks' kernel mode: "block", "block_fwd" or False.
 
-    ``use_pallas_attention``: None (auto) or True/"block" -> the wrapper,
-    which launches the CUDA kernel on CUDA tensors and runs its plain version
-    on CPU tensors; False -> the plain version everywhere. "attn",
-    "block_fwd" and a decoder-tail kernel raise NotImplementedError.
+    ``use_pallas_attention``: None (auto) or True/"block" -> "block", the
+    wrapper ``ops/swin_block.swin_block``, which launches the CUDA kernels
+    (forward and backward) on CUDA tensors and runs the plain version on CPU
+    tensors; "block_fwd" -> the forward kernel with autograd of the plain
+    version as its backward, which tells a fault of the backward kernel from
+    one elsewhere; False -> the plain version everywhere. "attn" and a
+    decoder-tail kernel raise NotImplementedError.
     ``pallas_windows_per_program`` and ``pallas_samples_per_program`` tune
     the TPU kernels' strips and are ignored here.
     """
     mode = cfg.use_pallas_attention
-    if mode in ("attn", "block_fwd"):
+    if mode == "attn":
         raise NotImplementedError(
-            f"use_pallas_attention={mode!r}: only the fused block kernel is "
-            f"ported; the window-attention kernel and the block backward are "
-            f"still to be ported (ROADMAP.md)")
-    if mode not in (None, True, False, "block"):
+            "use_pallas_attention='attn': the window-attention kernel is "
+            "still to be ported (ROADMAP.md)")
+    if mode not in (None, True, False, "block", "block_fwd"):
         raise ValueError(f"unknown use_pallas_attention={mode!r}")
     if cfg.use_pallas_decoder_tail not in (None, False):
         raise NotImplementedError(
             f"use_pallas_decoder_tail={cfg.use_pallas_decoder_tail!r}: the "
             f"decoder-tail kernel is still to be ported (ROADMAP.md)")
-    return mode is not False
+    if mode is False:
+        return False
+    return "block_fwd" if mode == "block_fwd" else "block"
 
 
 class STrajNet(nn.Module):
@@ -71,13 +76,14 @@ class STrajNet(nn.Module):
                 f"STrajNet flags {off} are still to be ported (ROADMAP.md)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        use_kernel = resolve_kernel_knobs(cfg)
+        kernel_mode = resolve_kernel_knobs(cfg)
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
         self.encoder = SwinTransformerEncoder(
             cfg.input_size, cfg.patch_size, cfg.embed_dim, cfg.depths,
             cfg.num_heads, cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
-            cfg.patch_norm, cfg.ogm_past_steps, use_kernel, dt)
+            cfg.patch_norm, cfg.ogm_past_steps, kernel_mode, dt,
+            cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate)
         self.fg_msa_layer = FGMSA(
             (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
             cfg.fgmsa_groups, bd, bd, dt)
@@ -94,21 +100,24 @@ class STrajNet(nn.Module):
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
                 obs: torch.Tensor, occ: torch.Tensor,
                 mapt: Optional[torch.Tensor] = None,
-                flow: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Inference forward. ``mapt`` (centerlines) is unused on this path
-        (``actor_only``); it is accepted so batches pass through unchanged."""
+                flow: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``mapt`` (centerlines) is unused on this path (``actor_only``); it
+        is accepted so batches pass through unchanged. In training mode the
+        dropout and drop-path noise comes from ``generator``, which lives on
+        the model's device."""
         cfg = self.cfg
         t = cfg.num_waypoints
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
-        res_list = self.encoder(ogm, map_img, flow)
+        res_list = self.encoder(ogm, map_img, flow, generator)
         q = res_list[-1].reshape(-1, bh, bw, bd)
-        res, _, ref = self.fg_msa_layer(q)
+        res, _, ref = self.fg_msa_layer(q, generator)
         q = (res + q).reshape(-1, bh * bw, bd)
         # per-group flow features projected onto the waypoint axis
         # (n_groups is reused as T)
         query = ref.reshape(-1, t, bh * bw, bd) + q[:, None]
-        obs_value = self.trajnet_attn(query, obs, occ)
+        obs_value = self.trajnet_attn(query, obs, occ, generator)
         y = self.decoder(obs_value, res_list)
         _, _, oh, ow, c = y.shape
         return y.permute(0, 2, 3, 1, 4).reshape(-1, oh, ow, t * c).float()

@@ -8,20 +8,26 @@ position embedding). Module and parameter names follow the Flax tree so that
 Tensors are token-major ``[B, L, C]`` between modules, as in JAX. Parameters
 stay f32; each op casts them to the compute dtype where the JAX module does.
 There is one block code path: :class:`SwinTransformerBlock` rolls the input
-and calls ``ops/swin_block.py`` (the CUDA kernel on the card, its plain
-version on the CPU), or the plain version everywhere when the kernel is off.
-The encoder computes the inference forward: dropout and drop-path are
-inactive.
+and calls ``ops/swin_block.py`` (the CUDA kernels on the card, forward and
+backward; the plain version on the CPU), or the plain version everywhere
+when the kernel is off. In training mode each block draws its two per-sample
+drop-path multipliers and hands them to the fused block as ``drop_path``;
+the rates rise linearly over the blocks to ``drop_path_rate`` and the flow
+branch takes stage 0's. The fused block has no place for the in-block
+dropouts (``drop_rate``, ``attn_drop_rate``; 0 in every supported config), so
+a non-zero value raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from strajnet_tpu_torch.ops.dropout import drop_path_multipliers
 from strajnet_tpu_torch.ops.swin_block import swin_block, swin_block_reference
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc
 from strajnet_tpu_torch.ops.windows import (relative_position_index,
@@ -82,14 +88,19 @@ class SwinTransformerBlock(nn.Module):
 
     The cyclic roll stays outside the fused block; a resolution no larger
     than the window shrinks the window to it and turns the shift off.
+    ``kernel_mode``: "block" (the wrapper: kernels on CUDA tensors),
+    "block_fwd" (kernel forward, autograd of the plain version backward) or
+    False (the plain version everywhere).
     """
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 use_kernel: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 kernel_mode="block", dtype: torch.dtype = torch.float32,
+                 drop_path: float = 0.0):
         super().__init__()
+        if kernel_mode not in ("block", "block_fwd", False):
+            raise ValueError(f"unknown kernel_mode {kernel_mode!r}")
         if min(input_resolution) <= window_size:
             window_size = min(input_resolution)
             shift_size = 0
@@ -98,7 +109,8 @@ class SwinTransformerBlock(nn.Module):
         self.dim, self.num_heads = dim, num_heads
         self.input_resolution = input_resolution
         self.window_size, self.shift_size = window_size, shift_size
-        self.use_kernel, self.dtype = use_kernel, dtype
+        self.kernel_mode, self.dtype = kernel_mode, dtype
+        self.drop_path = float(drop_path)
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim)
@@ -109,7 +121,8 @@ class SwinTransformerBlock(nn.Module):
                 if shift_size > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = self.input_resolution
         s, dt = self.shift_size, self.dtype
         c = x.shape[-1]
@@ -119,7 +132,14 @@ class SwinTransformerBlock(nn.Module):
         attn, mlp = self.attn, self.mlp
         qkv_b = (attn.qkv.bias if attn.qkv.bias is not None
                  else torch.zeros(3 * c, device=x.device))
-        block = swin_block if self.use_kernel else swin_block_reference
+        dpm = drop_path_multipliers(xb.shape[0], self.drop_path,
+                                    self.training, generator, x.device)
+        if self.kernel_mode:
+            block, kw = swin_block, dict(
+                backward="plain" if self.kernel_mode == "block_fwd"
+                else "kernel")
+        else:
+            block, kw = swin_block_reference, {}
         y = block(
             xb.contiguous(),
             attn.qkv.weight.t().to(dt).contiguous(), qkv_b.to(dt),
@@ -129,8 +149,9 @@ class SwinTransformerBlock(nn.Module):
             self.norm2.weight, self.norm2.bias,
             mlp.fc1.weight.t().to(dt).contiguous(), mlp.fc1.bias,
             mlp.fc2.weight.t().to(dt).contiguous(), mlp.fc2.bias,
-            self.attn_mask, None,
-            window_size=self.window_size, num_heads=self.num_heads, eps=1e-5)
+            self.attn_mask, dpm,
+            window_size=self.window_size, num_heads=self.num_heads, eps=1e-5,
+            **kw)
         if s > 0:
             y = torch.roll(y, shifts=(s, s), dims=(1, 2))
         return y.reshape(-1, h * w, c)
@@ -163,21 +184,23 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 downsample: bool = False, use_kernel: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 downsample: bool = False, kernel_mode="block",
+                 dtype: torch.dtype = torch.float32,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"blocks{i}", SwinTransformerBlock(
                 dim, input_resolution, num_heads, window_size,
                 0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                use_kernel, dtype))
+                kernel_mode, dtype, drop_path[i] if len(drop_path) else 0.0))
         self.downsample = (PatchMerging(input_resolution, dim, dtype)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
-            x = getattr(self, f"blocks{i}")(x)
+            x = getattr(self, f"blocks{i}")(x, generator)
         res = x
         if self.downsample is not None:
             x = self.downsample(x)
@@ -225,9 +248,16 @@ class SwinTransformerEncoder(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12), window_size: int = 8,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  patch_norm: bool = True, ogm_past_steps: int = 11,
-                 use_kernel: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 kernel_mode="block", dtype: torch.dtype = torch.float32,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        if drop_rate or attn_drop_rate:
+            raise NotImplementedError(
+                f"drop_rate={drop_rate}, attn_drop_rate={attn_drop_rate}: "
+                f"the fused Swin block has no place for dropout inside the "
+                f"block; every supported config sets both to 0")
+        dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         self.num_layers = len(depths)
         self.embed_dim, self.dtype = embed_dim, dtype
         self.pr = (img_size[0] // patch_size, img_size[1] // patch_size)
@@ -237,7 +267,8 @@ class SwinTransformerEncoder(nn.Module):
                 int(embed_dim * 2 ** i),
                 (self.pr[0] // 2 ** i, self.pr[1] // 2 ** i), depths[i],
                 num_heads[i], window_size, mlp_ratio, qkv_bias, downsample,
-                use_kernel, dtype)
+                kernel_mode, dtype,
+                tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]))
 
         self.patch_embed_flow = PatchEmbed(patch_size, 2, embed_dim,
                                            patch_norm, dtype)
@@ -252,11 +283,13 @@ class SwinTransformerEncoder(nn.Module):
             self.add_module(f"layers{i}", stage(i, i < self.num_layers - 1))
 
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
-                flow: torch.Tensor) -> List[torch.Tensor]:
+                flow: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         dt, pr, e = self.dtype, self.pr, self.embed_dim
         vec = ogm[..., 0].to(dt)  # the vehicle channel only
         f = self.flow_norm(self.patch_embed_flow(flow.to(dt)))
-        flow_x, flow_res = self.flow_layer(f)
+        flow_x, flow_res = self.flow_layer(f, generator)
         x = self.patch_embed_vehicle(vec)
         maps = self.patch_embed_map(map_img.to(dt))
         # the map raster covers the centre half of the patch grid: zero-pad
@@ -267,7 +300,7 @@ class SwinTransformerEncoder(nn.Module):
 
         res_list = []
         for i in range(self.num_layers):
-            x, res = getattr(self, f"layers{i}")(x)
+            x, res = getattr(self, f"layers{i}")(x, generator)
             if i == 0:
                 x = x + flow_x
                 res_list.append(_center_crop_tokens(flow_res, pr[0], e))

@@ -5,7 +5,9 @@ Counterpart of ``strajnet_tpu/models/trajnet.py`` on STrajNet's path
 batched call, and the eight per-waypoint ``CrossAttentionT`` layers (an
 ``nn.vmap`` over stacked parameters in Flax) are an ``nn.ModuleList`` here.
 ``MapEncoder`` and ``TrajEncoderLSTM`` are still to be ported (ROADMAP.md).
-Inference forward: dropout is inactive.
+In training mode the attention weights of every MHA and the two FFN
+activations of each cross-attention block pass through ``Dropout(0.1)``, with
+noise from the generator handed to ``forward``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from torch import nn
 
 from strajnet_tpu_torch.models.swin import LayerNorm, dense
 from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
+from strajnet_tpu_torch.ops.dropout import dropout
+
+_DROPOUT = 0.1
 
 
 class _PointNetEncoder(nn.Module):
@@ -32,18 +37,20 @@ class _PointNetEncoder(nn.Module):
         super().__init__()
         self.num_geom_feats, self.dtype = num_geom_feats, dtype
         self.node_feature = nn.Linear(num_geom_feats, 64)
-        self.node_attention = TfaMultiHeadAttention(num_heads, 64, mha_out,
-                                                    64, dtype=dtype)
+        self.node_attention = TfaMultiHeadAttention(
+            num_heads, 64, mha_out, 64, dtype=dtype, dropout=_DROPOUT)
         self.vector_feature = nn.Linear(num_type_feats, 64, bias=False)
         self.sublayer = nn.Linear(mha_out + 64, out_dim)
 
-    def forward(self, inputs: torch.Tensor, mask: torch.Tensor):
+    def forward(self, inputs: torch.Tensor, mask: torch.Tensor,
+                generator=None):
         dt, ng = self.dtype, self.num_geom_feats
         inputs = inputs.to(dt)
         m = mask.int()
         attn_mask = m[:, :, None] * m[:, None, :]
         nodes = F.elu(dense(self.node_feature, inputs[:, :, :ng], dt))
-        nodes = self.node_attention(nodes, nodes, nodes, mask=attn_mask)
+        nodes = self.node_attention(nodes, nodes, nodes, mask=attn_mask,
+                                    generator=generator)
         nodes = nodes.max(dim=1).values
         vector = dense(self.vector_feature, inputs[:, 0, ng:], dt)
         out = dense(self.sublayer, torch.cat([nodes, vector], dim=1), dt)
@@ -59,8 +66,8 @@ class TrajEncoder(nn.Module):
         self.enc = _PointNetEncoder(5, actor_feats - 5, num_heads, 64 * 5,
                                     out_dim, dtype)
 
-    def forward(self, inputs, mask):
-        return self.enc(inputs, mask)
+    def forward(self, inputs, mask, generator=None):
+        return self.enc(inputs, mask, generator)
 
 
 class CrossAttentionT(nn.Module):
@@ -72,16 +79,19 @@ class CrossAttentionT(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.mha = TfaMultiHeadAttention(num_heads, key_dim // num_heads,
-                                         key_dim, in_q, in_k, dtype=dtype)
+                                         key_dim, in_q, in_k, dtype=dtype,
+                                         dropout=_DROPOUT)
         self.norm1 = LayerNorm(key_dim, 1e-3, dtype)
         self.FFN1 = nn.Linear(key_dim, 4 * key_dim)
         self.FFN2 = nn.Linear(4 * key_dim, output_dim)
         self.norm2 = LayerNorm(output_dim, 1e-3, dtype)
 
-    def forward(self, query, key, mask=None):
-        dt = self.dtype
-        v = self.norm1(self.mha(query, key, mask=mask))
-        v = dense(self.FFN2, F.elu(dense(self.FFN1, v, dt)), dt)
+    def forward(self, query, key, mask=None, generator=None):
+        dt, train = self.dtype, self.training
+        v = self.norm1(self.mha(query, key, mask=mask, generator=generator))
+        v = dropout(F.elu(dense(self.FFN1, v, dt)), _DROPOUT, train,
+                    generator)
+        v = dropout(dense(self.FFN2, v, dt), _DROPOUT, train, generator)
         return self.norm2(v)
 
 
@@ -116,7 +126,8 @@ class TrajNet(nn.Module):
         self.register_buffer("seg_code", torch.from_numpy(code),
                              persistent=False)
 
-    def forward(self, obs_traj: torch.Tensor, occ_traj: torch.Tensor):
+    def forward(self, obs_traj: torch.Tensor, occ_traj: torch.Tensor,
+                generator=None):
         dt = self.dtype
         b = obs_traj.shape[0]
         n_obs, n_occ = self.obs_actors, self.occ_actors
@@ -124,7 +135,7 @@ class TrajNet(nn.Module):
         all_traj = torch.cat([obs_traj, occ_traj], dim=1)
         all_mask = all_traj[..., 0] != 0                  # [B, 64, T]
         enc = self.traj_encoder(all_traj.reshape(-1, steps, feats),
-                                all_mask.reshape(-1, steps))
+                                all_mask.reshape(-1, steps), generator)
         enc = enc.reshape(b, n_obs + n_occ, self.out_dim)
         obs, occ = enc[:, :n_obs], enc[:, n_obs:]
 
@@ -133,7 +144,8 @@ class TrajNet(nn.Module):
         c_attn_mask = all_mask.int().sum(-1).ne(0).int()  # [B, 64]
         concat = c_attn_mask[:, :, None].to(dt) * enc
         attn_mask = c_attn_mask[:, :, None] * c_attn_mask[:, None, :]
-        val = self.cross_attention(concat + embed, concat, attn_mask)
+        val = self.cross_attention(concat + embed, concat, attn_mask,
+                                   generator)
         obs = self.obs_norm(obs + val[:, :n_obs] + embed[:, :n_obs])
         occ = self.occ_norm(occ + val[:, n_obs:] + embed[:, n_obs:])
         return obs, occ, c_attn_mask
@@ -158,15 +170,15 @@ class TrajNetCrossAttention(nn.Module):
             for _ in range(num_waypoints))
 
     def forward(self, pic_encode: torch.Tensor, obs_traj: torch.Tensor,
-                occ_traj: torch.Tensor) -> torch.Tensor:
+                occ_traj: torch.Tensor, generator=None) -> torch.Tensor:
         """pic_encode: [B, T, h*w, pic_dim] -> [B, T, h, w, pic_dim]."""
         h, w = self.pic_size
         t = self.num_waypoints
-        obs, occ, traj_mask = self.traj_net(obs_traj, occ_traj)
+        obs, occ, traj_mask = self.traj_net(obs_traj, occ_traj, generator)
         flat = pic_encode.reshape(-1, t, h * w, self.pic_dim).to(self.dtype)
         key = torch.cat([obs, occ], dim=1)
         mask = traj_mask[:, None, :].expand(-1, h * w, -1)
-        o = torch.stack([layer(flat[:, k], key, mask)
+        o = torch.stack([layer(flat[:, k], key, mask, generator)
                          for k, layer in enumerate(self.cross_attn_obs)],
                         dim=1)
         return (o + flat).reshape(-1, t, h, w, self.pic_dim)

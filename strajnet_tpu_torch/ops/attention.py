@@ -14,22 +14,26 @@ from typing import Optional
 import torch
 from torch import nn
 
+from strajnet_tpu_torch.ops.dropout import dropout
+
 
 class TfaMultiHeadAttention(nn.Module):
     """Parameters keep the Flax layout: ``query_kernel`` etc. are
     ``[heads, in, head_size]``, ``projection_kernel`` is
-    ``[heads, head_size, out]``. Dropout is an inference no-op and omitted."""
+    ``[heads, head_size, out]``. ``dropout`` acts on the attention weights
+    in training mode, with noise from the generator handed to ``forward``."""
 
     def __init__(self, num_heads: int, head_size: int, output_size: int,
                  in_q: int, in_k: Optional[int] = None,
                  in_v: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         in_k = in_q if in_k is None else in_k
         in_v = in_k if in_v is None else in_v
         h, d = num_heads, head_size
         self.head_size = head_size
         self.dtype = dtype
+        self.dropout = dropout
         self.query_kernel = nn.Parameter(torch.empty(h, in_q, d))
         self.key_kernel = nn.Parameter(torch.empty(h, in_k, d))
         self.value_kernel = nn.Parameter(torch.empty(h, in_v, d))
@@ -38,7 +42,8 @@ class TfaMultiHeadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if value is None:
             value = key
         dt = self.dtype
@@ -56,6 +61,7 @@ class TfaMultiHeadAttention(nn.Module):
                 mask = mask.unsqueeze(-3)
             logits = logits + (-1e10) * (1.0 - mask)
         attn = torch.softmax(logits.float(), dim=-1).to(dt)
+        attn = dropout(attn, self.dropout, self.training, generator)
         out = torch.einsum("...hnm,...mho->...nho", attn, v)
         out = torch.einsum("...nho,hoi->...ni", out,
                            self.projection_kernel.to(dt))

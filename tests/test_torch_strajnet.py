@@ -245,14 +245,15 @@ def test_init_params_follow_flax_initializers():
 
 
 def test_kernel_knobs():
-    for mode, expect in ((None, True), (True, True), ("block", True),
+    for mode, expect in ((None, "block"), (True, "block"),
+                         ("block", "block"), ("block_fwd", "block_fwd"),
                          (False, False)):
         cfg = dataclasses.replace(CFG, use_pallas_attention=mode,
                                   pallas_windows_per_program=2,
                                   pallas_samples_per_program=8)
-        assert resolve_kernel_knobs(cfg) is expect
+        assert resolve_kernel_knobs(cfg) == expect
+        assert (resolve_kernel_knobs(cfg) is False) == (expect is False)
     for kw in (dict(use_pallas_attention="attn"),
-               dict(use_pallas_attention="block_fwd"),
                dict(use_pallas_decoder_tail=True),
                dict(use_pallas_decoder_tail="phase")):
         with pytest.raises(NotImplementedError):
