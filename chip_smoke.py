@@ -9,8 +9,10 @@ process per source, started together) and holds each against its plain
 PyTorch version at the shapes of the flagship model (batch 16, bf16):
 
 - K1 ``swin_block`` and K2 ``swin_block_bwd`` at the four Swin-block
-  geometries;
-- K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``.
+  geometries, K3 ``window_attention`` and K4 ``window_attention_bwd`` at the
+  same four;
+- K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``;
+- K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -21,14 +23,20 @@ training steps through ``train.state.create_train_state`` and
 ``"block_fwd"`` mode and with the plain path (loss, whole gradient and
 every parameter's gradient against the kernel path's); and the gradient of
 ``core.sampling.flow_warp_origin`` with respect to the warped image, the one
-path that reaches K6 (the loss warps ground truth). The launch counters are
+path that reaches K6 (the loss warps ground truth). The evaluation path
+follows: two synthetic batches through ``infer.evaluate.evaluate_batches``
+(the eval step: forward, loss, challenge metrics) on a model with
+``use_pallas_attention="attn"`` and the decoder-tail kernel, so K3 runs in
+all eight Swin blocks and K7 in both tails, held against the same loop on
+the plain path; and one training step in the ``"attn"`` mode (K3 forward, K4
+backward) against the plain path's. The launch counters are
 set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
-``--phases`` runs a subset (kernels, forward, serve, train) while developing;
-with no arguments every phase runs.
+``--phases`` runs a subset (kernels, forward, serve, train, eval) while
+developing; with no arguments every phase runs.
 """
 
 from __future__ import annotations
@@ -52,11 +60,20 @@ from strajnet_tpu_torch.core.sampling import flow_warp_origin  # noqa: E402
 from strajnet_tpu_torch.config import (  # noqa: E402
     STRAJNET_CONFIG, WAYMO_TASK_CONFIG, LossConfig, TrainConfig)
 from strajnet_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from strajnet_tpu_torch.infer.evaluate import evaluate_batches  # noqa: E402
 from strajnet_tpu_torch.infer.proto import iter_fields  # noqa: E402
 from strajnet_tpu_torch.infer.runner import run_shard  # noqa: E402
 from strajnet_tpu_torch.infer.submission import (  # noqa: E402
     SCENARIO_ID, SCENARIO_WAYPOINTS, SUBMISSION_SCENARIO_PREDICTIONS)
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params  # noqa: E402
+from strajnet_tpu_torch.objective.loss import (  # noqa: E402
+    OGMFlowLoss, split_pred_waypoints, true_waypoints_from_batch)
+from strajnet_tpu_torch.objective.metrics import (  # noqa: E402
+    apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics,
+    print_metrics)
+from strajnet_tpu_torch.ops import window_attention as wa  # noqa: E402
+from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
+    decoder_tail, decoder_tail_phase, decoder_tail_reference)
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
     GRAD_NAMES, swin_block, swin_block_backward_reference, swin_block_bwd,
     swin_block_reference)
@@ -66,10 +83,11 @@ from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
 from strajnet_tpu_torch.train.state import create_train_state  # noqa: E402
 from strajnet_tpu_torch.train.step import (  # noqa: E402
-    make_predict_step, make_train_step)
+    ensure_f32, make_eval_step, make_predict_step, make_train_step)
 
 BATCH = 16
-KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather")
+KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather",
+                  "window_attention", "decoder_tail")
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate and HBM rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -86,6 +104,28 @@ K1_ONE_MINUS_COS = 1e-4
 # is bf16), and 1 - cos at bf16 noise level.
 K2_MAX_ABS_REL = 2.0 ** -6
 K2_ONE_MINUS_COS = 1e-4
+# K3 and K4 against their plain versions, which round at the kernels' own
+# points; f32 sums run in another order (K4's with atomics), so a bf16
+# operand can round the other way. The limits are K1's and K2's.
+K3_MAX_ABS_REL = 2.0 ** -5
+K3_ONE_MINUS_COS = 1e-4
+K4_MAX_ABS_REL = 2.0 ** -6
+K4_ONE_MINUS_COS = 1e-4
+# K7 against the naive composition in bf16 (cuDNN rounds its sums once, as
+# the kernel does, but sums in another order) and, at a small shape, against
+# the f32 composition of the same bf16 inputs with TF32 off.
+K7_MAX_ABS_REL = 2.0 ** -6
+K7_ONE_MINUS_COS = 1e-4
+# The eval path, kernels ("attn" + decoder-tail kernel) vs the plain path,
+# means over two batches. Losses and metrics are held relative to the plain
+# path's value (with seed-0 weights the AUCs and IoUs are small numbers, so
+# an absolute limit would hold nothing); the absolute term only serves a
+# metric whose value is 0 on both paths. Four times the worst readings on an
+# H100: loss 2.6e-4 (observed_xe), metric 4.8e-4 (observed_auc; flow_epe
+# 1.8e-4).
+EVAL_LOSS_RTOL = 2e-3
+EVAL_METRIC_RTOL = 2e-3
+EVAL_METRIC_ATOL = 1e-6
 # K5 is an exact copy of image values. K6 sums f32 with atomics in varying
 # order: relative to the largest entry of the plain scatter.
 K5_MAX_ABS = 0.0
@@ -114,7 +154,7 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
               (32, 384, 12, 4, 2))
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
-PHASES = ("kernels", "forward", "serve", "train")
+PHASES = ("kernels", "forward", "serve", "train", "eval")
 
 
 def check(ok: bool, what: str) -> None:
@@ -287,6 +327,198 @@ def check_swin_block_bwd(g: torch.Generator) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def attention_work(h: int, c: int, heads: int, shift: int, backward: bool):
+    """FLOPs and bytes one windowed attention at batch 16 needs.
+
+    Forward, per token: 8 C^2 for the qkv and output projections and 256 C
+    for the two 64-token attention products. The backward recomputes qkv and
+    both attention products (6 C^2 + 256 C) and runs dwproj, d(merged),
+    dwqkv, dx (16 C^2) and four more attention products per head (512 C).
+    Bytes: x in and out (and dy in) in bf16, the parameters, the mask once;
+    the backward also writes the f32 gradients.
+    """
+    tokens = BATCH * h * h
+    per_token = (22 * c * c + 768 * c) if backward else (8 * c * c + 256 * c)
+    params = 4 * c * c * 2 + 4 * c * 2 + heads * 4096 * 4
+    extra = (h // 8) ** 2 * 4096 * 4 * (1 if shift else 0)
+    acts = tokens * c * 2 * (3 if backward else 2)
+    grads = (4 * c * c + 4 * c + heads * 4096) * 4 if backward else 0
+    return tokens * per_token, acts + params + extra + grads
+
+
+def check_window_attention(g: torch.Generator):
+    """K3 against window_attention_reference and K4 against
+    window_attention_backward_reference (dx and the five gradients) at the
+    four geometries; times summed over the eight blocks of one forward or
+    step."""
+    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    k4 = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, autograd_ms=0.0,
+              flops=0.0, nbytes=0.0)
+    for h, c, heads, shift, count in GEOMETRIES:
+        args, mask, _ = block_inputs(h, c, heads, shift, g)
+        x, wqkv, bqkv, wproj, bproj, rel_bias = args = args[:6]
+        dy = torch.randn(x.shape, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        kw = dict(window_size=8, num_heads=heads)
+        bwd_args = (x, wqkv, bqkv, wproj, rel_bias, mask, dy)
+        with torch.no_grad():
+            y = wa.window_attention(*args, mask, **kw)
+            dx, grads = wa.window_attention_bwd(*bwd_args, **kw)
+            torch.cuda.synchronize()
+            ref = wa.window_attention_reference(*args, mask, **kw)
+            rdx, rgrads = wa.window_attention_backward_reference(*bwd_args,
+                                                                 **kw)
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        omc = one_minus_cos(y, ref)
+        check(bool(torch.isfinite(y).all()), "K3 output finite")
+        check(err <= K3_MAX_ABS_REL * scale,
+              f"K3 max_abs_err {err} <= {K3_MAX_ABS_REL} * {scale}")
+        check(omc <= K3_ONE_MINUS_COS, f"K3 1-cos {omc} <= {K3_ONE_MINUS_COS}")
+        report = []
+        for name, got, want in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads,
+                                   (rdx,) + rgrads):
+            check(bool(torch.isfinite(got).all()), f"K4 {name} finite")
+            gerr = float((got.float() - want.float()).abs().max())
+            gscale = float(want.float().abs().max())
+            gomc = one_minus_cos(got, want)
+            report.append(f"{name} {gerr / gscale:.2e}/{gomc:.1e}")
+            check(gerr <= K4_MAX_ABS_REL * gscale,
+                  f"K4 {name} max_abs_err {gerr} <= {K4_MAX_ABS_REL} * "
+                  f"{gscale}")
+            check(gomc <= K4_ONE_MINUS_COS,
+                  f"K4 {name} 1-cos {gomc} <= {K4_ONE_MINUS_COS}")
+            k4["err"] = max(k4["err"], gerr)
+            k4["rel"] = max(k4["rel"], gerr / gscale)
+
+        def autograd_of_plain():
+            ins = [t.detach().requires_grad_(True) for t in args]
+            out = wa.window_attention_reference(*ins, mask, **kw)
+            return torch.autograd.grad(out, ins, dy)
+
+        with torch.no_grad():
+            t3 = cuda_ms(lambda: wa.window_attention(*args, mask, **kw),
+                         iters=10)
+            t3_plain = cuda_ms(lambda: wa.window_attention_reference(
+                *args, mask, **kw), iters=5)
+            t4 = cuda_ms(lambda: wa.window_attention_bwd(*bwd_args, **kw),
+                         iters=5)
+            t4_plain = cuda_ms(lambda: wa.window_attention_backward_reference(
+                *bwd_args, **kw), iters=2)
+        t4_autograd = cuda_ms(autograd_of_plain, iters=2)
+        print(f"K3 window_attention [{BATCH},{h},{h},{c}] heads={heads} "
+              f"shift={shift}: max_abs_err={err} (max|ref|={scale}) "
+              f"1-cos={omc:.3e} kernel_ms={t3:.4f} plain_ms={t3_plain:.4f}")
+        print(f"K4 window_attention_bwd [{BATCH},{h},{h},{c}] heads={heads} "
+              f"shift={shift}: kernel_ms={t4:.4f} plain_ms={t4_plain:.4f} "
+              f"autograd_of_plain_fwd_bwd_ms={t4_autograd:.4f}\n"
+              f"  max_abs_err/max|ref| and 1-cos: " + ", ".join(report))
+        k3["err"] = max(k3["err"], err)
+        k3["ms"] += count * t3
+        k3["plain_ms"] += count * t3_plain
+        k4["ms"] += count * t4
+        k4["plain_ms"] += count * t4_plain
+        k4["autograd_ms"] += count * t4_autograd
+        for k, backward in ((k3, False), (k4, True)):
+            fl, by = attention_work(h, c, heads, shift, backward)
+            k["flops"] += count * fl
+            k["nbytes"] += count * by
+    b3, by3 = bound(k3["flops"], k3["nbytes"])
+    b4, by4 = bound(k4["flops"], k4["nbytes"])
+    return (dict(max_abs_err=k3["err"], ms=k3["ms"], plain_ms=k3["plain_ms"],
+                 bound_ms=b3, bound_by=by3, library_ms=None),
+            dict(max_abs_err=k4["err"], max_abs_err_rel=k4["rel"],
+                 ms=k4["ms"], plain_ms=k4["plain_ms"],
+                 autograd_of_plain_ms=k4["autograd_ms"], bound_ms=b4,
+                 bound_by=by4, library_ms=None))
+
+
+def check_decoder_tail(g: torch.Generator) -> dict:
+    """K7 against decoder_tail_reference at the flagship tail in bf16 and,
+    at a small ragged shape, against the f32 composition of the same inputs.
+    The reference is also the port's default tail (transposed conv, elu,
+    conv through cuDNN): its time is what the kernel has to beat in the
+    model. Times are of one launch."""
+    def inputs(n, h, w, cin, cmid):
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+        return (r(n, h, w, cin).to(torch.bfloat16),
+                r(3, 3, cin, cmid, scale=(9 * cin) ** -0.5),
+                r(cmid, scale=0.1),
+                r(3, 3, cmid, 2, scale=(9 * cmid) ** -0.5), r(2, scale=0.1))
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float()
+
+    with torch.inference_mode():
+        small = inputs(3, 20, 33, 96, 48)
+        got = decoder_tail(*small)
+        torch.cuda.synchronize()
+        x, w_up, b_up, w_out, b_out = small
+        ref32 = decoder_tail_reference(x.float(), w_up, b_up, rnd(w_out),
+                                       rnd(b_out))
+        err32 = float((got.float() - ref32).abs().max())
+        scale32 = float(ref32.abs().max())
+        omc32 = one_minus_cos(got, ref32)
+        print(f"K7 decoder_tail [3,20,33,96] bf16 vs the f32 composition "
+              f"(TF32 off): max_abs_err={err32} (max|ref|={scale32}) "
+              f"1-cos={omc32:.3e}")
+        check(err32 <= K7_MAX_ABS_REL * scale32,
+              f"K7 vs f32: {err32} <= {K7_MAX_ABS_REL} * {scale32}")
+        check(omc32 <= K7_ONE_MINUS_COS, f"K7 vs f32 1-cos {omc32}")
+
+        # On the card the wrapper launches or raises: what the kernel does
+        # not cover never takes the naive composition. The flagship launch
+        # below also shows that a refused launch leaves no error behind.
+        before = decoder_tail.launches
+        for what, bad in (
+                ("an f32 input", (x.float(),) + small[1:]),
+                ("Cin=24", inputs(1, 8, 8, 24, 48)),
+                ("Cin=1024, tiles beyond shared memory",
+                 inputs(1, 8, 8, 1024, 48))):
+            try:
+                decoder_tail(*bad)
+            except (ValueError, RuntimeError) as e:
+                print(f"K7 on {what} raises {type(e).__name__}: {e}")
+            else:
+                check(False, f"K7 on {what} must raise")
+        check(decoder_tail.launches == before,
+              "the refused K7 calls launched nothing")
+
+        n, h, cin, cmid = BATCH * 8, 128, 96, 48
+        args = inputs(n, h, h, cin, cmid)
+        y = decoder_tail(*args)
+        torch.cuda.synchronize()
+        ref = decoder_tail_reference(*args)
+        check(tuple(y.shape) == (n, 2 * h, 2 * h, 2), f"K7 shape {y.shape}")
+        check(bool(torch.isfinite(y).all()), "K7 output finite")
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        omc = one_minus_cos(y, ref)
+        check(err <= K7_MAX_ABS_REL * scale,
+              f"K7 max_abs_err {err} <= {K7_MAX_ABS_REL} * {scale}")
+        check(omc <= K7_ONE_MINUS_COS, f"K7 1-cos {omc} <= {K7_ONE_MINUS_COS}")
+        del ref
+        t = [cuda_ms(fn, iters=5) for fn in (
+            lambda: decoder_tail_reference(*args), lambda: decoder_tail(*args),
+            lambda: decoder_tail(*args), lambda: decoder_tail_reference(*args))]
+        t_phase = cuda_ms(lambda: decoder_tail_phase(*args), iters=5)
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    px = n * 4 * h * h  # upsampled pixels
+    flops = 2.0 * px * (4 * cin) * cmid + 2.0 * px * 9 * cmid * 2
+    nbytes = (n * h * h * cin + px * 2 + 9 * cin * cmid + 9 * cmid * 2) * 2
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"K7 decoder_tail [{n},{h},{h},{cin}] -> [{n},{2 * h},{2 * h},2]: "
+          f"max_abs_err={err} (max|ref|={scale}) 1-cos={omc:.3e} "
+          f"kernel_ms={ms:.4f} ({t[1]:.4f}, {t[2]:.4f}) "
+          f"plain_ms={plain_ms:.4f} ({t[0]:.4f}, {t[3]:.4f}; the default "
+          f"tail: transposed conv, elu, conv) phase_form_ms={t_phase:.4f} "
+          f"bound_ms={bound_ms:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                phase_form_ms=t_phase, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 def check_warp_gather(g: torch.Generator):
     """K5 and K6 against their plain versions at the loss's shapes: S = 16
     samples x 8 waypoints, 256 x 256 queries at identity + a flow of a few
@@ -362,16 +594,27 @@ def forward(model, b):
                  flow=b["vec_flow"])
 
 
-COUNTERS = (swin_block, swin_block_bwd, warp_gather_fwd, warp_gather_bwd)
+# K1 .. K7, in the order of the kernels line
+COUNTERS = dict(k1=swin_block, k2=swin_block_bwd, k3=wa.window_attention,
+                k4=wa.window_attention_bwd, k5=warp_gather_fwd,
+                k6=warp_gather_bwd, k7=decoder_tail)
 
 
 def reset_counters() -> None:
-    for fn in COUNTERS:
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def read_counters():
-    return tuple(fn.launches for fn in COUNTERS)
+    return tuple(fn.launches for fn in COUNTERS.values())
+
+
+def counts(**launches):
+    """A counter reading with the named kernels' launches and 0 elsewhere."""
+    unknown = set(launches) - set(COUNTERS)
+    if unknown:
+        raise KeyError(f"no such counters: {unknown}")
+    return tuple(launches.get(k, 0) for k in COUNTERS)
 
 
 def check_forward(state):
@@ -391,7 +634,7 @@ def check_forward(state):
         torch.cuda.synchronize()
         per_forward = read_counters()
         y_plain = forward(plain, batch)
-        check(per_forward == (8, 0, 0, 0), f"8 K1 launches per forward and "
+        check(per_forward == counts(k1=8), f"8 K1 launches per forward and "
                                            f"no other, got {per_forward}")
         check(tuple(y.shape) == (BATCH, oh, ow, 4 * cfg.num_waypoints),
               f"forward shape {tuple(y.shape)}")
@@ -468,16 +711,16 @@ def serve(model) -> int:
     check(count == 3 * BATCH and len(scenarios) == 3 * BATCH,
           f"48 scenarios written and parsed, got {count}/{len(scenarios)}")
     check(parsed_ids == ids, "parsed scenario ids match")
-    check(launches == (3 * 8, 0, 0, 0),
+    check(launches == counts(k1=3 * 8),
           f"24 K1 launches on the served path and no other, got {launches}")
-    return launches[0]
+    return launches
 
 
 def warp_gradient_path():
     """``core.sampling.flow_warp_origin`` differentiated with respect to the
     warped image, the one caller that reaches K6 (the loss warps ground
     truth, which needs no gradient). Held against the portable path
-    ``core.sampling.sample`` under autograd. Returns (K5, K6) launches."""
+    ``core.sampling.sample`` under autograd. Returns the counters."""
     g = torch.Generator(device="cuda").manual_seed(1)
     s, h, w = BATCH * 8, 256, 256
     origin = torch.rand(s, h, w, 1, generator=g, device="cuda")
@@ -493,14 +736,14 @@ def warp_gradient_path():
         grads.append((out.detach(), img.grad, fl.grad))
     torch.cuda.synchronize()
     got = read_counters()
-    check(got == (0, 0, 1, 1), f"one K5 and one K6 launch, got {got}")
+    check(got == counts(k5=1, k6=1), f"one K5 and one K6 launch, got {got}")
     for name, a, b in zip(("warped", "d/d image", "d/d flow"), *grads):
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
         print(f"flow_warp_origin kernel vs portable path, {name}: "
               f"max_abs_err={err} (max|ref|={scale})")
         check(err <= 1e-5 * scale, f"{name}: {err} <= 1e-5 * {scale}")
-    return got[2], got[3]
+    return got
 
 
 def fresh_train_state(mode):
@@ -586,8 +829,9 @@ def train_steps():
     """Three flagship training steps at batch 16 through the kernels; then
     the first step again in the "block_fwd" mode and on the plain path, held
     against the kernel path's loss and gradients, whole and leaf by leaf;
-    then one step from the init's own zero biases, reported only.
-    Returns the launches of (K1, K2, K5, K6) over the three steps."""
+    then one "attn" step (K3 forward, K4 backward) held against the plain
+    path's; then one step from the init's own zero biases, reported only.
+    Returns the counters over the three steps plus the "attn" step."""
     cfg = STRAJNET_CONFIG
     all_keys = MODEL_KEYS + ("gt_obs_ogm", "gt_occ_ogm", "gt_flow",
                              "origin_flow")
@@ -598,8 +842,8 @@ def train_steps():
     t0 = time.perf_counter()
     losses, grads, init, state, step, noise = _first_step(None, batches[0])
     first_ms = (time.perf_counter() - t0) * 1e3
-    check(read_counters() == (8, 8, 1, 0),
-          f"launches of K1/K2/K5/K6 in one step are 8/8/1/0, got "
+    check(read_counters() == counts(k1=8, k2=8, k5=1),
+          f"launches of K1/K2/K5 in one step are 8/8/1 and no other, got "
           f"{read_counters()}")
     history, step_ms = [losses], []
     for b in batches[1:]:
@@ -611,9 +855,9 @@ def train_steps():
         history.append(loss_dict)
     launches = read_counters()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    check(launches == (24, 24, 3, 0),
-          f"launches of K1/K2/K5/K6 over three steps are 24/24/3/0, got "
-          f"{launches}")
+    check(launches == counts(k1=24, k2=24, k5=3),
+          f"launches of K1/K2/K5 over three steps are 24/24/3 and no other, "
+          f"got {launches}")
     check(state.step == 3, f"step count 3, got {state.step}")
     for i, loss_dict in enumerate(history):
         vals = {k: float(v) for k, v in loss_dict.items()}
@@ -633,38 +877,159 @@ def train_steps():
           f"first step {grad_norm:.4g}; first step "
           f"{first_ms:.1f} ms (model and optimizer creation included), then "
           f"{', '.join(f'{t:.1f}' for t in step_ms)} ms per step; peak "
-          f"memory {peak_mb:.0f} MB; launches K1/K2/K5/K6 = {launches}")
+          f"memory {peak_mb:.0f} MB; launches K1..K7 = {launches}")
     model = state.model
     del state, step
 
-    total = float(losses["total"])
-    for mode, expect in (("block_fwd", (8, 0, 1, 0)), (False, (0, 0, 1, 0))):
-        reset_counters()
-        other_losses, other_grads = _first_step(mode, batches[0])[:2]
-        got = read_counters()
-        check(got == expect, f"mode {mode!r}: launches {got}, expected "
-                             f"{expect}")
-        other = float(other_losses["total"])
-        omc = one_minus_cos(grads, other_grads)
-        leaves = worst_leaves(model, grads, other_grads)
-        print(f"first step, mode {mode!r} vs kernel path: total loss "
-              f"{other:.6f} vs {total:.6f}; gradient 1-cos={omc:.3e}; worst "
-              f"leaves by 1-cos (share of the gradient's norm): "
-              + ", ".join(f"{n} {v:.3e} ({share:.1e})"
-                          for v, share, n in leaves))
-        check(abs(other - total) <= STEP_LOSS_RTOL[mode] * abs(total),
-              f"mode {mode!r}: loss {other} within {STEP_LOSS_RTOL[mode]} "
-              f"of {total}")
-        check(omc <= STEP_GRAD_ONE_MINUS_COS[mode],
-              f"mode {mode!r}: gradient 1-cos {omc} <= "
-              f"{STEP_GRAD_ONE_MINUS_COS[mode]}")
-        check(leaves[0][0] <= STEP_LEAF_ONE_MINUS_COS[mode],
-              f"mode {mode!r}: worst leaf {leaves[0][2]} 1-cos "
-              f"{leaves[0][0]} <= {STEP_LEAF_ONE_MINUS_COS[mode]}")
-        del other_grads
-    del model
+    # "block_fwd" and the plain path against the kernel path; then the
+    # "attn" mode (K3 forward, K4 backward) against the plain path
+    kernel_ref = ("kernel", grads, float(losses["total"]))
+    compare_first_step(model, "block_fwd", batches[0],
+                       counts(k1=8, k5=1), kernel_ref, "block_fwd")
+    plain_grads, plain_total, _ = compare_first_step(
+        model, False, batches[0], counts(k5=1), kernel_ref, False)
+    del grads, kernel_ref
+    _, _, attn_launches = compare_first_step(
+        model, "attn", batches[0], counts(k3=8, k4=8, k5=1),
+        ("plain", plain_grads, plain_total), False)
+    del model, plain_grads
     torch.cuda.empty_cache()
     real_init_report(batches[0])
+    return tuple(a + b for a, b in zip(launches, attn_launches))
+
+
+def compare_first_step(model, mode, batch, expect, reference, limits):
+    """The first training step in ``mode`` against ``reference`` = (name,
+    flat gradient, total loss) of another mode's first step, under the
+    ``STEP_*[limits]`` limits; also that the step moved the parameters.
+    Returns (flat gradient, total loss, counters of the step)."""
+    ref_name, ref_grads, ref_total = reference
+    reset_counters()
+    losses, grads, init, state = _first_step(mode, batch)[:4]
+    got = read_counters()
+    check(got == expect, f"mode {mode!r}: launches {got}, expected {expect}")
+    total = float(losses["total"])
+    check(bool(np.isfinite(total)), f"mode {mode!r}: loss finite")
+    stuck = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach().cpu(), init[n])
+             and n not in ZERO_GRAD_LEAVES]
+    check(not stuck, f"mode {mode!r}: parameters {stuck[:5]} did not move")
+    del state, init
+    omc = one_minus_cos(ref_grads, grads)
+    leaves = worst_leaves(model, ref_grads, grads)
+    print(f"first step, mode {mode!r} vs {ref_name} path: total loss "
+          f"{total:.6f} vs {ref_total:.6f}; gradient 1-cos={omc:.3e}; worst "
+          f"leaves by 1-cos (share of the gradient's norm): "
+          + ", ".join(f"{n} {v:.3e} ({share:.1e})" for v, share, n in leaves))
+    check(abs(total - ref_total) <= STEP_LOSS_RTOL[limits] * abs(ref_total),
+          f"mode {mode!r}: loss {total} within {STEP_LOSS_RTOL[limits]} of "
+          f"{ref_total}")
+    check(omc <= STEP_GRAD_ONE_MINUS_COS[limits],
+          f"mode {mode!r}: gradient 1-cos {omc} <= "
+          f"{STEP_GRAD_ONE_MINUS_COS[limits]}")
+    check(leaves[0][0] <= STEP_LEAF_ONE_MINUS_COS[limits],
+          f"mode {mode!r}: worst leaf {leaves[0][2]} 1-cos {leaves[0][0]} <= "
+          f"{STEP_LEAF_ONE_MINUS_COS[limits]}")
+    return grads, total, got
+
+
+def eval_inputs(cfg, seeds):
+    keys = MODEL_KEYS + ("gt_obs_ogm", "gt_occ_ogm", "gt_flow", "origin_flow")
+    return [{k: b[k] for k in keys}
+            for b in (synthetic_batch(cfg, BATCH, seed=s) for s in seeds)]
+
+
+def eval_step_parts(model, batch, cfg):
+    """CUDA-event times of the three parts of one eval step: forward, loss,
+    metrics (ms)."""
+    loss_fn = OGMFlowLoss(WAYMO_TASK_CONFIG, LossConfig())
+    with torch.inference_mode():
+        tb = ensure_f32(to_device(batch, tuple(batch)))
+        true = true_waypoints_from_batch(tb)
+        logits = split_pred_waypoints(forward(model, tb), cfg.num_waypoints)
+        pred = apply_sigmoid_to_occupancy_logits(logits)
+        return (cuda_ms(lambda: forward(model, tb), iters=3),
+                cuda_ms(lambda: loss_fn(true, logits), iters=3),
+                cuda_ms(lambda: compute_occupancy_flow_metrics(true, pred),
+                        iters=3))
+
+
+def eval_path(state):
+    """The evaluation path at full width: two synthetic batches of 16 through
+    ``infer.evaluate.evaluate_batches`` on a model with the window-attention
+    kernel in all eight Swin blocks and the decoder-tail kernel in both
+    tails, then through the same loop on the plain path; losses and metrics
+    of the two held against each other. Returns the kernel run's counters."""
+    cfg = dataclasses.replace(STRAJNET_CONFIG, use_pallas_attention="attn",
+                              use_pallas_decoder_tail=True)
+    plain_cfg = dataclasses.replace(STRAJNET_CONFIG,
+                                    use_pallas_attention=False)
+    batches = eval_inputs(cfg, (200, 201))
+    eval_step = make_eval_step(WAYMO_TASK_CONFIG, LossConfig(),
+                               cfg.num_waypoints)
+    results, seconds, models = [], [], []
+    for c in (cfg, plain_cfg):
+        model = STrajNet(c)
+        model.load_state_dict(state)
+        model = model.cuda().eval()
+        evaluate_batches(model, eval_step, batches[:1])   # warm-up
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(evaluate_batches(model, eval_step, batches))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if c is cfg:
+            launches = read_counters()
+        models.append(model)
+    check(launches == counts(k3=16, k5=4, k7=4),
+          f"16 K3, 4 K5 and 4 K7 launches over two eval steps and no other, "
+          f"got {launches}")
+    res, plain = results
+    print("eval path, kernels (attn + decoder-tail kernel):")
+    print_metrics(res, "val")
+    print(json.dumps({"eval": res, "eval_plain_path": plain}))
+    check(len(res) == 12 and set(res) == set(plain),
+          f"seven metrics and five losses, got {sorted(res)}")
+    losses = ("val_observed_xe", "val_occluded_xe", "val_flow",
+              "val_flow_warp_xe", "val_total")
+    worst_loss = worst_metric = 0.0
+    for k, v in res.items():
+        check(bool(np.isfinite(v)), f"eval {k} finite")
+        diff = abs(v - plain[k])
+        rel = diff / abs(plain[k]) if plain[k] else 0.0
+        print(f"  {k}: {v} vs plain path {plain[k]}, difference {diff:.3e} "
+              f"({rel:.3e} relative)")
+        if k in losses:
+            worst_loss = max(worst_loss, rel)
+            check(diff <= EVAL_LOSS_RTOL * abs(plain[k]),
+                  f"eval loss {k}: {v} within {EVAL_LOSS_RTOL} of {plain[k]}")
+        else:
+            worst_metric = max(worst_metric, rel)
+            check(diff <= EVAL_METRIC_RTOL * abs(plain[k]) + EVAL_METRIC_ATOL,
+                  f"eval metric {k}: {v} within {EVAL_METRIC_RTOL} relative "
+                  f"+ {EVAL_METRIC_ATOL} of {plain[k]}")
+    n = len(batches) * BATCH
+    parts = [eval_step_parts(m, batches[0], cfg) for m in models]
+    print(f"eval path, batch {BATCH} bf16, two steps: kernels "
+          f"{seconds[0] * 1e3 / 2:.1f} ms/step ({n / seconds[0]:.1f} "
+          f"scenes/s), plain path {seconds[1] * 1e3 / 2:.1f} ms/step "
+          f"({n / seconds[1]:.1f} scenes/s), host transfer included; worst "
+          f"loss difference {worst_loss:.3e} relative, worst metric "
+          f"difference {worst_metric:.3e} relative; launches K1..K7 = "
+          f"{launches}")
+    for name, (fwd, loss, met) in zip(("kernels", "plain path"), parts):
+        print(f"  one eval step by CUDA events, {name}: forward {fwd:.3f} ms, "
+              f"loss {loss:.3f} ms, metrics {met:.3f} ms")
+    # what the loop spends outside the step: one batch from pageable host
+    # memory to the card, as evaluate_batches copies it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    to_device(batches[0], tuple(batches[0]))
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    mb = sum(v.nbytes for v in batches[0].values()) / 2 ** 20
+    print(f"  one batch to the card: {mb:.0f} MB of f32 in {copy_ms:.1f} ms")
     return launches
 
 
@@ -699,41 +1064,63 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
-    kernels = {
+    csrc, jax_ops = "strajnet_tpu_torch/csrc/", "strajnet_tpu/ops/"
+    kernels = {   # K1 .. K7, in the order of COUNTERS
         "swin_block": dict(
-            source="strajnet_tpu_torch/csrc/swin_block.cu",
-            replaces="strajnet_tpu/ops/pallas_swin_block.py:82"),
+            source=csrc + "swin_block.cu",
+            replaces=jax_ops + "pallas_swin_block.py:82"),
         "swin_block_bwd": dict(
-            source="strajnet_tpu_torch/csrc/swin_block_bwd.cu",
-            replaces="strajnet_tpu/ops/pallas_swin_block.py:143"),
+            source=csrc + "swin_block_bwd.cu",
+            replaces=jax_ops + "pallas_swin_block.py:143"),
+        "window_attention": dict(
+            source=csrc + "window_attention.cu",
+            replaces=jax_ops + "pallas_window_attention.py:91"),
+        "window_attention_bwd": dict(
+            source=csrc + "window_attention.cu",
+            replaces=jax_ops + "pallas_window_attention.py:131"),
         "warp_gather_fwd": dict(
-            source="strajnet_tpu_torch/csrc/warp_gather.cu",
-            replaces="strajnet_tpu/ops/pallas_warp_gather.py:57"),
+            source=csrc + "warp_gather.cu",
+            replaces=jax_ops + "pallas_warp_gather.py:57"),
         "warp_gather_bwd": dict(
-            source="strajnet_tpu_torch/csrc/warp_gather.cu",
-            replaces="strajnet_tpu/ops/pallas_warp_gather.py:83"),
+            source=csrc + "warp_gather.cu",
+            replaces=jax_ops + "pallas_warp_gather.py:83"),
+        "decoder_tail": dict(
+            source=csrc + "decoder_tail.cu",
+            replaces=jax_ops + "pallas_decoder_tail.py:127"),
     }
     launches = dict.fromkeys(kernels, 0)
+
+    def add_launches(counters):
+        for name, count in zip(kernels, counters):
+            launches[name] += count
+
     g = torch.Generator(device="cuda").manual_seed(0)
     if "kernels" in phases:
         kernels["swin_block"].update(check_swin_block(g))
         kernels["swin_block_bwd"].update(check_swin_block_bwd(g))
+        k3, k4 = check_window_attention(g)
+        kernels["window_attention"].update(k3)
+        kernels["window_attention_bwd"].update(k4)
         k5, k6 = check_warp_gather(g)
         kernels["warp_gather_fwd"].update(k5)
         kernels["warp_gather_bwd"].update(k6)
-    if "forward" in phases or "serve" in phases:
-        state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))
-        model = check_forward(state)
-        if "serve" in phases:
-            launches["swin_block"] += serve(model)
-        del model, state
+        kernels["decoder_tail"].update(check_decoder_tail(g))
         torch.cuda.empty_cache()
+    if set(phases) & {"forward", "serve", "eval"}:
+        state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))
+        if "forward" in phases or "serve" in phases:
+            model = check_forward(state)
+            if "serve" in phases:
+                add_launches(serve(model))
+            del model
+            torch.cuda.empty_cache()
+        if "eval" in phases:
+            add_launches(eval_path(state))
+            torch.cuda.empty_cache()
+        del state
     if "train" in phases:
-        for name, count in zip(kernels, train_steps()):
-            launches[name] += count
-        k5_launches, k6_launches = warp_gradient_path()
-        launches["warp_gather_fwd"] += k5_launches
-        launches["warp_gather_bwd"] += k6_launches
+        add_launches(train_steps())
+        add_launches(warp_gradient_path())
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -164,7 +164,8 @@ class ModelConfig:
     #                            backward (the plain version on CPU tensors)
     #   "block_fwd" -> kernel forward, autograd of the plain version backward
     #   False       -> the plain version everywhere
-    #   "attn"      -> the window-attention kernel only (not ported yet)
+    #   "attn"      -> the window-attention kernel only, forward and
+    #                  backward; LayerNorm, MLP and residuals in plain torch
     use_pallas_attention: Optional[Union[bool, str]] = None
 
     # Strip width and samples per program of the JAX package's kernels.
@@ -180,8 +181,10 @@ class ModelConfig:
     # Spatial activation partitioning over a device mesh (not ported).
     spatial_shard: bool = False
 
-    # Decoder-tail formulation: None/False = upconv, elu, conv as separate
-    # ops; True = the fused decoder-tail kernel (not ported yet).
+    # Decoder-tail formulation: None/False/"xla" = upconv, elu, conv as
+    # separate ops; "phase" = the same in the phase domain, plain torch;
+    # True/"kernel" = the fused decoder-tail kernel (the naive composition
+    # on CPU tensors); "infer" = the kernel in eval() mode only.
     use_pallas_decoder_tail: Any = None
 
     @property

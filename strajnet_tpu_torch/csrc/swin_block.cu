@@ -161,92 +161,16 @@ swin_block_fwd_kernel(const Params p) {
   __syncthreads();
 
   // ---- windowed multi-head attention, one head at a time ----
-  const float* mask = p.mask ? p.mask + (size_t)wi * kTok * kTok : nullptr;
+  const AttnBufs S = {hbuf, L.ldh, qkv, L.ldqkv, stg, L.ldstg, L.lds, L.ldo32,
+                      pbuf, L.ldp, nullptr};
+  const AttnWeights Wt = {
+      p.wqkv, p.bqkv, p.rel_bias,
+      p.mask ? p.mask + (size_t)wi * kTok * kTok : nullptr, C, hd, p.scale};
   for (int h = 0; h < p.heads; ++h) {
-    // q | k | v of head h: [64, C] @ wqkv[:, cols] -> stg (f32)
-    for (int tn = warp; tn < 3 * hd / 16; tn += kWarps) {
-      const int part = (tn * 16) / hd, colin = (tn * 16) % hd;
-      FragC c[4];
-      zero_strip(c);
-      mma_strip(c, hbuf, L.ldh, p.wqkv + part * C + h * hd + colin, 3 * C, C);
-      store_strip(stg + tn * 16, c, L.ldstg);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-      const int t = idx / (3 * hd), j = idx % (3 * hd);
-      const int part = j / hd, jj = j % hd;
-      const float v = stg[t * L.ldstg + j] +
-                      __bfloat162float(p.bqkv[part * C + h * hd + jj]);
-      qkv[t * L.ldqkv + j] = __float2bfloat16(v);
-    }
-    __syncthreads();
-
-    // logits = q @ k^T -> stg as [64][lds]
-    for (int tile = warp; tile < 16; tile += kWarps) {
-      const int tm = tile / 4, tn = tile % 4;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < hd; k0 += 16) {
-        FragA a;
-        FragBt bt;
-        wmma::load_matrix_sync(a, qkv + tm * 16 * L.ldqkv + k0, L.ldqkv);
-        wmma::load_matrix_sync(bt, qkv + tn * 16 * L.ldqkv + hd + k0, L.ldqkv);
-        wmma::mma_sync(c, a, bt, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.lds + tn * 16, c, L.lds,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // f32 softmax of scale * logits + rel-pos bias (+ mask), one warp per row
-    const float* rb = p.rel_bias + (size_t)h * kTok * kTok;
-    for (int t = warp; t < kTok; t += kWarps) {
-      float s0 = stg[t * L.lds + lane] * p.scale + rb[t * kTok + lane];
-      float s1 = stg[t * L.lds + lane + 32] * p.scale + rb[t * kTok + lane + 32];
-      if (mask) {
-        s0 += mask[t * kTok + lane];
-        s1 += mask[t * kTok + lane + 32];
-      }
-      const float m = warp_max(fmaxf(s0, s1));
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float sum = warp_sum(e0 + e1);
-      pbuf[t * L.ldp + lane] = __float2bfloat16(e0 / sum);
-      pbuf[t * L.ldp + lane + 32] = __float2bfloat16(e1 / sum);
-    }
-    __syncthreads();
-
-    // head output = P @ v -> stg as [64][ldo32] -> obuf (bf16)
-    const int o_nt = hd / 16;
-    for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
-      const int tm = tile / o_nt, tn = tile % o_nt;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < kTok; k0 += 16) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, pbuf + tm * 16 * L.ldp + k0, L.ldp);
-        wmma::load_matrix_sync(bm, qkv + k0 * L.ldqkv + 2 * hd + tn * 16,
-                               L.ldqkv);
-        wmma::mma_sync(c, a, bm, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.ldo32 + tn * 16, c, L.ldo32,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTok * hd; idx += kThreads) {
-      const int t = idx / hd, j = idx % hd;
-      obuf[t * L.ldo + j] = __float2bfloat16(stg[t * L.ldo32 + j]);
-    }
-    __syncthreads();
-
-    // acc += head output @ wproj[h*hd:(h+1)*hd, :]
-    for (int tn = warp; tn < ctiles; tn += kWarps) {
-      FragC c[4];
-      load_strip(c, acc + tn * 16, L.lda);
-      mma_strip(c, obuf, L.ldo, p.wproj + (size_t)h * hd * C + tn * 16, C, hd);
-      store_strip(acc + tn * 16, c, L.lda);
-    }
-    __syncthreads();
+    attn_head_qkv(S, Wt, h, nullptr);
+    attn_head_softmax(S, Wt, h);
+    attn_head_pv(S, hd);
+    attn_head_project(S, h, C, hd, obuf, L.ldo, acc, L.lda, p.wproj);
   }
 
   // ---- r1 = x + dp1 * (acc + bproj), parked in out; LN2 -> hbuf ----

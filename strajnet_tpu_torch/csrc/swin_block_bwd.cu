@@ -17,10 +17,11 @@
 //    it writes the two bf16 operands A and B (LN1 output and dqkv; merged
 //    heads and datt; LN2 output and dz1; GELU output and dz2) token by token
 //    into scratch in device memory.
-// 2. atb_accum_kernel: dW += A[tokens, M]^T B[tokens, N], a split-K product
-//    over slices of the token axis. Each block stages 32-token slabs of A and
-//    B in shared memory, accumulates a 64x128 tile in WMMA fragments and adds
-//    it into the zeroed f32 output with atomicAdd.
+// 2. atb_accum_kernel (swin_block_common.cuh): dW += A[tokens, M]^T
+//    B[tokens, N], a split-K product over slices of the token axis. Each block
+//    stages 32-token slabs of A and B in shared memory, accumulates a 64x128
+//    tile in WMMA fragments and adds it into the zeroed f32 output with
+//    atomicAdd.
 //
 // A TPU grid is sequential and the TPU kernel sums the parameter gradients
 // in scratch that persists from one grid step to the next; here blocks run
@@ -127,26 +128,6 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int C, int hd) {
   return L;
 }
 
-// Sums per-warp partial column sums (lane holds columns lane + 32*i) over the
-// block's warps through `red` (at least kWarps*C floats of shared memory) and
-// adds the totals into dst[0:C]. Every thread of the block calls it.
-__device__ inline void flush_colsums(float* red, const float (&part)[kMaxPerLane],
-                                     float* dst, int C) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int per_lane = C / 32;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i)
-    if (i < per_lane) red[warp * C + lane + 32 * i] = part[i];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * C + c];
-    atomicAdd(dst + c, s);
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 swin_block_bwd_window_kernel(const BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -166,7 +147,6 @@ swin_block_bwd_window_kernel(const BwdParams p) {
   const float dp1 = p.dp[2 * b], dp2 = p.dp[2 * b + 1];
   const int per_lane = C / 32;
   const int ctiles = C / 16;
-  const int o_nt = hd / 16;
   const int C3 = 3 * C;
   const size_t row0 = (size_t)blockIdx.x * kTok;  // this window's scratch rows
 
@@ -214,77 +194,16 @@ swin_block_bwd_window_kernel(const BwdParams p) {
   __syncthreads();
 
   // ---- attention forward per head: q|k|v and the head output to scratch ----
-  const float* mask = p.mask ? p.mask + (size_t)wi * kTok * kTok : nullptr;
+  const AttnBufs S = {hbuf, L.ldh, qkv, L.ldqkv, stg, L.ldstg, L.lds, L.ldo32,
+                      pbuf, L.ldp, nullptr};
+  const AttnWeights Wt = {
+      p.wqkv, p.bqkv, p.rel_bias,
+      p.mask ? p.mask + (size_t)wi * kTok * kTok : nullptr, C, hd, p.scale};
+  bf16* qkv_rows = p.qkv + row0 * C3;
   for (int h = 0; h < p.heads; ++h) {
-    for (int tn = warp; tn < 3 * hd / 16; tn += kWarps) {
-      const int part = (tn * 16) / hd, colin = (tn * 16) % hd;
-      FragC c[4];
-      zero_strip(c);
-      mma_strip(c, hbuf, L.ldh, p.wqkv + part * C + h * hd + colin, C3, C);
-      store_strip(stg + tn * 16, c, L.ldstg);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-      const int t = idx / (3 * hd), j = idx % (3 * hd);
-      const int part = j / hd, jj = j % hd;
-      const int col = part * C + h * hd + jj;
-      const bf16 v = __float2bfloat16(stg[t * L.ldstg + j] +
-                                      __bfloat162float(p.bqkv[col]));
-      qkv[t * L.ldqkv + j] = v;
-      p.qkv[(row0 + t) * C3 + col] = v;
-    }
-    __syncthreads();
-
-    // logits = q @ k^T -> stg as [64][lds]
-    for (int tile = warp; tile < 16; tile += kWarps) {
-      const int tm = tile / 4, tn = tile % 4;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < hd; k0 += 16) {
-        FragA a;
-        FragBt bt;
-        wmma::load_matrix_sync(a, qkv + tm * 16 * L.ldqkv + k0, L.ldqkv);
-        wmma::load_matrix_sync(bt, qkv + tn * 16 * L.ldqkv + hd + k0, L.ldqkv);
-        wmma::mma_sync(c, a, bt, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.lds + tn * 16, c, L.lds,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    const float* rb = p.rel_bias + (size_t)h * kTok * kTok;
-    for (int t = warp; t < kTok; t += kWarps) {
-      float s0 = stg[t * L.lds + lane] * p.scale + rb[t * kTok + lane];
-      float s1 = stg[t * L.lds + lane + 32] * p.scale + rb[t * kTok + lane + 32];
-      if (mask) {
-        s0 += mask[t * kTok + lane];
-        s1 += mask[t * kTok + lane + 32];
-      }
-      const float m = warp_max(fmaxf(s0, s1));
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float sum = warp_sum(e0 + e1);
-      pbuf[t * L.ldp + lane] = __float2bfloat16(e0 / sum);
-      pbuf[t * L.ldp + lane + 32] = __float2bfloat16(e1 / sum);
-    }
-    __syncthreads();
-
-    // head output = P @ v -> stg as [64][ldo32] -> scratch merged (bf16)
-    for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
-      const int tm = tile / o_nt, tn = tile % o_nt;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < kTok; k0 += 16) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, pbuf + tm * 16 * L.ldp + k0, L.ldp);
-        wmma::load_matrix_sync(bm, qkv + k0 * L.ldqkv + 2 * hd + tn * 16,
-                               L.ldqkv);
-        wmma::mma_sync(c, a, bm, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.ldo32 + tn * 16, c, L.ldo32,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
+    attn_head_qkv(S, Wt, h, qkv_rows);
+    attn_head_softmax(S, Wt, h);
+    attn_head_pv(S, hd);
     for (int idx = threadIdx.x; idx < kTok * hd; idx += kThreads) {
       const int t = idx / hd, j = idx % hd;
       p.merged[(row0 + t) * C + h * hd + j] =
@@ -480,144 +399,17 @@ swin_block_bwd_window_kernel(const BwdParams p) {
     FragC c[4];
     zero_strip(c);
     mma_strip_bt(c, p.datt + row0 * C, C, p.wproj + (size_t)tn * 16 * C, C, C);
-    float* slot = stg + warp * 16;
-    store_strip(slot, c, kStgLd);
-    __syncwarp();
-    for (int idx = lane; idx < kTok * 16; idx += 32) {
-      const int t = idx / 16, j = idx % 16;
-      hbuf[t * L.ldh + tn * 16 + j] = __float2bfloat16(slot[t * kStgLd + j]);
-    }
-    __syncwarp();
+    store_strip_bf16(hbuf, L.ldh, tn * 16, c, stg + warp * 16, kStgLd);
   }
   __syncthreads();
 
-  // ---- attention backward per head ----
+  // ---- attention backward per head: the forward's q|k|v come back from the
+  //      scratch, P is recomputed, dq|dk|dv replace q|k|v in the scratch ----
   for (int h = 0; h < p.heads; ++h) {
-    // forward q|k|v of this head from the scratch
-    for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-      const int t = idx / (3 * hd), j = idx % (3 * hd);
-      const int part = j / hd, jj = j % hd;
-      qkv[t * L.ldqkv + j] = p.qkv[(row0 + t) * C3 + part * C + h * hd + jj];
-    }
-    __syncthreads();
-    // recompute P (bf16) -> pbuf
-    for (int tile = warp; tile < 16; tile += kWarps) {
-      const int tm = tile / 4, tn = tile % 4;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < hd; k0 += 16) {
-        FragA a;
-        FragBt bt;
-        wmma::load_matrix_sync(a, qkv + tm * 16 * L.ldqkv + k0, L.ldqkv);
-        wmma::load_matrix_sync(bt, qkv + tn * 16 * L.ldqkv + hd + k0, L.ldqkv);
-        wmma::mma_sync(c, a, bt, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.lds + tn * 16, c, L.lds,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    const float* rb = p.rel_bias + (size_t)h * kTok * kTok;
-    for (int t = warp; t < kTok; t += kWarps) {
-      float s0 = stg[t * L.lds + lane] * p.scale + rb[t * kTok + lane];
-      float s1 = stg[t * L.lds + lane + 32] * p.scale + rb[t * kTok + lane + 32];
-      if (mask) {
-        s0 += mask[t * kTok + lane];
-        s1 += mask[t * kTok + lane + 32];
-      }
-      const float m = warp_max(fmaxf(s0, s1));
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float sum = warp_sum(e0 + e1);
-      pbuf[t * L.ldp + lane] = __float2bfloat16(e0 / sum);
-      pbuf[t * L.ldp + lane + 32] = __float2bfloat16(e1 / sum);
-    }
-    __syncthreads();
-
-    // dP = do @ v^T -> stg [64][lds];  dv = P^T @ do -> acc[:, 2hd:3hd]
-    const bf16* dout = hbuf + h * hd;  // [64, hd] of d(merged), ld = ldh
-    for (int tile = warp; tile < 16; tile += kWarps) {
-      const int tm = tile / 4, tn = tile % 4;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < hd; k0 += 16) {
-        FragA a;
-        FragBt bt;
-        wmma::load_matrix_sync(a, dout + tm * 16 * L.ldh + k0, L.ldh);
-        wmma::load_matrix_sync(bt, qkv + tn * 16 * L.ldqkv + 2 * hd + k0,
-                               L.ldqkv);
-        wmma::mma_sync(c, a, bt, c);
-      }
-      wmma::store_matrix_sync(stg + tm * 16 * L.lds + tn * 16, c, L.lds,
-                              wmma::mem_row_major);
-    }
-    for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
-      const int tm = tile / o_nt, tn = tile % o_nt;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int k0 = 0; k0 < kTok; k0 += 16) {
-        FragAt a;  // A[m][n] = P[n][m]
-        FragB bm;
-        wmma::load_matrix_sync(a, pbuf + k0 * L.ldp + tm * 16, L.ldp);
-        wmma::load_matrix_sync(bm, dout + k0 * L.ldh + tn * 16, L.ldh);
-        wmma::mma_sync(c, a, bm, c);
-      }
-      wmma::store_matrix_sync(acc + tm * 16 * L.lda + 2 * hd + tn * 16, c,
-                              L.lda, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // ds = P * (dP - rowsum(dP * P)); drel += ds; ds (bf16) replaces P
-    float* drel = p.drel + (size_t)h * kTok * kTok;
-    for (int t = warp; t < kTok; t += kWarps) {
-      const float p0 = __bfloat162float(pbuf[t * L.ldp + lane]);
-      const float p1 = __bfloat162float(pbuf[t * L.ldp + lane + 32]);
-      const float d0 = stg[t * L.lds + lane], d1 = stg[t * L.lds + lane + 32];
-      const float dot = warp_sum(d0 * p0 + d1 * p1);
-      const float ds0 = p0 * (d0 - dot), ds1 = p1 * (d1 - dot);
-      atomicAdd(drel + t * kTok + lane, ds0);
-      atomicAdd(drel + t * kTok + lane + 32, ds1);
-      pbuf[t * L.ldp + lane] = __float2bfloat16(ds0);
-      pbuf[t * L.ldp + lane + 32] = __float2bfloat16(ds1);
-    }
-    __syncthreads();
-
-    // dq = ds @ k -> acc[:, 0:hd];  dk = ds^T @ q -> acc[:, hd:2hd]
-    for (int tile = warp; tile < 8 * o_nt; tile += kWarps) {
-      const int which = tile / (4 * o_nt), rest = tile % (4 * o_nt);
-      const int tm = rest / o_nt, tn = rest % o_nt;
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      if (which == 0) {
-        for (int k0 = 0; k0 < kTok; k0 += 16) {
-          FragA a;
-          FragB bm;
-          wmma::load_matrix_sync(a, pbuf + tm * 16 * L.ldp + k0, L.ldp);
-          wmma::load_matrix_sync(bm, qkv + k0 * L.ldqkv + hd + tn * 16,
-                                 L.ldqkv);
-          wmma::mma_sync(c, a, bm, c);
-        }
-      } else {
-        for (int k0 = 0; k0 < kTok; k0 += 16) {
-          FragAt a;  // A[m][n] = ds[n][m]
-          FragB bm;
-          wmma::load_matrix_sync(a, pbuf + k0 * L.ldp + tm * 16, L.ldp);
-          wmma::load_matrix_sync(bm, qkv + k0 * L.ldqkv + tn * 16, L.ldqkv);
-          wmma::mma_sync(c, a, bm, c);
-        }
-      }
-      wmma::store_matrix_sync(acc + tm * 16 * L.lda + which * hd + tn * 16, c,
-                              L.lda, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // dq|dk|dv (bf16) replace this head's q|k|v in the scratch
-    for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-      const int t = idx / (3 * hd), j = idx % (3 * hd);
-      const int part = j / hd, jj = j % hd;
-      float v = acc[t * L.lda + j];
-      if (part < 2) v *= p.scale;
-      p.qkv[(row0 + t) * C3 + part * C + h * hd + jj] = __float2bfloat16(v);
-    }
-    __syncthreads();
+    attn_head_load_qkv(S, C, hd, h, qkv_rows);
+    attn_head_softmax(S, Wt, h);
+    attn_head_backward(S, Wt, h, hbuf + h * hd, L.ldh, acc, L.lda, qkv_rows,
+                       p.drel);
   }
 
   // ---- dbqkv += column sums of the rounded dqkv; dh1 = dqkv @ wqkv^T -> acc
@@ -693,86 +485,6 @@ swin_block_bwd_window_kernel(const BwdParams p) {
     flush_colsums(stg, s_scale, p.dln1s, C);
     flush_colsums(stg, s_bias, p.dln1b, C);
   }
-}
-
-// ---- dW[M, N] += A[tokens, M]^T @ B[tokens, N] over a slice of the tokens ----
-constexpr int kSlab = 32;    // tokens staged per step
-constexpr int kTileM = 64;
-constexpr int kTileN = 128;  // 8 column tiles: one per warp
-
-__global__ void __launch_bounds__(kThreads)
-atb_accum_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-                 float* __restrict__ out, int M, int N, long long ntok,
-                 long long slice) {
-  __shared__ __align__(32) bf16 As[kSlab][kTileM + kPad16];
-  __shared__ __align__(32) bf16 Bs[kSlab][kTileN + kPad16];
-  __shared__ __align__(32) float Cs[kTileM][kTileN + kPad32];
-
-  const int warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * kTileN, m0 = blockIdx.y * kTileM;
-  const long long tok_begin = (long long)blockIdx.z * slice;
-  long long tok_end = tok_begin + slice;
-  if (tok_end > ntok) tok_end = ntok;
-  if (tok_begin >= tok_end) return;
-
-  FragC c[4];
-  zero_strip(c);
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-  for (long long k0 = tok_begin; k0 < tok_end; k0 += kSlab) {
-    {
-      const int r = threadIdx.x / 8, c8 = (threadIdx.x % 8) * 8;
-      const long long tok = k0 + r;
-      uint4 v = zero4;
-      if (tok < tok_end && m0 + c8 < M)
-        v = *reinterpret_cast<const uint4*>(A + tok * M + m0 + c8);
-      *reinterpret_cast<uint4*>(&As[r][c8]) = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / 16, c8 = (idx % 16) * 8;
-      const long long tok = k0 + r;
-      uint4 v = zero4;
-      if (tok < tok_end && n0 + c8 < N)
-        v = *reinterpret_cast<const uint4*>(Bm + tok * N + n0 + c8);
-      *reinterpret_cast<uint4*>(&Bs[r][c8]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSlab; kk += 16) {
-      FragB bm;
-      wmma::load_matrix_sync(bm, &Bs[kk][warp * 16], kTileN + kPad16);
-#pragma unroll
-      for (int tm = 0; tm < 4; ++tm) {
-        FragAt a;  // A^T: element (m, k) at As[k][m]
-        wmma::load_matrix_sync(a, &As[kk][tm * 16], kTileM + kPad16);
-        wmma::mma_sync(c[tm], a, bm, c[tm]);
-      }
-    }
-    __syncthreads();
-  }
-  store_strip(&Cs[0][warp * 16], c, kTileN + kPad32);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kTileM * kTileN; idx += kThreads) {
-    const int r = idx / kTileN, cc = idx % kTileN;
-    if (m0 + r < M && n0 + cc < N)
-      atomicAdd(out + (size_t)(m0 + r) * N + n0 + cc, Cs[r][cc]);
-  }
-}
-
-cudaError_t launch_atb(const bf16* A, const bf16* Bm, float* out, int M, int N,
-                       long long ntok, int sms, cudaStream_t stream) {
-  const int tiles = ((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
-  // about four blocks per SM over all tiles
-  const long long want = (4LL * sms + tiles - 1) / tiles;
-  long long slice = (ntok + want - 1) / want;
-  slice = (slice + kSlab - 1) / kSlab * kSlab;
-  const long long nsplit = (ntok + slice - 1) / slice;
-  if (nsplit > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((N + kTileN - 1) / kTileN),
-                  (unsigned)((M + kTileM - 1) / kTileM), (unsigned)nsplit);
-  atb_accum_kernel<<<grid, kThreads, 0, stream>>>(A, Bm, out, M, N, ntok, slice);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -871,10 +583,8 @@ int swin_block_bwd(const void* x, const void* dy, const void* wqkv,
       swin_block_bwd_window_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid((unsigned)(B * (H / kWs) * (W / kWs)));

@@ -1,7 +1,9 @@
-// Device code shared by the fused Swin-block forward (swin_block.cu) and
-// backward (swin_block_bwd.cu) kernels: window geometry, warp reductions,
-// the tanh GELU and its derivative, and WMMA strip products
-// (bf16 x bf16 -> f32, 16x16x16 tiles).
+// Device code shared by the fused Swin-block kernels (swin_block.cu,
+// swin_block_bwd.cu) and the window-attention kernels (window_attention.cu):
+// window geometry, warp reductions, the tanh GELU and its derivative, WMMA
+// strip products (bf16 x bf16 -> f32, 16x16x16 tiles), the per-head windowed
+// attention forward and backward on one 64-token window held in shared
+// memory, and the split-K pass that sums a weight gradient over all tokens.
 
 #pragma once
 
@@ -105,6 +107,395 @@ __device__ inline void store_strip(float* dst, const FragC (&c)[4], int ld) {
 #pragma unroll
   for (int tm = 0; tm < 4; ++tm)
     wmma::store_matrix_sync(dst + tm * 16 * ld, c[tm], ld, wmma::mem_row_major);
+}
+
+
+// ---------------------------------------------------------------------------
+// Per-head attention on one window. Every thread of the block calls these;
+// each ends with __syncthreads().
+// ---------------------------------------------------------------------------
+
+// Shared-memory buffers of one window's attention (row strides in elements).
+struct AttnBufs {
+  const bf16* hbuf;  // [64][ldh]    the normalised window, A of the qkv product
+  int ldh;
+  bf16* qkv;         // [64][ldqkv]  one head's q | k | v
+  int ldqkv;
+  float* stg;        // staging: qkv sums [64][ldstg], logits and dP [64][lds],
+  int ldstg, lds, ldo32;  // P @ v [64][ldo32]
+  bf16* pbuf;        // [64][ldp]    softmax weights, later dS
+  int ldp;
+  float* p32;        // [64][lds] f32 softmax weights for the backward, or null:
+                     // then the backward reads the bf16 weights of pbuf
+};
+
+struct AttnWeights {
+  const bf16* wqkv;       // [C, 3C]
+  const bf16* bqkv;       // [3C]
+  const float* rel_bias;  // [heads, 64, 64]
+  const float* mask;      // this window's [64, 64] SW-MSA mask, or null
+  int C, hd;
+  float scale;
+};
+
+// q | k | v of head h: hbuf @ wqkv[:, head columns] summed in f32, plus the
+// bias, rounded to bf16 into S.qkv; also into qkv_rows (this window's 64 rows
+// of a [tokens, 3C] array in device memory) unless null.
+__device__ inline void attn_head_qkv(const AttnBufs& S, const AttnWeights& W,
+                                     int h, bf16* qkv_rows) {
+  const int warp = threadIdx.x / 32;
+  const int C = W.C, hd = W.hd;
+  for (int tn = warp; tn < 3 * hd / 16; tn += kWarps) {
+    const int part = (tn * 16) / hd, colin = (tn * 16) % hd;
+    FragC c[4];
+    zero_strip(c);
+    mma_strip(c, S.hbuf, S.ldh, W.wqkv + part * C + h * hd + colin, 3 * C, C);
+    store_strip(S.stg + tn * 16, c, S.ldstg);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
+    const int t = idx / (3 * hd), j = idx % (3 * hd);
+    const int col = (j / hd) * C + h * hd + j % hd;
+    const bf16 v = __float2bfloat16(S.stg[t * S.ldstg + j] +
+                                    __bfloat162float(W.bqkv[col]));
+    S.qkv[t * S.ldqkv + j] = v;
+    if (qkv_rows) qkv_rows[(size_t)t * 3 * C + col] = v;
+  }
+  __syncthreads();
+}
+
+// P = softmax(scale * q k^T + rel_bias[h] + mask) in f32, from S.qkv, rounded
+// to bf16 into S.pbuf (and kept in f32 in S.p32 unless null).
+__device__ inline void attn_head_softmax(const AttnBufs& S,
+                                         const AttnWeights& W, int h) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hd = W.hd;
+  for (int tile = warp; tile < 16; tile += kWarps) {
+    const int tm = tile / 4, tn = tile % 4;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    for (int k0 = 0; k0 < hd; k0 += 16) {
+      FragA a;
+      FragBt bt;
+      wmma::load_matrix_sync(a, S.qkv + tm * 16 * S.ldqkv + k0, S.ldqkv);
+      wmma::load_matrix_sync(bt, S.qkv + tn * 16 * S.ldqkv + hd + k0, S.ldqkv);
+      wmma::mma_sync(c, a, bt, c);
+    }
+    wmma::store_matrix_sync(S.stg + tm * 16 * S.lds + tn * 16, c, S.lds,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  const float* rb = W.rel_bias + (size_t)h * kTok * kTok;
+  for (int t = warp; t < kTok; t += kWarps) {
+    float s0 = S.stg[t * S.lds + lane] * W.scale + rb[t * kTok + lane];
+    float s1 = S.stg[t * S.lds + lane + 32] * W.scale + rb[t * kTok + lane + 32];
+    if (W.mask) {
+      s0 += W.mask[t * kTok + lane];
+      s1 += W.mask[t * kTok + lane + 32];
+    }
+    const float m = warp_max(fmaxf(s0, s1));
+    const float e0 = expf(s0 - m), e1 = expf(s1 - m);
+    const float sum = warp_sum(e0 + e1);
+    S.pbuf[t * S.ldp + lane] = __float2bfloat16(e0 / sum);
+    S.pbuf[t * S.ldp + lane + 32] = __float2bfloat16(e1 / sum);
+    if (S.p32) {
+      S.p32[t * S.lds + lane] = e0 / sum;
+      S.p32[t * S.lds + lane + 32] = e1 / sum;
+    }
+  }
+  __syncthreads();
+}
+
+// The head's output P @ v in f32 -> S.stg as [64][ldo32].
+__device__ inline void attn_head_pv(const AttnBufs& S, int hd) {
+  const int warp = threadIdx.x / 32;
+  const int o_nt = hd / 16;
+  for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
+    const int tm = tile / o_nt, tn = tile % o_nt;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    for (int k0 = 0; k0 < kTok; k0 += 16) {
+      FragA a;
+      FragB bm;
+      wmma::load_matrix_sync(a, S.pbuf + tm * 16 * S.ldp + k0, S.ldp);
+      wmma::load_matrix_sync(bm, S.qkv + k0 * S.ldqkv + 2 * hd + tn * 16,
+                             S.ldqkv);
+      wmma::mma_sync(c, a, bm, c);
+    }
+    wmma::store_matrix_sync(S.stg + tm * 16 * S.ldo32 + tn * 16, c, S.ldo32,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+}
+
+// Rounds the head's output (S.stg, f32) to bf16 into obuf [64][ldo] and adds
+// its share of the output projection: acc[64][lda] += obuf @ wproj[h*hd.., :].
+__device__ inline void attn_head_project(const AttnBufs& S, int h, int C,
+                                         int hd, bf16* obuf, int ldo,
+                                         float* acc, int lda,
+                                         const bf16* wproj) {
+  const int warp = threadIdx.x / 32;
+  for (int idx = threadIdx.x; idx < kTok * hd; idx += kThreads) {
+    const int t = idx / hd, j = idx % hd;
+    obuf[t * ldo + j] = __float2bfloat16(S.stg[t * S.ldo32 + j]);
+  }
+  __syncthreads();
+  for (int tn = warp; tn < C / 16; tn += kWarps) {
+    FragC c[4];
+    load_strip(c, acc + tn * 16, lda);
+    mma_strip(c, obuf, ldo, wproj + (size_t)h * hd * C + tn * 16, C, hd);
+    store_strip(acc + tn * 16, c, lda);
+  }
+  __syncthreads();
+}
+
+// Backward of head h, given its q | k | v in S.qkv, its softmax weights in
+// S.pbuf (and S.p32) and d(out) = dout[64][hd] (bf16, row stride lddout):
+//   dP = d(out) v^T;  dv = P^T d(out);  dS = P * (dP - rowsum(dP * P));
+//   drel[h] += dS;  dq = dS k * scale;  dk = dS^T q * scale,
+// every product on bf16 operands with f32 sums. dq | dk | dv, rounded to bf16,
+// replace the head's columns in qkv_rows (64 rows of a [tokens, 3C] array).
+// acc is f32 scratch [64][lda] with lda >= 3 * hd.
+__device__ inline void attn_head_backward(const AttnBufs& S,
+                                          const AttnWeights& W, int h,
+                                          const bf16* dout, int lddout,
+                                          float* acc, int lda, bf16* qkv_rows,
+                                          float* drel) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int C = W.C, hd = W.hd, o_nt = W.hd / 16;
+  // dP -> stg [64][lds];  dv -> acc[:, 2hd:3hd]
+  for (int tile = warp; tile < 16; tile += kWarps) {
+    const int tm = tile / 4, tn = tile % 4;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    for (int k0 = 0; k0 < hd; k0 += 16) {
+      FragA a;
+      FragBt bt;
+      wmma::load_matrix_sync(a, dout + tm * 16 * lddout + k0, lddout);
+      wmma::load_matrix_sync(bt, S.qkv + tn * 16 * S.ldqkv + 2 * hd + k0,
+                             S.ldqkv);
+      wmma::mma_sync(c, a, bt, c);
+    }
+    wmma::store_matrix_sync(S.stg + tm * 16 * S.lds + tn * 16, c, S.lds,
+                            wmma::mem_row_major);
+  }
+  for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
+    const int tm = tile / o_nt, tn = tile % o_nt;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    for (int k0 = 0; k0 < kTok; k0 += 16) {
+      FragAt a;  // A[m][n] = P[n][m]
+      FragB bm;
+      wmma::load_matrix_sync(a, S.pbuf + k0 * S.ldp + tm * 16, S.ldp);
+      wmma::load_matrix_sync(bm, dout + k0 * lddout + tn * 16, lddout);
+      wmma::mma_sync(c, a, bm, c);
+    }
+    wmma::store_matrix_sync(acc + tm * 16 * lda + 2 * hd + tn * 16, c, lda,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // dS; drel += dS; dS (bf16) replaces P
+  float* dr = drel + (size_t)h * kTok * kTok;
+  for (int t = warp; t < kTok; t += kWarps) {
+    float p0, p1;
+    if (S.p32) {
+      p0 = S.p32[t * S.lds + lane];
+      p1 = S.p32[t * S.lds + lane + 32];
+    } else {
+      p0 = __bfloat162float(S.pbuf[t * S.ldp + lane]);
+      p1 = __bfloat162float(S.pbuf[t * S.ldp + lane + 32]);
+    }
+    const float d0 = S.stg[t * S.lds + lane], d1 = S.stg[t * S.lds + lane + 32];
+    const float dot = warp_sum(d0 * p0 + d1 * p1);
+    const float ds0 = p0 * (d0 - dot), ds1 = p1 * (d1 - dot);
+    atomicAdd(dr + t * kTok + lane, ds0);
+    atomicAdd(dr + t * kTok + lane + 32, ds1);
+    S.pbuf[t * S.ldp + lane] = __float2bfloat16(ds0);
+    S.pbuf[t * S.ldp + lane + 32] = __float2bfloat16(ds1);
+  }
+  __syncthreads();
+
+  // dq = dS @ k -> acc[:, 0:hd];  dk = dS^T @ q -> acc[:, hd:2hd]
+  for (int tile = warp; tile < 8 * o_nt; tile += kWarps) {
+    const int which = tile / (4 * o_nt), rest = tile % (4 * o_nt);
+    const int tm = rest / o_nt, tn = rest % o_nt;
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    if (which == 0) {
+      for (int k0 = 0; k0 < kTok; k0 += 16) {
+        FragA a;
+        FragB bm;
+        wmma::load_matrix_sync(a, S.pbuf + tm * 16 * S.ldp + k0, S.ldp);
+        wmma::load_matrix_sync(bm, S.qkv + k0 * S.ldqkv + hd + tn * 16,
+                               S.ldqkv);
+        wmma::mma_sync(c, a, bm, c);
+      }
+    } else {
+      for (int k0 = 0; k0 < kTok; k0 += 16) {
+        FragAt a;  // A[m][n] = dS[n][m]
+        FragB bm;
+        wmma::load_matrix_sync(a, S.pbuf + k0 * S.ldp + tm * 16, S.ldp);
+        wmma::load_matrix_sync(bm, S.qkv + k0 * S.ldqkv + tn * 16, S.ldqkv);
+        wmma::mma_sync(c, a, bm, c);
+      }
+    }
+    wmma::store_matrix_sync(acc + tm * 16 * lda + which * hd + tn * 16, c,
+                            lda, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
+    const int t = idx / (3 * hd), j = idx % (3 * hd);
+    const int part = j / hd, jj = j % hd;
+    float v = acc[t * lda + j];
+    if (part < 2) v *= W.scale;
+    qkv_rows[(size_t)t * 3 * C + part * C + h * hd + jj] = __float2bfloat16(v);
+  }
+  __syncthreads();
+}
+
+// Loads head h's q | k | v from qkv_rows (64 rows of a [tokens, 3C] array)
+// into S.qkv.
+__device__ inline void attn_head_load_qkv(const AttnBufs& S, int C, int hd,
+                                          int h, const bf16* qkv_rows) {
+  for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
+    const int t = idx / (3 * hd), j = idx % (3 * hd);
+    S.qkv[t * S.ldqkv + j] =
+        qkv_rows[(size_t)t * 3 * C + (j / hd) * C + h * hd + j % hd];
+  }
+  __syncthreads();
+}
+
+// One warp's 64x16 strip of f32 sums, rounded to bf16 into dst[64][ldd]
+// columns col0..col0+15, through the warp's own 64x16 slot of f32 staging
+// (row stride lds32). Only the calling warp synchronises.
+__device__ inline void store_strip_bf16(bf16* dst, int ldd, int col0,
+                                        const FragC (&c)[4], float* slot,
+                                        int lds32) {
+  const int lane = threadIdx.x % 32;
+  store_strip(slot, c, lds32);
+  __syncwarp();
+  for (int idx = lane; idx < kTok * 16; idx += 32) {
+    const int t = idx / 16, j = idx % 16;
+    dst[t * ldd + col0 + j] = __float2bfloat16(slot[t * lds32 + j]);
+  }
+  __syncwarp();
+}
+
+// Sums per-warp partial column sums (lane holds columns lane + 32*i) over the
+// block's warps through `red` (at least kWarps*C floats of shared memory) and
+// adds the totals into dst[0:C]. Every thread of the block calls it.
+__device__ inline void flush_colsums(float* red, const float (&part)[kMaxPerLane],
+                                     float* dst, int C) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per_lane = C / 32;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i)
+    if (i < per_lane) red[warp * C + lane + 32 * i] = part[i];
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * C + c];
+    atomicAdd(dst + c, s);
+  }
+  __syncthreads();
+}
+
+// ---- dW[M, N] += A[tokens, M]^T @ B[tokens, N] over a slice of the tokens ----
+// A TPU grid is sequential and sums a weight gradient in scratch that persists
+// from one grid step to the next; here blocks run in no order, so the window
+// kernels write the two bf16 operands token by token and this split-K pass
+// sums them: each block stages 32-token slabs of A and B in shared memory,
+// accumulates a 64x128 tile in WMMA fragments and adds it into the zeroed f32
+// output with atomicAdd.
+constexpr int kSlab = 32;    // tokens staged per step
+constexpr int kTileM = 64;
+constexpr int kTileN = 128;  // 8 column tiles: one per warp
+
+__global__ void __launch_bounds__(kThreads)
+atb_accum_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+                 float* __restrict__ out, int M, int N, long long ntok,
+                 long long slice) {
+  __shared__ __align__(32) bf16 As[kSlab][kTileM + kPad16];
+  __shared__ __align__(32) bf16 Bs[kSlab][kTileN + kPad16];
+  __shared__ __align__(32) float Cs[kTileM][kTileN + kPad32];
+
+  const int warp = threadIdx.x / 32;
+  const int n0 = blockIdx.x * kTileN, m0 = blockIdx.y * kTileM;
+  const long long tok_begin = (long long)blockIdx.z * slice;
+  long long tok_end = tok_begin + slice;
+  if (tok_end > ntok) tok_end = ntok;
+  if (tok_begin >= tok_end) return;
+
+  FragC c[4];
+  zero_strip(c);
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  for (long long k0 = tok_begin; k0 < tok_end; k0 += kSlab) {
+    {
+      const int r = threadIdx.x / 8, c8 = (threadIdx.x % 8) * 8;
+      const long long tok = k0 + r;
+      uint4 v = zero4;
+      if (tok < tok_end && m0 + c8 < M)
+        v = *reinterpret_cast<const uint4*>(A + tok * M + m0 + c8);
+      *reinterpret_cast<uint4*>(&As[r][c8]) = v;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / 16, c8 = (idx % 16) * 8;
+      const long long tok = k0 + r;
+      uint4 v = zero4;
+      if (tok < tok_end && n0 + c8 < N)
+        v = *reinterpret_cast<const uint4*>(Bm + tok * N + n0 + c8);
+      *reinterpret_cast<uint4*>(&Bs[r][c8]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSlab; kk += 16) {
+      FragB bm;
+      wmma::load_matrix_sync(bm, &Bs[kk][warp * 16], kTileN + kPad16);
+#pragma unroll
+      for (int tm = 0; tm < 4; ++tm) {
+        FragAt a;  // A^T: element (m, k) at As[k][m]
+        wmma::load_matrix_sync(a, &As[kk][tm * 16], kTileM + kPad16);
+        wmma::mma_sync(c[tm], a, bm, c[tm]);
+      }
+    }
+    __syncthreads();
+  }
+  store_strip(&Cs[0][warp * 16], c, kTileN + kPad32);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kTileM * kTileN; idx += kThreads) {
+    const int r = idx / kTileN, cc = idx % kTileN;
+    if (m0 + r < M && n0 + cc < N)
+      atomicAdd(out + (size_t)(m0 + r) * N + n0 + cc, Cs[r][cc]);
+  }
+}
+
+inline cudaError_t launch_atb(const bf16* A, const bf16* Bm, float* out, int M,
+                              int N, long long ntok, int sms,
+                              cudaStream_t stream) {
+  const int tiles = ((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
+  // about four blocks per SM over all tiles
+  const long long want = (4LL * sms + tiles - 1) / tiles;
+  long long slice = (ntok + want - 1) / want;
+  slice = (slice + kSlab - 1) / kSlab * kSlab;
+  const long long nsplit = (ntok + slice - 1) / slice;
+  if (nsplit > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((N + kTileN - 1) / kTileN),
+                  (unsigned)((M + kTileM - 1) / kTileM), (unsigned)nsplit);
+  atb_accum_kernel<<<grid, kThreads, 0, stream>>>(A, Bm, out, M, N, ntok, slice);
+  return cudaGetLastError();
+}
+
+// The card's number of SMs, for launch_atb.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace

@@ -2,10 +2,11 @@
 
 Counterpart of ``strajnet_tpu/models/decoder.py::Pyramid3DDecoder`` on
 STrajNet's path: ``use_pyramid``, ``flow_sep_decode``, ``rep_res``, no
-ConvLSTM stage, and the naive decoder tail (``use_pallas_decoder_tail``
-off). Each branch's last upconv + elu + output conv is peeled off the loop
-as in JAX. ``ConvLSTM2D`` (``conv_cnn`` / ``sep_conv``) is still to be ported
-(ROADMAP.md).
+ConvLSTM stage. Each branch's last upconv + elu + output conv is peeled off
+the loop as in JAX and runs in the form ``use_tail_kernel`` names
+(``ops/decoder_tail.py``): the naive composition, the phase form, or the
+fused kernel. ``ConvLSTM2D`` (``conv_cnn`` / ``sep_conv``) is still to be
+ported (ROADMAP.md).
 
 Volumes are ``[B, T, H, W, C]``; the time-shared convs fold T into the batch.
 """
@@ -19,9 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from strajnet_tpu_torch.ops.upconv import conv2d_nhwc, upsample2x_conv3x3
+from strajnet_tpu_torch.ops.decoder_tail import (decoder_tail,
+                                                 decoder_tail_phase,
+                                                 decoder_tail_reference)
+from strajnet_tpu_torch.ops.upconv import upsample2x_conv3x3
 
 DECODER_CHANNELS = (48, 96, 128, 192, 384)
+# use_tail_kernel -> the tail's form; "infer" resolves at call time
+_TAIL_FNS = {"xla": decoder_tail_reference, "phase": decoder_tail_phase,
+             "kernel": decoder_tail}
 
 
 class FusedUpConv(nn.Module):
@@ -95,14 +102,27 @@ class TemporalConv(nn.Module):
 
 class Pyramid3DDecoder(nn.Module):
     """[B, T, h, w, C] bottleneck + encoder residuals -> [B, T, H, W, 4]
-    with channels (observed, occluded, dx, dy)."""
+    with channels (observed, occluded, dx, dy).
+
+    ``use_tail_kernel`` names the form of the two tails: "xla" the naive
+    composition, "phase" the phase-domain form, "kernel" the fused kernel
+    (``ops/decoder_tail.decoder_tail``: on a CUDA tensor it launches or
+    raises, a geometry it does not cover included), "infer" the kernel in
+    ``eval()`` mode and the naive composition in training. The aliases of
+    ``ModelConfig.use_pallas_decoder_tail`` are resolved by
+    ``models/strajnet.py::resolve_kernel_knobs``.
+    """
 
     def __init__(self, in_dim: int, res_dims: Tuple[int, ...],
                  flow_res_dim: int, shallow_decode: int = 1,
                  num_waypoints: int = 8,
                  bottleneck_size: Tuple[int, int] = (16, 16),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_tail_kernel: str = "xla"):
         super().__init__()
+        if use_tail_kernel != "infer" and use_tail_kernel not in _TAIL_FNS:
+            raise ValueError(f"unknown use_tail_kernel={use_tail_kernel!r}")
+        self.use_tail_kernel = use_tail_kernel
         t = num_waypoints
         ch = DECODER_CHANNELS
         self.decode_inds = [4, 3, 2, 1, 0][shallow_decode:]
@@ -136,11 +156,15 @@ class Pyramid3DDecoder(nn.Module):
 
     def _tail(self, up: FusedUpConv, out: nn.Conv2d,
               x: torch.Tensor) -> torch.Tensor:
-        """Last upconv -> elu -> 3x3 output conv, the naive composition."""
-        b, t, h, w, _ = x.shape
-        dt = self.dtype
-        e = F.elu(up.upconv(x))
-        o = conv2d_nhwc(e, out.weight.to(dt), padding=1) + out.bias.to(dt)
+        """Last upconv -> elu -> 3x3 output conv of one branch."""
+        b, t, h, w, c = x.shape
+        mode = self.use_tail_kernel
+        if mode == "infer":
+            mode = "xla" if self.training else "kernel"
+        # the ops keep the JAX kernel layout, HWIO
+        o = _TAIL_FNS[mode](x.reshape(b * t, h, w, c).to(self.dtype),
+                            up.conv.weight.permute(2, 3, 1, 0), up.conv.bias,
+                            out.weight.permute(2, 3, 1, 0), out.bias)
         return o.reshape(b, t, 2 * h, 2 * w, -1)
 
     def forward(self, x: torch.Tensor,

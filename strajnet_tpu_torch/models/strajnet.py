@@ -38,32 +38,35 @@ _PORTED_FLAGS = dict(sep_encode=True, flow_sep=True, use_flow=True,
 
 
 def resolve_kernel_knobs(cfg: ModelConfig):
-    """The Swin blocks' kernel mode: "block", "block_fwd" or False.
+    """(the Swin blocks' kernel mode, the decoder tails' form).
 
     ``use_pallas_attention``: None (auto) or True/"block" -> "block", the
     wrapper ``ops/swin_block.swin_block``, which launches the CUDA kernels
     (forward and backward) on CUDA tensors and runs the plain version on CPU
     tensors; "block_fwd" -> the forward kernel with autograd of the plain
     version as its backward, which tells a fault of the backward kernel from
-    one elsewhere; False -> the plain version everywhere. "attn" and a
-    decoder-tail kernel raise NotImplementedError.
+    one elsewhere; "attn" -> only the windowed attention through its kernels
+    (``ops/window_attention.py``), LayerNorm, MLP and residuals in plain
+    torch; False -> the plain version everywhere.
+    ``use_pallas_decoder_tail``: None/False/"xla" -> "xla", True/"kernel" ->
+    "kernel", "phase" and "infer" as they are: the four forms
+    ``models/decoder.py::Pyramid3DDecoder`` takes.
     ``pallas_windows_per_program`` and ``pallas_samples_per_program`` tune
     the TPU kernels' strips and are ignored here.
     """
     mode = cfg.use_pallas_attention
-    if mode == "attn":
-        raise NotImplementedError(
-            "use_pallas_attention='attn': the window-attention kernel is "
-            "still to be ported (ROADMAP.md)")
-    if mode not in (None, True, False, "block", "block_fwd"):
+    if mode not in (None, True, False, "block", "block_fwd", "attn"):
         raise ValueError(f"unknown use_pallas_attention={mode!r}")
-    if cfg.use_pallas_decoder_tail not in (None, False):
-        raise NotImplementedError(
-            f"use_pallas_decoder_tail={cfg.use_pallas_decoder_tail!r}: the "
-            f"decoder-tail kernel is still to be ported (ROADMAP.md)")
-    if mode is False:
-        return False
-    return "block_fwd" if mode == "block_fwd" else "block"
+    tail = cfg.use_pallas_decoder_tail
+    if tail not in (None, False, True, "xla", "phase", "kernel", "infer"):
+        raise ValueError(f"unknown use_pallas_decoder_tail={tail!r}")
+    if mode in (None, True):
+        mode = "block"
+    if tail in (None, False):
+        tail = "xla"
+    elif tail is True:
+        tail = "kernel"
+    return mode, tail
 
 
 class STrajNet(nn.Module):
@@ -76,7 +79,7 @@ class STrajNet(nn.Module):
                 f"STrajNet flags {off} are still to be ported (ROADMAP.md)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        kernel_mode = resolve_kernel_knobs(cfg)
+        kernel_mode, tail_mode = resolve_kernel_knobs(cfg)
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
         self.encoder = SwinTransformerEncoder(
@@ -95,7 +98,7 @@ class STrajNet(nn.Module):
                          for i in range(len(cfg.depths)))
         self.decoder = Pyramid3DDecoder(
             bd, res_dims, cfg.embed_dim, cfg.shallow_decode,
-            cfg.num_waypoints, (bh, bw), dt)
+            cfg.num_waypoints, (bh, bw), dt, tail_mode)
 
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
                 obs: torch.Tensor, occ: torch.Tensor,

@@ -7,15 +7,16 @@ position embedding). Module and parameter names follow the Flax tree so that
 
 Tensors are token-major ``[B, L, C]`` between modules, as in JAX. Parameters
 stay f32; each op casts them to the compute dtype where the JAX module does.
-There is one block code path: :class:`SwinTransformerBlock` rolls the input
-and calls ``ops/swin_block.py`` (the CUDA kernels on the card, forward and
-backward; the plain version on the CPU), or the plain version everywhere
-when the kernel is off. In training mode each block draws its two per-sample
-drop-path multipliers and hands them to the fused block as ``drop_path``;
-the rates rise linearly over the blocks to ``drop_path_rate`` and the flow
-branch takes stage 0's. The fused block has no place for the in-block
-dropouts (``drop_rate``, ``attn_drop_rate``; 0 in every supported config), so
-a non-zero value raises.
+:class:`SwinTransformerBlock` rolls the input and calls
+``ops/swin_block.py`` (the CUDA kernels on the card, forward and backward;
+the plain version on the CPU), or the plain version everywhere when the
+kernel is off. In the ``"attn"`` mode only the windowed attention goes through
+a kernel (``ops/window_attention.py``) and LayerNorm, MLP and residuals are
+plain torch. In training mode each block draws its two per-sample drop-path
+multipliers (the fused block takes them as ``drop_path``); the rates rise
+linearly over the blocks to ``drop_path_rate`` and the flow branch takes
+stage 0's. The block has no place for the in-block dropouts (``drop_rate``,
+``attn_drop_rate``; 0 in every supported config), so a non-zero value raises.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 from strajnet_tpu_torch.ops.dropout import drop_path_multipliers
 from strajnet_tpu_torch.ops.swin_block import swin_block, swin_block_reference
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc
+from strajnet_tpu_torch.ops.window_attention import window_attention
 from strajnet_tpu_torch.ops.windows import (relative_position_index,
                                             shifted_window_mask)
 
@@ -89,8 +91,10 @@ class SwinTransformerBlock(nn.Module):
     The cyclic roll stays outside the fused block; a resolution no larger
     than the window shrinks the window to it and turns the shift off.
     ``kernel_mode``: "block" (the wrapper: kernels on CUDA tensors),
-    "block_fwd" (kernel forward, autograd of the plain version backward) or
-    False (the plain version everywhere).
+    "block_fwd" (kernel forward, autograd of the plain version backward),
+    "attn" (LayerNorm, MLP and residuals in plain torch around the
+    window-attention wrapper, whose kernels run on CUDA tensors) or False (the
+    plain version everywhere).
     """
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
@@ -99,7 +103,7 @@ class SwinTransformerBlock(nn.Module):
                  kernel_mode="block", dtype: torch.dtype = torch.float32,
                  drop_path: float = 0.0):
         super().__init__()
-        if kernel_mode not in ("block", "block_fwd", False):
+        if kernel_mode not in ("block", "block_fwd", "attn", False):
             raise ValueError(f"unknown kernel_mode {kernel_mode!r}")
         if min(input_resolution) <= window_size:
             window_size = min(input_resolution)
@@ -126,14 +130,16 @@ class SwinTransformerBlock(nn.Module):
         h, w = self.input_resolution
         s, dt = self.shift_size, self.dtype
         c = x.shape[-1]
-        xb = x.reshape(-1, h, w, c).to(dt)
-        if s > 0:
-            xb = torch.roll(xb, shifts=(-s, -s), dims=(1, 2))
         attn, mlp = self.attn, self.mlp
         qkv_b = (attn.qkv.bias if attn.qkv.bias is not None
                  else torch.zeros(3 * c, device=x.device))
-        dpm = drop_path_multipliers(xb.shape[0], self.drop_path,
+        dpm = drop_path_multipliers(x.numel() // (h * w * c), self.drop_path,
                                     self.training, generator, x.device)
+        if self.kernel_mode == "attn":
+            return self._forward_attn(x, qkv_b, dpm)
+        xb = x.reshape(-1, h, w, c).to(dt)
+        if s > 0:
+            xb = torch.roll(xb, shifts=(-s, -s), dims=(1, 2))
         if self.kernel_mode:
             block, kw = swin_block, dict(
                 backward="plain" if self.kernel_mode == "block_fwd"
@@ -155,6 +161,38 @@ class SwinTransformerBlock(nn.Module):
         if s > 0:
             y = torch.roll(y, shifts=(s, s), dims=(1, 2))
         return y.reshape(-1, h * w, c)
+
+    def _forward_attn(self, x: torch.Tensor, qkv_b: torch.Tensor,
+                      dpm: Optional[torch.Tensor]) -> torch.Tensor:
+        """LN -> roll -> windowed attention on the normalised, rolled grid ->
+        roll back -> residual -> LN -> MLP -> residual, in ``[B, L, C]``."""
+        h, w = self.input_resolution
+        s, dt = self.shift_size, self.dtype
+        c = x.shape[-1]
+        attn, mlp = self.attn, self.mlp
+
+        def ln(t, norm):
+            return F.layer_norm(t.float(), (c,), norm.weight, norm.bias,
+                                1e-5).to(dt)
+
+        def drop_path(t, k):
+            return t if dpm is None else t * dpm[:, k, None, None].to(dt)
+
+        shortcut = x.to(dt)
+        y = ln(x, self.norm1).reshape(-1, h, w, c)
+        if s > 0:
+            y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
+        y = window_attention(
+            y.contiguous(), attn.qkv.weight.t().to(dt).contiguous(),
+            qkv_b.to(dt), attn.proj.weight.t().to(dt).contiguous(),
+            attn.proj.bias.to(dt), attn.rel_bias().float(), self.attn_mask,
+            window_size=self.window_size, num_heads=self.num_heads)
+        if s > 0:
+            y = torch.roll(y, shifts=(s, s), dims=(1, 2))
+        x = shortcut + drop_path(y.reshape(-1, h * w, c), 0)
+        y = dense(mlp.fc1, ln(x, self.norm2), dt)
+        y = dense(mlp.fc2, F.gelu(y, approximate="tanh"), dt)
+        return x + drop_path(y, 1)
 
 
 class PatchMerging(nn.Module):

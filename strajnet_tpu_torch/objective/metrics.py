@@ -1,15 +1,109 @@
-"""Output activations of the predicted waypoint grids.
+"""Challenge metrics and the output activations of the waypoint grids.
 
-Counterpart of ``strajnet_tpu/objective/metrics.py::
-apply_sigmoid_to_occupancy_logits``. The challenge metrics are still to be
-ported (ROADMAP.md).
+Counterpart of ``strajnet_tpu/objective/metrics.py``. Per waypoint:
+observed / occluded PR-AUC (Keras interpolation semantics,
+:mod:`strajnet_tpu_torch.objective.pr_auc`), mean-based soft IoU, flow
+end-point error over cells with nonzero true flow, and the flow-grounded
+occupancy AUC / IoU on the true flow-origin occupancy warped by the
+*predicted* flow (``core.sampling.flow_warp_origin``, the warp-gather kernel
+on the card). Everything stays on the tensors' device; the waypoint-presence
+gating is off, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict
+
 import torch
 
+from strajnet_tpu_torch.core.sampling import flow_warp_origin
 from strajnet_tpu_torch.objective.loss import WaypointGrids
+from strajnet_tpu_torch.objective.pr_auc import pr_auc
+
+METRIC_KEYS = ("vehicles_observed_auc", "vehicles_occluded_auc",
+               "vehicles_observed_iou", "vehicles_occluded_iou",
+               "vehicles_flow_epe", "vehicles_flow_warped_occupancy_auc",
+               "vehicles_flow_warped_occupancy_iou")
+_SHORT_NAMES = dict(zip(METRIC_KEYS, (
+    "observed_auc", "occluded_auc", "observed_iou", "occluded_iou",
+    "flow_epe", "flow_ogm_auc", "flow_ogm_iou")))
+
+
+def _ratio_or_zero(num: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    ok = denom != 0
+    return torch.where(ok, num / torch.where(ok, denom, 1.0),
+                       torch.zeros_like(num))
+
+
+def _per_waypoint(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, ...] -> [T, B * ...] f32."""
+    return x.float().transpose(0, 1).reshape(x.shape[1], -1)
+
+
+def _soft_iou(true_occ: torch.Tensor, pred_occ: torch.Tensor) -> torch.Tensor:
+    """Mean-based soft IoU of ``[B, T, ...]`` grids, one value per waypoint."""
+    t, p = _per_waypoint(true_occ), _per_waypoint(pred_occ)
+    intersection = (p * t).mean(-1)
+    return _ratio_or_zero(intersection,
+                          p.mean(-1) + t.mean(-1) - intersection)
+
+
+def _flow_epe(true_flow: torch.Tensor, pred_flow: torch.Tensor) -> torch.Tensor:
+    """Mean L2 end-point error over cells with nonzero true flow of
+    ``[B, T, H, W, 2]`` flows, one value per waypoint."""
+    flow_exists = ((true_flow[..., 0:1] != 0.0)
+                   | (true_flow[..., 1:2] != 0.0)).float()
+    diff = (true_flow - pred_flow).float() * flow_exists
+    epe = torch.sqrt((diff * diff).sum(-1, keepdim=True))
+    return _ratio_or_zero(_per_waypoint(epe).sum(-1),
+                          _per_waypoint(flow_exists).sum(-1))
+
+
+def compute_occupancy_flow_metrics(true_waypoints: WaypointGrids,
+                                   pred_waypoints: WaypointGrids,
+                                   no_warp: bool = False
+                                   ) -> Dict[str, torch.Tensor]:
+    """Mean metric values over all waypoints, as device scalars.
+
+    ``pred_waypoints`` carries post-sigmoid occupancies and raw flow. With
+    ``no_warp`` the two flow-grounded metrics are 0. Every metric is computed
+    per waypoint, all waypoints in one pass, and averaged.
+    """
+    true_obs = true_waypoints.observed_occupancy
+    pred_obs = pred_waypoints.observed_occupancy
+    true_occ = true_waypoints.occluded_occupancy
+    pred_occ = pred_waypoints.occluded_occupancy
+    out = {
+        "vehicles_observed_auc": pr_auc(true_obs, pred_obs, group_dim=1),
+        "vehicles_occluded_auc": pr_auc(true_occ, pred_occ, group_dim=1),
+        "vehicles_observed_iou": _soft_iou(true_obs, pred_obs),
+        "vehicles_occluded_iou": _soft_iou(true_occ, pred_occ),
+        "vehicles_flow_epe": _flow_epe(true_waypoints.flow,
+                                       pred_waypoints.flow),
+    }
+    if no_warp:
+        zero = torch.zeros(1, dtype=torch.float32, device=true_obs.device)
+        out["vehicles_flow_warped_occupancy_auc"] = zero
+        out["vehicles_flow_warped_occupancy_iou"] = zero
+    else:
+        # one batched warp over S = B*T instead of one per waypoint
+        fo = true_waypoints.flow_origin_occupancy
+        pf = pred_waypoints.flow
+        bt = fo.shape[0] * fo.shape[1]
+        warped = flow_warp_origin(
+            fo.reshape((bt,) + fo.shape[2:]),
+            pf.reshape((bt,) + pf.shape[2:])).reshape(fo.shape)
+        true_all = torch.clamp(true_obs + true_occ, 0.0, 1.0)
+        pred_all = torch.clamp(pred_obs + pred_occ, 0.0, 1.0)
+        flow_grounded = pred_all * warped
+        # the argument order is the reference's: the flow-grounded product
+        # goes in as y_true and the binary ground truth as y_pred
+        out["vehicles_flow_warped_occupancy_auc"] = pr_auc(
+            flow_grounded, true_all, group_dim=1)
+        out["vehicles_flow_warped_occupancy_iou"] = _soft_iou(flow_grounded,
+                                                              true_all)
+    return {k: out[k].mean() for k in METRIC_KEYS}
 
 
 def apply_sigmoid_to_occupancy_logits(
@@ -23,3 +117,54 @@ def apply_sigmoid_to_occupancy_logits(
         flow=pred_logits.flow,
         flow_origin_occupancy=pred_logits.flow_origin_occupancy,
     )
+
+
+@dataclasses.dataclass
+class MetricsAccumulator:
+    """Running means of per-batch metric dicts. The sums stay device scalars;
+    the one fetch to the host happens in :meth:`get_result`."""
+
+    prefix: str = "val"
+    no_warp: bool = False
+
+    def __post_init__(self):
+        self.reset_states()
+
+    def reset_states(self):
+        self._sums: Dict[str, torch.Tensor] = {}
+        self._count = 0
+
+    def update_state(self, metrics: Dict[str, torch.Tensor]):
+        for k, v in metrics.items():
+            prev = self._sums.get(k)
+            self._sums[k] = v if prev is None else prev + v
+        self._count += 1
+
+    def get_result(self) -> Dict[str, float]:
+        if self._count == 0:
+            return {}
+        names = [_SHORT_NAMES.get(k, k) for k in self._sums]
+        values = torch.stack([torch.as_tensor(s, dtype=torch.float32)
+                              for s in self._sums.values()]).tolist()
+        return {f"{self.prefix}_{name}": value / self._count
+                for name, value in zip(names, values)
+                if not (self.no_warp and name.startswith("flow_ogm"))}
+
+
+def print_metrics(res_dict: Dict[str, float], prefix: str = "val",
+                  no_warp: bool = False) -> str:
+    """Prints and returns the formatted metric block."""
+    lines = [
+        f" |obs-AUC: {res_dict.get(f'{prefix}_observed_auc')}"
+        f"|occ-AUC: {res_dict.get(f'{prefix}_occluded_auc')}",
+        f" |obs-IOU: {res_dict.get(f'{prefix}_observed_iou')}"
+        f"|occ-IOU: {res_dict.get(f'{prefix}_occluded_iou')}",
+        f" |Flow-EPE: {res_dict.get(f'{prefix}_flow_epe')}|",
+    ]
+    if not no_warp:
+        lines.append(
+            f" |FlowOGM_AUC: {res_dict.get(f'{prefix}_flow_ogm_auc')}"
+            f" |FlowOGM_IOU: {res_dict.get(f'{prefix}_flow_ogm_iou')}|")
+    block = "\n".join(lines)
+    print(block)
+    return block

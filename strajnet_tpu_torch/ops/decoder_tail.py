@@ -1,0 +1,224 @@
+"""The fused decoder tail: upsample2x + conv3x3 -> elu -> conv3x3 to two
+channels. CUDA kernel wrapper and its plain versions.
+
+Counterpart of ``strajnet_tpu/ops/pallas_decoder_tail.py``. Every form
+computes, for ``x [N, H, W, Cin]``,
+
+    conv3x3(elu(conv3x3(upsample2x(x), w_up) + b_up), w_out) + b_out
+
+with SAME padding on both convolutions, so the elu'd intermediate counts as
+zero outside the ``2H x 2W`` image. Kernels keep the JAX layout, HWIO:
+``w_up [3, 3, Cin, Cmid]``, ``w_out [3, 3, Cmid, 2]``.
+
+- :func:`decoder_tail_reference`: the naive composition (``decoder_tail_xla``
+  in JAX): the transposed conv of ``ops/upconv.py``, elu, a 3x3 conv. It
+  writes the ``[N, 2H, 2W, Cmid]`` intermediate to device memory.
+- :func:`decoder_tail_phase`: the same function in the phase domain
+  (``decoder_tail_phase`` in JAX): a 2x2 VALID conv with the phase-folded
+  kernel onto the ``(H+1) x (W+1)`` offset grid, elu, a mask for the entries
+  that stand for pixels outside the image, a 2x2 VALID conv with the
+  re-bucketed output kernel (:func:`build_ky`), one depth-to-space at two
+  channels. Plain PyTorch, no kernel.
+- :func:`decoder_tail`: on a CUDA tensor the kernel of
+  ``csrc/decoder_tail.cu``, which keeps the intermediate in shared memory; on
+  a CPU tensor the naive composition. Its backward is autograd of the naive
+  composition, as the JAX custom VJP is: there is no backward kernel. A
+  failed build or launch raises. ``decoder_tail.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from strajnet_tpu_torch.ops.swin_block import check_tensors, ptr
+from strajnet_tpu_torch.ops.upconv import conv2d_nhwc, upsample2x_conv3x3
+
+# _ROW_SETS[a][r]: rows of the 3x3 kernel folded into low-resolution tap r of
+# output phase a (phase 0 reads input rows y-1, y; phase 1 reads y, y+1).
+_ROW_SETS = (((0,), (1, 2)), ((0, 1), (2,)))
+
+
+def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
+    return w_hwio.permute(3, 2, 0, 1)
+
+
+def fold_kernel_2x(w3: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> [2, 2, Cin, 4*Cout] phase-folded kernel.
+
+    Output channel block p = 2*a + b holds the 2x2 kernel of output phase
+    (a, b): upsampled pixel (2i+a, 2j+b) reads the input at rows i+a-1, i+a
+    and columns j+b-1, j+b.
+    """
+    blocks = []
+    for a in (0, 1):
+        for b in (0, 1):
+            taps = [[sum(w3[dy, dx] for dy in rows for dx in cols)
+                     for cols in _ROW_SETS[b]] for rows in _ROW_SETS[a]]
+            blocks.append(torch.stack([torch.stack(r) for r in taps]))
+    return torch.cat(blocks, dim=-1)
+
+
+def _outconv_tap(a: int, k: int):
+    """Tap k of output phase a reads upsampled row 2i+a+k-1 = 2(i+d)+a2:
+    returns (a2, d)."""
+    a2 = (a + k - 1) % 2
+    return a2, (a + k - 1 - a2) // 2
+
+
+def build_ky(wo: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cmid, 2] -> [2, 2, 4*Cmid, 8] offset-grid output kernel.
+
+    On the offset grid (phase (a, b) of upsampled pixel (2i+a, 2j+b) sits at
+    ``y[a+i, b+j, block 2a+b]``) the 3x3 conv over the upsampled image is a
+    2x2 VALID conv; output lane (2a+b)*2+o holds phase (a, b), channel o.
+    """
+    cmid = wo.shape[2]
+    ky = wo.new_zeros(2, 2, 4, cmid, 8)
+    for a in (0, 1):
+        for kr in range(3):
+            a2, di = _outconv_tap(a, kr)
+            for b in (0, 1):
+                for kc in range(3):
+                    b2, dj = _outconv_tap(b, kc)
+                    lane = (2 * a + b) * 2
+                    ky[a2 + di, b2 + dj, 2 * a2 + b2, :, lane:lane + 2] += \
+                        wo[kr, kc]
+    return ky.reshape(2, 2, 4 * cmid, 8)
+
+
+def _offset_grid_mask(h: int, w: int, device=None) -> torch.Tensor:
+    """[h+1, w+1, 4] 0/1: zero where an offset-grid entry stands for an
+    upsampled pixel outside the image (the output conv's zero padding)."""
+    m = torch.ones(h + 1, w + 1, 4, device=device)
+    m[0, :, 2:] = 0.0        # a2 == 1 blocks at row 0 are row -1
+    m[h, :, :2] = 0.0        # a2 == 0 blocks at row h are row 2h
+    m[:, 0, 1::2] = 0.0      # b2 == 1 blocks at column 0
+    m[:, w, 0::2] = 0.0      # b2 == 0 blocks at column w
+    return m
+
+
+def decoder_tail_reference(x, w_up, b_up, w_out, b_out) -> torch.Tensor:
+    """The naive composition, in ``x.dtype``: [N, H, W, Cin] -> [N, 2H, 2W, 2]."""
+    dt = x.dtype
+    e = F.elu(upsample2x_conv3x3(x, _oihw(w_up), b_up))
+    o = conv2d_nhwc(e, _oihw(w_out).to(dt), padding=1)
+    return o + b_out.to(dt)
+
+
+def decoder_tail_phase(x, w_up, b_up, w_out, b_out) -> torch.Tensor:
+    """The tail in the phase domain: the elu'd intermediate stays
+    phase-stacked at low resolution, ``[N, H+1, W+1, 4*Cmid]``."""
+    n, h, w, _ = x.shape
+    cmid = w_up.shape[3]
+    dt = x.dtype
+    kf = fold_kernel_2x(w_up.float()).to(dt)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    y = conv2d_nhwc(xp, _oihw(kf)) + b_up.repeat(4).to(dt)
+    mask = _offset_grid_mask(h, w, x.device).repeat_interleave(cmid, dim=-1)
+    e = F.elu(y) * mask.to(dt)
+    o = conv2d_nhwc(e, _oihw(build_ky(w_out.float()).to(dt)))
+    o = o.reshape(n, h, w, 2, 2, 2).permute(0, 1, 3, 2, 4, 5)
+    return o.reshape(n, 2 * h, 2 * w, 2) + b_out.to(dt)
+
+
+def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
+    """Whether the kernel covers this geometry.
+
+    It writes two output channels, reads Cin in 16-wide tensor-core steps and
+    4*Cmid in 16-wide column tiles. The gate of the JAX package also asks for
+    a square image whose side divides into 16-row chunks and for 16*Cmid
+    lanes in multiples of 128: those serve the TPU kernel's row chunks and
+    lane tiling; this kernel masks ragged edges itself and does not need
+    them. Widths whose tiles outgrow a block's shared memory (Cin in the
+    hundreds) pass here and fail at the launch, which raises.
+    """
+    return cout == 2 and h > 0 and w > 0 and cin % 16 == 0 and cmid % 4 == 0
+
+
+def _lib():
+    from strajnet_tpu_torch._build import load_library
+
+    lib = load_library("decoder_tail")
+    if not getattr(lib, "_bound", False):
+        lib.decoder_tail_fwd.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.decoder_tail_fwd.restype = ctypes.c_int
+        lib._bound = True
+    return lib
+
+
+def _launch(x, w_up, b_up, w_out, b_out):
+    n, h, w, cin = x.shape
+    cmid = w_up.shape[3]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x: dtype {x.dtype}, the kernel takes "
+                         f"torch.bfloat16")
+    if (tuple(w_up.shape) != (3, 3, cin, cmid)
+            or tuple(w_out.shape) != (3, 3, cmid, 2)):
+        raise ValueError(f"w_up {tuple(w_up.shape)} / w_out "
+                         f"{tuple(w_out.shape)}: expected (3, 3, {cin}, "
+                         f"Cmid) and (3, 3, Cmid, 2)")
+    if not supports(h, w, cin, cmid, w_out.shape[3]):
+        raise ValueError(f"the decoder-tail kernel does not cover h={h}, "
+                         f"w={w}, cin={cin}, cmid={cmid} (see supports)")
+    bf = torch.bfloat16
+    kf = fold_kernel_2x(w_up.float()).to(bf).contiguous()
+    wo = w_out.to(bf).contiguous()
+    bu = b_up.float().contiguous()
+    out = torch.empty(n, 2 * h, 2 * w, 2, dtype=bf, device=x.device)
+    check_tensors({"x": (x, bf, (n, h, w, cin)),
+                   "folded w_up": (kf, bf, (2, 2, cin, 4 * cmid)),
+                   "b_up": (bu, torch.float32, (cmid,)),
+                   "w_out": (wo, bf, (3, 3, cmid, 2))}, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().decoder_tail_fwd(ptr(x), ptr(kf), ptr(bu), ptr(wo), ptr(out),
+                                  n, h, w, cin, cmid, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"decoder_tail kernel launch failed with CUDA "
+                           f"error {err}")
+    decoder_tail.launches += 1
+    return out + b_out.to(bf)
+
+
+class _DecoderTailFn(torch.autograd.Function):
+    """The kernel forward; the backward is autograd of the naive composition
+    at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w_up, b_up, w_out, b_out):
+        ctx.save_for_backward(x, w_up, b_up, w_out, b_out)
+        return _launch(x, w_up, b_up, w_out, b_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(decoder_tail_reference(*ins), ins, dy)
+        return tuple(grads)
+
+
+def decoder_tail(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+                 w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """Fused tail: conv3x3(elu(upconv2x(x, w_up) + b_up), w_out) + b_out.
+
+    Args:
+      x: [N, H, W, Cin] activations (bf16 on the card).
+      w_up: [3, 3, Cin, Cmid] upconv kernel; b_up: [Cmid].
+      w_out: [3, 3, Cmid, 2] output conv kernel; b_out: [2].
+
+    Returns:
+      [N, 2H, 2W, 2] in ``x.dtype``. The kernel accumulates both
+      convolutions in f32 and rounds the intermediate and the output once.
+    """
+    if x.device.type == "cpu":
+        return decoder_tail_reference(x, w_up, b_up, w_out, b_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"decoder_tail runs on CPU or CUDA tensors, got "
+                         f"{x.device}")
+    return _DecoderTailFn.apply(x.contiguous(), w_up, b_up, w_out, b_out)
+
+
+decoder_tail.launches = 0

@@ -215,21 +215,35 @@ def swin_block_backward_reference(
                 dln2b, dw1, db1, dw2, db2)
 
 
-def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
-                      ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
-                      window_size: int, num_heads: int) -> None:
-    """Raises ValueError unless the CUDA kernel takes these arguments.
+def check_tensors(expect, device) -> None:
+    """Raises ValueError unless every ``name: (tensor, dtype, shape)`` of
+    ``expect`` is a contiguous, 32-byte aligned tensor of that dtype and
+    shape on ``device``: what the CUDA kernels read through raw pointers."""
+    for name, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes "
+                             f"{dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name} must be 32-byte aligned")
 
-    The kernel wants bf16 activations and matrix weights, bf16 ``bqkv`` and
-    ``bproj``, f32 LayerNorm params, ``b1``, ``b2``, ``rel_bias``, mask and
-    drop-path multipliers; every tensor contiguous and on x's device; 8x8
-    windows; C a multiple of 32 up to 384; head_dim a multiple of 16;
-    MLP hidden width a multiple of 128.
-    """
+
+def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
+                         window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the windowed-attention part of the CUDA
+    kernels takes these arguments: bf16 activations, matrix weights, ``bqkv``
+    and ``bproj``; f32 ``rel_bias`` and mask; 8x8 windows; C a multiple of 32
+    up to 384; head_dim a multiple of 16. ``bproj`` may be None (the
+    backward of the attention does not read it)."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    hidden = w1.shape[-1] if w1.dim() == 2 else -1
     if window_size != _KERNEL_WINDOW:
         raise ValueError(f"the kernel runs 8x8 windows (64 tokens), got "
                          f"window_size={window_size}")
@@ -241,47 +255,52 @@ def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     if c % num_heads or (c // num_heads) % 16:
         raise ValueError(f"head_dim C/heads = {c}/{num_heads} must be a "
                          f"multiple of 16")
-    if hidden <= 0 or hidden % 128:
-        raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
-                         f"128")
     n = window_size * window_size
+    bf = torch.bfloat16
     expect = {
-        "x": (x, torch.bfloat16, (b, h, w, c)),
-        "wqkv": (wqkv, torch.bfloat16, (c, 3 * c)),
-        "bqkv": (bqkv, torch.bfloat16, (3 * c,)),
-        "wproj": (wproj, torch.bfloat16, (c, c)),
-        "bproj": (bproj, torch.bfloat16, (c,)),
+        "x": (x, bf, (b, h, w, c)),
+        "wqkv": (wqkv, bf, (c, 3 * c)),
+        "bqkv": (bqkv, bf, (3 * c,)),
+        "wproj": (wproj, bf, (c, c)),
         "rel_bias": (rel_bias, torch.float32, (num_heads, n, n)),
-        "ln1s": (ln1s, torch.float32, (c,)),
-        "ln1b": (ln1b, torch.float32, (c,)),
-        "ln2s": (ln2s, torch.float32, (c,)),
-        "ln2b": (ln2b, torch.float32, (c,)),
-        "w1": (w1, torch.bfloat16, (c, hidden)),
-        "b1": (b1, torch.float32, (hidden,)),
-        "w2": (w2, torch.bfloat16, (hidden, c)),
-        "b2": (b2, torch.float32, (c,)),
     }
+    if bproj is not None:
+        expect["bproj"] = (bproj, bf, (c,))
     if mask is not None:
         expect["mask"] = (mask, torch.float32,
                           ((h // window_size) * (w // window_size), n, n))
+    check_tensors(expect, x.device)
+
+
+def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
+                      ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
+                      window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the CUDA kernel takes these arguments.
+
+    What :func:`check_attention_args` asks, and f32 LayerNorm params, ``b1``,
+    ``b2`` and drop-path multipliers; bf16 ``w1`` and ``w2``; MLP hidden
+    width a multiple of 128.
+    """
+    check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                         window_size=window_size, num_heads=num_heads)
+    b, c = x.shape[0], x.shape[-1]
+    hidden = w1.shape[-1] if w1.dim() == 2 else -1
+    if hidden <= 0 or hidden % 128:
+        raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
+                         f"128")
+    f32 = torch.float32
+    expect = {
+        "ln1s": (ln1s, f32, (c,)), "ln1b": (ln1b, f32, (c,)),
+        "ln2s": (ln2s, f32, (c,)), "ln2b": (ln2b, f32, (c,)),
+        "w1": (w1, torch.bfloat16, (c, hidden)), "b1": (b1, f32, (hidden,)),
+        "w2": (w2, torch.bfloat16, (hidden, c)), "b2": (b2, f32, (c,)),
+    }
     if drop_path is not None:
-        expect["drop_path"] = (drop_path, torch.float32, (b, 2))
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes "
-                             f"{dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned")
+        expect["drop_path"] = (drop_path, f32, (b, 2))
+    check_tensors(expect, x.device)
 
 
-def _ptr(t: Optional[torch.Tensor]):
+def ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
@@ -316,7 +335,7 @@ def _launch_fwd(args, mask, drop_path, window_size, num_heads, eps):
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib("swin_block").swin_block_fwd(
-        *(_ptr(t) for t in args), _ptr(mask), _ptr(drop_path), _ptr(out),
+        *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
         b, h, w, c, num_heads, w1.shape[1], eps, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"swin_block kernel launch failed with CUDA error "
@@ -348,11 +367,7 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
         drop_path = torch.ones(b, 2, dtype=torch.float32, device=x.device)
     check_kernel_args(*args, mask, drop_path, window_size=window_size,
                       num_heads=num_heads)
-    if (dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device
-            or not dy.is_contiguous() or dy.data_ptr() % 32):
-        raise ValueError(f"dy must match x: contiguous {tuple(x.shape)} "
-                         f"{x.dtype} on {x.device}, got {tuple(dy.shape)} "
-                         f"{dy.dtype} on {dy.device}")
+    check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
     hidden = w1.shape[1]
     lib = _lib("swin_block_bwd")
     dev = x.device
@@ -368,9 +383,9 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
                             dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.swin_block_bwd(
-        _ptr(x), _ptr(dy), *(_ptr(t) for t in args[1:]), _ptr(mask),
-        _ptr(drop_path), _ptr(dx), *(_ptr(g) for g in grads),
-        _ptr(scratch16), _ptr(scratch32), b, h, w, c, num_heads, hidden, eps,
+        ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
+        ptr(drop_path), ptr(dx), *(ptr(g) for g in grads),
+        ptr(scratch16), ptr(scratch32), b, h, w, c, num_heads, hidden, eps,
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"swin_block_bwd kernel launch failed with CUDA "

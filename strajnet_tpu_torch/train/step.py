@@ -1,9 +1,8 @@
-"""Train and predict steps.
+"""Train, eval and predict steps.
 
 Counterpart of ``strajnet_tpu/train/step.py`` (``make_train_step``,
-``make_predict_step``). PyTorch runs eagerly, so a step is a plain function:
-there is no jit and nothing to donate. The eval step is still to be ported
-(ROADMAP.md).
+``make_eval_step``, ``make_predict_step``). PyTorch runs eagerly, so a step
+is a plain function: there is no jit and nothing to donate.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from strajnet_tpu_torch.objective.loss import (OGMFlowLoss, WaypointGrids,
                                                split_pred_waypoints,
                                                true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (
-    apply_sigmoid_to_occupancy_logits)
+    apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics)
 
 # The model casts its input rasters to its compute dtype itself, so compact
 # uint8 / f16 feeds of these pass through unwidened.
@@ -41,6 +40,11 @@ def _forward(model: nn.Module, batch: Dict[str, torch.Tensor],
                  obs=batch["actors"], occ=batch["occl_actors"],
                  mapt=batch["centerlines"], flow=batch["vec_flow"],
                  generator=generator)
+
+
+def _total(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (loss_dict["observed_xe"] + loss_dict["occluded_xe"]
+            + loss_dict["flow"] + loss_dict["flow_warp_xe"])
 
 
 def zero_loss_sums(device=None) -> Dict[str, torch.Tensor]:
@@ -73,8 +77,7 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
         outputs = _forward(state.model, batch, generator)
         logits = split_pred_waypoints(outputs, num_waypoints)
         loss_dict = loss_fn(true_waypoints, logits)
-        total = (loss_dict["observed_xe"] + loss_dict["occluded_xe"]
-                 + loss_dict["flow"] + loss_dict["flow_warp_xe"])
+        total = _total(loss_dict)
         total.backward()
         state.optimizer.step()
         state.step += 1
@@ -93,6 +96,36 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
         return _step_math(state, batch, generator)
 
     return train_step
+
+
+def make_eval_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
+                   num_waypoints: int = 8, no_warp: bool = False) -> Callable:
+    """``eval_step(model, batch) -> (loss_dict with "total", metrics)``.
+
+    The forward, ``ogmflow_loss`` and the challenge metrics, computed without
+    autograd on a model in ``eval()`` mode (a model in training mode raises:
+    its dropout would need a generator). Both dicts hold device scalars.
+    ``no_warp`` leaves the flow-grounded metrics out; the loss is the
+    training loss either way.
+    """
+    loss_fn = OGMFlowLoss(task_cfg, loss_cfg)
+
+    def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
+        if model.training:
+            raise ValueError("eval_step needs the model in eval() mode")
+        with torch.inference_mode():
+            batch = ensure_f32(batch)
+            true_waypoints = true_waypoints_from_batch(batch)
+            logits = split_pred_waypoints(_forward(model, batch),
+                                          num_waypoints)
+            loss_dict = loss_fn(true_waypoints, logits)
+            total = _total(loss_dict)
+            metrics = compute_occupancy_flow_metrics(
+                true_waypoints, apply_sigmoid_to_occupancy_logits(logits),
+                no_warp=no_warp)
+        return dict(loss_dict, total=total), metrics
+
+    return eval_step
 
 
 def make_predict_step(num_waypoints: int = 8) -> Callable:

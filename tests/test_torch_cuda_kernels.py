@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
 Needs an NVIDIA GPU and nvcc, so these skip on a machine without one; run
-them there with ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+them there with ``CUDA_VISIBLE_DEVICES=0 python -m pytest
+tests/test_torch_cuda_kernels.py -m cuda`` (``tests/conftest.py`` hides the
+card from the JAX tests unless the variable is set).
 ``chip_smoke.py`` makes the same comparisons at the flagship shapes.
 """
 
@@ -9,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from strajnet_tpu_torch.ops import decoder_tail as dtl
 from strajnet_tpu_torch.ops import swin_block as sb
 from strajnet_tpu_torch.ops import warp_gather as wg
+from strajnet_tpu_torch.ops import window_attention as wa
 from strajnet_tpu_torch.ops.windows import shifted_window_mask
 
 pytestmark = pytest.mark.cuda
@@ -66,9 +70,118 @@ def test_swin_block_kernels_match_plain(card, shift):
     rdx, rgrads = sb.swin_block_backward_reference(*args, mask, dp, dy, **kw)
     # bf16 with f32 accumulation on both sides, rounding at other points:
     # 2^-5 of the largest entry for the forward, 2^-6 for the gradients
-    assert float((y.float() - ref.float()).abs().max()) <= \
+    assert float((y.detach().float() - ref.float()).abs().max()) <= \
         2.0 ** -5 * float(ref.float().abs().max())
     for got, want in zip(grads, (rdx,) + rgrads):
         scale = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= \
             2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("c,heads,shift", [(96, 3, 0), (96, 3, 4),
+                                           (384, 12, 4)])
+def test_window_attention_kernels_match_plain(card, c, heads, shift):
+    g = torch.Generator().manual_seed(0)
+    b, h = 2, 16
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g) * k  # noqa: E731
+    bf = torch.bfloat16
+    args = [r(b, h, h, c).to(bf), r(c, 3 * c, k=c ** -0.5).to(bf),
+            r(3 * c, k=0.1).to(bf), r(c, c, k=c ** -0.5).to(bf),
+            r(c, k=0.1).to(bf), r(heads, 64, 64, k=0.3)]
+    args = [a.to(card) for a in args]
+    mask = (torch.from_numpy(shifted_window_mask(h, h, 8, shift)).to(card)
+            if shift else None)
+    dy = r(b, h, h, c).to(bf).to(card)
+    kw = dict(window_size=8, num_heads=heads)
+    before = wa.window_attention.launches, wa.window_attention_bwd.launches
+    ins = [a.clone().requires_grad_(True) for a in args]
+    y = wa.window_attention(*ins, mask, **kw)
+    grads = torch.autograd.grad(y, ins, dy)
+    assert (wa.window_attention.launches,
+            wa.window_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = wa.window_attention_reference(*args, mask, **kw)
+    x, wqkv, bqkv, wproj, _, rel_bias = args
+    rdx, rgrads = wa.window_attention_backward_reference(
+        x, wqkv, bqkv, wproj, rel_bias, mask, dy, **kw)
+    # the same rounding points on both sides, f32 sums in another order:
+    # 2^-5 of the largest entry forward, 2^-6 for each gradient
+    assert float((y.detach().float() - ref.float()).abs().max()) <= \
+        2.0 ** -5 * float(ref.float().abs().max())
+    for name, got, want in zip(("dx",) + wa.GRAD_NAMES, grads,
+                               (rdx,) + rgrads):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * scale, (name, err, scale)
+    # the "plain" backward switch gives the same gradients by autograd
+    ins2 = [a.clone().requires_grad_(True) for a in args]
+    y2 = wa.window_attention(*ins2, mask, backward="plain", **kw)
+    grads2 = torch.autograd.grad(y2, ins2, dy)
+    for got, want in zip(grads, grads2):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -5 * scale
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid", [(2, 16, 16, 96, 48),
+                                            (1, 9, 20, 32, 16),
+                                            (1, 7, 15, 16, 4)])
+def test_decoder_tail_kernel_matches_plain(card, n, h, w, cin, cmid):
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g) * k  # noqa: E731
+    x = r(n, h, w, cin).to(torch.bfloat16).to(card)
+    w_up = r(3, 3, cin, cmid, k=(9 * cin) ** -0.5).to(card)
+    b_up = r(cmid, k=0.1).to(card)
+    w_out = r(3, 3, cmid, 2, k=(9 * cmid) ** -0.5).to(card)
+    b_out = r(2, k=0.1).to(card)
+    assert dtl.supports(h, w, cin, cmid, 2)
+    before = dtl.decoder_tail.launches
+    got = dtl.decoder_tail(x, w_up, b_up, w_out, b_out)
+    assert dtl.decoder_tail.launches == before + 1
+    assert got.shape == (n, 2 * h, 2 * w, 2) and got.dtype == torch.bfloat16
+    # against the f32 composition of the same bf16-rounded inputs (cuDNN
+    # TF32 off): the kernel rounds the intermediate and the output to bf16
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        ref32 = dtl.decoder_tail_reference(x.float(), w_up, b_up, rnd(w_out),
+                                           rnd(b_out))
+        ref16 = dtl.decoder_tail_reference(x, w_up, b_up, w_out, b_out)
+        phase = dtl.decoder_tail_phase(x.float(), w_up, b_up, w_out, b_out)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(ref32.abs().max())
+    assert float((got.float() - ref32).abs().max()) <= 2.0 ** -6 * scale
+    assert float((got.float() - ref16.float()).abs().max()) <= 2.0 ** -6 * scale
+    assert float((phase - ref32).abs().max()) <= 2.0 ** -6 * scale
+    # the backward is autograd of the naive composition
+    xg = x.clone().requires_grad_(True)
+    wg_ = w_up.clone().requires_grad_(True)
+    dtl.decoder_tail(xg, wg_, b_up, w_out, b_out).float().sum().backward()
+    xr = x.clone().requires_grad_(True)
+    wr = w_up.clone().requires_grad_(True)
+    dtl.decoder_tail_reference(xr, wr, b_up, w_out, b_out).float().sum(
+        ).backward()
+    torch.testing.assert_close(xg.grad, xr.grad)
+    torch.testing.assert_close(wg_.grad, wr.grad)
+
+
+@pytest.mark.parametrize("dtype,cin,match", [
+    (torch.float32, 96, "bfloat16"),        # the kernel is bf16 only
+    (torch.bfloat16, 24, "does not cover"),  # Cin not in 16-wide steps
+    (torch.bfloat16, 1024, "CUDA error"),   # tiles outgrow shared memory
+])
+def test_tail_kernel_mode_raises_where_the_kernel_does_not_apply(
+        card, dtype, cin, match):
+    """A decoder asked for the tail kernel never takes the naive composition
+    on the card: what the kernel does not cover raises."""
+    from strajnet_tpu_torch.models.decoder import (FusedUpConv,
+                                                   Pyramid3DDecoder)
+    dec = Pyramid3DDecoder(32, (16, 32, 64), 16, dtype=dtype,
+                           use_tail_kernel="kernel").to(card)
+    up = FusedUpConv(cin, 48, dtype).to(card)
+    x = torch.zeros(1, 2, 8, 8, cin, dtype=dtype, device=card)
+    before = dtl.decoder_tail.launches
+    with pytest.raises((ValueError, RuntimeError), match=match):
+        dec._tail(up, dec.outconv, x)
+    assert dtl.decoder_tail.launches == before

@@ -75,7 +75,9 @@ def test_package_imports_without_triton_or_nvcc():
         importlib.import_module(m)
     for expect in ("ops.warp_gather", "ops.swin_block", "train.optim",
                    "train.state", "train.step", "objective.loss",
-                   "objective.schedule", "data.pipeline", "infer.submission"):
+                   "objective.schedule", "data.pipeline", "infer.submission",
+                   "ops.window_attention", "ops.decoder_tail",
+                   "objective.pr_auc", "infer.evaluate"):
         assert f"strajnet_tpu_torch.{expect}" in mods
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
@@ -177,6 +179,46 @@ def test_pipeline_copy_reads_a_shard_like_the_jax_package(tmp_path):
         assert [s.decode() for s in a[0]["scenario/id"]] == ["sc-0", "sc-1"]
 
 
+def test_train_and_eval_datasets_read_like_the_jax_package(tmp_path):
+    """Three train records at the stored shapes through ``make_eval_dataset``
+    (whole split and with the remainder dropped, sharded, compact) and
+    through ``make_train_dataset`` with a seeded shuffle: the batches of the
+    JAX package's pipeline."""
+    import tensorflow as tf
+    from strajnet_tpu.data import pipeline as ref
+    from strajnet_tpu_torch.data import pipeline as ours
+    from strajnet_tpu_torch.data.schema import SHAPES, encode_example
+    rng = np.random.default_rng(1)
+    with tf.io.TFRecordWriter(str(tmp_path / "00000.tfrecords")) as writer:
+        for _ in range(3):
+            writer.write(encode_example(
+                {k: (rng.random(shape) < 0.1).astype(np.float32)
+                 for k, shape in SHAPES.items()}))
+    pattern = str(tmp_path / "*.tfrecords")
+
+    def same(a, b, sizes):
+        a, b = list(ours.as_numpy(a)), list(ref.as_numpy(b))
+        assert [x["ogm"].shape[0] for x in a] == sizes == \
+            [x["ogm"].shape[0] for x in b]
+        for x, y in zip(a, b):
+            assert set(x) == set(y)
+            for k in x:
+                assert x[k].dtype == y[k].dtype, k
+                np.testing.assert_array_equal(x[k], y[k])
+
+    kw = dict(compact=True, drop_remainder=False)
+    same(ours.make_eval_dataset(pattern, 2, **kw),
+         ref.make_eval_dataset(pattern, 2, **kw), [2, 1])
+    same(ours.make_eval_dataset(pattern, 2), ref.make_eval_dataset(pattern, 2),
+         [2])
+    kw = dict(shard_index=1, shard_count=2, drop_remainder=False)
+    same(ours.make_eval_dataset(pattern, 2, **kw),
+         ref.make_eval_dataset(pattern, 2, **kw), [1])
+    kw = dict(shuffle_buffer=4, seed=7)
+    same(ours.make_train_dataset(pattern, 3, **kw),
+         ref.make_train_dataset(pattern, 3, **kw), [3])
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one():
     from strajnet_tpu_torch.device import resolve_device
     from strajnet_tpu_torch.infer import runner
@@ -187,3 +229,6 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         resolve_device()
     with pytest.raises(RuntimeError, match="--device cpu"):
         runner.main(["--no_id_check", "--file_dir", "/nonexistent"])
+    from strajnet_tpu_torch.infer import evaluate
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        evaluate.main(["--file_dir", "/nonexistent"])

@@ -247,16 +247,20 @@ def test_init_params_follow_flax_initializers():
 def test_kernel_knobs():
     for mode, expect in ((None, "block"), (True, "block"),
                          ("block", "block"), ("block_fwd", "block_fwd"),
-                         (False, False)):
+                         ("attn", "attn"), (False, False)):
         cfg = dataclasses.replace(CFG, use_pallas_attention=mode,
                                   pallas_windows_per_program=2,
                                   pallas_samples_per_program=8)
-        assert resolve_kernel_knobs(cfg) == expect
-        assert (resolve_kernel_knobs(cfg) is False) == (expect is False)
-    for kw in (dict(use_pallas_attention="attn"),
-               dict(use_pallas_decoder_tail=True),
-               dict(use_pallas_decoder_tail="phase")):
-        with pytest.raises(NotImplementedError):
+        assert resolve_kernel_knobs(cfg) == (expect, "xla")
+        assert (resolve_kernel_knobs(cfg)[0] is False) == (expect is False)
+    for tail, expect in ((None, "xla"), (False, "xla"), ("xla", "xla"),
+                         ("phase", "phase"), (True, "kernel"),
+                         ("kernel", "kernel"), ("infer", "infer")):
+        cfg = dataclasses.replace(CFG, use_pallas_decoder_tail=tail)
+        assert resolve_kernel_knobs(cfg) == ("block", expect)
+    for kw in (dict(use_pallas_attention="strip"),
+               dict(use_pallas_decoder_tail="fused")):
+        with pytest.raises(ValueError):
             resolve_kernel_knobs(dataclasses.replace(CFG, **kw))
     with pytest.raises(NotImplementedError):
         STrajNet(dataclasses.replace(CFG, fg_msa=False))

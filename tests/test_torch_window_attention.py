@@ -1,0 +1,185 @@
+"""The port's windowed attention against the JAX package, on the CPU.
+
+``ops/window_attention.py``: the plain forward against
+``fused_window_attention`` (the Pallas kernel, interpreted), the plain
+backward against the kernel's custom VJP, and the wrapper's plumbing. f32
+unless said; the CUDA kernels themselves are held against these plain versions
+on a card (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from strajnet_tpu.ops.pallas_window_attention import fused_window_attention
+from strajnet_tpu_torch.ops import window_attention as wa
+from strajnet_tpu_torch.ops.windows import shifted_window_mask
+
+torch.set_num_threads(2)
+# (B, H, W, C, window, heads)
+GEOMETRIES = [(2, 16, 16, 32, 8, 2), (1, 8, 16, 16, 4, 1)]
+
+
+def _inputs(shape, shift, seed=0):
+    b, h, w, c, ws, heads = shape
+    rng = np.random.RandomState(seed)
+    f = lambda *s, k=1.0: (rng.randn(*s) * k).astype(np.float32)  # noqa: E731
+    args = [f(b, h, w, c, k=0.5), f(c, 3 * c, k=c ** -0.5), f(3 * c, k=0.1),
+            f(c, c, k=c ** -0.5), f(c, k=0.1), f(heads, ws * ws, ws * ws,
+                                                 k=0.3)]
+    mask = shifted_window_mask(h, w, ws, shift) if shift else None
+    return args, mask, f(b, h, w, c)
+
+
+def _jax_fwd_and_vjp(args, mask, dy, ws, heads, dtype=jnp.float32):
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def f(*a):
+        return fused_window_attention(*a, jmask, window_size=ws,
+                                      num_heads=heads, interpret=True)
+
+    jargs = [jnp.asarray(a, dtype) for a in args[:5]] + [jnp.asarray(args[5])]
+    y, vjp = jax.vjp(f, *jargs)
+    return np.asarray(y.astype(jnp.float32)), [
+        np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dy, dtype))]
+
+
+def _t(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _tmask(mask):
+    return None if mask is None else torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+@pytest.mark.parametrize("shape", GEOMETRIES)
+def test_plain_forward_matches_the_interpreted_pallas_kernel(shape, shift):
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, shift)
+    ref, _ = _jax_fwd_and_vjp(args, mask, dy, ws, heads)
+    ours = wa.window_attention_reference(*_t(args), _tmask(mask),
+                                         window_size=ws, num_heads=heads)
+    # f32 both sides; the dense-strip softmax sums in another order
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+@pytest.mark.parametrize("shape", GEOMETRIES)
+def test_plain_backward_matches_the_pallas_custom_vjp(shape, shift):
+    """The JAX backward kernel rounds every operand to bf16 whatever the
+    input type: with ``operand_dtype=bfloat16`` the plain backward follows it
+    to 1e-3 of each result's largest entry (all but a few entries in 10^4 to
+    3e-4: an f32 sum taken in another order can round one bf16 operand the
+    other way, which moves the entries it feeds by a bf16 ulp of one term);
+    unrounded it is the exact gradient and sits within 1e-2."""
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, shift)
+    _, ref = _jax_fwd_and_vjp(args, mask, dy, ws, heads)
+    x, wqkv, bqkv, wproj, _, rel = _t(args)
+    for operand_dtype, tol in ((torch.bfloat16, 1e-3), (None, 1e-2)):
+        dx, grads = wa.window_attention_backward_reference(
+            x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
+            window_size=ws, num_heads=heads, operand_dtype=operand_dtype)
+        for name, got, want in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads,
+                                   ref):
+            np.testing.assert_allclose(
+                got.numpy(), want, rtol=tol,
+                atol=tol * max(1.0, float(np.abs(want).max())), err_msg=name)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_plain_backward_is_the_gradient_of_the_plain_forward(shift):
+    shape = GEOMETRIES[0]
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, shift, seed=1)
+    ins = [a.requires_grad_(True) for a in _t(args)]
+    y = wa.window_attention(*ins, _tmask(mask), window_size=ws,
+                            num_heads=heads)
+    want = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    x, wqkv, bqkv, wproj, _, rel = [a.detach() for a in ins]
+    dx, grads = wa.window_attention_bwd(
+        x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
+        window_size=ws, num_heads=heads)
+    for name, got, w in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads, want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(w.abs().max())),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("backward", ["kernel", "plain"])
+def test_autograd_function_plumbing(monkeypatch, backward):
+    """The ``autograd.Function`` of the CUDA path with its forward launch
+    replaced by the plain version: both backward switches hand every input
+    its own gradient, the mask none."""
+    shape = GEOMETRIES[0]
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, 2, seed=2)
+
+    def fake_launch(x, wqkv, bqkv, wproj, bproj, rel, m, window_size,
+                    num_heads):
+        return wa.window_attention_reference(
+            x, wqkv, bqkv, wproj, bproj, rel, m, window_size=window_size,
+            num_heads=num_heads)
+
+    monkeypatch.setattr(wa, "_launch_fwd", fake_launch)
+    ins = [a.requires_grad_(True) for a in _t(args)]
+    y = wa._WindowAttentionFn.apply(ws, heads, backward == "plain",
+                                    _tmask(mask), *ins)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    ref_ins = [a.requires_grad_(True) for a in _t(args)]
+    y_ref = wa.window_attention_reference(*ref_ins, _tmask(mask),
+                                          window_size=ws, num_heads=heads)
+    want = torch.autograd.grad(y_ref, ref_ins, torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+def test_bf16_matches_jax_by_cosine():
+    shape = GEOMETRIES[0]
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, 2, seed=3)
+    ref, ref_grads = _jax_fwd_and_vjp(args, mask, dy, ws, heads,
+                                      jnp.bfloat16)
+    targs = _t(args[:5], torch.bfloat16) + [torch.from_numpy(args[5])]
+    ours = wa.window_attention_reference(*targs, _tmask(mask),
+                                         window_size=ws, num_heads=heads)
+    assert ours.dtype == torch.bfloat16
+    x, wqkv, bqkv, wproj, _, rel = targs
+    dx, grads = wa.window_attention_backward_reference(
+        x, wqkv, bqkv, wproj, rel, _tmask(mask),
+        torch.from_numpy(dy).to(torch.bfloat16), window_size=ws,
+        num_heads=heads)
+
+    def omc(a, b):
+        a, b = np.float64(a).ravel(), np.float64(b).ravel()
+        return 1.0 - a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+
+    # bf16 rounds at the same points in both, sums in another order
+    assert omc(ours.float().numpy(), ref) <= 1e-3
+    for got, want in zip((dx,) + grads, ref_grads):
+        assert omc(got.float().numpy(), want) <= 1e-3
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_and_launches_nothing():
+    shape = GEOMETRIES[1]
+    ws, heads = shape[4], shape[5]
+    args, mask, _ = _inputs(shape, 0)
+    before = wa.window_attention.launches, wa.window_attention_bwd.launches
+    y = wa.window_attention(*_t(args), None, window_size=ws, num_heads=heads)
+    ref = wa.window_attention_reference(*_t(args), None, window_size=ws,
+                                        num_heads=heads)
+    assert torch.equal(y, ref)
+    assert (wa.window_attention.launches,
+            wa.window_attention_bwd.launches) == before
+    with pytest.raises(ValueError, match="backward"):
+        wa.window_attention(*_t(args), None, window_size=ws, num_heads=heads,
+                            backward="xla")
+    with pytest.raises(ValueError):
+        wa.window_attention(*[a.to("meta") for a in _t(args)], None,
+                            window_size=ws, num_heads=heads)

@@ -1,16 +1,18 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
-    python3 tools/profile_train_step_gpu.py [--out DIR]
+    python3 tools/profile_train_step_gpu.py [--out DIR] [--mode MODE]
 
 Two measurements at the flagship ``STRAJNET_CONFIG``, batch 16, bf16, with
 the seeded random weights of ``chip_smoke.py`` and synthetic batches:
 
 1. One training step split by CUDA events into forward, loss, backward and
-   optimizer, for the kernel path, ``"block_fwd"`` and the plain path, in the
-   order plain, kernel, block_fwd, block_fwd, kernel, plain; peak memory.
-2. The kernel path's step under ``torch.profiler``: device time by kernel
-   name over two steps (K2's two kernels among them), the device's busy
-   share of the window.
+   optimizer, for the kernel path, ``"block_fwd"``, ``"attn"`` and the plain
+   path, in the order plain, kernel, block_fwd, attn, attn, block_fwd,
+   kernel, plain; peak memory.
+2. The step of ``--mode`` (kernel, block_fwd, attn or plain; default kernel)
+   under ``torch.profiler``: device time by kernel name over two steps (the
+   two kernels of K2, or of K4 in the ``attn`` mode, among them), the
+   device's busy share of the window.
 
 It prints the card's name and power limit first and writes the tables to
 ``--out`` (default ``build/profile/``) as ``train_step_profile.txt``.
@@ -38,6 +40,9 @@ from strajnet_tpu_torch.train.step import (  # noqa: E402
     _forward, ensure_f32, make_train_step)
 
 LINES = []
+# --mode -> use_pallas_attention
+MODES = {"kernel": None, "block_fwd": "block_fwd", "attn": "attn",
+         "plain": False}
 
 
 def say(line: str = "") -> None:
@@ -71,7 +76,8 @@ def step_breakdown(batches) -> None:
         "optimizer; total ==")
     cfg = STRAJNET_CONFIG
     loss_fn = OGMFlowLoss(WAYMO_TASK_CONFIG, LossConfig())
-    for mode in (False, None, "block_fwd", "block_fwd", None, False):
+    for mode in (False, None, "block_fwd", "attn", "attn", "block_fwd", None,
+                 False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, _ = cs.fresh_train_state(mode)
@@ -95,10 +101,10 @@ def step_breakdown(batches) -> None:
         del state, step
 
 
-def step_profile(batches) -> None:
-    say("== kernel path, two steps under torch.profiler ==")
+def step_profile(batches, mode: str) -> None:
+    say(f"== {mode} path, two steps under torch.profiler ==")
     cfg = STRAJNET_CONFIG
-    state, _ = cs.fresh_train_state(None)
+    state, _ = cs.fresh_train_state(MODES[mode])
     step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(), cfg.num_waypoints)
     noise = torch.Generator(device="cuda").manual_seed(0)
     state, _ = step(state, batches[0], noise)
@@ -129,6 +135,8 @@ def step_profile(batches) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="build/profile")
+    parser.add_argument("--mode", default="kernel", choices=sorted(MODES),
+                        help="the Swin-block mode of the profiled step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device; none is available", file=sys.stderr)
@@ -145,7 +153,7 @@ def main() -> int:
     batches = [cs.to_device(synthetic_batch(STRAJNET_CONFIG, cs.BATCH,
                                             seed=i), keys) for i in range(4)]
     step_breakdown(batches)
-    step_profile(batches)
+    step_profile(batches, args.mode)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "train_step_profile.txt"), "w") as f:
         f.write("\n".join(LINES) + "\n")
