@@ -10,7 +10,10 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
 
 - K1 ``swin_block`` and K2 ``swin_block_bwd`` at the four Swin-block
   geometries, K3 ``window_attention`` and K4 ``window_attention_bwd`` at the
-  same four;
+  same four; K1 and K2 also at a ragged window count (``[3, 40, 40, C]``: 75
+  windows for blocks that take two at a time) and twice on the same inputs
+  (the forward and dx bit-identical); the split-K pass that sums K2's and
+  K4's weight gradients alone against ``A.float().T @ B.float()``;
 - K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``;
 - K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``.
 
@@ -75,8 +78,9 @@ from strajnet_tpu_torch.ops import window_attention as wa  # noqa: E402
 from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
     decoder_tail, decoder_tail_phase, decoder_tail_reference)
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
-    GRAD_NAMES, swin_block, swin_block_backward_reference, swin_block_bwd,
-    swin_block_reference)
+    GRAD_NAMES, atb_accum, kernel_smem_bytes, swin_block,
+    swin_block_backward_reference, swin_block_bwd, swin_block_reference,
+    token_blocked)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     gather_corners_reference, scatter_corners_reference, warp_gather_bwd,
     warp_gather_fwd)
@@ -104,6 +108,13 @@ K1_ONE_MINUS_COS = 1e-4
 # is bf16), and 1 - cos at bf16 noise level.
 K2_MAX_ABS_REL = 2.0 ** -6
 K2_ONE_MINUS_COS = 1e-4
+# The split-K pass against the f32 product of the same bf16 operands: only
+# the order of the f32 sums differs (a few hundred token slices added with
+# atomics), relative to the largest entry of the product.
+SPLIT_K_MAX_ABS_REL = 1e-5
+# K2's parameter gradients in two runs on the same inputs: f32 atomics in an
+# order that varies, relative to the largest entry.
+K2_REPEAT_MAX_ABS_REL = 1e-4
 # K3 and K4 against their plain versions, which round at the kernels' own
 # points; f32 sums run in another order (K4's with atomics), so a bf16
 # operand can round the other way. The limits are K1's and K2's.
@@ -207,13 +218,13 @@ def block_work(h: int, c: int, heads: int, shift: int, backward: bool):
 
 
 def block_inputs(h: int, c: int, heads: int, shift: int,
-                 g: torch.Generator):
+                 g: torch.Generator, batch: int = BATCH):
     dev, bf = "cuda", torch.bfloat16
 
     def r(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    args = (r(BATCH, h, h, c).to(bf),
+    args = (r(batch, h, h, c).to(bf),
             r(c, 3 * c, scale=c ** -0.5).to(bf), r(3 * c, scale=0.1).to(bf),
             r(c, c, scale=c ** -0.5).to(bf), r(c, scale=0.1).to(bf),
             r(heads, 64, 64, scale=0.3),
@@ -223,8 +234,118 @@ def block_inputs(h: int, c: int, heads: int, shift: int,
             r(4 * c, c, scale=(4 * c) ** -0.5).to(bf), r(c, scale=0.1))
     mask = (torch.from_numpy(shifted_window_mask(h, h, 8, shift)).to(dev)
             if shift else None)
-    dp = torch.rand(BATCH, 2, generator=g, device=dev) * 1.2
+    dp = torch.rand(batch, 2, generator=g, device=dev) * 1.2
     return args, mask, dp
+
+
+def kernel_resources(log: str, kernel: str) -> dict:
+    """{C: (registers, spill bytes)} of a kernel templated on the channel
+    width, from nvcc's ``-Xptxas -v`` output: the entry's own two lines (the
+    functions it calls without inlining follow with lines of their own)."""
+    found, width = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            width = None
+            if kernel + "ILi" in line:
+                width = int(line.split(kernel + "ILi")[1].split("E")[0])
+                found[width] = [None, None]
+        elif width is not None and "spill stores" in line:
+            if found[width][1] is None:
+                found[width][1] = int(
+                    line.split("bytes spill stores")[0].split(",")[-1])
+        elif width is not None and "Used" in line and "registers" in line:
+            if found[width][0] is None:
+                found[width][0] = int(
+                    line.split("Used")[1].split("registers")[0])
+    return {c: tuple(v) for c, v in sorted(found.items())}
+
+
+def check_split_k(g: torch.Generator) -> dict:
+    """The split-K pass ``dW += A^T B`` alone at K2's four operand shapes of
+    the first and the last flagship stage, from the token-blocked layout K2
+    writes and from the row-major one K4 writes."""
+    out = {}
+    for blocked in (True, False):
+        total, total_bound = 0.0, 0.0
+        for h, c in ((128, 96), (32, 384)):
+            tokens = BATCH * h * h
+            for m, n in ((c, 3 * c), (c, c), (c, 4 * c), (4 * c, c)):
+                a = torch.randn(tokens, m, generator=g,
+                                device="cuda").to(torch.bfloat16)
+                b = torch.randn(tokens, n, generator=g,
+                                device="cuda").to(torch.bfloat16)
+                want = a.float().t() @ b.float()
+                if blocked:
+                    a, b = token_blocked(a), token_blocked(b)
+                got = atb_accum(a, b)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                check(err <= SPLIT_K_MAX_ABS_REL * scale,
+                      f"split-K [{tokens},{m}]^T [{tokens},{n}] max_abs_err "
+                      f"{err} <= {SPLIT_K_MAX_ABS_REL} * {scale}")
+                dst = torch.zeros(m, n, device="cuda")
+                ms = cuda_ms(lambda: atb_accum(a, b, dst), iters=10)
+                bound_ms, by = bound(2.0 * m * n * tokens,
+                                     (m + n) * tokens * 2 + m * n * 4)
+                total += ms
+                total_bound += bound_ms
+                print(f"split-K {'blocked' if blocked else 'row-major'} "
+                      f"[{tokens},{m}]^T [{tokens},{n}]: max_abs_err={err:.3e} "
+                      f"(max|ref|={scale:.1f}) ms={ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} ({by})")
+        out["blocked" if blocked else "row_major"] = dict(
+            ms=total, bound_ms=total_bound)
+    return out
+
+
+def check_ragged_and_repeat(g: torch.Generator) -> None:
+    """K1 and K2 at [3, 40, 40, C], shift 4: 75 windows, an odd count for
+    blocks that take two per step, each window with its own mask; and both
+    kernels twice on the same inputs."""
+    for c, heads in ((96, 3), (192, 6), (384, 12)):
+        args, mask, dp = block_inputs(40, c, heads, 4, g, batch=3)
+        dp[2, :] = 0.0
+        dy = torch.randn(args[0].shape, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        kw = dict(window_size=8, num_heads=heads)
+        with torch.no_grad():
+            y = swin_block(*args, mask, dp, **kw)
+            y2 = swin_block(*args, mask, dp, **kw)
+            dx, grads = swin_block_bwd(*args, mask, dp, dy, **kw)
+            dx2, grads2 = swin_block_bwd(*args, mask, dp, dy, **kw)
+            torch.cuda.synchronize()
+            ref = swin_block_reference(*args, mask, dp, **kw)
+            rdx, rgrads = swin_block_backward_reference(*args, mask, dp, dy,
+                                                        **kw)
+        check(torch.equal(y, y2), f"K1 C={c}: two runs bit-identical")
+        check(torch.equal(dx, dx2), f"K2 C={c}: dx of two runs bit-identical")
+        check(torch.equal(dx[2], dy[2]), f"K2 C={c} ragged: dx == dy where "
+              "both branches are dropped")
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        check(err <= K1_MAX_ABS_REL * scale and
+              one_minus_cos(y, ref) <= K1_ONE_MINUS_COS,
+              f"K1 ragged C={c}: max_abs_err {err} <= {K1_MAX_ABS_REL} * "
+              f"{scale}")
+        worst, drift = 0.0, 0.0
+        for name, got, again, want in zip(("dx",) + GRAD_NAMES, (dx,) + grads,
+                                          (dx2,) + grads2, (rdx,) + rgrads):
+            gscale = float(want.float().abs().max())
+            gerr = float((got.float() - want.float()).abs().max())
+            check(gerr <= K2_MAX_ABS_REL * gscale and
+                  one_minus_cos(got, want) <= K2_ONE_MINUS_COS,
+                  f"K2 ragged C={c} {name}: max_abs_err {gerr} <= "
+                  f"{K2_MAX_ABS_REL} * {gscale}")
+            rep = float((got.float() - again.float()).abs().max()) / gscale
+            check(rep <= K2_REPEAT_MAX_ABS_REL,
+                  f"K2 C={c} {name}: two runs within "
+                  f"{K2_REPEAT_MAX_ABS_REL}: {rep}")
+            worst, drift = max(worst, gerr / gscale), max(drift, rep)
+        print(f"ragged [3,40,40,{c}] (75 windows), twice: K1 max_abs_err="
+              f"{err} (max|ref|={scale}), bit-identical; K2 worst "
+              f"max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
+              f"gradients of two runs within {drift:.1e}")
 
 
 def check_swin_block(g: torch.Generator) -> dict:
@@ -1098,6 +1219,19 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         kernels["swin_block"].update(check_swin_block(g))
         kernels["swin_block_bwd"].update(check_swin_block_bwd(g))
+        kernels["swin_block_bwd"]["split_k"] = check_split_k(g)
+        check_ragged_and_repeat(g)
+        for name, source, kernel in (
+                ("swin_block", "swin_block", "swin_block_fwd_kernel"),
+                ("swin_block_bwd", "swin_block_bwd",
+                 "swin_block_bwd_window_kernel")):
+            res = kernel_resources(builds[source].log, kernel)
+            kernels[name]["regs"] = {str(c): r for c, (r, _) in res.items()}
+            kernels[name]["spill_bytes"] = {str(c): sp
+                                            for c, (_, sp) in res.items()}
+            kernels[name]["smem_bytes"] = {
+                str(c): kernel_smem_bytes(c, 4 * c)[name == "swin_block_bwd"]
+                for c in (96, 192, 384)}
         k3, k4 = check_window_attention(g)
         kernels["window_attention"].update(k3)
         kernels["window_attention_bwd"].update(k4)

@@ -25,14 +25,15 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "strajnet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 
 @dataclasses.dataclass(frozen=True)
 class Build:
     path: Path
     seconds: float   # compile time; 0.0 when an up-to-date build was found
-    log: str         # nvcc's output (ptxas register/shared-memory report)
+    log: str         # nvcc's output (ptxas register/shared-memory report),
+                     # kept beside the library for later loads
 
 
 def _nvcc() -> str:
@@ -56,8 +57,10 @@ def build(name: str) -> Build:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return Build(out, 0.0, "")
+        return Build(out, 0.0,
+                     log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
@@ -68,6 +71,7 @@ def build(name: str) -> Build:
         raise RuntimeError(f"nvcc failed to build {name} "
                            f"(exit {proc.returncode}):\n{proc.stdout}"
                            f"{proc.stderr}")
+    log_path.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return Build(out, seconds, proc.stdout + proc.stderr)
 

@@ -5,77 +5,111 @@
 // the output cotangent dy it recomputes the forward and emits dx and the 13
 // parameter gradients. Nothing but x is saved by the forward.
 //
-// Two kernels, both written here:
+// Three kernels:
 //
-// 1. swin_block_bwd_window_kernel: one thread block per 8x8 window. It
-//    recomputes the forward of swin_block.cu, runs the backward of every
-//    per-token and per-window operation, writes dx, and adds the small
-//    gradients (biases, LayerNorm parameters, the rel-pos bias) into their
-//    f32 outputs with atomicAdd: one add per column per window, after a
-//    reduction over the window's 64 tokens in the block. For each of the
-//    four weight gradients, dW = A^T B summed over every token of the batch,
-//    it writes the two bf16 operands A and B (LN1 output and dqkv; merged
-//    heads and datt; LN2 output and dz1; GELU output and dz2) token by token
-//    into scratch in device memory.
-// 2. atb_accum_kernel (swin_block_common.cuh): dW += A[tokens, M]^T
-//    B[tokens, N], a split-K product over slices of the token axis. Each block
-//    stages 32-token slabs of A and B in shared memory, accumulates a 64x128
-//    tile in WMMA fragments and adds it into the zeroed f32 output with
-//    atomicAdd.
-//
-// A TPU grid is sequential and the TPU kernel sums the parameter gradients
-// in scratch that persists from one grid step to the next; here blocks run
-// in no order, so the sum over windows is this second pass. The number of
-// atomics is M*N times the number of token slices (a few per SM), instead of
-// M*N per window.
+// 1. pack_bwd_kernel packs the four weights, and their transposes for the
+//    input-gradient products, into tiles in the order of use and in the
+//    shared-memory operand layout of swin_block_sm90.cuh.
+// 2. swin_block_bwd_window_kernel, persistent, two windows per block step:
+//    one consumer warpgroup owns one 8x8 window, a producer warp streams the
+//    packed tiles through a ring of shared-memory stages (cp.async.bulk,
+//    mbarriers). The warpgroup recomputes the forward's attention half with
+//    the forward kernel's own device functions, then walks back: MLP
+//    (z1 and dg1 per 64 hidden columns -> g1, dz1), dh2, LN2, d(merged), the
+//    heads (dP, dS, dq, dk, dv in registers; the transposed products take
+//    P^T and dS^T from shared memory), dh1, LN1 -> dx. The A operand of every
+//    product is in registers or in shared memory, written by the warpgroup
+//    itself a phase earlier. The small gradients are summed over the
+//    window's rows by a reduce-scatter of shuffles into f32 column sums in
+//    shared memory, which a warpgroup keeps over all its windows and adds to
+//    device memory once at the end (C <= 192; at C=384, for want of room,
+//    after each phase); drel takes one f32 pair per thread and head.
+//    For each of the four weight gradients dW = A^T B it writes the two bf16
+//    operands into scratch (LN1 output and dqkv; merged heads and datt; LN2
+//    output and dz1; GELU output and dz2), token-blocked per window
+//    ([column / 8][token][8], blk_off): an accumulator fragment then stores
+//    128 contiguous bytes per warp and column block. (Row-major, 16 bytes per
+//    row, these stores alone took half of the MLP phase.)
+// 3. atb_accum_sm90_kernel<true> (swin_block_sm90.cuh) sums dW over all
+//    tokens: a TPU grid is sequential and sums in scratch that persists
+//    across grid steps; here blocks run in no order, so the sum is this
+//    split-K pass. It fetches the token-blocked operands with plain bulk
+//    copies and reads them MN-major without swizzle.
 //
 // Rounding points follow the TPU kernel: every product takes bf16 operands
 // (dz2, dz1, datt, the per-head d(out), ds, dq/dk/dv are rounded before use)
 // and accumulates in f32; dbqkv sums the rounded dqkv; db1, db2, dbproj, the
 // LayerNorm gradients and drel sum f32 values; dx is rounded once at the end.
+// tanh (GELU and its derivative) and exp (softmax) are the hardware's
+// approximations, whose error is below the bf16 rounding that follows.
 //
-// What bounds it on the H100: 3x the forward's matrix products (recompute,
-// input gradients, weight gradients), through WMMA with fragments loaded
-// from shared memory, L1 and L2; plus 36*C bytes of scratch per token written
-// and read once (906 MB at [16,128,128,96]). It is bound by fragment loads
-// and scratch traffic, far below the tensor cores' peak.
+// What bounds it on the H100: by count, operations (3x the forward's matrix
+// products; 36 C bytes of bf16 scratch and 8 C bytes of f32 parking per token
+// are a sixth of the bytes bound's time). As built, at C=96 and C=192 the
+// chain of dependent instructions of one warpgroup per window (four warps,
+// one per scheduler, two windows per SM): the tensor cores idle above 90 % of
+// the time there; what helped was fewer instructions (hardware tanh, column
+// sums by reduce-scatter), dense stores, and code small enough for the
+// instruction cache (the per-head functions are not inlined). At C=384 the
+// weight ring: shared memory leaves it two 12 KB stages, and the 5.9 MB of
+// tiles a window pair streams wait on their round trips.
 //
-// The shared-memory budget is the forward's (218 KB at C=384): what does not
-// fit is parked in device memory that the launch owns: r1 in dx (each block
-// owns its window of it) until the final write, q|k|v of all heads in the
-// dqkv scratch until each head overwrites its columns with dq|dk|dv, dr1 in
-// an f32 scratch. The [64, C] and [64, 4C] bf16 operands of the large
-// products are read back from the scratch rows this block wrote (they stay
-// in L1/L2).
+// Accumulators that sum over a loop ([64, C] f32: dh2 over the hidden
+// chunks, dh1 over the heads) take C / 2 registers a thread, so at C=384
+// they run in two passes of 192 columns; their A operands (dz1, dqkv) come
+// back from the scratch as the fragments this very thread wrote, so a pass
+// repeats no product. What a later phase needs in full rows (dh2, dr1, dh1
+// in f32; r1 in bf16) is parked in device memory the launch owns, in an
+// order in which a warp's accesses are contiguous (park_idx), and every
+// thread reads back only the elements it wrote. Shared memory: two [64, C]
+// bf16 operands per window (h1/r1/h2 and dz2/datt), 36 KB of per-head tiles
+// (at C=384 they lie over whichever operand is dead), the column sums, the
+// ring: 225 KB at C=384.
 
-#include "swin_block_common.cuh"
+#include "swin_block_sm90.cuh"
 
 namespace {
 
-constexpr int kMlpChunk = 64;  // hidden columns per MLP step: warps 0-3 recompute
-                               // z1, warps 4-7 compute dg1 for the same columns
-constexpr int kStgLd = 2 * kMlpChunk + kPad32;  // staging row, f32 elements
+using namespace sm90;
 
-struct BwdParams {
-  const bf16* x;
+constexpr int kHeadBufBytes = 36864;   // per-head tiles of the backward
+
+template <int C>
+struct BwdCfg {
+  using K = Cfg<C>;
+  // at C=384 the per-head tiles lie over a [64, C] operand that is dead
+  static constexpr bool kOverlay = K::kBufBytes >= kHeadBufBytes;
+  static constexpr int kStages = kOverlay ? 2 : (C > 96 ? 3 : 5);
+  // Column sums of the small gradients, f32 in shared memory. Where there is
+  // room (C <= 192) each gradient has its own columns and a warpgroup sums
+  // over all its windows, adding to device memory once at the end; at C=384
+  // three C-wide segments are reused and added after each phase, and db1
+  // goes to device memory from every warp.
+  static constexpr bool kPersist = !kOverlay;
+  static constexpr int kDb2 = 0;
+  static constexpr int kDln2s = kPersist ? C : 0;
+  static constexpr int kDln2b = kPersist ? 2 * C : C;
+  static constexpr int kDbproj = kPersist ? 3 * C : 2 * C;
+  static constexpr int kDbqkv = kPersist ? 4 * C : 0;
+  static constexpr int kDln1s = kPersist ? 7 * C : 0;
+  static constexpr int kDln1b = kPersist ? 8 * C : C;
+  static constexpr int kDb1 = 9 * C;   // kPersist only
+  __host__ __device__ static constexpr int sums(int hidden) {
+    return kPersist ? 9 * C + hidden : 3 * C;
+  }
+  __host__ __device__ static constexpr int per_wg(int hidden) {
+    return 2 * K::kBufBytes + (kOverlay ? 0 : kHeadBufBytes) + sums(hidden) * 4;
+  }
+  __host__ __device__ static constexpr int smem(int hidden) {
+    return kConsumers * per_wg(hidden) + kStages * K::kStageBytes +
+           2 * kStages * 8 + 128;
+  }
+};
+
+struct BwdArgs {
   const bf16* dy;
-  const bf16* wqkv;   // [C, 3C]
-  const bf16* bqkv;   // [3C]
-  const bf16* wproj;  // [C, C]
-  const bf16* bproj;  // [C]
-  const float* rel_bias;  // [heads, 64, 64]
-  const float* mask;      // [nW, 64, 64] or null
-  const float* ln1s;
-  const float* ln1b;
-  const float* ln2s;
-  const float* ln2b;
-  const bf16* w1;     // [C, hidden]
-  const float* b1;    // [hidden]
-  const bf16* w2;     // [hidden, C]
-  const float* b2;    // [C]
-  const float* dp;    // [B, 2]
   bf16* dx;
-  // f32 gradients that the window kernel sums with atomics (zeroed before)
+  // f32 gradients summed with atomics (zeroed before the launch)
   float* dbqkv;
   float* dbproj;
   float* drel;
@@ -85,7 +119,8 @@ struct BwdParams {
   float* dln2b;
   float* db1;
   float* db2;
-  // scratch, one row per token in window-major order (row = window*64 + t)
+  // scratch: per window one [64, M] block in the token-blocked layout
+  // (blk_off), windows in launch order
   bf16* h1;      // [N, C]   LN1 output
   bf16* qkv;     // [N, 3C]  q|k|v, then dq|dk|dv
   bf16* merged;  // [N, C]   concatenated head outputs
@@ -94,414 +129,870 @@ struct BwdParams {
   bf16* dz2;     // [N, C]
   bf16* g1;      // [N, hidden]  GELU output
   bf16* dz1;     // [N, hidden]
-  float* dr1;    // [N, C]
-  int B, H, W, C, heads, hd, hidden;
-  float eps, scale;
+  // parking, per window 64 * C values in the threads' own order (park_idx)
+  uint32_t* r1;  // [N, C / 2] bf16 pairs
+  float2* dr1;   // [N, C / 2] dh2, then dr1
+  float2* dh1;   // [N, C / 2]
 };
 
-struct BwdLayout {
-  int ldh, lda, ldqkv, ldstg, lds, ldp, ldo32;
-  size_t off_acc, off_qkv, off_stg, off_p, total;
-};
+// Diagnostic: with -DSWIN_PHASE_CLOCKS the first warpgroup of block 0 sums
+// the clocks it spends in each phase of its windows (tools/
+// swin_block_bwd_phases.py builds that variant and prints the shares).
+#ifdef SWIN_PHASE_CLOCKS
+constexpr int kPhases = 9;
+__device__ long long g_phase_clocks[kPhases];
+__device__ long long g_phase_t0;
+#define PHASE(i)                                             \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                 \
+    const long long now = clock64();                         \
+    g_phase_clocks[i] += now - g_phase_t0;                   \
+    g_phase_t0 = now;                                        \
+  }
+#else
+#define PHASE(i)
+#endif
 
-__host__ __device__ inline BwdLayout make_bwd_layout(int C, int hd) {
-  BwdLayout L;
-  L.ldh = C + kPad16;
-  L.lda = (C > 3 * hd ? C : 3 * hd) + kPad32;
-  L.ldqkv = 3 * hd + kPad16;
-  L.ldstg = 3 * hd + kPad32;
-  L.lds = kTok + kPad32;
-  L.ldp = kTok + kPad16;
-  L.ldo32 = hd + kPad32;
-  size_t stg_elems = (size_t)kTok * kStgLd;
-  if ((size_t)kTok * L.ldstg > stg_elems) stg_elems = (size_t)kTok * L.ldstg;
-  size_t off = round_up((size_t)kTok * L.ldh * sizeof(bf16), 128);
-  L.off_acc = off;
-  off = round_up(off + (size_t)kTok * L.lda * sizeof(float), 128);
-  L.off_qkv = off;
-  off = round_up(off + (size_t)kTok * L.ldqkv * sizeof(bf16), 128);
-  L.off_stg = off;
-  off = round_up(off + stg_elems * sizeof(float), 128);
-  L.off_p = off;
-  off = round_up(off + (size_t)kTok * L.ldp * sizeof(bf16), 128);
-  L.total = off;
-  return L;
+// Column sums of four neighbouring 8-column blocks at once. v[2 b + e] is this
+// thread's sum over its two rows of column col0 + 8 b + e (col0 = 8 jb + 2 t).
+// The eight lanes that share t hold the warp's other rows: a reduce-scatter
+// over them (8 shuffles instead of 24 for a plain butterfly) leaves each of
+// 16 lanes with the warp's sum of one column pair, which it adds to the
+// window's column sums in shared memory (float atomics on shared memory are
+// compare-and-swap loops: few and spread over the lanes).
+__device__ __forceinline__ void colsum4(float* cs, int col0, const float (&v)[8],
+                                        const Lane& L) {
+  const int lane = L.tid & 31;
+  const bool hi4 = lane & 16, hi3 = lane & 8;
+  float k4[4], k2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float recv = __shfl_xor_sync(0xffffffffu, hi4 ? v[i] : v[i + 4], 16);
+    k4[i] = (hi4 ? v[i + 4] : v[i]) + recv;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float recv = __shfl_xor_sync(0xffffffffu, hi3 ? k4[i] : k4[i + 2], 8);
+    k2[i] = (hi3 ? k4[i + 2] : k4[i]) + recv;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) k2[i] += __shfl_xor_sync(0xffffffffu, k2[i], 4);
+  if (!(lane & 4)) {
+    float* dst = cs + col0 + 8 * ((hi4 ? 2 : 0) + (hi3 ? 1 : 0));
+    atomicAdd(dst, k2[0]);
+    atomicAdd(dst + 1, k2[1]);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-swin_block_bwd_window_kernel(const BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.C, hd = p.hd, hidden = p.hidden;
-  const BwdLayout L = make_bwd_layout(C, hd);
-  bf16* hbuf = reinterpret_cast<bf16*>(smem);
-  float* acc = reinterpret_cast<float*>(smem + L.off_acc);
-  bf16* qkv = reinterpret_cast<bf16*>(smem + L.off_qkv);
-  float* stg = reinterpret_cast<float*>(smem + L.off_stg);
-  bf16* pbuf = reinterpret_cast<bf16*>(smem + L.off_p);
+// Adds n column sums into their gradient and zeroes them. The caller puts
+// the warpgroup's barrier before (the sums are complete) and after.
+__device__ __forceinline__ void colsum_flush(float* cs, int n, float* dst,
+                                             const Lane& L) {
+  for (int c = L.tid; c < n; c += 128) {
+    atomicAdd(dst + c, cs[c]);
+    cs[c] = 0.f;
+  }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwx = p.W / kWs, nwy = p.H / kWs;
-  const int b = blockIdx.x / (nwx * nwy);
-  const int wi = blockIdx.x % (nwx * nwy);
-  const int wy = wi / nwx, wx = wi % nwx;
-  const float dp1 = p.dp[2 * b], dp2 = p.dp[2 * b + 1];
-  const int per_lane = C / 32;
-  const int ctiles = C / 16;
-  const int C3 = 3 * C;
-  const size_t row0 = (size_t)blockIdx.x * kTok;  // this window's scratch rows
-
-  // token t of this window -> element offset of its channel vector
-  auto gofs = [&](int t) -> size_t {
-    const int row = wy * kWs + t / kWs, col = wx * kWs + t % kWs;
-    return ((size_t)(b * p.H + row) * p.W + col) * (size_t)C;
-  };
-
-  // ================= forward recompute =================
-  // ---- LN1 (one warp per token) -> hbuf and scratch h1 ----
-  for (int t = warp; t < kTok; t += kWarps) {
-    const bf16* xr = p.x + gofs(t);
-    bf16* h1r = p.h1 + (row0 + t) * C;
-    float v[kMaxPerLane];
-    float s = 0.f;
+// Backward of a LayerNorm over the window's rows in fragment order: dh is the
+// gradient of the normalised output (the window's parked f32 pairs), val
+// the LayerNorm's input, res what is added to the result. Sums d(scale) and
+// d(bias) into cs_scale and cs_bias; hands every result pair to out, whose
+// return values it sums over the rows into cs_extra unless that is null.
+template <int C, typename Val, typename Res, typename Out>
+__device__ __forceinline__ void layernorm_backward(const float2* dh, const float* gamma,
+                                                   const float (&mu)[2],
+                                                   const float (&inv)[2],
+                                                   float* cs_scale, float* cs_bias,
+                                                   float* cs_extra, Val val, Res res,
+                                                   Out out,
+                                                   const Lane& L) {
+  // Column blocks in batches of kLb: all of a batch's loads are issued before
+  // its first store or atomic, so that they are in flight together (the
+  // compiler keeps a load behind any earlier store it might alias).
+  constexpr int kLb = 4;
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int jb = 0; jb < C / 8; jb += kLb) {
+    float2 gm[kLb], d[kLb][2], v[kLb][2];
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      if (i < per_lane) {
-        v[i] = __bfloat162float(xr[lane + 32 * i]);
-        s += v[i];
+    for (int i = 0; i < kLb; ++i) {
+      const int col = 8 * (jb + i) + 2 * L.t;
+      gm[i] = *reinterpret_cast<const float2*>(gamma + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        d[i][half] = dh[park_idx((jb + i) * 2 + half, L)];
+        v[i][half] = val(half, col);
       }
     }
-    const float mu = warp_sum(s) / C;
-    float q = 0.f;
+    float ss[2 * kLb], sb[2 * kLb];
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      if (i < per_lane) {
-        const float d = v[i] - mu;
-        q += d * d;
+    for (int i = 0; i < kLb; ++i) {
+      ss[2 * i] = ss[2 * i + 1] = sb[2 * i] = sb[2 * i + 1] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float2 dd = d[i][half];
+        const float xh0 = (v[i][half].x - mu[half]) * inv[half];
+        const float xh1 = (v[i][half].y - mu[half]) * inv[half];
+        s1[half] += dd.x * gm[i].x + dd.y * gm[i].y;
+        s2[half] += dd.x * gm[i].x * xh0 + dd.y * gm[i].y * xh1;
+        ss[2 * i] += dd.x * xh0;
+        ss[2 * i + 1] += dd.y * xh1;
+        sb[2 * i] += dd.x;
+        sb[2 * i + 1] += dd.y;
       }
     }
-    const float inv = rsqrtf(warp_sum(q) / C + p.eps);
+    colsum4(cs_scale, 8 * jb + 2 * L.t, ss, L);
+    colsum4(cs_bias, 8 * jb + 2 * L.t, sb, L);
+  }
+  float m1[2], m2[2];
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      if (i < per_lane) {
-        const int c = lane + 32 * i;
-        const bf16 hv =
-            __float2bfloat16((v[i] - mu) * inv * p.ln1s[c] + p.ln1b[c]);
-        hbuf[t * L.ldh + c] = hv;
-        h1r[c] = hv;
+  for (int half = 0; half < 2; ++half) {
+    m1[half] = quad_sum(s1[half]) / C;
+    m2[half] = quad_sum(s2[half]) / C;
+  }
+#pragma unroll 1
+  for (int jb = 0; jb < C / 8; jb += kLb) {
+    float2 gm[kLb], d[kLb][2], v[kLb][2], r[kLb][2];
+#pragma unroll
+    for (int i = 0; i < kLb; ++i) {
+      const int col = 8 * (jb + i) + 2 * L.t;
+      gm[i] = *reinterpret_cast<const float2*>(gamma + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        d[i][half] = dh[park_idx((jb + i) * 2 + half, L)];
+        v[i][half] = val(half, col);
+        r[i][half] = res(half, col);
       }
     }
-  }
-  __syncthreads();
-
-  // ---- attention forward per head: q|k|v and the head output to scratch ----
-  const AttnBufs S = {hbuf, L.ldh, qkv, L.ldqkv, stg, L.ldstg, L.lds, L.ldo32,
-                      pbuf, L.ldp, nullptr};
-  const AttnWeights Wt = {
-      p.wqkv, p.bqkv, p.rel_bias,
-      p.mask ? p.mask + (size_t)wi * kTok * kTok : nullptr, C, hd, p.scale};
-  bf16* qkv_rows = p.qkv + row0 * C3;
-  for (int h = 0; h < p.heads; ++h) {
-    attn_head_qkv(S, Wt, h, qkv_rows);
-    attn_head_softmax(S, Wt, h);
-    attn_head_pv(S, hd);
-    for (int idx = threadIdx.x; idx < kTok * hd; idx += kThreads) {
-      const int t = idx / hd, j = idx % hd;
-      p.merged[(row0 + t) * C + h * hd + j] =
-          __float2bfloat16(stg[t * L.ldo32 + j]);
+    float se[2 * kLb];
+#pragma unroll
+    for (int i = 0; i < kLb; ++i) {
+      const int col = 8 * (jb + i) + 2 * L.t;
+      se[2 * i] = se[2 * i + 1] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float xh0 = (v[i][half].x - mu[half]) * inv[half];
+        const float xh1 = (v[i][half].y - mu[half]) * inv[half];
+        float2 o;
+        o.x = r[i][half].x +
+              inv[half] * (d[i][half].x * gm[i].x - m1[half] - xh0 * m2[half]);
+        o.y = r[i][half].y +
+              inv[half] * (d[i][half].y * gm[i].y - m1[half] - xh1 * m2[half]);
+        const float2 e = out(half, col, o);
+        se[2 * i] += e.x;
+        se[2 * i + 1] += e.y;
+      }
     }
-    __syncthreads();
+    if (cs_extra) colsum4(cs_extra, 8 * jb + 2 * L.t, se, L);
   }
+}
 
-  // ---- att = merged @ wproj -> acc ----
-  for (int tn = warp; tn < ctiles; tn += kWarps) {
-    FragC c[4];
-    zero_strip(c);
-    mma_strip(c, p.merged + row0 * C, C, p.wproj + tn * 16, C, C);
-    store_strip(acc + tn * 16, c, L.lda);
+// Backward of one head from its q | k | v (the window's scratch block, this
+// thread's own elements), d(out) as A fragments `doa`, and the tiles in `hb`. Writes
+// dq | dk | dv (bf16) over q | k | v, adds dS into drel and the rounded
+// dq | dk | dv into the column sums cs[0:3C] (dbqkv).
+template <int C>
+__device__ __noinline__ void head_backward(const BlockArgs& p, const Window& win,
+                                              int h, uint32_t (*doa)[4], bf16* qkv_rows,
+                                              uint8_t* hb, float* drel, float* cs,
+                                              int bar_id, const Lane& L) {
+  uint8_t* kdir = hb;             // [64 keys, 32]   k
+  uint8_t* vdir = hb + 4096;      // [64 keys, 32]   v
+  uint8_t* kt = hb + 8192;        // [32, 64 keys]   k^T
+  uint8_t* qt = hb + 12288;       // [32, 64]        q^T
+  uint8_t* dot = hb + 16384;      // [32, 64]        d(out)^T
+  uint8_t* pt = hb + 20480;       // [64 keys, 64]   P^T
+  uint8_t* dst = hb + 28672;      // [64 keys, 64]   dS^T
+  uint32_t qa[2][4];
+  uint32_t ld[4][3][2];   // all loads before the first store
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        ld[j][part][half] = *reinterpret_cast<const uint32_t*>(
+            qkv_rows + blk_off(L.row0 + 8 * half, part * C + h * kHd + 8 * j + 2 * L.t));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int d = 8 * j + 2 * L.t;
+    const uint32_t q0 = ld[j][0][0], q1 = ld[j][0][1];
+    const uint32_t k0 = ld[j][1][0], k1 = ld[j][1][1];
+    const uint32_t v0 = ld[j][2][0], v1 = ld[j][2][1];
+    qa[j / 2][(j % 2) * 2] = q0;
+    qa[j / 2][(j % 2) * 2 + 1] = q1;
+    st_transposed(qt, 32, L, d, q0, q1);
+    st_direct(kdir, 64, L, d, k0, k1);
+    st_transposed(kt, 32, L, d, k0, k1);
+    st_direct(vdir, 64, L, d, v0, v1);
+    st_transposed(dot, 32, L, d, doa[j / 2][(j % 2) * 2], doa[j / 2][(j % 2) * 2 + 1]);
   }
-  __syncthreads();
+  fence_proxy_async();
+  named_bar_sync(bar_id, 128);
 
-  // ---- r1 = x + dp1 * (att + bproj), parked in dx; LN2 -> hbuf, scratch h2;
-  //      dz2 = dp2 * dy -> scratch; db2 += sum dz2 ----
+  const float* mask_w = p.mask ? p.mask + (size_t)win.wi * kTok * kTok : nullptr;
+  float s[32];
+  head_softmax(s, qa, smem_u32(kdir), p.rel_bias + (size_t)h * kTok * kTok, mask_w,
+               p.scale, L);
+  uint32_t pa[4][4];
+  acc_to_afrag<8>(s, pa);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_transposed(pt, 64, L, 8 * j + 2 * L.t, pa[j / 2][(j % 2) * 2],
+                  pa[j / 2][(j % 2) * 2 + 1]);
+  // dP = d(out) v^T
+  float dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_rs_n64<0>(dp, doa[kk], kmaj_desc(smem_u32(vdir), 64, kk), kk != 0);
+  wgmma_commit();
+  wgmma_wait0();
+  // dS = P (dP - rowsum(dP P)) on the rounded P; drel += dS
+  float dotp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 pv = unpack_bf16(pa[j / 2][(j % 2) * 2 + half]);
+      s[4 * j + 2 * half] = pv.x;
+      s[4 * j + 2 * half + 1] = pv.y;
+      dotp[half] += dp[4 * j + 2 * half] * pv.x + dp[4 * j + 2 * half + 1] * pv.y;
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) dotp[half] = quad_sum(dotp[half]);
+  float* dr = drel + (size_t)h * kTok * kTok;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2 ds;
+      ds.x = s[4 * j + 2 * half] * (dp[4 * j + 2 * half] - dotp[half]);
+      ds.y = s[4 * j + 2 * half + 1] * (dp[4 * j + 2 * half + 1] - dotp[half]);
+      s[4 * j + 2 * half] = ds.x;
+      s[4 * j + 2 * half + 1] = ds.y;
+      atomicAdd(reinterpret_cast<float2*>(dr + (L.row0 + 8 * half) * kTok + 8 * j +
+                                          2 * L.t),
+                ds);
+    }
+  }
+  uint32_t dsa[4][4];
+  acc_to_afrag<8>(s, dsa);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_transposed(dst, 64, L, 8 * j + 2 * L.t, dsa[j / 2][(j % 2) * 2],
+                  dsa[j / 2][(j % 2) * 2 + 1]);
+  fence_proxy_async();
+  named_bar_sync(bar_id, 128);   // P^T and dS^T of all four warps are in place
+
+  // dq = dS k, dk = dS^T q (both times scale), dv = P^T d(out)
+  float g3[3][16];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs_n32<0>(g3[0], dsa[kk], kmaj_desc(smem_u32(kt), 32, kk), kk != 0);
+    wgmma_ss_n32<0, 0>(g3[1], kmaj_desc(smem_u32(dst), 64, kk),
+                       kmaj_desc(smem_u32(qt), 32, kk), kk != 0);
+    wgmma_ss_n32<0, 0>(g3[2], kmaj_desc(smem_u32(pt), 64, kk),
+                       kmaj_desc(smem_u32(dot), 32, kk), kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    const float sc = part < 2 ? p.scale : 1.0f;
+    float sq[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = part * C + h * kHd + 8 * j + 2 * L.t;
+      const uint32_t v0 = pack_bf16(g3[part][4 * j] * sc, g3[part][4 * j + 1] * sc);
+      const uint32_t v1 =
+          pack_bf16(g3[part][4 * j + 2] * sc, g3[part][4 * j + 3] * sc);
+      *reinterpret_cast<uint32_t*>(qkv_rows + blk_off(L.row0, col)) = v0;
+      *reinterpret_cast<uint32_t*>(qkv_rows + blk_off(L.row0 + 8, col)) = v1;
+      const float2 f0 = unpack_bf16(v0), f1 = unpack_bf16(v1);
+      sq[2 * j] = f0.x + f1.x;
+      sq[2 * j + 1] = f0.y + f1.y;
+    }
+    colsum4(cs, part * C + h * kHd + 2 * L.t, sq, L);
+  }
+  named_bar_sync(bar_id, 128);   // the tiles are free for the next head
+}
+
+template <int C>
+__device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArgs& q,
+                                                const Window& win, long long index,
+                                                uint8_t* buf_a, uint8_t* buf_b,
+                                                uint8_t* head_fwd, uint8_t* head_bwd,
+                                                float* cs, Ring& ring, int bar_id,
+                                                const Lane& L) {
+  using K = Cfg<C>;
+  using B = BwdCfg<C>;
+  const size_t row_base = (size_t)index * kTok;   // this window's scratch rows
+  const int hidden = p.hidden;
+  bf16* qkv_rows = q.qkv + row_base * 3 * C;
+  uint32_t* r1_park = q.r1 + row_base * (C / 2);
+  float2* dr1_park = q.dr1 + row_base * (C / 2);
+  float2* dh1_park = q.dh1 + row_base * (C / 2);
+  bf16* g1_rows = q.g1 + row_base * hidden;
+  bf16* dz1_rows = q.dz1 + row_base * hidden;
+
+#ifdef SWIN_PHASE_CLOCKS
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_t0 = clock64();
+#endif
+  // ================= forward recompute: attention half =================
+  const FwdSaves sv = {q.h1 + row_base * C, qkv_rows, q.merged + row_base * C,
+                       q.h2 + row_base * C};
+  RowStats st2;
+  window_attention_half<C>(p, win, buf_a, head_fwd, ring, r1_park, sv, st2, bar_id, L);
+  // buf_a holds LN2's output, r1 is parked
+  PHASE(0)
+
+  // ---- dz2 = dp2 * dy -> buf_b and scratch; db2 += sum dz2 ----
   {
-    float s_db2[kMaxPerLane];
+    bf16* dz2_rows = q.dz2 + row_base * C;
+#pragma unroll 1
+    for (int jb = 0; jb < C / 8; jb += 12) {
+    uint32_t dyr[12][2];   // a batch's loads before its first store
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) s_db2[i] = 0.f;
-    for (int t = warp; t < kTok; t += kWarps) {
-      const size_t g = gofs(t);
-      const bf16* xr = p.x + g;
-      const bf16* dyr = p.dy + g;
-      bf16* park = p.dx + g;
-      bf16* h2r = p.h2 + (row0 + t) * C;
-      bf16* dz2r = p.dz2 + (row0 + t) * C;
-      float v[kMaxPerLane];
-      float s = 0.f;
+    for (int i = 0; i < 12; ++i)
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const float att = acc[t * L.lda + c] + __bfloat162float(p.bproj[c]);
-          const bf16 r = __float2bfloat16(__bfloat162float(xr[c]) + dp1 * att);
-          park[c] = r;
-          v[i] = __bfloat162float(r);
-          s += v[i];
-          const float dz2 = dp2 * __bfloat162float(dyr[c]);
-          dz2r[c] = __float2bfloat16(dz2);
-          s_db2[i] += dz2;
-        }
+      for (int half = 0; half < 2; ++half)
+        dyr[i][half] = *reinterpret_cast<const uint32_t*>(
+            q.dy + win.ofs<C>(L.row0 + 8 * half) + 8 * (jb + i) + 2 * L.t);
+    float sz[24];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const int col = 8 * (jb + i) + 2 * L.t;
+      float sx = 0.f, sy = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = L.row0 + 8 * half;
+        const float2 dyv = unpack_bf16(dyr[i][half]);
+        const float zx = win.dp2 * dyv.x, zy = win.dp2 * dyv.y;
+        const uint32_t r = pack_bf16(zx, zy);
+        *reinterpret_cast<uint32_t*>(buf_b + kmaj_off(row, col, 64)) = r;
+        *reinterpret_cast<uint32_t*>(dz2_rows + blk_off(row, col)) = r;
+        sx += zx;
+        sy += zy;
       }
-      const float mu = warp_sum(s) / C;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const float d = v[i] - mu;
-          q += d * d;
-        }
-      }
-      const float inv = rsqrtf(warp_sum(q) / C + p.eps);
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const bf16 hv =
-              __float2bfloat16((v[i] - mu) * inv * p.ln2s[c] + p.ln2b[c]);
-          hbuf[t * L.ldh + c] = hv;
-          h2r[c] = hv;
-        }
-      }
+      sz[2 * i] = sx;
+      sz[2 * i + 1] = sy;
     }
-    flush_colsums(stg, s_db2, p.db2, C);
+#pragma unroll
+    for (int i = 0; i < 12; i += 4)
+      colsum4(cs + B::kDb2, 8 * (jb + i) + 2 * L.t,
+              *reinterpret_cast<const float(*)[8]>(&sz[2 * i]), L);
+    }
+    fence_proxy_async();
+    named_bar_sync(bar_id, 128);   // buf_b is in place
+    if (!B::kPersist) {
+      colsum_flush(cs + B::kDb2, C, q.db2, L);
+      named_bar_sync(bar_id, 128);
+    }
   }
 
+  PHASE(1)
   // ================= backward =================
-  // ---- MLP, hidden columns in chunks of 64: z1 = h2 @ w1_j + b1_j,
-  //      dg1 = dz2 @ w2_j^T, dz1 = dg1 * gelu'(z1); g1 and dz1 -> scratch ----
-  for (int j0 = 0; j0 < hidden; j0 += kMlpChunk) {
-    {
-      FragC c[4];
-      zero_strip(c);
-      if (warp < 4) {
-        mma_strip(c, hbuf, L.ldh, p.w1 + j0 + warp * 16, hidden, C);
-        store_strip(stg + warp * 16, c, kStgLd);
-      } else {
-        const int tn = warp - 4;
-        mma_strip_bt(c, p.dz2 + row0 * C, C,
-                     p.w2 + (size_t)(j0 + tn * 16) * C, C, C);
-        store_strip(stg + kMlpChunk + tn * 16, c, kStgLd);
-      }
-    }
-    __syncthreads();
-    {
-      const int j = threadIdx.x % kMlpChunk, tq = threadIdx.x / kMlpChunk;
-      const float bias = p.b1[j0 + j];
-      float part = 0.f;
-      for (int t = tq; t < kTok; t += kThreads / kMlpChunk) {
-        const float z = stg[t * kStgLd + j] + bias;
-        const float dz1 = stg[t * kStgLd + kMlpChunk + j] * gelu_tanh_grad(z);
-        const size_t o = (row0 + t) * hidden + j0 + j;
-        p.g1[o] = __float2bfloat16(gelu_tanh(z));
-        p.dz1[o] = __float2bfloat16(dz1);
-        part += dz1;
-      }
-      acc[threadIdx.x] = part;
-    }
-    __syncthreads();
-    if (threadIdx.x < kMlpChunk) {
-      float s = 0.f;
+  // ---- MLP per 64 hidden columns: z1 = h2 @ w1_j + b1_j, dg1 = dz2 @ w2_j^T,
+  //      g1 = gelu(z1), dz1 = dg1 * gelu'(z1) -> scratch; db1 += sum dz1 ----
+  const uint32_t a_addr = smem_u32(buf_a), b_addr = smem_u32(buf_b);
+#pragma unroll 1
+  for (int j0 = 0; j0 < hidden; j0 += 64) {
+    float2 b1v[8];   // loaded before the products, used after them
 #pragma unroll
-      for (int q = 0; q < kThreads / kMlpChunk; ++q)
-        s += acc[q * kMlpChunk + threadIdx.x];
-      atomicAdd(p.db1 + j0 + threadIdx.x, s);
+    for (int j = 0; j < 8; ++j)
+      b1v[j] = *reinterpret_cast<const float2*>(p.b1 + j0 + 8 * j + 2 * L.t);
+    float z[32], dg[32], sd[16];
+    PHASE(2)
+    mma_smem_n64<C>(z, a_addr, ring);
+    mma_smem_n64<C>(dg, b_addr, ring);
+    PHASE(8)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + 8 * j + 2 * L.t;
+      const float2 bias = b1v[j];
+      float sx = 0.f, sy = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float g0, g1, d0, d1;
+        gelu_tanh_both(z[4 * j + 2 * half] + bias.x, g0, d0);
+        gelu_tanh_both(z[4 * j + 2 * half + 1] + bias.y, g1, d1);
+        d0 *= dg[4 * j + 2 * half];
+        d1 *= dg[4 * j + 2 * half + 1];
+        const int o = blk_off(L.row0 + 8 * half, col);
+        *reinterpret_cast<uint32_t*>(g1_rows + o) = pack_bf16(g0, g1);
+        *reinterpret_cast<uint32_t*>(dz1_rows + o) = pack_bf16(d0, d1);
+        sx += d0;
+        sy += d1;
+      }
+      sd[2 * j] = sx;
+      sd[2 * j + 1] = sy;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; j += 4)
+      colsum4(B::kPersist ? cs + B::kDb1 : q.db1, j0 + 8 * j + 2 * L.t,
+              *reinterpret_cast<const float(*)[8]>(&sd[2 * j]), L);
   }
 
-  // ---- dh2 = dz1 @ w1^T -> acc ----
-  for (int tn = warp; tn < ctiles; tn += kWarps) {
-    FragC c[4];
-    zero_strip(c);
-    mma_strip_bt(c, p.dz1 + row0 * hidden, hidden,
-                 p.w1 + (size_t)tn * 16 * hidden, hidden, hidden);
-    store_strip(acc + tn * 16, c, L.lda);
+  PHASE(2)
+  // ---- dh2 = dz1 @ w1^T, in passes of kCw columns; dz1 comes back from the
+  //      scratch as the fragments this thread wrote; dh2 -> f32 parking ----
+#pragma unroll 1
+  for (int pass = 0; pass < K::kPasses; ++pass) {
+    float acc[K::kCw / 2];
+#pragma unroll
+    for (int i = 0; i < K::kCw / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int j0 = 0; j0 < hidden; j0 += 64) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // rows 8 apart are 64 elements apart, columns 8 apart one block (512)
+        const bf16* r0 = dz1_rows + blk_off(L.row0, j0 + 16 * kk + 2 * L.t);
+        a[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 64);
+        a[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 512);
+        a[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 576);
+      }
+#pragma unroll
+      for (int nb = 0; nb < K::kNb; ++nb)
+        mma_regs_n96<4>(*reinterpret_cast<float(*)[48]>(&acc[48 * nb]), a, ring, true);
+    }
+#pragma unroll
+    for (int jc = 0; jc < K::kCw / 8; ++jc) {
+      const int col = pass * K::kCw + 8 * jc + 2 * L.t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        dr1_park[park_idx((col >> 3) * 2 + half, L)] =
+            make_float2(acc[4 * jc + 2 * half], acc[4 * jc + 2 * half + 1]);
+    }
   }
-  __syncthreads();
 
-  // ---- LN2 backward: dr1 = dy + LN2'(dh2) -> scratch (f32);
-  //      datt = dp1 * dr1 -> scratch (bf16) ----
+  PHASE(3)
+  // ---- LN2 backward: dr1 = dy + LN2'(dh2) -> f32 parking (over dh2);
+  //      datt = dp1 * dr1 -> buf_b and scratch; dln2s, dln2b, dbproj ----
   {
-    float s_scale[kMaxPerLane], s_bias[kMaxPerLane], s_bproj[kMaxPerLane];
+    bf16* datt_rows = q.datt + row_base * C;
+    layernorm_backward<C>(
+        dr1_park, p.ln2s, st2.mu, st2.inv, cs + B::kDln2s, cs + B::kDln2b,
+        cs + B::kDbproj,
+        [&](int half, int col) {
+          return unpack_bf16(r1_park[park_idx((col >> 3) * 2 + half, L)]);
+        },
+        [&](int half, int col) {
+          return unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              q.dy + win.ofs<C>(L.row0 + 8 * half) + col));
+        },
+        [&](int half, int col, float2 dr1) {
+          const int row = L.row0 + 8 * half;
+          dr1_park[park_idx((col >> 3) * 2 + half, L)] = dr1;
+          const float ax = win.dp1 * dr1.x, ay = win.dp1 * dr1.y;
+          const uint32_t r = pack_bf16(ax, ay);
+          *reinterpret_cast<uint32_t*>(buf_b + kmaj_off(row, col, 64)) = r;
+          *reinterpret_cast<uint32_t*>(datt_rows + blk_off(row, col)) = r;
+          return make_float2(ax, ay);   // summed over the rows into dbproj
+        },
+        L);
+    fence_proxy_async();
+    named_bar_sync(bar_id, 128);   // buf_b is in place
+    if (!B::kPersist) {
+      colsum_flush(cs + B::kDln2s, C, q.dln2s, L);
+      colsum_flush(cs + B::kDln2b, C, q.dln2b, L);
+      colsum_flush(cs + B::kDbproj, C, q.dbproj, L);
+      named_bar_sync(bar_id, 128);
+    }
+  }
+
+  PHASE(4)
+  // ---- d(merged) = datt @ wproj^T per 96 columns (three heads), then those
+  //      heads' backward ----
+#pragma unroll 1
+  for (int nc = 0; nc < K::kNc; ++nc) {
+    uint32_t doa[6][4];
+    {
+      float dm[48];
+      mma_smem_n96<C>(dm, b_addr, ring);
+      acc_to_afrag<12>(dm, doa);
+    }
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i)
-      s_scale[i] = s_bias[i] = s_bproj[i] = 0.f;
-    for (int t = warp; t < kTok; t += kWarps) {
-      const size_t g = gofs(t);
-      const bf16* park = p.dx + g;
-      const bf16* dyr = p.dy + g;
-      float* dr1r = p.dr1 + (row0 + t) * C;
-      bf16* dattr = p.datt + (row0 + t) * C;
-      float v[kMaxPerLane];
-      float s = 0.f;
+    for (int hh = 0; hh < 3; ++hh)
+      head_backward<C>(p, win, 3 * nc + hh, &doa[2 * hh], qkv_rows, head_bwd, q.drel,
+                       cs + B::kDbqkv, bar_id, L);
+  }
+  if (!B::kPersist) {   // the last head ended on a barrier
+    colsum_flush(cs + B::kDbqkv, 3 * C, q.dbqkv, L);
+    named_bar_sync(bar_id, 128);
+  }
+
+  PHASE(5)
+  // ---- dh1 = dqkv @ wqkv^T, in passes of kCw columns over the heads; dqkv
+  //      comes back from the scratch as this thread's fragments ----
+#pragma unroll 1
+  for (int pass = 0; pass < K::kPasses; ++pass) {
+    float acc[K::kCw / 2];
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          v[i] = __bfloat162float(park[lane + 32 * i]);
-          s += v[i];
-        }
+    for (int i = 0; i < K::kCw / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int h = 0; h < K::kHeads; ++h) {
+      uint32_t a[6][4];
+#pragma unroll
+      for (int kk = 0; kk < 6; ++kk) {
+        const bf16* r0 = qkv_rows + blk_off(L.row0, (kk / 2) * C + h * kHd +
+                                                        16 * (kk % 2) + 2 * L.t);
+        a[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 64);
+        a[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 512);
+        a[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 576);
       }
-      const float mu = warp_sum(s) / C;
-      float q = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const float d = v[i] - mu;
-          q += d * d;
-        }
-      }
-      const float inv = rsqrtf(warp_sum(q) / C + p.eps);
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const float xhat = (v[i] - mu) * inv;
-          const float dh2 = acc[t * L.lda + c];
-          const float dhat = dh2 * p.ln2s[c];
-          s_scale[i] += dh2 * xhat;
-          s_bias[i] += dh2;
-          s1 += dhat;
-          s2 += dhat * xhat;
-          v[i] = xhat;
-        }
-      }
-      const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const float dhat = acc[t * L.lda + c] * p.ln2s[c];
-          const float dr1 = __bfloat162float(dyr[c]) +
-                            inv * (dhat - m1 - v[i] * m2);
-          dr1r[c] = dr1;
-          const float datt = dp1 * dr1;
-          dattr[c] = __float2bfloat16(datt);
-          s_bproj[i] += datt;
-        }
+      for (int nb = 0; nb < K::kNb; ++nb) {
+        float(&sub)[48] = *reinterpret_cast<float(*)[48]>(&acc[48 * nb]);
+        mma_regs_n96<3>(sub, &a[0], ring, true);
+        mma_regs_n96<3>(sub, &a[3], ring, true);
       }
     }
-    flush_colsums(stg, s_scale, p.dln2s, C);
-    flush_colsums(stg, s_bias, p.dln2b, C);
-    flush_colsums(stg, s_bproj, p.dbproj, C);
+#pragma unroll
+    for (int jc = 0; jc < K::kCw / 8; ++jc) {
+      const int col = pass * K::kCw + 8 * jc + 2 * L.t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        dh1_park[park_idx((col >> 3) * 2 + half, L)] =
+            make_float2(acc[4 * jc + 2 * half], acc[4 * jc + 2 * half + 1]);
+    }
   }
 
-  // ---- d(merged) = datt @ wproj^T -> hbuf (bf16) ----
-  for (int tn = warp; tn < ctiles; tn += kWarps) {
-    FragC c[4];
-    zero_strip(c);
-    mma_strip_bt(c, p.datt + row0 * C, C, p.wproj + (size_t)tn * 16 * C, C, C);
-    store_strip_bf16(hbuf, L.ldh, tn * 16, c, stg + warp * 16, kStgLd);
-  }
-  __syncthreads();
-
-  // ---- attention backward per head: the forward's q|k|v come back from the
-  //      scratch, P is recomputed, dq|dk|dv replace q|k|v in the scratch ----
-  for (int h = 0; h < p.heads; ++h) {
-    attn_head_load_qkv(S, C, hd, h, qkv_rows);
-    attn_head_softmax(S, Wt, h);
-    attn_head_backward(S, Wt, h, hbuf + h * hd, L.ldh, acc, L.lda, qkv_rows,
-                       p.drel);
-  }
-
-  // ---- dbqkv += column sums of the rounded dqkv; dh1 = dqkv @ wqkv^T -> acc
-  for (int c = threadIdx.x; c < C3; c += kThreads) {
-    float s = 0.f;
-    for (int t = 0; t < kTok; ++t)
-      s += __bfloat162float(p.qkv[(row0 + t) * C3 + c]);
-    atomicAdd(p.dbqkv + c, s);
-  }
-  for (int tn = warp; tn < ctiles; tn += kWarps) {
-    FragC c[4];
-    zero_strip(c);
-    mma_strip_bt(c, p.qkv + row0 * C3, C3, p.wqkv + (size_t)tn * 16 * C3, C3,
-                 C3);
-    store_strip(acc + tn * 16, c, L.lda);
-  }
-  __syncthreads();
-
-  // ---- LN1 backward; dx = dr1 + LN1'(dh1) ----
+  PHASE(6)
+  // ---- LN1 backward: dx = dr1 + LN1'(dh1); dln1s, dln1b ----
   {
-    float s_scale[kMaxPerLane], s_bias[kMaxPerLane];
+    float mu[2], inv[2];
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) s_scale[i] = s_bias[i] = 0.f;
-    for (int t = warp; t < kTok; t += kWarps) {
-      const size_t g = gofs(t);
-      const bf16* xr = p.x + g;
-      const float* dr1r = p.dr1 + (row0 + t) * C;
-      bf16* dxr = p.dx + g;
-      float v[kMaxPerLane];
+    for (int half = 0; half < 2; ++half) {
+      const bf16* xr = p.x + win.ofs<C>(L.row0 + 8 * half);
       float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          v[i] = __bfloat162float(xr[lane + 32 * i]);
-          s += v[i];
-        }
+#pragma unroll 4
+      for (int jc = 0; jc < C / 8; ++jc) {
+        const float2 v =
+            unpack_bf16(*reinterpret_cast<const uint32_t*>(xr + 8 * jc + 2 * L.t));
+        s += v.x + v.y;
       }
-      const float mu = warp_sum(s) / C;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const float d = v[i] - mu;
-          q += d * d;
-        }
+      mu[half] = quad_sum(s) / C;
+      float sq = 0.f;
+#pragma unroll 4
+      for (int jc = 0; jc < C / 8; ++jc) {
+        const float2 v =
+            unpack_bf16(*reinterpret_cast<const uint32_t*>(xr + 8 * jc + 2 * L.t));
+        sq += (v.x - mu[half]) * (v.x - mu[half]) + (v.y - mu[half]) * (v.y - mu[half]);
       }
-      const float inv = rsqrtf(warp_sum(q) / C + p.eps);
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const float xhat = (v[i] - mu) * inv;
-          const float dh1 = acc[t * L.lda + c];
-          const float dhat = dh1 * p.ln1s[c];
-          s_scale[i] += dh1 * xhat;
-          s_bias[i] += dh1;
-          s1 += dhat;
-          s2 += dhat * xhat;
-          v[i] = xhat;
-        }
-      }
-      const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-#pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) {
-        if (i < per_lane) {
-          const int c = lane + 32 * i;
-          const float dhat = acc[t * L.lda + c] * p.ln1s[c];
-          dxr[c] = __float2bfloat16(dr1r[c] + inv * (dhat - m1 - v[i] * m2));
-        }
-      }
+      inv[half] = rsqrtf(quad_sum(sq) / C + p.eps);
     }
-    flush_colsums(stg, s_scale, p.dln1s, C);
-    flush_colsums(stg, s_bias, p.dln1b, C);
+    layernorm_backward<C>(
+        dh1_park, p.ln1s, mu, inv, cs + B::kDln1s, cs + B::kDln1b, nullptr,
+        [&](int half, int col) {
+          return unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              p.x + win.ofs<C>(L.row0 + 8 * half) + col));
+        },
+        [&](int half, int col) {
+          return dr1_park[park_idx((col >> 3) * 2 + half, L)];
+        },
+        [&](int half, int col, float2 dxv) {
+          *reinterpret_cast<uint32_t*>(q.dx + win.ofs<C>(L.row0 + 8 * half) + col) =
+              pack_bf16(dxv.x, dxv.y);
+          return make_float2(0.f, 0.f);
+        },
+        L);
+    if (!B::kPersist) {
+      named_bar_sync(bar_id, 128);
+      colsum_flush(cs + B::kDln1s, C, q.dln1s, L);
+      colsum_flush(cs + B::kDln1b, C, q.dln1b, L);
+      named_bar_sync(bar_id, 128);
+    }
   }
+  PHASE(7)
+}
+
+// ---- ring tiles of the backward, in the order of use ----
+//  1. the forward's attention tiles (wqkv by head, wproj by column chunk);
+//  2. per 64 hidden columns: kNks tiles of w1[:, chunk], kNks tiles
+//     [kKs, 64] of w2[chunk, :]^T;
+//  3. per pass, hidden chunk and 96 output columns: [64, 96] of w1^T;
+//  4. per 96 columns of d(merged): kNks tiles [kKs, 96] of wproj^T;
+//  5. per pass, head, 96 output columns and half: [48, 96] of wqkv^T rows
+//     q|k|v of the head.
+template <int C>
+struct BwdTiles {
+  using K = Cfg<C>;
+  int t1, t2, t3, t4, t5;
+  __host__ __device__ explicit BwdTiles(int hidden) {
+    const int chunks = hidden / 64;
+    t1 = (K::kHeads + K::kNc) * K::kNks;
+    t2 = t1 + chunks * 2 * K::kNks;
+    t3 = t2 + K::kPasses * chunks * K::kNb;
+    t4 = t3 + K::kNc * K::kNks;
+    t5 = t4 + K::kPasses * K::kHeads * K::kNb * 2;
+  }
+  __host__ __device__ uint32_t bytes(int i) const {
+    if (i < t1) return K::kKs * 96 * 2;
+    if (i < t2) return K::kKs * 64 * 2;
+    if (i < t3) return 64 * 96 * 2;
+    if (i < t4) return K::kKs * 96 * 2;
+    return 48 * 96 * 2;
+  }
+  __host__ __device__ long long total_bytes() const {
+    return (long long)t1 * K::kKs * 192 + (long long)(t2 - t1) * K::kKs * 128 +
+           (long long)(t3 - t2) * 12288 + (long long)(t4 - t3) * K::kKs * 192 +
+           (long long)(t5 - t4) * 9216;
+  }
+};
+
+template <int C>
+__global__ void pack_bwd_kernel(uint8_t* dst, const bf16* wqkv, const bf16* wproj,
+                                const bf16* w1, const bf16* w2, int hidden) {
+  using K = Cfg<C>;
+  const BwdTiles<C> T(hidden);
+  const int chunks = hidden / 64;
+  const long long n1 = (long long)T.t1 * (K::kKs * 12);
+  const long long n2 = n1 + (long long)(T.t2 - T.t1) * (K::kKs * 8);
+  const long long n3 = n2 + (long long)(T.t3 - T.t2) * 768;
+  const long long n4 = n3 + (long long)(T.t4 - T.t3) * (K::kKs * 12);
+  const long long n5 = n4 + (long long)(T.t5 - T.t4) * 576;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n5;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint8_t* o = dst + i * 16;
+    if (i < n1) {
+      pack_attention_tiles<C>(dst, wqkv, wproj, i);
+    } else if (i < n2) {
+      constexpr int kPerTile = K::kKs * 8;   // [kKs, 64]
+      const long long m = i - n1;
+      const int tile = (int)(m / kPerTile), r = (int)(m % kPerTile);
+      const int k8 = r / 64, n = r % 64;
+      const int j0 = (tile / (2 * K::kNks)) * 64, which = tile % (2 * K::kNks);
+      const int ks = which % K::kNks;
+      if (which < K::kNks)
+        pack_block(o, [&](int k, int) {
+          return w1[(size_t)(ks * K::kKs + k) * hidden + j0 + n]; }, k8, n);
+      else
+        pack_block(o, [&](int k, int) {
+          return w2[(size_t)(j0 + n) * C + ks * K::kKs + k]; }, k8, n);
+    } else if (i < n3) {
+      const long long m = i - n2;
+      const int tile = (int)(m / 768), r = (int)(m % 768);
+      const int k8 = r / 96, n = r % 96;
+      const int nb = tile % K::kNb, j0 = (tile / K::kNb % chunks) * 64;
+      const int pass = tile / (K::kNb * chunks);
+      pack_block(o, [&](int k, int) {
+        return w1[(size_t)(pass * K::kCw + nb * 96 + n) * hidden + j0 + k]; }, k8, n);
+    } else if (i < n4) {
+      constexpr int kPerTile = K::kKs * 12;   // [kKs, 96]
+      const long long m = i - n3;
+      const int tile = (int)(m / kPerTile), r = (int)(m % kPerTile);
+      const int k8 = r / 96, n = r % 96;
+      const int nc = tile / K::kNks, ks = tile % K::kNks;
+      pack_block(o, [&](int k, int) {
+        return wproj[(size_t)(nc * 96 + n) * C + ks * K::kKs + k]; }, k8, n);
+    } else {
+      const long long m = i - n4;
+      const int tile = (int)(m / 576), r = (int)(m % 576);
+      const int k8 = r / 96, n = r % 96;
+      const int half = tile % 2, nb = tile / 2 % K::kNb;
+      const int h = tile / (2 * K::kNb) % K::kHeads;
+      const int pass = tile / (2 * K::kNb * K::kHeads);
+      pack_block(o, [&](int k, int) {
+        const int kq = 48 * half + k;
+        return wqkv[(size_t)(pass * K::kCw + nb * 96 + n) * 3 * C + (kq / kHd) * C +
+                    h * kHd + kq % kHd]; }, k8, n);
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+swin_block_bwd_window_kernel(const BlockArgs p, const BwdArgs q,
+                             const uint8_t* packed, long long nwin) {
+  using K = Cfg<C>;
+  using B = BwdCfg<C>;
+  extern __shared__ uint8_t bwd_smem_raw[];
+  uint8_t* smem = bwd_smem_raw + ((128u - (smem_u32(bwd_smem_raw) & 127u)) & 127u);
+  const int per_wg = B::per_wg(p.hidden);
+  const uint32_t ring_data = smem_u32(smem) + kConsumers * per_wg;
+  const uint32_t full = ring_data + B::kStages * K::kStageBytes;
+  const uint32_t empty = full + 8 * B::kStages;
+  const BwdTiles<C> T(p.hidden);
+  const long long steps = (nwin + kConsumers - 1) / kConsumers;
+
+  if (threadIdx.x == 0) ring_init(full, empty, B::kStages);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      const int mine =
+          blockIdx.x < steps ? (int)((steps - blockIdx.x + gridDim.x - 1) / gridDim.x) : 0;
+      ring_produce(ring_data, full, empty, B::kStages, K::kStageBytes, packed, mine,
+                   T.t5, [&](int i) -> uint32_t { return T.bytes(i); });
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    Ring ring = {ring_data, full, empty, B::kStages, K::kStageBytes, 0, 0u};
+    const Lane L = make_lane();
+    uint8_t* buf_a = smem + wg * per_wg;
+    uint8_t* buf_b = buf_a + K::kBufBytes;
+    uint8_t* heads = buf_b + K::kBufBytes;   // only without overlay
+    float* cs =
+        reinterpret_cast<float*>(heads + (B::kOverlay ? 0 : kHeadBufBytes));
+    const int sums = B::sums(p.hidden);
+    for (int c = L.tid; c < sums; c += 128) cs[c] = 0.f;
+    named_bar_sync(1 + wg, 128);
+    for (long long s = blockIdx.x; s < steps; s += gridDim.x) {
+      const long long index = s * kConsumers + wg;
+      if (index >= nwin) {
+        ring_drain(ring, T.t5);
+        continue;
+      }
+      const Window win = make_window(p, index);
+      // with overlay: forward k|v^T tiles over buf_b (dz2 comes later), the
+      // backward's per-head tiles over buf_a (LN2's output is dead by then)
+      window_backward<C>(p, q, win, index, buf_a, buf_b, B::kOverlay ? buf_b : heads,
+                         B::kOverlay ? buf_a : heads, cs, ring, 1 + wg, L);
+    }
+    if (B::kPersist) {
+      named_bar_sync(1 + wg, 128);
+      colsum_flush(cs + B::kDb2, C, q.db2, L);
+      colsum_flush(cs + B::kDln2s, C, q.dln2s, L);
+      colsum_flush(cs + B::kDln2b, C, q.dln2b, L);
+      colsum_flush(cs + B::kDbproj, C, q.dbproj, L);
+      colsum_flush(cs + B::kDbqkv, 3 * C, q.dbqkv, L);
+      colsum_flush(cs + B::kDln1s, C, q.dln1s, L);
+      colsum_flush(cs + B::kDln1b, C, q.dln1b, L);
+      colsum_flush(cs + B::kDb1, p.hidden, q.db1, L);
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch_bwd(const BlockArgs& p, BwdArgs q, const bf16* wqkv,
+                       const bf16* wproj, const bf16* w1, const bf16* w2,
+                       bf16* scratch, float* scratch32, float* dwqkv, float* dwproj,
+                       float* dw1, float* dw2, cudaStream_t st) {
+  const long long n = (long long)p.B * p.H * p.W;
+  const int hidden = p.hidden;
+  bf16* s = scratch;
+  q.h1 = s;
+  s += n * C;
+  q.qkv = s;
+  s += n * 3 * C;
+  q.merged = s;
+  s += n * C;
+  q.datt = s;
+  s += n * C;
+  q.h2 = s;
+  s += n * C;
+  q.dz2 = s;
+  s += n * C;
+  q.g1 = s;
+  s += n * hidden;
+  q.dz1 = s;
+  s += n * hidden;
+  q.r1 = reinterpret_cast<uint32_t*>(s);
+  s += n * C;
+  uint8_t* packed = reinterpret_cast<uint8_t*>(s);
+  q.dr1 = reinterpret_cast<float2*>(scratch32);
+  q.dh1 = reinterpret_cast<float2*>(scratch32 + n * C);
+
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const BwdTiles<C> T(hidden);
+  const long long blocks16 = T.total_bytes() / 16;
+  pack_bwd_kernel<C><<<(unsigned)((blocks16 + 255) / 256), 256, 0, st>>>(
+      packed, wqkv, wproj, w1, w2, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = BwdCfg<C>::smem(hidden);
+  err = cudaFuncSetAttribute(swin_block_bwd_window_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long nwin = n / kTok;
+  const long long steps = (nwin + kConsumers - 1) / kConsumers;
+  const unsigned grid = (unsigned)(steps < sms ? steps : sms);
+  swin_block_bwd_window_kernel<C><<<grid, kBlockThreads, smem, st>>>(p, q, packed, nwin);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = launch_atb<true>(q.h1, q.qkv, dwqkv, C, 3 * C, n, sms, st);
+  if (err != cudaSuccess) return err;
+  err = launch_atb<true>(q.merged, q.datt, dwproj, C, C, n, sms, st);
+  if (err != cudaSuccess) return err;
+  err = launch_atb<true>(q.h2, q.dz1, dw1, C, hidden, n, sms, st);
+  if (err != cudaSuccess) return err;
+  return launch_atb<true>(q.g1, q.dz2, dw2, hidden, C, n, sms, st);
+}
+
+template <int C>
+long long bwd_packed_bytes(int hidden) {
+  return BwdTiles<C>(hidden).total_bytes();
+}
+
+long long packed_bytes(int C, int hidden) {
+  switch (C) {
+    case 96: return bwd_packed_bytes<96>(hidden);
+    case 192: return bwd_packed_bytes<192>(hidden);
+    case 384: return bwd_packed_bytes<384>(hidden);
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one window block needs at channel width C, head dim hd.
-size_t swin_block_bwd_smem_bytes(int C, int hd) {
-  return make_bwd_layout(C, hd).total;
+#ifdef SWIN_PHASE_CLOCKS
+// Copies the kPhases clock sums to `out` and zeroes them.
+int swin_block_bwd_phase_clocks(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+  if (err != cudaSuccess) return (int)err;
+  const long long zero[kPhases] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+}
+#endif
+
+// Dynamic shared memory one window block takes at channel width C (0: not
+// covered) with an MLP of `hidden` columns.
+size_t swin_block_bwd_smem_bytes(int C, int hidden) {
+  switch (C) {
+    case 96: return BwdCfg<96>::smem(hidden);
+    case 192: return BwdCfg<192>::smem(hidden);
+    case 384: return BwdCfg<384>::smem(hidden);
+  }
+  return 0;
 }
 
-// Elements of bf16 scratch and of f32 scratch a launch needs.
+// Elements of bf16 scratch (the operands of the weight gradients, r1, then
+// the packed weights) and of f32 scratch a launch needs.
 long long swin_block_bwd_scratch_bf16(int B, int H, int W, int C, int hidden) {
-  return (long long)B * H * W * (8LL * C + 2LL * hidden);
+  return (long long)B * H * W * (9LL * C + 2LL * hidden) + packed_bytes(C, hidden) / 2;
 }
 long long swin_block_bwd_scratch_f32(int B, int H, int W, int C) {
-  return (long long)B * H * W * C;
+  return 2LL * B * H * W * C;
+}
+
+// The split-K pass alone: out[M, N] (f32) += a^T @ b over ntok tokens in
+// bf16; M, N multiples of 8, ntok of 64. With blocked == 0, a and b are
+// row-major [ntok, M] and [ntok, N] (TMA); otherwise token-blocked,
+// [ntok / 64][M / 8][64][8] and likewise b, as the window kernel writes them.
+int swin_block_atb_accum(const void* a, const void* b, void* out, int M, int N,
+                         long long ntok, int blocked, void* stream) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* ap = static_cast<const bf16*>(a);
+  const bf16* bp = static_cast<const bf16*>(b);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(blocked ? launch_atb<true>(ap, bp, o, M, N, ntok, sms, st)
+                       : launch_atb<false>(ap, bp, o, M, N, ntok, sms, st));
 }
 
 // Backward of the block on `stream`; returns the CUDA error code of the
@@ -521,12 +1012,11 @@ int swin_block_bwd(const void* x, const void* dy, const void* wqkv,
                    void* dw1, void* db1, void* dw2, void* db2,
                    void* scratch_bf16, void* scratch_f32, int B, int H, int W,
                    int C, int heads, int hidden, float eps, void* stream) {
-  BwdParams p;
+  if (heads * kHd != C || hidden % 64 || H % kWs || W % kWs)
+    return (int)cudaErrorInvalidValue;
+  BlockArgs p;
   p.x = static_cast<const bf16*>(x);
-  p.dy = static_cast<const bf16*>(dy);
-  p.wqkv = static_cast<const bf16*>(wqkv);
   p.bqkv = static_cast<const bf16*>(bqkv);
-  p.wproj = static_cast<const bf16*>(wproj);
   p.bproj = static_cast<const bf16*>(bproj);
   p.rel_bias = static_cast<const float*>(rel_bias);
   p.mask = static_cast<const float*>(mask);
@@ -534,76 +1024,47 @@ int swin_block_bwd(const void* x, const void* dy, const void* wqkv,
   p.ln1b = static_cast<const float*>(ln1b);
   p.ln2s = static_cast<const float*>(ln2s);
   p.ln2b = static_cast<const float*>(ln2b);
-  p.w1 = static_cast<const bf16*>(w1);
   p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const bf16*>(w2);
   p.b2 = static_cast<const float*>(b2);
   p.dp = static_cast<const float*>(dp);
-  p.dx = static_cast<bf16*>(dx);
-  p.dbqkv = static_cast<float*>(dbqkv);
-  p.dbproj = static_cast<float*>(dbproj);
-  p.drel = static_cast<float*>(drel);
-  p.dln1s = static_cast<float*>(dln1s);
-  p.dln1b = static_cast<float*>(dln1b);
-  p.dln2s = static_cast<float*>(dln2s);
-  p.dln2b = static_cast<float*>(dln2b);
-  p.db1 = static_cast<float*>(db1);
-  p.db2 = static_cast<float*>(db2);
-  const long long n = (long long)B * H * W;
-  bf16* s = static_cast<bf16*>(scratch_bf16);
-  p.h1 = s;
-  s += n * C;
-  p.qkv = s;
-  s += n * 3 * C;
-  p.merged = s;
-  s += n * C;
-  p.datt = s;
-  s += n * C;
-  p.h2 = s;
-  s += n * C;
-  p.dz2 = s;
-  s += n * C;
-  p.g1 = s;
-  s += n * hidden;
-  p.dz1 = s;
-  p.dr1 = static_cast<float*>(scratch_f32);
   p.B = B;
   p.H = H;
   p.W = W;
-  p.C = C;
-  p.heads = heads;
-  p.hd = C / heads;
   p.hidden = hidden;
   p.eps = eps;
-  p.scale = 1.0f / sqrtf((float)p.hd);
-
+  p.scale = 1.0f / sqrtf((float)kHd);
+  BwdArgs q = {};
+  q.dy = static_cast<const bf16*>(dy);
+  q.dx = static_cast<bf16*>(dx);
+  q.dbqkv = static_cast<float*>(dbqkv);
+  q.dbproj = static_cast<float*>(dbproj);
+  q.drel = static_cast<float*>(drel);
+  q.dln1s = static_cast<float*>(dln1s);
+  q.dln1b = static_cast<float*>(dln1b);
+  q.dln2s = static_cast<float*>(dln2s);
+  q.dln2b = static_cast<float*>(dln2b);
+  q.db1 = static_cast<float*>(db1);
+  q.db2 = static_cast<float*>(db2);
+  const bf16* wq = static_cast<const bf16*>(wqkv);
+  const bf16* wp = static_cast<const bf16*>(wproj);
+  const bf16* w1p = static_cast<const bf16*>(w1);
+  const bf16* w2p = static_cast<const bf16*>(w2);
+  bf16* s16 = static_cast<bf16*>(scratch_bf16);
+  float* s32 = static_cast<float*>(scratch_f32);
+  float* g0 = static_cast<float*>(dwqkv);
+  float* g1 = static_cast<float*>(dwproj);
+  float* g2 = static_cast<float*>(dw1);
+  float* g3 = static_cast<float*>(dw2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = make_bwd_layout(C, p.hd).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_block_bwd_window_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid((unsigned)(B * (H / kWs) * (W / kWs)));
-  swin_block_bwd_window_kernel<<<grid, kThreads, smem, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = launch_atb(p.h1, p.qkv, static_cast<float*>(dwqkv), C, 3 * C, n,
-                   sms, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_atb(p.merged, p.datt, static_cast<float*>(dwproj), C, C, n,
-                   sms, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_atb(p.h2, p.dz1, static_cast<float*>(dw1), C, hidden, n,
-                   sms, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_atb(p.g1, p.dz2, static_cast<float*>(dw2), hidden, C, n,
-                   sms, st);
-  return (int)err;
+  switch (C) {
+    case 96:
+      return (int)launch_bwd<96>(p, q, wq, wp, w1p, w2p, s16, s32, g0, g1, g2, g3, st);
+    case 192:
+      return (int)launch_bwd<192>(p, q, wq, wp, w1p, w2p, s16, s32, g0, g1, g2, g3, st);
+    case 384:
+      return (int)launch_bwd<384>(p, q, wq, wp, w1p, w2p, s16, s32, g0, g1, g2, g3, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

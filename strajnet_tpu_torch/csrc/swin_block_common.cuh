@@ -1,9 +1,10 @@
-// Device code shared by the fused Swin-block kernels (swin_block.cu,
-// swin_block_bwd.cu) and the window-attention kernels (window_attention.cu):
-// window geometry, warp reductions, the tanh GELU and its derivative, WMMA
-// strip products (bf16 x bf16 -> f32, 16x16x16 tiles), the per-head windowed
-// attention forward and backward on one 64-token window held in shared
-// memory, and the split-K pass that sums a weight gradient over all tokens.
+// WMMA device code of the window-attention kernels (window_attention.cu):
+// window geometry, warp reductions, strip products (bf16 x bf16 -> f32,
+// 16x16x16 tiles) and the per-head windowed attention forward and backward on
+// one 64-token window held in shared memory. The fused Swin-block kernels
+// (swin_block.cu, swin_block_bwd.cu) ran on these too until they moved to
+// wgmma (swin_block_sm90.cuh), which also holds the split-K pass that sums a
+// weight gradient over all tokens.
 
 #pragma once
 
@@ -39,17 +40,6 @@ __device__ inline float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ inline float gelu_tanh(float z) {
-  const float t = tanhf(0.7978845608028654f * (z + 0.044715f * z * z * z));
-  return 0.5f * z * (1.0f + t);
-}
-
-__device__ inline float gelu_tanh_grad(float z) {
-  const float t = tanhf(0.7978845608028654f * (z + 0.044715f * z * z * z));
-  const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * z * z);
-  return 0.5f * (1.0f + t) + 0.5f * z * (1.0f - t * t) * du;
 }
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -401,101 +391,6 @@ __device__ inline void flush_colsums(float* red, const float (&part)[kMaxPerLane
     atomicAdd(dst + c, s);
   }
   __syncthreads();
-}
-
-// ---- dW[M, N] += A[tokens, M]^T @ B[tokens, N] over a slice of the tokens ----
-// A TPU grid is sequential and sums a weight gradient in scratch that persists
-// from one grid step to the next; here blocks run in no order, so the window
-// kernels write the two bf16 operands token by token and this split-K pass
-// sums them: each block stages 32-token slabs of A and B in shared memory,
-// accumulates a 64x128 tile in WMMA fragments and adds it into the zeroed f32
-// output with atomicAdd.
-constexpr int kSlab = 32;    // tokens staged per step
-constexpr int kTileM = 64;
-constexpr int kTileN = 128;  // 8 column tiles: one per warp
-
-__global__ void __launch_bounds__(kThreads)
-atb_accum_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-                 float* __restrict__ out, int M, int N, long long ntok,
-                 long long slice) {
-  __shared__ __align__(32) bf16 As[kSlab][kTileM + kPad16];
-  __shared__ __align__(32) bf16 Bs[kSlab][kTileN + kPad16];
-  __shared__ __align__(32) float Cs[kTileM][kTileN + kPad32];
-
-  const int warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * kTileN, m0 = blockIdx.y * kTileM;
-  const long long tok_begin = (long long)blockIdx.z * slice;
-  long long tok_end = tok_begin + slice;
-  if (tok_end > ntok) tok_end = ntok;
-  if (tok_begin >= tok_end) return;
-
-  FragC c[4];
-  zero_strip(c);
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-  for (long long k0 = tok_begin; k0 < tok_end; k0 += kSlab) {
-    {
-      const int r = threadIdx.x / 8, c8 = (threadIdx.x % 8) * 8;
-      const long long tok = k0 + r;
-      uint4 v = zero4;
-      if (tok < tok_end && m0 + c8 < M)
-        v = *reinterpret_cast<const uint4*>(A + tok * M + m0 + c8);
-      *reinterpret_cast<uint4*>(&As[r][c8]) = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / 16, c8 = (idx % 16) * 8;
-      const long long tok = k0 + r;
-      uint4 v = zero4;
-      if (tok < tok_end && n0 + c8 < N)
-        v = *reinterpret_cast<const uint4*>(Bm + tok * N + n0 + c8);
-      *reinterpret_cast<uint4*>(&Bs[r][c8]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSlab; kk += 16) {
-      FragB bm;
-      wmma::load_matrix_sync(bm, &Bs[kk][warp * 16], kTileN + kPad16);
-#pragma unroll
-      for (int tm = 0; tm < 4; ++tm) {
-        FragAt a;  // A^T: element (m, k) at As[k][m]
-        wmma::load_matrix_sync(a, &As[kk][tm * 16], kTileM + kPad16);
-        wmma::mma_sync(c[tm], a, bm, c[tm]);
-      }
-    }
-    __syncthreads();
-  }
-  store_strip(&Cs[0][warp * 16], c, kTileN + kPad32);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kTileM * kTileN; idx += kThreads) {
-    const int r = idx / kTileN, cc = idx % kTileN;
-    if (m0 + r < M && n0 + cc < N)
-      atomicAdd(out + (size_t)(m0 + r) * N + n0 + cc, Cs[r][cc]);
-  }
-}
-
-inline cudaError_t launch_atb(const bf16* A, const bf16* Bm, float* out, int M,
-                              int N, long long ntok, int sms,
-                              cudaStream_t stream) {
-  const int tiles = ((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
-  // about four blocks per SM over all tiles
-  const long long want = (4LL * sms + tiles - 1) / tiles;
-  long long slice = (ntok + want - 1) / want;
-  slice = (slice + kSlab - 1) / kSlab * kSlab;
-  const long long nsplit = (ntok + slice - 1) / slice;
-  if (nsplit > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((N + kTileN - 1) / kTileN),
-                  (unsigned)((M + kTileM - 1) / kTileM), (unsigned)nsplit);
-  atb_accum_kernel<<<grid, kThreads, 0, stream>>>(A, Bm, out, M, N, ntok, slice);
-  return cudaGetLastError();
-}
-
-// The card's number of SMs, for launch_atb.
-inline cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace

@@ -36,12 +36,13 @@
 // into their zeroed f32 outputs with atomicAdd (one add per column, or per
 // bias entry, per window). For the two weight gradients, dwqkv = x^T dqkv and
 // dwproj = merged^T dy summed over every token, it writes the bf16 operands
-// token by token in window order into scratch, and atb_accum_kernel
-// (swin_block_common.cuh) sums A^T B over slices of the token axis. q|k|v of
+// token by token in window order into scratch, and atb_accum_sm90_kernel
+// (swin_block_sm90.cuh; TMA and wgmma) sums A^T B over slices of the token axis. q|k|v of
 // all heads are parked in the dqkv scratch until each head overwrites its
 // columns with dq|dk|dv.
 
 #include "swin_block_common.cuh"
+#include "swin_block_sm90.cuh"
 
 namespace {
 
@@ -364,17 +365,17 @@ int window_attention_bwd(const void* x, const void* dy, const void* wqkv,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   int sms = 0;
-  err = sm_count(&sms);
+  err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid((unsigned)(B * (H / kWs) * (W / kWs)));
   window_attention_bwd_kernel<<<grid, kThreads, smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = launch_atb(p.xw, p.qkv, static_cast<float*>(dwqkv), C, 3 * C, n, sms,
+  err = sm90::launch_atb<false>(p.xw, p.qkv, static_cast<float*>(dwqkv), C, 3 * C, n, sms,
                    st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_atb(p.merged, p.dyw, static_cast<float*>(dwproj), C, C, n, sms,
+  err = sm90::launch_atb<false>(p.merged, p.dyw, static_cast<float*>(dwproj), C, C, n, sms,
                    st);
   return (int)err;
 }

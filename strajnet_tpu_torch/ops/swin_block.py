@@ -13,25 +13,33 @@ version with the semantics of ``_xla_block_reference``, under autograd. A CUDA
 tensor goes through a ``torch.autograd.Function``: the forward launches
 ``csrc/swin_block.cu`` and saves only its inputs; the backward launches
 ``csrc/swin_block_bwd.cu`` (:func:`swin_block_bwd`), which recomputes the
-forward and returns dx and the 13 parameter gradients. With
-``backward="plain"`` the backward is autograd of the plain version instead
-(the ``"block_fwd"`` mode of the model). A failed build or launch raises;
-there is no fallback. :func:`swin_block_backward_reference` is the backward
-written out step by step with the kernel's rounding points; CPU tensors and
-the checks on the card use it. ``swin_block.launches`` and
+forward and returns dx and the 13 parameter gradients. Both are ``wgmma``
+kernels built for the model's widths (C of 96, 192 or 384, head_dim 32); the
+wrappers hand them their scratch (the weights packed into tiles, parking
+space, the operands of the weight gradients). With ``backward="plain"`` the
+backward is autograd of the plain version instead (the ``"block_fwd"`` mode
+of the model). A failed build or launch, or a shape the kernels do not
+cover, raises; there is no fallback.
+:func:`swin_block_backward_reference` is the backward written out step by
+step with the kernel's rounding points; CPU tensors and the checks on the
+card use it. :func:`atb_accum` is the backward's split-K pass
+``dW += A^T B`` alone. ``swin_block.launches`` and
 ``swin_block_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-_KERNEL_WINDOW = 8   # ws * ws == 64 tokens per thread block
-_MAX_CHANNELS = 384   # shared memory: 214 KB of the 227 KB at C=384
+_KERNEL_WINDOW = 8   # ws * ws == 64 tokens: one wgmma M tile per window
+_MAX_CHANNELS = 384   # the window-attention kernels' shared memory at C=384
+_BLOCK_CHANNELS = (96, 192, 384)   # widths the Swin-block kernels are built for
+_HEAD_DIM = 32
 
 
 def _ln_f32(x, scale, bias, eps):
@@ -275,19 +283,24 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
 def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                       ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
                       window_size: int, num_heads: int) -> None:
-    """Raises ValueError unless the CUDA kernel takes these arguments.
+    """Raises ValueError unless the CUDA kernels take these arguments.
 
     What :func:`check_attention_args` asks, and f32 LayerNorm params, ``b1``,
-    ``b2`` and drop-path multipliers; bf16 ``w1`` and ``w2``; MLP hidden
-    width a multiple of 128.
+    ``b2`` and drop-path multipliers; bf16 ``w1`` and ``w2``; a channel width
+    the kernels are built for (96, 192, 384) with head_dim 32; MLP hidden
+    width a multiple of 64.
     """
     check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                          window_size=window_size, num_heads=num_heads)
     b, c = x.shape[0], x.shape[-1]
+    if c not in _BLOCK_CHANNELS or c // num_heads != _HEAD_DIM:
+        raise ValueError(f"the Swin-block kernels are built for C in "
+                         f"{_BLOCK_CHANNELS} with head_dim {_HEAD_DIM}, got "
+                         f"C={c}, heads={num_heads}")
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
-    if hidden <= 0 or hidden % 128:
+    if hidden <= 0 or hidden % 64:
         raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
-                         f"128")
+                         f"64")
     f32 = torch.float32
     expect = {
         "ln1s": (ln1s, f32, (c,)), "ln1b": (ln1b, f32, (c,)),
@@ -311,9 +324,13 @@ def _lib(name: str):
     if not getattr(lib, "_bound", False):
         if name == "swin_block":
             lib.swin_block_fwd.argtypes = (
-                [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
             lib.swin_block_fwd.restype = ctypes.c_int
+            lib.swin_block_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
+            lib.swin_block_fwd_scratch_bytes.restype = ctypes.c_longlong
+            lib.swin_block_smem_bytes.argtypes = [ctypes.c_int]
+            lib.swin_block_smem_bytes.restype = ctypes.c_size_t
         else:
             lib.swin_block_bwd.argtypes = (
                 [ctypes.c_void_p] * 33 + [ctypes.c_int] * 6
@@ -323,6 +340,12 @@ def _lib(name: str):
             lib.swin_block_bwd_scratch_bf16.restype = ctypes.c_longlong
             lib.swin_block_bwd_scratch_f32.argtypes = [ctypes.c_int] * 4
             lib.swin_block_bwd_scratch_f32.restype = ctypes.c_longlong
+            lib.swin_block_atb_accum.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+            lib.swin_block_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+            lib.swin_block_bwd_smem_bytes.restype = ctypes.c_size_t
+            lib.swin_block_atb_accum.restype = ctypes.c_int
         lib._bound = True
     return lib
 
@@ -333,10 +356,17 @@ def _launch_fwd(args, mask, drop_path, window_size, num_heads, eps):
                       num_heads=num_heads)
     b, h, w, c = x.shape
     out = torch.empty_like(x)
+    lib = _lib("swin_block")
+    # the kernel's copy of the four weights, packed into its tiles, and its
+    # parking space for r1
+    scratch = torch.empty(
+        lib.swin_block_fwd_scratch_bytes(b, h, w, c, w1.shape[1]),
+        dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib("swin_block").swin_block_fwd(
+    err = lib.swin_block_fwd(
         *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
-        b, h, w, c, num_heads, w1.shape[1], eps, ctypes.c_void_p(stream))
+        ptr(scratch), b, h, w, c, num_heads, w1.shape[1], eps,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"swin_block kernel launch failed with CUDA error "
                            f"{err}")
@@ -375,8 +405,10 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
     shapes = ((c, 3 * c), (3 * c,), (c, c), (c,), tuple(rel_bias.shape),
               (c,), (c,), (c,), (c,), (c, hidden), (hidden,), (hidden, c),
               (c,))
-    grads = tuple(torch.zeros(sh, dtype=torch.float32, device=dev)
-                  for sh in shapes)
+    # one zeroed buffer (one fill kernel), cut into the 13 gradients
+    sizes = [math.prod(sh) for sh in shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    grads = tuple(v.view(sh) for v, sh in zip(flat.split(sizes), shapes))
     scratch16 = torch.empty(lib.swin_block_bwd_scratch_bf16(b, h, w, c, hidden),
                             dtype=torch.bfloat16, device=dev)
     scratch32 = torch.empty(lib.swin_block_bwd_scratch_f32(b, h, w, c),
@@ -392,6 +424,65 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
                            f"error {err}")
     swin_block_bwd.launches += 1
     return dx, grads
+
+
+def token_blocked(t: torch.Tensor) -> torch.Tensor:
+    """``[tokens, M]`` as K2's window kernel lays it out in scratch:
+    ``[tokens / 64, M / 8, 64, 8]``, per window the 8-column blocks one
+    after the other, each with its 64 tokens' eight values in a row."""
+    tokens, m = t.shape
+    return (t.reshape(tokens // 64, 64, m // 8, 8).permute(0, 2, 1, 3)
+            .contiguous())
+
+
+def atb_accum(a: torch.Tensor, b: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out += a^T @ b`` in f32 for bf16 ``a [tokens, M]``, ``b [tokens, N]``:
+    the split-K pass that sums K2's and K4's weight gradients over all
+    tokens, alone. Both operands row-major as K4 writes them (the kernel
+    reads them through TMA) or both as :func:`token_blocked` makes them, the
+    layout K2 writes (4-D; bulk copies). The kernel on CUDA tensors (tokens
+    a multiple of 64, M and N of 8), a plain product on CPU tensors."""
+    blocked = a.dim() == 4
+    if blocked != (b.dim() == 4):
+        raise ValueError("atb_accum takes both operands row-major or both "
+                         "token-blocked")
+    if blocked:
+        ntok, m, n = 64 * a.shape[0], 8 * a.shape[1], 8 * b.shape[1]
+        shape_a, shape_b = (ntok // 64, m // 8, 64, 8), (ntok // 64, n // 8, 64, 8)
+    else:
+        (ntok, m), n = a.shape, b.shape[1]
+        shape_a, shape_b = (ntok, m), (ntok, n)
+    if out is None:
+        out = torch.zeros(m, n, dtype=torch.float32, device=a.device)
+    if a.device.type == "cpu":
+        if blocked:
+            a, b = (t.permute(0, 2, 1, 3).reshape(ntok, -1) for t in (a, b))
+        return out.add_(a.float().t() @ b.float())
+    if a.device.type != "cuda":
+        raise ValueError(f"atb_accum runs on CPU or CUDA tensors, got "
+                         f"{a.device}")
+    if ntok % 64 or m % 8 or n % 8:
+        raise ValueError(f"atb_accum takes tokens % 64 == 0 and M, N % 8 == 0,"
+                         f" got {ntok}, {m}, {n}")
+    check_tensors({"a": (a, torch.bfloat16, shape_a),
+                   "b": (b, torch.bfloat16, shape_b),
+                   "out": (out, torch.float32, (m, n))}, a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _lib("swin_block_bwd").swin_block_atb_accum(
+        ptr(a), ptr(b), ptr(out), m, n, ntok, int(blocked),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"atb_accum kernel launch failed with CUDA error "
+                           f"{err}")
+    return out
+
+
+def kernel_smem_bytes(c: int, hidden: int) -> Tuple[int, int]:
+    """Dynamic shared memory of one block of the forward and of the backward
+    window kernel at channel width ``c`` (builds the kernels; needs nvcc)."""
+    return (int(_lib("swin_block").swin_block_smem_bytes(c)),
+            int(_lib("swin_block_bwd").swin_block_bwd_smem_bytes(c, hidden)))
 
 
 class _SwinBlockFn(torch.autograd.Function):

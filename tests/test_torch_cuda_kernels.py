@@ -7,6 +7,8 @@ card from the JAX tests unless the variable is set).
 ``chip_smoke.py`` makes the same comparisons at the flagship shapes.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -76,6 +78,105 @@ def test_swin_block_kernels_match_plain(card, shift):
         scale = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= \
             2.0 ** -6 * scale
+
+
+def _block_case(card, b, h, c, heads, shift, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g) * k  # noqa: E731
+    bf = torch.bfloat16
+    args = [r(b, h, h, c).to(bf), r(c, 3 * c, k=c ** -0.5).to(bf),
+            r(3 * c, k=0.1).to(bf), r(c, c, k=c ** -0.5).to(bf),
+            r(c, k=0.1).to(bf), r(heads, 64, 64, k=0.3), 1 + r(c, k=0.1),
+            r(c, k=0.1), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(c, 4 * c, k=c ** -0.5).to(bf), r(4 * c, k=0.1),
+            r(4 * c, c, k=(4 * c) ** -0.5).to(bf), r(c, k=0.1)]
+    args = [a.to(card) for a in args]
+    mask = (torch.from_numpy(shifted_window_mask(h, h, 8, shift)).to(card)
+            if shift else None)
+    dp = (torch.rand(b, 2, generator=g) * 1.2).to(card)
+    dy = r(b, h, h, c).to(bf).to(card)
+    return args, mask, dp, dy
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_swin_block_kernels_at_a_ragged_window_count_and_twice(card, c, heads):
+    """[3, 40, 40, C] is 75 windows: odd, so the persistent kernels' last
+    step has one window for two warpgroups, and with shift 4 every window
+    takes its own mask. Both kernels are run twice on the same inputs: the
+    forward and dx come out bit-identical (the weight ring's barriers leave
+    no race); the parameter gradients sum f32 atomics in varying order."""
+    args, mask, dp, dy = _block_case(card, 3, 40, c, heads, 4, seed=1)
+    dp[2, :] = 0.0   # both branches dropped: dx == dy there
+    kw = dict(window_size=8, num_heads=heads)
+    with torch.no_grad():
+        y = sb.swin_block(*args, mask, dp, **kw)
+        y2 = sb.swin_block(*args, mask, dp, **kw)
+        dx, grads = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
+        dx2, grads2 = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
+        ref = sb.swin_block_reference(*args, mask, dp, **kw)
+        rdx, rgrads = sb.swin_block_backward_reference(*args, mask, dp, dy,
+                                                       **kw)
+    assert torch.equal(y, y2)
+    assert torch.equal(dx, dx2)
+    assert torch.equal(dx[2], dy[2])
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        2.0 ** -5 * float(ref.float().abs().max())
+    for name, got, again, want in zip(("dx",) + sb.GRAD_NAMES, (dx,) + grads,
+                                      (dx2,) + grads2, (rdx,) + rgrads):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * scale, (name, err, scale)
+        assert float((got.float() - again.float()).abs().max()) <= \
+            1e-4 * scale, name
+
+
+def test_wgmma_operand_layouts_one_product_each(card):
+    """The hand-written shared-memory layouts of ``csrc/swin_block_sm90.cuh``
+    against ``torch.matmul``, one 64-row product each: A and B as 8x8 core
+    matrices without swizzle (K-major), the accumulator handed on as the next
+    product's A fragments, B written by the transposed store, and both
+    operands MN-major from the token-blocked layout. bf16 inputs, f32 sums:
+    only the order of the sums differs."""
+    from strajnet_tpu_torch._build import load_library
+    lib = load_library("sm90_selftest")
+    lib.sm90_layout_selftest.argtypes = [ctypes.c_void_p] * 6
+    lib.sm90_blocked_selftest.argtypes = ([ctypes.c_void_p] * 3
+                                          + [ctypes.c_int, ctypes.c_void_p])
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(64, 64, generator=g).to(torch.bfloat16).to(card)
+    w = torch.randn(64, 96, generator=g).to(torch.bfloat16).to(card)
+    outs = [torch.zeros(64, n, device=card) for n in (96, 96, 64, 64)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    assert lib.sm90_layout_selftest(p(a), p(w), *(p(o) for o in outs[:3]),
+                                    stream) == 0
+    assert lib.sm90_blocked_selftest(p(a), p(a), p(outs[3]), 0, stream) == 0
+    torch.cuda.synchronize()
+    af, wf = a.float(), w.float()
+    for got, want in zip(outs, (af @ wf, af @ wf, af @ af, af.t() @ af)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("m,n,tokens", [(96, 288, 4800), (384, 96, 8192),
+                                        (40, 1536, 640)])
+def test_split_k_pass_matches_matmul(card, m, n, tokens, blocked):
+    """dW += A^T B over all tokens, through TMA from row-major operands and
+    through bulk copies from the token-blocked ones; M and N that do not
+    fill the 128 x 128 tiles, a token count that does not divide into equal
+    slices. f32 sums of bf16 products in another order, with atomics."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(tokens, m, generator=g).to(torch.bfloat16).to(card)
+    b = torch.randn(tokens, n, generator=g).to(torch.bfloat16).to(card)
+    base = torch.randn(m, n, generator=g).to(card)
+    if blocked:
+        got = sb.atb_accum(sb.token_blocked(a), sb.token_blocked(b),
+                           base.clone())
+    else:
+        got = sb.atb_accum(a, b, base.clone())
+    want = base + a.float().t() @ b.float()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("c,heads,shift", [(96, 3, 0), (96, 3, 4),

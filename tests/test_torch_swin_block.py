@@ -74,6 +74,28 @@ def test_reference_matches_jax_block(batch, shift):
     np.testing.assert_allclose(ours, xla, rtol=3e-4, atol=3e-4)
 
 
+def test_reference_matches_jax_block_at_a_ragged_window_count():
+    """Kernel-sized windows (8x8, head_dim 32) at a batch and size whose
+    window count, 75, is odd: what the persistent CUDA kernels' last step
+    and their per-window mask index meet (``chip_smoke.py`` and the ``cuda``
+    tests run the kernels at this shape against the plain version)."""
+    b, h, w, c, ws, heads, shift = 3, 40, 40, 96, 8, 3, 4
+    a = _inputs(b, h, w, c, ws, heads, seed=5)
+    for k in ("wqkv", "wproj", "w1", "w2"):   # keep activations O(1) at C=96
+        a[k] = a[k] * 0.3
+    mask = jax_mask(h, w, ws, shift)
+    dp = _drop_path(b)
+    ja = [jnp.asarray(a[k]) for k in NAMES]
+    kernel = np.asarray(fused_swin_block(*ja, jnp.asarray(mask),
+                                         jnp.asarray(dp), window_size=ws,
+                                         num_heads=heads, interpret=True))
+    ours = swin_block_reference(
+        *(torch.from_numpy(a[k]) for k in NAMES), torch.from_numpy(mask),
+        torch.from_numpy(dp), window_size=ws, num_heads=heads).numpy()
+    assert (b * (h // ws) * (w // ws)) % 2 == 1
+    np.testing.assert_allclose(ours, kernel, rtol=3e-4, atol=3e-4)
+
+
 def test_wrapper_on_cpu_takes_plain_path():
     b, h, w, c, ws, heads = 2, 8, 8, 8, 4, 2
     a = {k: torch.from_numpy(v) for k, v in
@@ -109,7 +131,8 @@ def test_kernel_arg_check_accepts_flagship_geometry():
 
 
 @pytest.mark.parametrize("bad", ["window", "head_dim", "dtype", "layout",
-                                 "mask_shape"])
+                                 "mask_shape", "width", "head_dim_16",
+                                 "hidden"])
 def test_kernel_arg_check_rejects(bad):
     args, mask, dp = _kernel_args()
     ws, heads = 8, 3
@@ -117,6 +140,16 @@ def test_kernel_arg_check_rejects(bad):
         ws = 4
     elif bad == "head_dim":
         heads = 4   # head_dim 24
+    elif bad == "width":   # the wgmma kernels are built for 96, 192, 384
+        args, mask, dp = _kernel_args(c=128, heads=4)
+        heads = 4
+    elif bad == "head_dim_16":   # ... and for head_dim 32
+        heads = 6
+        args[5] = torch.zeros(heads, 64, 64)
+    elif bad == "hidden":   # not in 64-column chunks
+        args[10] = torch.zeros(96, 96, dtype=torch.bfloat16)
+        args[11] = torch.zeros(96)
+        args[12] = torch.zeros(96, 96, dtype=torch.bfloat16)
     elif bad == "dtype":
         args[0] = args[0].float()
     elif bad == "layout":   # right shape, transposed strides

@@ -17,10 +17,12 @@ import jax.numpy as jnp
 
 from strajnet_tpu.ops.pallas_swin_block import fused_swin_block
 from strajnet_tpu.ops.windows import shifted_window_mask as jax_mask
-from strajnet_tpu_torch.ops.swin_block import (GRAD_NAMES, swin_block,
+from strajnet_tpu_torch.ops.swin_block import (GRAD_NAMES, atb_accum,
+                                               swin_block,
                                                swin_block_backward_reference,
                                                swin_block_bwd,
-                                               swin_block_reference)
+                                               swin_block_reference,
+                                               token_blocked)
 
 torch.set_num_threads(2)
 
@@ -159,3 +161,66 @@ def test_wrappers_on_cpu_take_plain_path():
     assert (swin_block.launches, swin_block_bwd.launches) == before
     with pytest.raises(ValueError):
         swin_block(*t, tm, None, backward="xla", **KW)
+
+
+def test_backward_reference_matches_jax_kernel_at_a_ragged_window_count():
+    """Kernel-sized windows (8x8, head_dim 32) and 75 of them, an odd count:
+    the shape at which ``chip_smoke.py`` and the ``cuda`` tests run the
+    persistent backward kernel's last step against this plain version."""
+    b, h, c, ws, heads, shift = 3, 40, 96, 8, 3, 4
+    rng = np.random.default_rng(6)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    a = dict(
+        x=f(b, h, h, c) * 0.5,
+        wqkv=f(c, 3 * c) * 0.06, bqkv=f(3 * c) * 0.1,
+        wproj=f(c, c) * 0.06, bproj=f(c) * 0.1,
+        rel_bias=f(heads, ws * ws, ws * ws) * 0.3,
+        ln1s=1.0 + 0.1 * f(c), ln1b=0.1 * f(c),
+        ln2s=1.0 + 0.1 * f(c), ln2b=0.1 * f(c),
+        w1=f(c, 4 * c) * 0.06, b1=f(4 * c) * 0.1,
+        w2=f(4 * c, c) * 0.06, b2=f(c) * 0.1)
+    dy = f(b, h, h, c)
+    dp = np.array([[0.0, 1.0 / 0.9], [1.0 / 0.9, 1.25], [0.0, 0.0]], np.float32)
+    mask = jax_mask(h, h, ws, shift)
+    kw = dict(window_size=ws, num_heads=heads)
+    vals = [jnp.asarray(a[k]) for k in NAMES]
+
+    def loss(vals):
+        y = fused_swin_block(*vals, jnp.asarray(mask), jnp.asarray(dp),
+                             interpret=True, **kw)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    ref = [np.asarray(g, np.float32) for g in jax.grad(loss)(vals)]
+    dx, grads = swin_block_backward_reference(
+        *(torch.from_numpy(a[k]) for k in NAMES), torch.from_numpy(mask),
+        torch.from_numpy(dp), torch.from_numpy(dy),
+        operand_dtype=torch.bfloat16, **kw)
+    np.testing.assert_array_equal(dx[2].numpy(), dy[2])   # both branches dropped
+    for name, got, want in zip(OUT_NAMES, (dx,) + grads, ref):
+        scale = max(np.abs(want).max(), 1e-6)
+        err = np.abs(got.numpy() - want).max()
+        # as above: the same rounding points, f32 sums in another order
+        assert err <= 2e-3 * scale, (name, err, scale)
+
+
+def test_atb_accum_on_cpu_and_the_token_blocked_layout():
+    """The split-K pass's CPU path is the plain product, accumulated into
+    ``out``, from row-major or from token-blocked operands;
+    ``token_blocked`` is the per-window [M / 8][64][8] order in which the
+    backward kernel writes them."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((128, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((128, 24)).astype(np.float32))
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    want = a16.float().t() @ b16.float()
+    out = atb_accum(a16, b16)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    out2 = atb_accum(token_blocked(a16), token_blocked(b16), out.clone())
+    np.testing.assert_allclose(out2.numpy(), 2 * want.numpy(), rtol=1e-6,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        atb_accum(token_blocked(a16), b16)
+    blk = token_blocked(a)
+    assert blk.shape == (2, 2, 64, 8)
+    for window, col, tok in ((0, 0, 0), (1, 9, 63), (0, 15, 17)):
+        assert blk[window, col // 8, tok, col % 8] == a[64 * window + tok, col]

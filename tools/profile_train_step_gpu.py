@@ -10,9 +10,10 @@ the seeded random weights of ``chip_smoke.py`` and synthetic batches:
    path, in the order plain, kernel, block_fwd, attn, attn, block_fwd,
    kernel, plain; peak memory.
 2. The step of ``--mode`` (kernel, block_fwd, attn or plain; default kernel)
-   under ``torch.profiler``: device time by kernel name over two steps (the
-   two kernels of K2, or of K4 in the ``attn`` mode, among them), the
-   device's busy share of the window.
+   under ``torch.profiler``: device time by kernel name over two steps, a
+   summary of the port's own kernels (K1's and K2's window kernels over
+   their three widths, their weight-packing kernels, the split-K pass of K2
+   or K4), the device's busy share of the window.
 
 It prints the card's name and power limit first and writes the tables to
 ``--out`` (default ``build/profile/``) as ``train_step_profile.txt``.
@@ -40,6 +41,20 @@ from strajnet_tpu_torch.train.step import (  # noqa: E402
     _forward, ensure_f32, make_train_step)
 
 LINES = []
+# (row of the summary, what the kernel's name contains)
+PORT_KERNELS = (
+    ("K1 swin_block_fwd_kernel", "swin_block_fwd_kernel"),
+    ("K1 pack_fwd_kernel (weights into tiles)", "pack_fwd_kernel"),
+    ("K2 swin_block_bwd_window_kernel", "swin_block_bwd_window_kernel"),
+    ("K2 pack_bwd_kernel (weights into tiles)", "pack_bwd_kernel"),
+    ("K2 split-K atb_accum_sm90_kernel<true>", "atb_accum_sm90_kernel<true>"),
+    ("K3 window_attention_fwd_kernel", "window_attention_fwd_kernel"),
+    ("K4 window_attention_bwd_kernel", "window_attention_bwd_kernel"),
+    ("K4 split-K atb_accum_sm90_kernel<false>", "atb_accum_sm90_kernel<false>"),
+    ("K5 warp_gather_fwd", "warp_gather_fwd"),
+    ("K6 warp_gather_bwd", "warp_gather_bwd"),
+    ("K7 decoder_tail", "decoder_tail"),
+)
 # --mode -> use_pallas_attention
 MODES = {"kernel": None, "block_fwd": "block_fwd", "attn": "attn",
          "plain": False}
@@ -130,6 +145,14 @@ def step_profile(batches, mode: str) -> None:
     for ev in sorted(events, key=lambda e: -e.device_time_total)[:25]:
         say(f"    {ev.key[:80]:80s} {ev.count:5d} calls "
             f"{ev.device_time_total / 2e3:9.3f} ms per step")
+    say("the port's own kernels, all widths together (ms per step, launches "
+        "per step):")
+    for label, needle in PORT_KERNELS:
+        hits = [ev for ev in events if needle in ev.key]
+        if hits:
+            say(f"    {label:44s} "
+                f"{sum(ev.device_time_total for ev in hits) / 2e3:9.3f} ms "
+                f"{sum(ev.count for ev in hits) // 2:5d}")
 
 
 def main() -> int:
