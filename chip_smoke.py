@@ -10,12 +10,13 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
 
 - K1 ``swin_block`` and K2 ``swin_block_bwd`` at the four Swin-block
   geometries, K3 ``window_attention`` and K4 ``window_attention_bwd`` at the
-  same four; K1 and K2 also at a ragged window count (``[3, 40, 40, C]``: 75
-  windows for blocks that take two at a time) and twice on the same inputs
-  (the forward and dx bit-identical); the split-K pass that sums K2's and
-  K4's weight gradients alone against ``A.float().T @ B.float()``;
+  same four; K1, K2 and K4 also at a ragged window count (``[3, 40, 40, C]``:
+  75 windows for blocks that take two at a time) and twice on the same
+  inputs (the forward and dx bit-identical); the split-K pass that sums K2's
+  and K4's weight gradients alone against ``A.float().T @ B.float()``;
 - K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``;
-- K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``.
+- K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``, at
+  image sides one under, at and one over what its tiles own, and twice.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -75,6 +76,7 @@ from strajnet_tpu_torch.objective.metrics import (  # noqa: E402
     apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics,
     print_metrics)
 from strajnet_tpu_torch.ops import window_attention as wa  # noqa: E402
+from strajnet_tpu_torch.ops import decoder_tail as dtl  # noqa: E402
 from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
     decoder_tail, decoder_tail_phase, decoder_tail_reference)
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
@@ -122,6 +124,9 @@ K3_MAX_ABS_REL = 2.0 ** -5
 K3_ONE_MINUS_COS = 1e-4
 K4_MAX_ABS_REL = 2.0 ** -6
 K4_ONE_MINUS_COS = 1e-4
+# K4's parameter gradients in two runs on the same inputs: f32 atomics in an
+# order that varies, relative to the largest entry.
+K4_REPEAT_MAX_ABS_REL = 1e-6
 # K7 against the naive composition in bf16 (cuDNN rounds its sums once, as
 # the kernel does, but sums in another order) and, at a small shape, against
 # the f32 composition of the same bf16 inputs with TF32 off.
@@ -240,14 +245,18 @@ def block_inputs(h: int, c: int, heads: int, shift: int,
 
 def kernel_resources(log: str, kernel: str) -> dict:
     """{C: (registers, spill bytes)} of a kernel templated on the channel
-    width, from nvcc's ``-Xptxas -v`` output: the entry's own two lines (the
-    functions it calls without inlining follow with lines of their own)."""
+    width (C = 0 for one that is not), from nvcc's ``-Xptxas -v`` output: the
+    entry's own two lines (the functions it calls without inlining follow
+    with lines of their own)."""
     found, width = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             width = None
             if kernel + "ILi" in line:
                 width = int(line.split(kernel + "ILi")[1].split("E")[0])
+            elif kernel + "E" in line:
+                width = 0
+            if width is not None:
                 found[width] = [None, None]
         elif width is not None and "spill stores" in line:
             if found[width][1] is None:
@@ -262,41 +271,35 @@ def kernel_resources(log: str, kernel: str) -> dict:
 
 def check_split_k(g: torch.Generator) -> dict:
     """The split-K pass ``dW += A^T B`` alone at K2's four operand shapes of
-    the first and the last flagship stage, from the token-blocked layout K2
-    writes and from the row-major one K4 writes."""
-    out = {}
-    for blocked in (True, False):
-        total, total_bound = 0.0, 0.0
-        for h, c in ((128, 96), (32, 384)):
-            tokens = BATCH * h * h
-            for m, n in ((c, 3 * c), (c, c), (c, 4 * c), (4 * c, c)):
-                a = torch.randn(tokens, m, generator=g,
-                                device="cuda").to(torch.bfloat16)
-                b = torch.randn(tokens, n, generator=g,
-                                device="cuda").to(torch.bfloat16)
-                want = a.float().t() @ b.float()
-                if blocked:
-                    a, b = token_blocked(a), token_blocked(b)
-                got = atb_accum(a, b)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                check(err <= SPLIT_K_MAX_ABS_REL * scale,
-                      f"split-K [{tokens},{m}]^T [{tokens},{n}] max_abs_err "
-                      f"{err} <= {SPLIT_K_MAX_ABS_REL} * {scale}")
-                dst = torch.zeros(m, n, device="cuda")
-                ms = cuda_ms(lambda: atb_accum(a, b, dst), iters=10)
-                bound_ms, by = bound(2.0 * m * n * tokens,
-                                     (m + n) * tokens * 2 + m * n * 4)
-                total += ms
-                total_bound += bound_ms
-                print(f"split-K {'blocked' if blocked else 'row-major'} "
-                      f"[{tokens},{m}]^T [{tokens},{n}]: max_abs_err={err:.3e} "
-                      f"(max|ref|={scale:.1f}) ms={ms:.4f} "
-                      f"bound_ms={bound_ms:.4f} ({by})")
-        out["blocked" if blocked else "row_major"] = dict(
-            ms=total, bound_ms=total_bound)
-    return out
+    the first and the last flagship stage, from the token-blocked layout the
+    backward window kernels (K2, K4) write."""
+    total, total_bound = 0.0, 0.0
+    for h, c in ((128, 96), (32, 384)):
+        tokens = BATCH * h * h
+        for m, n in ((c, 3 * c), (c, c), (c, 4 * c), (4 * c, c)):
+            a = torch.randn(tokens, m, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            b = torch.randn(tokens, n, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            want = a.float().t() @ b.float()
+            a, b = token_blocked(a), token_blocked(b)
+            got = atb_accum(a, b)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= SPLIT_K_MAX_ABS_REL * scale,
+                  f"split-K [{tokens},{m}]^T [{tokens},{n}] max_abs_err "
+                  f"{err} <= {SPLIT_K_MAX_ABS_REL} * {scale}")
+            dst = torch.zeros(m, n, device="cuda")
+            ms = cuda_ms(lambda: atb_accum(a, b, dst), iters=10)
+            bound_ms, by = bound(2.0 * m * n * tokens,
+                                 (m + n) * tokens * 2 + m * n * 4)
+            total += ms
+            total_bound += bound_ms
+            print(f"split-K [{tokens},{m}]^T [{tokens},{n}]: "
+                  f"max_abs_err={err:.3e} (max|ref|={scale:.1f}) "
+                  f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({by})")
+    return dict(ms=total, bound_ms=total_bound)
 
 
 def check_ragged_and_repeat(g: torch.Generator) -> None:
@@ -344,6 +347,44 @@ def check_ragged_and_repeat(g: torch.Generator) -> None:
             worst, drift = max(worst, gerr / gscale), max(drift, rep)
         print(f"ragged [3,40,40,{c}] (75 windows), twice: K1 max_abs_err="
               f"{err} (max|ref|={scale}), bit-identical; K2 worst "
+              f"max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
+              f"gradients of two runs within {drift:.1e}")
+
+
+def check_attention_ragged_and_repeat(g: torch.Generator) -> None:
+    """K4 at [3, 40, 40, C], shift 4 (75 windows: the last step of the
+    persistent kernel has one window for two warpgroups), twice on the same
+    inputs."""
+    for c, heads in ((96, 3), (192, 6), (384, 12)):
+        args, mask, _ = block_inputs(40, c, heads, 4, g, batch=3)
+        x, wqkv, bqkv, wproj, _, rel_bias = args[:6]
+        dy = torch.randn(x.shape, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        bwd_args = (x, wqkv, bqkv, wproj, rel_bias, mask, dy)
+        kw = dict(window_size=8, num_heads=heads)
+        with torch.no_grad():
+            dx, grads = wa.window_attention_bwd(*bwd_args, **kw)
+            dx2, grads2 = wa.window_attention_bwd(*bwd_args, **kw)
+            torch.cuda.synchronize()
+            rdx, rgrads = wa.window_attention_backward_reference(*bwd_args,
+                                                                 **kw)
+        check(torch.equal(dx, dx2), f"K4 C={c}: dx of two runs bit-identical")
+        worst, drift = 0.0, 0.0
+        for name, got, again, want in zip(
+                ("dx",) + wa.GRAD_NAMES, (dx,) + grads, (dx2,) + grads2,
+                (rdx,) + rgrads):
+            gscale = float(want.float().abs().max())
+            gerr = float((got.float() - want.float()).abs().max())
+            check(gerr <= K4_MAX_ABS_REL * gscale and
+                  one_minus_cos(got, want) <= K4_ONE_MINUS_COS,
+                  f"K4 ragged C={c} {name}: max_abs_err {gerr} <= "
+                  f"{K4_MAX_ABS_REL} * {gscale}")
+            rep = float((got.float() - again.float()).abs().max()) / gscale
+            check(rep <= K4_REPEAT_MAX_ABS_REL,
+                  f"K4 C={c} {name}: two runs within "
+                  f"{K4_REPEAT_MAX_ABS_REL}: {rep}")
+            worst, drift = max(worst, gerr / gscale), max(drift, rep)
+        print(f"ragged [3,40,40,{c}] (75 windows), twice: K4 worst "
               f"max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
               f"gradients of two runs within {drift:.1e}")
 
@@ -474,7 +515,7 @@ def check_window_attention(g: torch.Generator):
     step."""
     k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
     k4 = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, autograd_ms=0.0,
-              flops=0.0, nbytes=0.0)
+              flops=0.0, nbytes=0.0, per_launch={})
     for h, c, heads, shift, count in GEOMETRIES:
         args, mask, _ = block_inputs(h, c, heads, shift, g)
         x, wqkv, bqkv, wproj, bproj, rel_bias = args = args[:6]
@@ -538,6 +579,7 @@ def check_window_attention(g: torch.Generator):
         k3["ms"] += count * t3
         k3["plain_ms"] += count * t3_plain
         k4["ms"] += count * t4
+        k4["per_launch"][f"{c}" + ("" if shift else " unshifted")] = t4
         k4["plain_ms"] += count * t4_plain
         k4["autograd_ms"] += count * t4_autograd
         for k, backward in ((k3, False), (k4, True)):
@@ -551,7 +593,8 @@ def check_window_attention(g: torch.Generator):
             dict(max_abs_err=k4["err"], max_abs_err_rel=k4["rel"],
                  ms=k4["ms"], plain_ms=k4["plain_ms"],
                  autograd_of_plain_ms=k4["autograd_ms"], bound_ms=b4,
-                 bound_by=by4, library_ms=None))
+                 bound_by=by4, library_ms=None,
+                 ms_per_launch=k4["per_launch"]))
 
 
 def check_decoder_tail(g: torch.Generator) -> dict:
@@ -595,8 +638,7 @@ def check_decoder_tail(g: torch.Generator) -> dict:
         for what, bad in (
                 ("an f32 input", (x.float(),) + small[1:]),
                 ("Cin=24", inputs(1, 8, 8, 24, 48)),
-                ("Cin=1024, tiles beyond shared memory",
-                 inputs(1, 8, 8, 1024, 48))):
+                ("Cin=1024", inputs(1, 8, 8, 1024, 48))):
             try:
                 decoder_tail(*bad)
             except (ValueError, RuntimeError) as e:
@@ -606,9 +648,31 @@ def check_decoder_tail(g: torch.Generator) -> dict:
         check(decoder_tail.launches == before,
               "the refused K7 calls launched nothing")
 
+        # a tile owns 15 x 7 input pixels: one under, at and one over two
+        # tiles a side, against the f32 composition; twice, bit-identical
+        for eh, ew in ((29, 13), (30, 14), (31, 15)):
+            edge = inputs(3, eh, ew, 96, 48)
+            got = decoder_tail(*edge)
+            again = decoder_tail(*edge)
+            torch.cuda.synchronize()
+            ref32 = decoder_tail_reference(edge[0].float(), edge[1], edge[2],
+                                           rnd(edge[3]), rnd(edge[4]))
+            err32 = float((got.float() - ref32).abs().max())
+            scale32 = float(ref32.abs().max())
+            print(f"K7 decoder_tail [3,{eh},{ew},96] vs the f32 composition: "
+                  f"max_abs_err={err32} (max|ref|={scale32}); twice "
+                  f"bit-identical: {torch.equal(got, again)}")
+            check(err32 <= K7_MAX_ABS_REL * scale32,
+                  f"K7 [3,{eh},{ew},96]: {err32} <= {K7_MAX_ABS_REL} * "
+                  f"{scale32}")
+            check(torch.equal(got, again),
+                  f"K7 [3,{eh},{ew},96]: two runs bit-identical")
+
         n, h, cin, cmid = BATCH * 8, 128, 96, 48
         args = inputs(n, h, h, cin, cmid)
         y = decoder_tail(*args)
+        check(torch.equal(y, decoder_tail(*args)),
+              "K7: two runs bit-identical")
         torch.cuda.synchronize()
         ref = decoder_tail_reference(*args)
         check(tuple(y.shape) == (n, 2 * h, 2 * h, 2), f"K7 shape {y.shape}")
@@ -1235,10 +1299,23 @@ def main(argv=None) -> int:
         k3, k4 = check_window_attention(g)
         kernels["window_attention"].update(k3)
         kernels["window_attention_bwd"].update(k4)
+        check_attention_ragged_and_repeat(g)
+        res = kernel_resources(builds["window_attention"].log,
+                               "window_attention_bwd_kernel")
+        kernels["window_attention_bwd"].update(
+            regs={str(c): r for c, (r, _) in res.items()},
+            spill_bytes={str(c): sp for c, (_, sp) in res.items()},
+            smem_bytes={str(c): wa.bwd_kernel_smem_bytes(c)
+                        for c in (96, 192, 384)})
         k5, k6 = check_warp_gather(g)
         kernels["warp_gather_fwd"].update(k5)
         kernels["warp_gather_bwd"].update(k6)
         kernels["decoder_tail"].update(check_decoder_tail(g))
+        regs, spill = kernel_resources(builds["decoder_tail"].log,
+                                       "decoder_tail_kernel")[0]
+        kernels["decoder_tail"].update(
+            regs=regs, spill_bytes=spill,
+            smem_bytes=dtl.kernel_smem_bytes())
         torch.cuda.empty_cache()
     if set(phases) & {"forward", "serve", "eval"}:
         state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))

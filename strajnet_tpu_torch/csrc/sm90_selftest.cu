@@ -1,8 +1,9 @@
 // Self-test of the Hopper building blocks in swin_block_sm90.cuh, one product
 // each, for the tests that run on a card: the hand-written operand layout
 // with wgmma from shared memory and from registers, the accumulator-to-A
-// hand-over, the transposed store, and the TMA + 128-byte-swizzle split-K
-// pass. Each entry point returns the CUDA error code of its launch.
+// hand-over, the transposed store, the token-blocked operands of the split-K
+// pass, and the two shifted operands of the decoder tail (decoder_tail.cu).
+// Each entry point returns the CUDA error code of its launch.
 
 #include "swin_block_sm90.cuh"
 
@@ -111,9 +112,9 @@ blocked_selftest_kernel(const bf16* a, const bf16* b, float* out, int swap) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t da = make_desc(smem_u32(sa) + kk * 256, swap ? mblock : kgroup,
-                                  swap ? kgroup : mblock, kLayoutNone);
+                                  swap ? kgroup : mblock);
     const uint64_t db = make_desc(smem_u32(sb) + kk * 256, swap ? mblock : kgroup,
-                                  swap ? kgroup : mblock, kLayoutNone);
+                                  swap ? kgroup : mblock);
     wgmma_ss_n64<1, 1>(acc, da, db, kk != 0);
   }
   wgmma_commit();
@@ -123,6 +124,64 @@ blocked_selftest_kernel(const bf16* a, const bf16* b, float* out, int swap) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       out[(L.row0 + 8 * (e / 2)) * 64 + 8 * j + 2 * L.t + e % 2] = acc[4 * j + e];
+}
+
+// The decoder tail's two A operands, at 16 channels per tap. Both are
+// channel-blocked in shared memory, [channel / 8][pixel or entry][8], so that
+// a tap's shift is an offset of the descriptor's start address:
+//   out_main[m, :] = sum over taps (u, v) of x[8 wg + m / 8 + u, m % 8 + v, :]
+//                    @ w[16 tap : 16 tap + 16, :]
+//     x [17, 9, 16] (an 8-row group of A is eight pixels of one input row, the
+//     groups one pixel row, 9 * 16 bytes, apart), w [64, 96];
+//   out_conv[m, :] = sum over taps of e[64 wg + m + 8 u + v, :]
+//                    @ ky[16 tap : 16 tap + 16, :]
+//     e [144, 16] (entries 16 bytes apart), ky [64, 8]: wgmma m64n8k16.
+__global__ void __launch_bounds__(128)
+tail_selftest_kernel(const bf16* x, const bf16* w, const bf16* e, const bf16* ky,
+                     float* out_main, float* out_conv, int wg) {
+  __shared__ __align__(128) uint8_t xs[2 * 153 * 16];
+  __shared__ __align__(128) uint8_t sw[64 * 96 * 2];
+  __shared__ __align__(128) uint8_t es[2 * 144 * 16];
+  __shared__ __align__(128) uint8_t sk[64 * 8 * 2];
+  const Lane L = make_lane();
+  for (int i = threadIdx.x; i < 153 * 16; i += 128) {
+    const int pix = i / 16, ch = i % 16;
+    *reinterpret_cast<bf16*>(xs + ((ch / 8) * 153 + pix) * 16 + (ch % 8) * 2) = x[i];
+  }
+  for (int i = threadIdx.x; i < 144 * 16; i += 128) {
+    const int ent = i / 16, ch = i % 16;
+    *reinterpret_cast<bf16*>(es + ((ch / 8) * 144 + ent) * 16 + (ch % 8) * 2) = e[i];
+  }
+  for (int i = threadIdx.x; i < 8 * 96; i += 128)
+    pack_block(sw + i * 16, [&](int k, int n) { return w[k * 96 + n]; }, i / 96,
+               i % 96);
+  for (int i = threadIdx.x; i < 8 * 8; i += 128)
+    pack_block(sk + i * 16, [&](int k, int n) { return ky[k * 8 + n]; }, i / 8, i % 8);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[48], d[4];
+  wgmma_fence();
+#pragma unroll
+  for (int tap = 0; tap < 4; ++tap) {
+    const int u = tap >> 1, v = tap & 1;
+    wgmma_ss_n96<0, 0>(
+        acc, make_desc(smem_u32(xs) + ((8 * wg + u) * 9 + v) * 16, 153 * 16, 9 * 16),
+        kmaj_desc(smem_u32(sw), 96, tap), tap != 0);
+    wgmma_ss_n8<0, 0>(
+        d, make_desc(smem_u32(es) + (64 * wg + 8 * u + v) * 16, 144 * 16, 128),
+        kmaj_desc(smem_u32(sk), 8, tap), tap != 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+#pragma unroll
+  for (int j = 0; j < 12; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      out_main[(L.row0 + 8 * (i / 2)) * 96 + 8 * j + 2 * L.t + i % 2] = acc[4 * j + i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out_conv[(L.row0 + 8 * (i / 2)) * 8 + 2 * L.t + i % 2] = d[i];
 }
 
 }  // namespace
@@ -146,15 +205,13 @@ int sm90_layout_selftest(const void* a, const void* w, void* out_ss, void* out_r
   return (int)cudaGetLastError();
 }
 
-// out[M, N] (f32) += a[ntok, M]^T @ b[ntok, N]: the split-K pass alone.
-int sm90_atb_accum(const void* a, const void* b, void* out, int M, int N,
-                   long long ntok, void* stream) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_atb<false>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                         static_cast<float*>(out), M, N, ntok, sms,
-                         static_cast<cudaStream_t>(stream));
+int sm90_tail_selftest(const void* x, const void* w, const void* e, const void* ky,
+                       void* out_main, void* out_conv, int wg, void* stream) {
+  tail_selftest_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(e), static_cast<const bf16*>(ky),
+      static_cast<float*>(out_main), static_cast<float*>(out_conv), wg);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

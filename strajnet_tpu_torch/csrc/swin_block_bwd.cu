@@ -30,7 +30,7 @@
 //    ([column / 8][token][8], blk_off): an accumulator fragment then stores
 //    128 contiguous bytes per warp and column block. (Row-major, 16 bytes per
 //    row, these stores alone took half of the MLP phase.)
-// 3. atb_accum_sm90_kernel<true> (swin_block_sm90.cuh) sums dW over all
+// 3. atb_accum_sm90_kernel (swin_block_sm90.cuh) sums dW over all
 //    tokens: a TPU grid is sequential and sums in scratch that persists
 //    across grid steps; here blocks run in no order, so the sum is this
 //    split-K pass. It fetches the token-blocked operands with plain bulk
@@ -66,13 +66,11 @@
 // (at C=384 they lie over whichever operand is dead), the column sums, the
 // ring: 225 KB at C=384.
 
-#include "swin_block_sm90.cuh"
+#include "swin_block_bwd_sm90.cuh"
 
 namespace {
 
 using namespace sm90;
-
-constexpr int kHeadBufBytes = 36864;   // per-head tiles of the backward
 
 template <int C>
 struct BwdCfg {
@@ -134,64 +132,6 @@ struct BwdArgs {
   float2* dr1;   // [N, C / 2] dh2, then dr1
   float2* dh1;   // [N, C / 2]
 };
-
-// Diagnostic: with -DSWIN_PHASE_CLOCKS the first warpgroup of block 0 sums
-// the clocks it spends in each phase of its windows (tools/
-// swin_block_bwd_phases.py builds that variant and prints the shares).
-#ifdef SWIN_PHASE_CLOCKS
-constexpr int kPhases = 9;
-__device__ long long g_phase_clocks[kPhases];
-__device__ long long g_phase_t0;
-#define PHASE(i)                                             \
-  if (blockIdx.x == 0 && threadIdx.x == 0) {                 \
-    const long long now = clock64();                         \
-    g_phase_clocks[i] += now - g_phase_t0;                   \
-    g_phase_t0 = now;                                        \
-  }
-#else
-#define PHASE(i)
-#endif
-
-// Column sums of four neighbouring 8-column blocks at once. v[2 b + e] is this
-// thread's sum over its two rows of column col0 + 8 b + e (col0 = 8 jb + 2 t).
-// The eight lanes that share t hold the warp's other rows: a reduce-scatter
-// over them (8 shuffles instead of 24 for a plain butterfly) leaves each of
-// 16 lanes with the warp's sum of one column pair, which it adds to the
-// window's column sums in shared memory (float atomics on shared memory are
-// compare-and-swap loops: few and spread over the lanes).
-__device__ __forceinline__ void colsum4(float* cs, int col0, const float (&v)[8],
-                                        const Lane& L) {
-  const int lane = L.tid & 31;
-  const bool hi4 = lane & 16, hi3 = lane & 8;
-  float k4[4], k2[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float recv = __shfl_xor_sync(0xffffffffu, hi4 ? v[i] : v[i + 4], 16);
-    k4[i] = (hi4 ? v[i + 4] : v[i]) + recv;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float recv = __shfl_xor_sync(0xffffffffu, hi3 ? k4[i] : k4[i + 2], 8);
-    k2[i] = (hi3 ? k4[i + 2] : k4[i]) + recv;
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) k2[i] += __shfl_xor_sync(0xffffffffu, k2[i], 4);
-  if (!(lane & 4)) {
-    float* dst = cs + col0 + 8 * ((hi4 ? 2 : 0) + (hi3 ? 1 : 0));
-    atomicAdd(dst, k2[0]);
-    atomicAdd(dst + 1, k2[1]);
-  }
-}
-
-// Adds n column sums into their gradient and zeroes them. The caller puts
-// the warpgroup's barrier before (the sums are complete) and after.
-__device__ __forceinline__ void colsum_flush(float* cs, int n, float* dst,
-                                             const Lane& L) {
-  for (int c = L.tid; c < n; c += 128) {
-    atomicAdd(dst + c, cs[c]);
-    cs[c] = 0.f;
-  }
-}
 
 // Backward of a LayerNorm over the window's rows in fragment order: dh is the
 // gradient of the normalised output (the window's parked f32 pairs), val
@@ -287,139 +227,6 @@ __device__ __forceinline__ void layernorm_backward(const float2* dh, const float
   }
 }
 
-// Backward of one head from its q | k | v (the window's scratch block, this
-// thread's own elements), d(out) as A fragments `doa`, and the tiles in `hb`. Writes
-// dq | dk | dv (bf16) over q | k | v, adds dS into drel and the rounded
-// dq | dk | dv into the column sums cs[0:3C] (dbqkv).
-template <int C>
-__device__ __noinline__ void head_backward(const BlockArgs& p, const Window& win,
-                                              int h, uint32_t (*doa)[4], bf16* qkv_rows,
-                                              uint8_t* hb, float* drel, float* cs,
-                                              int bar_id, const Lane& L) {
-  uint8_t* kdir = hb;             // [64 keys, 32]   k
-  uint8_t* vdir = hb + 4096;      // [64 keys, 32]   v
-  uint8_t* kt = hb + 8192;        // [32, 64 keys]   k^T
-  uint8_t* qt = hb + 12288;       // [32, 64]        q^T
-  uint8_t* dot = hb + 16384;      // [32, 64]        d(out)^T
-  uint8_t* pt = hb + 20480;       // [64 keys, 64]   P^T
-  uint8_t* dst = hb + 28672;      // [64 keys, 64]   dS^T
-  uint32_t qa[2][4];
-  uint32_t ld[4][3][2];   // all loads before the first store
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int part = 0; part < 3; ++part)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        ld[j][part][half] = *reinterpret_cast<const uint32_t*>(
-            qkv_rows + blk_off(L.row0 + 8 * half, part * C + h * kHd + 8 * j + 2 * L.t));
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int d = 8 * j + 2 * L.t;
-    const uint32_t q0 = ld[j][0][0], q1 = ld[j][0][1];
-    const uint32_t k0 = ld[j][1][0], k1 = ld[j][1][1];
-    const uint32_t v0 = ld[j][2][0], v1 = ld[j][2][1];
-    qa[j / 2][(j % 2) * 2] = q0;
-    qa[j / 2][(j % 2) * 2 + 1] = q1;
-    st_transposed(qt, 32, L, d, q0, q1);
-    st_direct(kdir, 64, L, d, k0, k1);
-    st_transposed(kt, 32, L, d, k0, k1);
-    st_direct(vdir, 64, L, d, v0, v1);
-    st_transposed(dot, 32, L, d, doa[j / 2][(j % 2) * 2], doa[j / 2][(j % 2) * 2 + 1]);
-  }
-  fence_proxy_async();
-  named_bar_sync(bar_id, 128);
-
-  const float* mask_w = p.mask ? p.mask + (size_t)win.wi * kTok * kTok : nullptr;
-  float s[32];
-  head_softmax(s, qa, smem_u32(kdir), p.rel_bias + (size_t)h * kTok * kTok, mask_w,
-               p.scale, L);
-  uint32_t pa[4][4];
-  acc_to_afrag<8>(s, pa);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    st_transposed(pt, 64, L, 8 * j + 2 * L.t, pa[j / 2][(j % 2) * 2],
-                  pa[j / 2][(j % 2) * 2 + 1]);
-  // dP = d(out) v^T
-  float dp[32];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    wgmma_rs_n64<0>(dp, doa[kk], kmaj_desc(smem_u32(vdir), 64, kk), kk != 0);
-  wgmma_commit();
-  wgmma_wait0();
-  // dS = P (dP - rowsum(dP P)) on the rounded P; drel += dS
-  float dotp[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float2 pv = unpack_bf16(pa[j / 2][(j % 2) * 2 + half]);
-      s[4 * j + 2 * half] = pv.x;
-      s[4 * j + 2 * half + 1] = pv.y;
-      dotp[half] += dp[4 * j + 2 * half] * pv.x + dp[4 * j + 2 * half + 1] * pv.y;
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) dotp[half] = quad_sum(dotp[half]);
-  float* dr = drel + (size_t)h * kTok * kTok;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float2 ds;
-      ds.x = s[4 * j + 2 * half] * (dp[4 * j + 2 * half] - dotp[half]);
-      ds.y = s[4 * j + 2 * half + 1] * (dp[4 * j + 2 * half + 1] - dotp[half]);
-      s[4 * j + 2 * half] = ds.x;
-      s[4 * j + 2 * half + 1] = ds.y;
-      atomicAdd(reinterpret_cast<float2*>(dr + (L.row0 + 8 * half) * kTok + 8 * j +
-                                          2 * L.t),
-                ds);
-    }
-  }
-  uint32_t dsa[4][4];
-  acc_to_afrag<8>(s, dsa);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    st_transposed(dst, 64, L, 8 * j + 2 * L.t, dsa[j / 2][(j % 2) * 2],
-                  dsa[j / 2][(j % 2) * 2 + 1]);
-  fence_proxy_async();
-  named_bar_sync(bar_id, 128);   // P^T and dS^T of all four warps are in place
-
-  // dq = dS k, dk = dS^T q (both times scale), dv = P^T d(out)
-  float g3[3][16];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs_n32<0>(g3[0], dsa[kk], kmaj_desc(smem_u32(kt), 32, kk), kk != 0);
-    wgmma_ss_n32<0, 0>(g3[1], kmaj_desc(smem_u32(dst), 64, kk),
-                       kmaj_desc(smem_u32(qt), 32, kk), kk != 0);
-    wgmma_ss_n32<0, 0>(g3[2], kmaj_desc(smem_u32(pt), 64, kk),
-                       kmaj_desc(smem_u32(dot), 32, kk), kk != 0);
-  }
-  wgmma_commit();
-  wgmma_wait0();
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    const float sc = part < 2 ? p.scale : 1.0f;
-    float sq[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = part * C + h * kHd + 8 * j + 2 * L.t;
-      const uint32_t v0 = pack_bf16(g3[part][4 * j] * sc, g3[part][4 * j + 1] * sc);
-      const uint32_t v1 =
-          pack_bf16(g3[part][4 * j + 2] * sc, g3[part][4 * j + 3] * sc);
-      *reinterpret_cast<uint32_t*>(qkv_rows + blk_off(L.row0, col)) = v0;
-      *reinterpret_cast<uint32_t*>(qkv_rows + blk_off(L.row0 + 8, col)) = v1;
-      const float2 f0 = unpack_bf16(v0), f1 = unpack_bf16(v1);
-      sq[2 * j] = f0.x + f1.x;
-      sq[2 * j + 1] = f0.y + f1.y;
-    }
-    colsum4(cs, part * C + h * kHd + 2 * L.t, sq, L);
-  }
-  named_bar_sync(bar_id, 128);   // the tiles are free for the next head
-}
-
 template <int C>
 __device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArgs& q,
                                                 const Window& win, long long index,
@@ -438,9 +245,7 @@ __device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArg
   bf16* g1_rows = q.g1 + row_base * hidden;
   bf16* dz1_rows = q.dz1 + row_base * hidden;
 
-#ifdef SWIN_PHASE_CLOCKS
-  if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_t0 = clock64();
-#endif
+  PHASE_START
   // ================= forward recompute: attention half =================
   const FwdSaves sv = {q.h1 + row_base * C, qkv_rows, q.merged + row_base * C,
                        q.h2 + row_base * C};
@@ -451,40 +256,7 @@ __device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArg
 
   // ---- dz2 = dp2 * dy -> buf_b and scratch; db2 += sum dz2 ----
   {
-    bf16* dz2_rows = q.dz2 + row_base * C;
-#pragma unroll 1
-    for (int jb = 0; jb < C / 8; jb += 12) {
-    uint32_t dyr[12][2];   // a batch's loads before its first store
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        dyr[i][half] = *reinterpret_cast<const uint32_t*>(
-            q.dy + win.ofs<C>(L.row0 + 8 * half) + 8 * (jb + i) + 2 * L.t);
-    float sz[24];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const int col = 8 * (jb + i) + 2 * L.t;
-      float sx = 0.f, sy = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = L.row0 + 8 * half;
-        const float2 dyv = unpack_bf16(dyr[i][half]);
-        const float zx = win.dp2 * dyv.x, zy = win.dp2 * dyv.y;
-        const uint32_t r = pack_bf16(zx, zy);
-        *reinterpret_cast<uint32_t*>(buf_b + kmaj_off(row, col, 64)) = r;
-        *reinterpret_cast<uint32_t*>(dz2_rows + blk_off(row, col)) = r;
-        sx += zx;
-        sy += zy;
-      }
-      sz[2 * i] = sx;
-      sz[2 * i + 1] = sy;
-    }
-#pragma unroll
-    for (int i = 0; i < 12; i += 4)
-      colsum4(cs + B::kDb2, 8 * (jb + i) + 2 * L.t,
-              *reinterpret_cast<const float(*)[8]>(&sz[2 * i]), L);
-    }
+    scaled_window<C>(q.dy, win, win.dp2, buf_b, q.dz2 + row_base * C, cs + B::kDb2, L);
     fence_proxy_async();
     named_bar_sync(bar_id, 128);   // buf_b is in place
     if (!B::kPersist) {
@@ -608,19 +380,8 @@ __device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArg
   PHASE(4)
   // ---- d(merged) = datt @ wproj^T per 96 columns (three heads), then those
   //      heads' backward ----
-#pragma unroll 1
-  for (int nc = 0; nc < K::kNc; ++nc) {
-    uint32_t doa[6][4];
-    {
-      float dm[48];
-      mma_smem_n96<C>(dm, b_addr, ring);
-      acc_to_afrag<12>(dm, doa);
-    }
-#pragma unroll
-    for (int hh = 0; hh < 3; ++hh)
-      head_backward<C>(p, win, 3 * nc + hh, &doa[2 * hh], qkv_rows, head_bwd, q.drel,
-                       cs + B::kDbqkv, bar_id, L);
-  }
+  merged_and_heads_backward<C, true>(p, win, b_addr, qkv_rows, head_bwd, q.drel,
+                                     cs + B::kDbqkv, ring, bar_id, L);
   if (!B::kPersist) {   // the last head ended on a barrier
     colsum_flush(cs + B::kDbqkv, 3 * C, q.dbqkv, L);
     named_bar_sync(bar_id, 128);
@@ -629,39 +390,9 @@ __device__ __forceinline__ void window_backward(const BlockArgs& p, const BwdArg
   PHASE(5)
   // ---- dh1 = dqkv @ wqkv^T, in passes of kCw columns over the heads; dqkv
   //      comes back from the scratch as this thread's fragments ----
-#pragma unroll 1
-  for (int pass = 0; pass < K::kPasses; ++pass) {
-    float acc[K::kCw / 2];
-#pragma unroll
-    for (int i = 0; i < K::kCw / 2; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int h = 0; h < K::kHeads; ++h) {
-      uint32_t a[6][4];
-#pragma unroll
-      for (int kk = 0; kk < 6; ++kk) {
-        const bf16* r0 = qkv_rows + blk_off(L.row0, (kk / 2) * C + h * kHd +
-                                                        16 * (kk % 2) + 2 * L.t);
-        a[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 64);
-        a[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 512);
-        a[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 576);
-      }
-#pragma unroll
-      for (int nb = 0; nb < K::kNb; ++nb) {
-        float(&sub)[48] = *reinterpret_cast<float(*)[48]>(&acc[48 * nb]);
-        mma_regs_n96<3>(sub, &a[0], ring, true);
-        mma_regs_n96<3>(sub, &a[3], ring, true);
-      }
-    }
-#pragma unroll
-    for (int jc = 0; jc < K::kCw / 8; ++jc) {
-      const int col = pass * K::kCw + 8 * jc + 2 * L.t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        dh1_park[park_idx((col >> 3) * 2 + half, L)] =
-            make_float2(acc[4 * jc + 2 * half], acc[4 * jc + 2 * half + 1]);
-    }
-  }
+  dqkv_times_wqkv_t<C>(qkv_rows, ring, L, [&](int col, int half, float2 v) {
+    dh1_park[park_idx((col >> 3) * 2 + half, L)] = v;
+  });
 
   PHASE(6)
   // ---- LN1 backward: dx = dr1 + LN1'(dh1); dln1s, dln1b ----
@@ -756,7 +487,7 @@ __global__ void pack_bwd_kernel(uint8_t* dst, const bf16* wqkv, const bf16* wpro
   const long long n2 = n1 + (long long)(T.t2 - T.t1) * (K::kKs * 8);
   const long long n3 = n2 + (long long)(T.t3 - T.t2) * 768;
   const long long n4 = n3 + (long long)(T.t4 - T.t3) * (K::kKs * 12);
-  const long long n5 = n4 + (long long)(T.t5 - T.t4) * 576;
+  const long long n5 = n4 + (long long)(T.t5 - T.t4) * kWqkvTTileBlocks;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n5;
        i += (long long)gridDim.x * blockDim.x) {
     uint8_t* o = dst + i * 16;
@@ -786,22 +517,11 @@ __global__ void pack_bwd_kernel(uint8_t* dst, const bf16* wqkv, const bf16* wpro
     } else if (i < n4) {
       constexpr int kPerTile = K::kKs * 12;   // [kKs, 96]
       const long long m = i - n3;
-      const int tile = (int)(m / kPerTile), r = (int)(m % kPerTile);
-      const int k8 = r / 96, n = r % 96;
-      const int nc = tile / K::kNks, ks = tile % K::kNks;
-      pack_block(o, [&](int k, int) {
-        return wproj[(size_t)(nc * 96 + n) * C + ks * K::kKs + k]; }, k8, n);
+      pack_wproj_t_block<C>(o, wproj, (int)(m / kPerTile), (int)(m % kPerTile));
     } else {
       const long long m = i - n4;
-      const int tile = (int)(m / 576), r = (int)(m % 576);
-      const int k8 = r / 96, n = r % 96;
-      const int half = tile % 2, nb = tile / 2 % K::kNb;
-      const int h = tile / (2 * K::kNb) % K::kHeads;
-      const int pass = tile / (2 * K::kNb * K::kHeads);
-      pack_block(o, [&](int k, int) {
-        const int kq = 48 * half + k;
-        return wqkv[(size_t)(pass * K::kCw + nb * 96 + n) * 3 * C + (kq / kHd) * C +
-                    h * kHd + kq % kHd]; }, k8, n);
+      pack_wqkv_t_block<C>(o, wqkv, (int)(m / kWqkvTTileBlocks),
+                           (int)(m % kWqkvTTileBlocks));
     }
   }
 }
@@ -822,6 +542,7 @@ swin_block_bwd_window_kernel(const BlockArgs p, const BwdArgs q,
   const long long steps = (nwin + kConsumers - 1) / kConsumers;
 
   if (threadIdx.x == 0) ring_init(full, empty, B::kStages);
+  PHASE_BEGIN
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -868,6 +589,7 @@ swin_block_bwd_window_kernel(const BlockArgs p, const BwdArgs q,
       colsum_flush(cs + B::kDln1b, C, q.dln1b, L);
       colsum_flush(cs + B::kDb1, p.hidden, q.db1, L);
     }
+    PHASE_END
   }
 }
 
@@ -921,13 +643,13 @@ cudaError_t launch_bwd(const BlockArgs& p, BwdArgs q, const bf16* wqkv,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = launch_atb<true>(q.h1, q.qkv, dwqkv, C, 3 * C, n, sms, st);
+  err = launch_atb(q.h1, q.qkv, dwqkv, C, 3 * C, n, sms, st);
   if (err != cudaSuccess) return err;
-  err = launch_atb<true>(q.merged, q.datt, dwproj, C, C, n, sms, st);
+  err = launch_atb(q.merged, q.datt, dwproj, C, C, n, sms, st);
   if (err != cudaSuccess) return err;
-  err = launch_atb<true>(q.h2, q.dz1, dw1, C, hidden, n, sms, st);
+  err = launch_atb(q.h2, q.dz1, dw1, C, hidden, n, sms, st);
   if (err != cudaSuccess) return err;
-  return launch_atb<true>(q.g1, q.dz2, dw2, hidden, C, n, sms, st);
+  return launch_atb(q.g1, q.dz2, dw2, hidden, C, n, sms, st);
 }
 
 template <int C>
@@ -949,13 +671,7 @@ long long packed_bytes(int C, int hidden) {
 extern "C" {
 
 #ifdef SWIN_PHASE_CLOCKS
-// Copies the kPhases clock sums to `out` and zeroes them.
-int swin_block_bwd_phase_clocks(long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
-  if (err != cudaSuccess) return (int)err;
-  const long long zero[kPhases] = {};
-  return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
-}
+int swin_block_bwd_phase_clocks(long long* out) { return phase_clocks_read(out); }
 #endif
 
 // Dynamic shared memory one window block takes at channel width C (0: not
@@ -979,20 +695,16 @@ long long swin_block_bwd_scratch_f32(int B, int H, int W, int C) {
 }
 
 // The split-K pass alone: out[M, N] (f32) += a^T @ b over ntok tokens in
-// bf16; M, N multiples of 8, ntok of 64. With blocked == 0, a and b are
-// row-major [ntok, M] and [ntok, N] (TMA); otherwise token-blocked,
-// [ntok / 64][M / 8][64][8] and likewise b, as the window kernel writes them.
+// bf16; M, N multiples of 8, ntok of 64; a and b token-blocked,
+// [ntok / 64][M / 8][64][8] and likewise b, as the window kernels write them.
 int swin_block_atb_accum(const void* a, const void* b, void* out, int M, int N,
-                         long long ntok, int blocked, void* stream) {
+                         long long ntok, void* stream) {
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  const bf16* ap = static_cast<const bf16*>(a);
-  const bf16* bp = static_cast<const bf16*>(b);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(blocked ? launch_atb<true>(ap, bp, o, M, N, ntok, sms, st)
-                       : launch_atb<false>(ap, bp, o, M, N, ntok, sms, st));
+  return (int)launch_atb(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                         static_cast<float*>(out), M, N, ntok, sms,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the block on `stream`; returns the CUDA error code of the

@@ -1,10 +1,8 @@
-// WMMA device code of the window-attention kernels (window_attention.cu):
-// window geometry, warp reductions, strip products (bf16 x bf16 -> f32,
-// 16x16x16 tiles) and the per-head windowed attention forward and backward on
-// one 64-token window held in shared memory. The fused Swin-block kernels
-// (swin_block.cu, swin_block_bwd.cu) ran on these too until they moved to
-// wgmma (swin_block_sm90.cuh), which also holds the split-K pass that sums a
-// weight gradient over all tokens.
+// WMMA device code of the window-attention forward kernel
+// (window_attention.cu): window geometry, warp reductions, strip products
+// (bf16 x bf16 -> f32, 16x16x16 tiles) and the per-head windowed attention
+// forward on one 64-token window held in shared memory. Every other window
+// kernel runs on wgmma (swin_block_sm90.cuh, swin_block_bwd_sm90.cuh).
 
 #pragma once
 
@@ -17,6 +15,7 @@ using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
+namespace wmma_attn {
 
 constexpr int kWs = 8;         // window side
 constexpr int kTok = 64;       // tokens per window
@@ -24,7 +23,6 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad16 = 8;      // bf16 row padding, elements
 constexpr int kPad32 = 4;      // f32 row padding, elements
-constexpr int kMaxPerLane = 12;  // C / 32 register slots per lane (C <= 384)
 
 __host__ __device__ inline size_t round_up(size_t v, size_t a) {
   return (v + a - 1) / a * a;
@@ -43,7 +41,6 @@ __device__ inline float warp_max(float v) {
 }
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAt;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
@@ -57,22 +54,6 @@ __device__ inline void mma_strip(FragC (&c)[4], const bf16* A, int lda,
   for (int k0 = 0; k0 < K; k0 += 16) {
     FragB bm;
     wmma::load_matrix_sync(bm, B + (size_t)k0 * ldb, ldb);
-#pragma unroll
-    for (int tm = 0; tm < 4; ++tm) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + tm * 16 * lda + k0, lda);
-      wmma::mma_sync(c[tm], a, bm, c[tm]);
-    }
-  }
-}
-
-// The same strip against a transposed weight: c[tm] += A[.., :K] @ Bt[:16, :K]^T
-// where Bt points at 16 rows of a row-major weight with leading dimension ldb.
-__device__ inline void mma_strip_bt(FragC (&c)[4], const bf16* A, int lda,
-                                    const bf16* Bt, int ldb, int K) {
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    FragBt bm;
-    wmma::load_matrix_sync(bm, Bt + k0, ldb);
 #pragma unroll
     for (int tm = 0; tm < 4; ++tm) {
       FragA a;
@@ -113,10 +94,8 @@ struct AttnBufs {
   int ldqkv;
   float* stg;        // staging: qkv sums [64][ldstg], logits and dP [64][lds],
   int ldstg, lds, ldo32;  // P @ v [64][ldo32]
-  bf16* pbuf;        // [64][ldp]    softmax weights, later dS
+  bf16* pbuf;        // [64][ldp]    softmax weights
   int ldp;
-  float* p32;        // [64][lds] f32 softmax weights for the backward, or null:
-                     // then the backward reads the bf16 weights of pbuf
 };
 
 struct AttnWeights {
@@ -129,10 +108,9 @@ struct AttnWeights {
 };
 
 // q | k | v of head h: hbuf @ wqkv[:, head columns] summed in f32, plus the
-// bias, rounded to bf16 into S.qkv; also into qkv_rows (this window's 64 rows
-// of a [tokens, 3C] array in device memory) unless null.
+// bias, rounded to bf16 into S.qkv.
 __device__ inline void attn_head_qkv(const AttnBufs& S, const AttnWeights& W,
-                                     int h, bf16* qkv_rows) {
+                                     int h) {
   const int warp = threadIdx.x / 32;
   const int C = W.C, hd = W.hd;
   for (int tn = warp; tn < 3 * hd / 16; tn += kWarps) {
@@ -149,13 +127,12 @@ __device__ inline void attn_head_qkv(const AttnBufs& S, const AttnWeights& W,
     const bf16 v = __float2bfloat16(S.stg[t * S.ldstg + j] +
                                     __bfloat162float(W.bqkv[col]));
     S.qkv[t * S.ldqkv + j] = v;
-    if (qkv_rows) qkv_rows[(size_t)t * 3 * C + col] = v;
   }
   __syncthreads();
 }
 
 // P = softmax(scale * q k^T + rel_bias[h] + mask) in f32, from S.qkv, rounded
-// to bf16 into S.pbuf (and kept in f32 in S.p32 unless null).
+// to bf16 into S.pbuf.
 __device__ inline void attn_head_softmax(const AttnBufs& S,
                                          const AttnWeights& W, int h) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -188,10 +165,6 @@ __device__ inline void attn_head_softmax(const AttnBufs& S,
     const float sum = warp_sum(e0 + e1);
     S.pbuf[t * S.ldp + lane] = __float2bfloat16(e0 / sum);
     S.pbuf[t * S.ldp + lane + 32] = __float2bfloat16(e1 / sum);
-    if (S.p32) {
-      S.p32[t * S.lds + lane] = e0 / sum;
-      S.p32[t * S.lds + lane + 32] = e1 / sum;
-    }
   }
   __syncthreads();
 }
@@ -239,158 +212,5 @@ __device__ inline void attn_head_project(const AttnBufs& S, int h, int C,
   __syncthreads();
 }
 
-// Backward of head h, given its q | k | v in S.qkv, its softmax weights in
-// S.pbuf (and S.p32) and d(out) = dout[64][hd] (bf16, row stride lddout):
-//   dP = d(out) v^T;  dv = P^T d(out);  dS = P * (dP - rowsum(dP * P));
-//   drel[h] += dS;  dq = dS k * scale;  dk = dS^T q * scale,
-// every product on bf16 operands with f32 sums. dq | dk | dv, rounded to bf16,
-// replace the head's columns in qkv_rows (64 rows of a [tokens, 3C] array).
-// acc is f32 scratch [64][lda] with lda >= 3 * hd.
-__device__ inline void attn_head_backward(const AttnBufs& S,
-                                          const AttnWeights& W, int h,
-                                          const bf16* dout, int lddout,
-                                          float* acc, int lda, bf16* qkv_rows,
-                                          float* drel) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int C = W.C, hd = W.hd, o_nt = W.hd / 16;
-  // dP -> stg [64][lds];  dv -> acc[:, 2hd:3hd]
-  for (int tile = warp; tile < 16; tile += kWarps) {
-    const int tm = tile / 4, tn = tile % 4;
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < hd; k0 += 16) {
-      FragA a;
-      FragBt bt;
-      wmma::load_matrix_sync(a, dout + tm * 16 * lddout + k0, lddout);
-      wmma::load_matrix_sync(bt, S.qkv + tn * 16 * S.ldqkv + 2 * hd + k0,
-                             S.ldqkv);
-      wmma::mma_sync(c, a, bt, c);
-    }
-    wmma::store_matrix_sync(S.stg + tm * 16 * S.lds + tn * 16, c, S.lds,
-                            wmma::mem_row_major);
-  }
-  for (int tile = warp; tile < 4 * o_nt; tile += kWarps) {
-    const int tm = tile / o_nt, tn = tile % o_nt;
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    for (int k0 = 0; k0 < kTok; k0 += 16) {
-      FragAt a;  // A[m][n] = P[n][m]
-      FragB bm;
-      wmma::load_matrix_sync(a, S.pbuf + k0 * S.ldp + tm * 16, S.ldp);
-      wmma::load_matrix_sync(bm, dout + k0 * lddout + tn * 16, lddout);
-      wmma::mma_sync(c, a, bm, c);
-    }
-    wmma::store_matrix_sync(acc + tm * 16 * lda + 2 * hd + tn * 16, c, lda,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // dS; drel += dS; dS (bf16) replaces P
-  float* dr = drel + (size_t)h * kTok * kTok;
-  for (int t = warp; t < kTok; t += kWarps) {
-    float p0, p1;
-    if (S.p32) {
-      p0 = S.p32[t * S.lds + lane];
-      p1 = S.p32[t * S.lds + lane + 32];
-    } else {
-      p0 = __bfloat162float(S.pbuf[t * S.ldp + lane]);
-      p1 = __bfloat162float(S.pbuf[t * S.ldp + lane + 32]);
-    }
-    const float d0 = S.stg[t * S.lds + lane], d1 = S.stg[t * S.lds + lane + 32];
-    const float dot = warp_sum(d0 * p0 + d1 * p1);
-    const float ds0 = p0 * (d0 - dot), ds1 = p1 * (d1 - dot);
-    atomicAdd(dr + t * kTok + lane, ds0);
-    atomicAdd(dr + t * kTok + lane + 32, ds1);
-    S.pbuf[t * S.ldp + lane] = __float2bfloat16(ds0);
-    S.pbuf[t * S.ldp + lane + 32] = __float2bfloat16(ds1);
-  }
-  __syncthreads();
-
-  // dq = dS @ k -> acc[:, 0:hd];  dk = dS^T @ q -> acc[:, hd:2hd]
-  for (int tile = warp; tile < 8 * o_nt; tile += kWarps) {
-    const int which = tile / (4 * o_nt), rest = tile % (4 * o_nt);
-    const int tm = rest / o_nt, tn = rest % o_nt;
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    if (which == 0) {
-      for (int k0 = 0; k0 < kTok; k0 += 16) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, S.pbuf + tm * 16 * S.ldp + k0, S.ldp);
-        wmma::load_matrix_sync(bm, S.qkv + k0 * S.ldqkv + hd + tn * 16,
-                               S.ldqkv);
-        wmma::mma_sync(c, a, bm, c);
-      }
-    } else {
-      for (int k0 = 0; k0 < kTok; k0 += 16) {
-        FragAt a;  // A[m][n] = dS[n][m]
-        FragB bm;
-        wmma::load_matrix_sync(a, S.pbuf + k0 * S.ldp + tm * 16, S.ldp);
-        wmma::load_matrix_sync(bm, S.qkv + k0 * S.ldqkv + tn * 16, S.ldqkv);
-        wmma::mma_sync(c, a, bm, c);
-      }
-    }
-    wmma::store_matrix_sync(acc + tm * 16 * lda + which * hd + tn * 16, c,
-                            lda, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-    const int t = idx / (3 * hd), j = idx % (3 * hd);
-    const int part = j / hd, jj = j % hd;
-    float v = acc[t * lda + j];
-    if (part < 2) v *= W.scale;
-    qkv_rows[(size_t)t * 3 * C + part * C + h * hd + jj] = __float2bfloat16(v);
-  }
-  __syncthreads();
-}
-
-// Loads head h's q | k | v from qkv_rows (64 rows of a [tokens, 3C] array)
-// into S.qkv.
-__device__ inline void attn_head_load_qkv(const AttnBufs& S, int C, int hd,
-                                          int h, const bf16* qkv_rows) {
-  for (int idx = threadIdx.x; idx < kTok * 3 * hd; idx += kThreads) {
-    const int t = idx / (3 * hd), j = idx % (3 * hd);
-    S.qkv[t * S.ldqkv + j] =
-        qkv_rows[(size_t)t * 3 * C + (j / hd) * C + h * hd + j % hd];
-  }
-  __syncthreads();
-}
-
-// One warp's 64x16 strip of f32 sums, rounded to bf16 into dst[64][ldd]
-// columns col0..col0+15, through the warp's own 64x16 slot of f32 staging
-// (row stride lds32). Only the calling warp synchronises.
-__device__ inline void store_strip_bf16(bf16* dst, int ldd, int col0,
-                                        const FragC (&c)[4], float* slot,
-                                        int lds32) {
-  const int lane = threadIdx.x % 32;
-  store_strip(slot, c, lds32);
-  __syncwarp();
-  for (int idx = lane; idx < kTok * 16; idx += 32) {
-    const int t = idx / 16, j = idx % 16;
-    dst[t * ldd + col0 + j] = __float2bfloat16(slot[t * lds32 + j]);
-  }
-  __syncwarp();
-}
-
-// Sums per-warp partial column sums (lane holds columns lane + 32*i) over the
-// block's warps through `red` (at least kWarps*C floats of shared memory) and
-// adds the totals into dst[0:C]. Every thread of the block calls it.
-__device__ inline void flush_colsums(float* red, const float (&part)[kMaxPerLane],
-                                     float* dst, int C) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int per_lane = C / 32;
-#pragma unroll
-  for (int i = 0; i < kMaxPerLane; ++i)
-    if (i < per_lane) red[warp * C + lane + 32 * i] = part[i];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * C + c];
-    atomicAdd(dst + c, s);
-  }
-  __syncthreads();
-}
-
+}  // namespace wmma_attn
 }  // namespace

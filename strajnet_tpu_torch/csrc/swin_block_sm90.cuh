@@ -1,17 +1,17 @@
 // Hopper (sm_90a) building blocks of the fused Swin-block kernels
-// (swin_block.cu, swin_block_bwd.cu) and of the split-K pass that sums a
-// weight gradient over all tokens (also called by window_attention.cu):
+// (swin_block.cu, swin_block_bwd.cu), of the window-attention backward
+// (window_attention.cu), of the decoder tail (decoder_tail.cu) and of the
+// split-K pass that sums a weight gradient over all tokens:
 //
-// - PTX wrappers: mbarriers, bulk asynchronous copies (cp.async.bulk and TMA
-//   tensor tiles), named barriers, wgmma descriptors and instructions;
+// - PTX wrappers: mbarriers, bulk asynchronous copies (cp.async.bulk), named
+//   barriers, wgmma descriptors and instructions;
 // - the shared-memory operand layout the fused kernels use (8x8 core
 //   matrices, K-major, no swizzle) with the stores that produce it from wgmma
 //   accumulator fragments;
 // - atb_accum_sm90_kernel: dW[M, N] += A[tokens, M]^T B[tokens, N] with both
-//   operands brought in through a ring of stages, by TMA with the 128-byte
-//   swizzle from row-major arrays or by plain bulk copies from the
-//   token-blocked layout the Swin-block backward writes, and multiplied by
-//   wgmma straight from those tiles;
+//   operands brought in through a ring of stages by plain bulk copies from
+//   the token-blocked layout the backward window kernels write, and
+//   multiplied by wgmma straight from those tiles;
 // - the forward of one Swin block on one 64-token window, owned by one
 //   warpgroup from LayerNorm to the last residual, with weights streamed
 //   through a ring of shared-memory stages by a producer warp.
@@ -26,10 +26,8 @@
 
 #pragma once
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
@@ -100,16 +98,6 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
       : "memory");
 }
 
-// One box of a 2-D tensor map -> shared memory (c0 = innermost coordinate).
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -119,21 +107,34 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits for all but the newest committed group.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
-constexpr int kLayoutNone = 0;   // 8x8 core matrices, no swizzle
-constexpr int kLayoutSw128 = 1;  // 128-byte swizzle (what TMA SWIZZLE_128B writes)
-
-// Shared-memory matrix descriptor of a wgmma operand: start address, the two
-// byte strides between core matrices ("leading" and "stride"), swizzle mode.
+// Shared-memory matrix descriptor of a wgmma operand laid out as 8x8 core
+// matrices without swizzle: start address and the two byte strides between
+// core matrices ("leading" and "stride").
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
+                                              uint32_t sbo) {
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32. `ss`: A and B from shared
 // memory (TA/TB = 1 reads the operand MN-major); `rs`: A from registers.
 // d += A B when scale_d != 0, d = A B otherwise.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -285,12 +286,53 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
+// Diagnostic: with -DSWIN_PHASE_CLOCKS the first warpgroup of block 0 sums
+// the clocks it spends in each phase of its windows (tools/
+// swin_block_bwd_phases.py builds that variant of the two backward kernels and
+// of the decoder tail and prints the shares). Each source that includes this
+// header has its own sums and exports them through phase_clocks_read.
+// PHASE_BEGIN opens a kernel's sums (shared memory, so that a stamp costs
+// tens of clocks), PHASE_START a window or tile, PHASE(i) closes phase i,
+// PHASE_END adds the kernel's sums to device memory.
+#ifdef SWIN_PHASE_CLOCKS
+constexpr int kPhases = 9;
+__device__ long long g_phase_clocks[kPhases];
+__shared__ long long s_phase[kPhases + 1];   // the sums, then the last stamp
+#define PHASE_ON (blockIdx.x == 0 && threadIdx.x == 0)
+#define PHASE_BEGIN                                          \
+  if (PHASE_ON)                                              \
+    for (int i = 0; i <= kPhases; ++i) s_phase[i] = 0;
+#define PHASE_START \
+  if (PHASE_ON) s_phase[kPhases] = clock64();
+#define PHASE(i)                                             \
+  if (PHASE_ON) {                                            \
+    const long long now = clock64();                         \
+    s_phase[i] += now - s_phase[kPhases];                    \
+    s_phase[kPhases] = now;                                  \
+  }
+#define PHASE_END                                            \
+  if (PHASE_ON)                                              \
+    for (int i = 0; i < kPhases; ++i) g_phase_clocks[i] += s_phase[i];
+// Copies the kPhases clock sums to `out` and zeroes them.
+inline int phase_clocks_read(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+  if (err != cudaSuccess) return (int)err;
+  const long long zero[kPhases] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+}
+#else
+#define PHASE_BEGIN
+#define PHASE_START
+#define PHASE(i)
+#define PHASE_END
+#endif
+
 // ---------------------------------------------------------------------------
 // dW[M, N] += A[tokens, M]^T @ B[tokens, N] over slices of the tokens
 // ---------------------------------------------------------------------------
 // A TPU grid is sequential and sums a weight gradient in scratch that
 // persists from one grid step to the next; here blocks run in no order, so
-// the window kernels write the two bf16 operands token by token and this
+// the window kernels write the two bf16 operands window by window and this
 // split-K pass sums them. It is a plain GEMM whose K dimension (tokens) is
 // the outer one of both operands in memory, so both are "MN-major" for
 // wgmma, which the descriptors' transpose bits name: no transposing copy.
@@ -312,21 +354,16 @@ constexpr int kAtbSmem = kAtbStages * kAtbStageBytes + 1024 + 64;
 // [64, M] operand: [col / 8][row][8]. An accumulator fragment written there
 // gives 128 contiguous bytes per warp and 8-column block, and any range of
 // column blocks of a window is contiguous, so this pass can fetch its slabs
-// with plain bulk copies. (Row-major, the same stores are 16 bytes per row:
-// the window kernel then spends most of its time waiting on its stores.)
+// with plain bulk copies and needs no tensor map. (Row-major, the same stores
+// are 16 bytes per row: the window kernel then spends most of its time
+// waiting on its stores.)
 __host__ __device__ __forceinline__ int blk_off(int row, int col) {
   return (col >> 3) * (kAtbSlab * 8) + row * 8 + (col & 7);
 }
 
-// kBlocked: A and B are [windows][M / 8][64][8] and [windows][N / 8][64][8]
-// (blk_off) and come in by cp.async.bulk; the tensor maps are not used.
-// Otherwise A and B are row-major [tokens, M], [tokens, N] behind the two
-// tensor maps (boxes of 64 tokens x 64 columns, 128-byte swizzle).
-template <bool kBlocked>
+// A and B are [windows][M / 8][64][8] and [windows][N / 8][64][8] (blk_off).
 __global__ void __launch_bounds__(kAtbThreads)
-atb_accum_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                      const __grid_constant__ CUtensorMap map_b,
-                      const bf16* __restrict__ a_blk, const bf16* __restrict__ b_blk,
+atb_accum_sm90_kernel(const bf16* __restrict__ a_blk, const bf16* __restrict__ b_blk,
                       float* __restrict__ out, int M, int N, long long ntok,
                       long long slice) {
   extern __shared__ uint8_t atb_smem_raw[];
@@ -365,18 +402,10 @@ atb_accum_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
         // slices and the token count are multiples of the slab, so no
         // slab reaches into the next slice
         const long long tok = tok_begin + (long long)it * kAtbSlab;
-        if (kBlocked) {
-          mbar_expect_tx(full, a_bytes + b_bytes);
-          bulk_copy_g2s(dst, a_blk + tok * M + (size_t)m0 * kAtbSlab, a_bytes, full);
-          bulk_copy_g2s(dst + 2 * kAtbBox, b_blk + tok * N + (size_t)n0 * kAtbSlab,
-                        b_bytes, full);
-        } else {
-          mbar_expect_tx(full, kAtbStageBytes);
-          tma_load_2d(dst, &map_a, m0, (int)tok, full);
-          tma_load_2d(dst + kAtbBox, &map_a, m0 + 64, (int)tok, full);
-          tma_load_2d(dst + 2 * kAtbBox, &map_b, n0, (int)tok, full);
-          tma_load_2d(dst + 3 * kAtbBox, &map_b, n0 + 64, (int)tok, full);
-        }
+        mbar_expect_tx(full, a_bytes + b_bytes);
+        bulk_copy_g2s(dst, a_blk + tok * M + (size_t)m0 * kAtbSlab, a_bytes, full);
+        bulk_copy_g2s(dst + 2 * kAtbBox, b_blk + tok * N + (size_t)n0 * kAtbSlab,
+                      b_bytes, full);
         if (++stage == kAtbStages) {
           stage = 0;
           phase ^= 1;
@@ -399,19 +428,11 @@ atb_accum_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kAtbSlab / 16; ++kk) {
-      if (kBlocked) {
-        // [col / 8][token][8]: 8 tokens are 128 bytes (leading offset), the
-        // next 8 columns 1024 bytes on (stride offset); 16 tokens per step
-        const uint64_t da = make_desc(sa + kk * 256, 128, 1024, kLayoutNone);
-        const uint64_t db = make_desc(sb + kk * 256, 128, 1024, kLayoutNone);
-        wgmma_ss_n128<1, 1>(acc, da, db, 1);
-      } else {
-        // 16 tokens = 16 rows of 128 bytes; 8-row groups 1024 bytes apart; the
-        // second 64 columns of B one box further
-        const uint64_t da = make_desc(sa + kk * 2048, kAtbBox, 1024, kLayoutSw128);
-        const uint64_t db = make_desc(sb + kk * 2048, kAtbBox, 1024, kLayoutSw128);
-        wgmma_ss_n128<1, 1>(acc, da, db, 1);
-      }
+      // [col / 8][token][8]: 8 tokens are 128 bytes (leading offset), the
+      // next 8 columns 1024 bytes on (stride offset); 16 tokens per step
+      const uint64_t da = make_desc(sa + kk * 256, 128, 1024);
+      const uint64_t db = make_desc(sb + kk * 256, 128, 1024);
+      wgmma_ss_n128<1, 1>(acc, da, db, 1);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -439,43 +460,6 @@ atb_accum_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is exported by libcuda, not by the runtime library.
-// Its address is looked up in the libcuda the process has loaded, so this
-// library links against nothing but cudart.
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn) return fn;
-  void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-  if (!lib) return nullptr;
-  fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  return fn;
-}
-
-// Tensor map of a row-major bf16 [rows, cols] array with boxes of
-// [box_rows, 64 columns] and the 128-byte swizzle. Reads past either edge
-// give zeros.
-inline cudaError_t make_map_2d(CUtensorMap* map, const bf16* ptr, long long rows,
-                               int cols, int box_rows) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1u, 1u};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<bf16*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The card's number of SMs.
 inline cudaError_t sm_count(int* sms) {
   int dev = 0;
@@ -485,20 +469,12 @@ inline cudaError_t sm_count(int* sms) {
 }
 
 // out[M, N] (f32, already holding the sum so far) += A^T B over ntok tokens.
-// M and N must be multiples of 8 (16-byte rows) and ntok of 64. kBlocked
-// names the operands' layout (see the kernel).
-template <bool kBlocked>
+// M and N must be multiples of 8 (16-byte blocks) and ntok of 64; A and B
+// token-blocked (see the kernel).
 inline cudaError_t launch_atb(const bf16* A, const bf16* Bm, float* out, int M,
                               int N, long long ntok, int sms,
                               cudaStream_t stream) {
   if (M % 8 || N % 8 || ntok % kAtbSlab) return cudaErrorInvalidValue;
-  CUtensorMap map_a = {}, map_b = {};
-  if (!kBlocked) {
-    cudaError_t err = make_map_2d(&map_a, A, ntok, M, kAtbSlab);
-    if (err != cudaSuccess) return err;
-    err = make_map_2d(&map_b, Bm, ntok, N, kAtbSlab);
-    if (err != cudaSuccess) return err;
-  }
   const int tiles_m = (M + kAtbTile - 1) / kAtbTile;
   const int tiles_n = (N + kAtbTile - 1) / kAtbTile;
   // about two blocks per SM over all tiles
@@ -508,12 +484,12 @@ inline cudaError_t launch_atb(const bf16* A, const bf16* Bm, float* out, int M,
   const long long nsplit = (ntok + slice - 1) / slice;
   if (nsplit > 65535) return cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(atb_accum_sm90_kernel<kBlocked>,
+      cudaFuncSetAttribute(atb_accum_sm90_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kAtbSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)tiles_n, (unsigned)tiles_m, (unsigned)nsplit);
-  atb_accum_sm90_kernel<kBlocked><<<grid, kAtbThreads, kAtbSmem, stream>>>(
-      map_a, map_b, A, Bm, out, M, N, ntok, slice);
+  atb_accum_sm90_kernel<<<grid, kAtbThreads, kAtbSmem, stream>>>(A, Bm, out, M, N,
+                                                                 ntok, slice);
   return cudaGetLastError();
 }
 
@@ -566,7 +542,7 @@ __device__ __forceinline__ uint32_t kmaj_off(int row, int k, int rows) {
 }
 
 __device__ __forceinline__ uint64_t kmaj_desc(uint32_t saddr, int rows, int kstep) {
-  return make_desc(saddr + kstep * 2 * rows * 16, rows * 16, 128, kLayoutNone);
+  return make_desc(saddr + kstep * 2 * rows * 16, rows * 16, 128);
 }
 
 // A thread's place in its warpgroup's accumulator fragments.
@@ -810,18 +786,52 @@ struct Window {
   }
 };
 
-__device__ __forceinline__ Window make_window(const BlockArgs& p, long long index) {
+// Window `index` of a [B, H, W, C] tensor, both branches kept as they are.
+__device__ __forceinline__ Window window_at(int H, int W, long long index) {
   Window w;
-  const int nwx = p.W / kWs, per = nwx * (p.H / kWs);
+  const int nwx = W / kWs, per = nwx * (H / kWs);
   w.b = (int)(index / per);
   w.wi = (int)(index % per);
   w.wy = w.wi / nwx;
   w.wx = w.wi % nwx;
+  w.dp1 = 1.0f;
+  w.dp2 = 1.0f;
+  w.H = H;
+  w.W = W;
+  return w;
+}
+
+__device__ __forceinline__ Window make_window(const BlockArgs& p, long long index) {
+  Window w = window_at(p.H, p.W, index);
   w.dp1 = p.dp[2 * w.b];
   w.dp2 = p.dp[2 * w.b + 1];
-  w.H = p.H;
-  w.W = p.W;
   return w;
+}
+
+// The window's 64 rows of `x` as they are into the A operand `hbuf` ([64, C]
+// K-major) and into `rows_out` ([64, C] token-blocked): 16 bytes a thread,
+// eight lanes on eight rows of one column block (dense loads and stores, as
+// in layernorm_window below).
+template <int C>
+__device__ __forceinline__ void copy_window(const bf16* x, const Window& win,
+                                            uint8_t* hbuf, bf16* rows_out, int tid) {
+  constexpr int kPer = C / 32;   // 16-byte blocks per lane and row
+  const int lane = tid % 32, q = lane / 8;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = (tid / 32) * 16 + (lane % 8) + 8 * half;
+    const bf16* xr = x + win.ofs<C>(row);
+    uint4 v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      v[i] = *reinterpret_cast<const uint4*>(xr + (4 * i + q) * 8);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c0 = (4 * i + q) * 8;
+      *reinterpret_cast<uint4*>(hbuf + kmaj_off(row, c0, 64)) = v[i];
+      *reinterpret_cast<uint4*>(rows_out + blk_off(row, c0)) = v[i];
+    }
+  }
 }
 
 // LayerNorm of the window's 64 rows of `x` into the A operand `hbuf`

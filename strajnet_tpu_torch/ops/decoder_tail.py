@@ -20,15 +20,20 @@ zero outside the ``2H x 2W`` image. Kernels keep the JAX layout, HWIO:
   re-bucketed output kernel (:func:`build_ky`), one depth-to-space at two
   channels. Plain PyTorch, no kernel.
 - :func:`decoder_tail`: on a CUDA tensor the kernel of
-  ``csrc/decoder_tail.cu``, which keeps the intermediate in shared memory; on
-  a CPU tensor the naive composition. Its backward is autograd of the naive
-  composition, as the JAX custom VJP is: there is no backward kernel. A
-  failed build or launch raises. ``decoder_tail.launches`` counts launches.
+  ``csrc/decoder_tail.cu``, which runs the phase form's two products on
+  ``wgmma`` and keeps the intermediate in shared memory; on a CPU tensor the
+  naive composition. The kernel is built for the model's tails, ``Cin = 96``
+  and ``Cmid = 48``; a small kernel of the same source folds both kernels
+  and packs them into the products' operand layout per launch. Its backward
+  is autograd of the naive composition, as the JAX custom VJP is: there is
+  no backward kernel. What the kernel does not cover, or a failed build or
+  launch, raises. ``decoder_tail.launches`` counts launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +50,17 @@ def _oihw(w_hwio: torch.Tensor) -> torch.Tensor:
     return w_hwio.permute(3, 2, 0, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _fold_selector() -> torch.Tensor:
+    """[2, 2, 3] 0/1: ``[a, r, d]`` is 1 where row d of the 3x3 kernel folds
+    into low-resolution tap r of output phase a."""
+    sel = torch.zeros(2, 2, 3)
+    for a in (0, 1):
+        for r in (0, 1):
+            sel[a, r, list(_ROW_SETS[a][r])] = 1.0
+    return sel
+
+
 def fold_kernel_2x(w3: torch.Tensor) -> torch.Tensor:
     """[3, 3, Cin, Cout] -> [2, 2, Cin, 4*Cout] phase-folded kernel.
 
@@ -52,13 +68,9 @@ def fold_kernel_2x(w3: torch.Tensor) -> torch.Tensor:
     (a, b): upsampled pixel (2i+a, 2j+b) reads the input at rows i+a-1, i+a
     and columns j+b-1, j+b.
     """
-    blocks = []
-    for a in (0, 1):
-        for b in (0, 1):
-            taps = [[sum(w3[dy, dx] for dy in rows for dx in cols)
-                     for cols in _ROW_SETS[b]] for rows in _ROW_SETS[a]]
-            blocks.append(torch.stack([torch.stack(r) for r in taps]))
-    return torch.cat(blocks, dim=-1)
+    sel = _fold_selector().to(device=w3.device, dtype=w3.dtype)
+    kf = torch.einsum("aud,bve,deio->uviabo", sel, sel, w3)
+    return kf.reshape(2, 2, w3.shape[2], 4 * w3.shape[3])
 
 
 def _outconv_tap(a: int, k: int):
@@ -68,6 +80,22 @@ def _outconv_tap(a: int, k: int):
     return a2, (a + k - 1 - a2) // 2
 
 
+@functools.lru_cache(maxsize=None)
+def _ky_selector() -> torch.Tensor:
+    """[2, 2, 4, 4, 3, 3] 0/1: ``[u, v, p, q, kr, kc]`` is 1 where tap
+    (kr, kc) of the 3x3 output conv, for output phase q = 2a+b, reads channel
+    block p of the offset-grid entry at offset (u, v)."""
+    sel = torch.zeros(2, 2, 4, 4, 3, 3)
+    for a in (0, 1):
+        for kr in range(3):
+            a2, di = _outconv_tap(a, kr)
+            for b in (0, 1):
+                for kc in range(3):
+                    b2, dj = _outconv_tap(b, kc)
+                    sel[a2 + di, b2 + dj, 2 * a2 + b2, 2 * a + b, kr, kc] = 1.0
+    return sel
+
+
 def build_ky(wo: torch.Tensor) -> torch.Tensor:
     """[3, 3, Cmid, 2] -> [2, 2, 4*Cmid, 8] offset-grid output kernel.
 
@@ -75,18 +103,9 @@ def build_ky(wo: torch.Tensor) -> torch.Tensor:
     ``y[a+i, b+j, block 2a+b]``) the 3x3 conv over the upsampled image is a
     2x2 VALID conv; output lane (2a+b)*2+o holds phase (a, b), channel o.
     """
-    cmid = wo.shape[2]
-    ky = wo.new_zeros(2, 2, 4, cmid, 8)
-    for a in (0, 1):
-        for kr in range(3):
-            a2, di = _outconv_tap(a, kr)
-            for b in (0, 1):
-                for kc in range(3):
-                    b2, dj = _outconv_tap(b, kc)
-                    lane = (2 * a + b) * 2
-                    ky[a2 + di, b2 + dj, 2 * a2 + b2, :, lane:lane + 2] += \
-                        wo[kr, kc]
-    return ky.reshape(2, 2, 4 * cmid, 8)
+    sel = _ky_selector().to(device=wo.device, dtype=wo.dtype)
+    ky = torch.einsum("uvpqrc,rcmo->uvpmqo", sel, wo)
+    return ky.reshape(2, 2, 4 * wo.shape[2], 8)
 
 
 def _offset_grid_mask(h: int, w: int, device=None) -> torch.Tensor:
@@ -124,18 +143,18 @@ def decoder_tail_phase(x, w_up, b_up, w_out, b_out) -> torch.Tensor:
     return o.reshape(n, 2 * h, 2 * w, 2) + b_out.to(dt)
 
 
+KERNEL_WIDTHS = (96, 48)   # (Cin, Cmid) of the model's tails
+
+
 def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
     """Whether the kernel covers this geometry.
 
-    It writes two output channels, reads Cin in 16-wide tensor-core steps and
-    4*Cmid in 16-wide column tiles. The gate of the JAX package also asks for
-    a square image whose side divides into 16-row chunks and for 16*Cmid
-    lanes in multiples of 128: those serve the TPU kernel's row chunks and
-    lane tiling; this kernel masks ragged edges itself and does not need
-    them. Widths whose tiles outgrow a block's shared memory (Cin in the
-    hundreds) pass here and fail at the launch, which raises.
+    It is built for the tails of the model: ``Cin = 96``, ``Cmid = 48``, two
+    output channels. The gate of the JAX package also asks for a square image
+    whose side divides into 16-row chunks: that serves the TPU kernel's row
+    chunks; this kernel masks ragged edges itself and takes any image.
     """
-    return cout == 2 and h > 0 and w > 0 and cin % 16 == 0 and cmid % 4 == 0
+    return cout == 2 and h > 0 and w > 0 and (cin, cmid) == KERNEL_WIDTHS
 
 
 def _lib():
@@ -144,13 +163,30 @@ def _lib():
     lib = load_library("decoder_tail")
     if not getattr(lib, "_bound", False):
         lib.decoder_tail_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.decoder_tail_fwd.restype = ctypes.c_int
+        lib.decoder_tail_scratch_bytes.argtypes = []
+        lib.decoder_tail_scratch_bytes.restype = ctypes.c_longlong
+        lib.decoder_tail_smem_bytes.argtypes = []
+        lib.decoder_tail_smem_bytes.restype = ctypes.c_size_t
         lib._bound = True
     return lib
 
 
-def _launch(x, w_up, b_up, w_out, b_out):
+def kernel_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the kernel (builds it; needs
+    nvcc)."""
+    return int(_lib().decoder_tail_smem_bytes())
+
+
+def check_launch_args(x, w_up, w_out) -> None:
+    """Raises ValueError unless the kernel takes these arguments: bf16
+    ``x [N, H, W, 96]``, ``w_up [3, 3, 96, 48]``, ``w_out [3, 3, 48, 2]``.
+    Touches no kernel."""
+    if x.dim() != 4 or w_up.dim() != 4 or w_out.dim() != 4:
+        raise ValueError(f"x, w_up and w_out must be 4-D, got "
+                         f"{tuple(x.shape)}, {tuple(w_up.shape)}, "
+                         f"{tuple(w_out.shape)}")
     n, h, w, cin = x.shape
     cmid = w_up.shape[3]
     if x.dtype != torch.bfloat16:
@@ -161,26 +197,38 @@ def _launch(x, w_up, b_up, w_out, b_out):
         raise ValueError(f"w_up {tuple(w_up.shape)} / w_out "
                          f"{tuple(w_out.shape)}: expected (3, 3, {cin}, "
                          f"Cmid) and (3, 3, Cmid, 2)")
-    if not supports(h, w, cin, cmid, w_out.shape[3]):
-        raise ValueError(f"the decoder-tail kernel does not cover h={h}, "
-                         f"w={w}, cin={cin}, cmid={cmid} (see supports)")
-    bf = torch.bfloat16
-    kf = fold_kernel_2x(w_up.float()).to(bf).contiguous()
-    wo = w_out.to(bf).contiguous()
-    bu = b_up.float().contiguous()
+    if n < 1 or not supports(h, w, cin, cmid, w_out.shape[3]):
+        raise ValueError(f"the decoder-tail kernel does not cover n={n}, "
+                         f"h={h}, w={w}, cin={cin}, cmid={cmid} (see "
+                         f"supports)")
+
+
+def _launch(x, w_up, b_up, w_out, b_out):
+    check_launch_args(x, w_up, w_out)
+    n, h, w, cin = x.shape
+    cmid = w_up.shape[3]
+    bf, f32 = torch.bfloat16, torch.float32
+    wu, bu, wo, bo = (t.to(f32).contiguous()
+                      for t in (w_up, b_up, w_out, b_out))
+    lib = _lib()
     out = torch.empty(n, 2 * h, 2 * w, 2, dtype=bf, device=x.device)
+    # the kernel's copy of both kernels, folded and packed into its tiles
+    scratch = torch.empty(lib.decoder_tail_scratch_bytes(), dtype=torch.uint8,
+                          device=x.device)
     check_tensors({"x": (x, bf, (n, h, w, cin)),
-                   "folded w_up": (kf, bf, (2, 2, cin, 4 * cmid)),
-                   "b_up": (bu, torch.float32, (cmid,)),
-                   "w_out": (wo, bf, (3, 3, cmid, 2))}, x.device)
+                   "w_up": (wu, f32, (3, 3, cin, cmid)),
+                   "b_up": (bu, f32, (cmid,)),
+                   "w_out": (wo, f32, (3, 3, cmid, 2)),
+                   "b_out": (bo, f32, (2,))}, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().decoder_tail_fwd(ptr(x), ptr(kf), ptr(bu), ptr(wo), ptr(out),
-                                  n, h, w, cin, cmid, ctypes.c_void_p(stream))
+    err = lib.decoder_tail_fwd(ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo),
+                               ptr(out), ptr(scratch), n, h, w, cin, cmid,
+                               ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"decoder_tail kernel launch failed with CUDA "
                            f"error {err}")
     decoder_tail.launches += 1
-    return out + b_out.to(bf)
+    return out
 
 
 class _DecoderTailFn(torch.autograd.Function):
@@ -211,7 +259,8 @@ def decoder_tail(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 
     Returns:
       [N, 2H, 2W, 2] in ``x.dtype``. The kernel accumulates both
-      convolutions in f32 and rounds the intermediate and the output once.
+      convolutions in f32, adds ``b_out`` in f32 and rounds the intermediate
+      and the output once.
     """
     if x.device.type == "cpu":
         return decoder_tail_reference(x, w_up, b_up, w_out, b_out)

@@ -37,8 +37,8 @@ import torch
 import torch.nn.functional as F
 
 _KERNEL_WINDOW = 8   # ws * ws == 64 tokens: one wgmma M tile per window
-_MAX_CHANNELS = 384   # the window-attention kernels' shared memory at C=384
-_BLOCK_CHANNELS = (96, 192, 384)   # widths the Swin-block kernels are built for
+_MAX_CHANNELS = 384   # the window-attention forward's shared memory at C=384
+_BLOCK_CHANNELS = (96, 192, 384)   # widths the wgmma window kernels are built for
 _HEAD_DIM = 32
 
 
@@ -280,6 +280,15 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
     check_tensors(expect, x.device)
 
 
+def check_wgmma_widths(c: int, num_heads: int, what: str) -> None:
+    """Raises ValueError unless the wgmma window kernels (K1, K2, K4) are
+    built for this channel width and head count."""
+    if c not in _BLOCK_CHANNELS or c != num_heads * _HEAD_DIM:
+        raise ValueError(f"{what} are built for C in {_BLOCK_CHANNELS} with "
+                         f"head_dim {_HEAD_DIM}, got C={c}, "
+                         f"heads={num_heads}")
+
+
 def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                       ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
                       window_size: int, num_heads: int) -> None:
@@ -293,10 +302,7 @@ def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                          window_size=window_size, num_heads=num_heads)
     b, c = x.shape[0], x.shape[-1]
-    if c not in _BLOCK_CHANNELS or c // num_heads != _HEAD_DIM:
-        raise ValueError(f"the Swin-block kernels are built for C in "
-                         f"{_BLOCK_CHANNELS} with head_dim {_HEAD_DIM}, got "
-                         f"C={c}, heads={num_heads}")
+    check_wgmma_widths(c, num_heads, "the Swin-block kernels")
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
     if hidden <= 0 or hidden % 64:
         raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
@@ -342,7 +348,7 @@ def _lib(name: str):
             lib.swin_block_bwd_scratch_f32.restype = ctypes.c_longlong
             lib.swin_block_atb_accum.argtypes = (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_longlong, ctypes.c_void_p])
             lib.swin_block_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
             lib.swin_block_bwd_smem_bytes.restype = ctypes.c_size_t
             lib.swin_block_atb_accum.restype = ctypes.c_int
@@ -427,7 +433,7 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
 
 
 def token_blocked(t: torch.Tensor) -> torch.Tensor:
-    """``[tokens, M]`` as K2's window kernel lays it out in scratch:
+    """``[tokens, M]`` as the backward window kernels lay it out in scratch:
     ``[tokens / 64, M / 8, 64, 8]``, per window the 8-column blocks one
     after the other, each with its 64 tokens' eight values in a row."""
     tokens, m = t.shape
@@ -437,41 +443,31 @@ def token_blocked(t: torch.Tensor) -> torch.Tensor:
 
 def atb_accum(a: torch.Tensor, b: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out += a^T @ b`` in f32 for bf16 ``a [tokens, M]``, ``b [tokens, N]``:
-    the split-K pass that sums K2's and K4's weight gradients over all
-    tokens, alone. Both operands row-major as K4 writes them (the kernel
-    reads them through TMA) or both as :func:`token_blocked` makes them, the
-    layout K2 writes (4-D; bulk copies). The kernel on CUDA tensors (tokens
-    a multiple of 64, M and N of 8), a plain product on CPU tensors."""
-    blocked = a.dim() == 4
-    if blocked != (b.dim() == 4):
-        raise ValueError("atb_accum takes both operands row-major or both "
-                         "token-blocked")
-    if blocked:
-        ntok, m, n = 64 * a.shape[0], 8 * a.shape[1], 8 * b.shape[1]
-        shape_a, shape_b = (ntok // 64, m // 8, 64, 8), (ntok // 64, n // 8, 64, 8)
-    else:
-        (ntok, m), n = a.shape, b.shape[1]
-        shape_a, shape_b = (ntok, m), (ntok, n)
+    """``out += a^T @ b`` in f32 for bf16 operands over the same tokens, both
+    as :func:`token_blocked` makes them (``[tokens / 64, M / 8, 64, 8]`` and
+    ``[tokens / 64, N / 8, 64, 8]``): the split-K pass that sums K2's and
+    K4's weight gradients over all tokens, alone. The kernel on CUDA tensors,
+    a plain product on CPU tensors."""
+    if a.dim() != 4 or b.dim() != 4 or a.shape[0] != b.shape[0] \
+            or tuple(a.shape[2:]) != (64, 8) or tuple(b.shape[2:]) != (64, 8):
+        raise ValueError(f"atb_accum takes token-blocked operands "
+                         f"[tokens / 64, M / 8, 64, 8], got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    ntok, m, n = 64 * a.shape[0], 8 * a.shape[1], 8 * b.shape[1]
     if out is None:
         out = torch.zeros(m, n, dtype=torch.float32, device=a.device)
     if a.device.type == "cpu":
-        if blocked:
-            a, b = (t.permute(0, 2, 1, 3).reshape(ntok, -1) for t in (a, b))
+        a, b = (t.permute(0, 2, 1, 3).reshape(ntok, -1) for t in (a, b))
         return out.add_(a.float().t() @ b.float())
     if a.device.type != "cuda":
         raise ValueError(f"atb_accum runs on CPU or CUDA tensors, got "
                          f"{a.device}")
-    if ntok % 64 or m % 8 or n % 8:
-        raise ValueError(f"atb_accum takes tokens % 64 == 0 and M, N % 8 == 0,"
-                         f" got {ntok}, {m}, {n}")
-    check_tensors({"a": (a, torch.bfloat16, shape_a),
-                   "b": (b, torch.bfloat16, shape_b),
+    check_tensors({"a": (a, torch.bfloat16, a.shape),
+                   "b": (b, torch.bfloat16, b.shape),
                    "out": (out, torch.float32, (m, n))}, a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib("swin_block_bwd").swin_block_atb_accum(
-        ptr(a), ptr(b), ptr(out), m, n, ntok, int(blocked),
-        ctypes.c_void_p(stream))
+        ptr(a), ptr(b), ptr(out), m, n, ntok, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"atb_accum kernel launch failed with CUDA error "
                            f"{err}")

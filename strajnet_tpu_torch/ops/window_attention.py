@@ -17,7 +17,11 @@ A CUDA tensor goes through a ``torch.autograd.Function``: the forward launches
 ``window_attention_fwd`` of ``csrc/window_attention.cu`` and saves only its
 inputs; the backward launches ``window_attention_bwd``
 (:func:`window_attention_bwd`), which recomputes qkv and the softmax and
-returns dx and the five parameter gradients. With ``backward="plain"`` the
+returns dx and the five parameter gradients. The forward kernel takes C in
+multiples of 32 up to 384 and head dims in multiples of 16; the backward
+kernel is built, as the Swin-block kernels are, for C of 96, 192 or 384 with
+head_dim 32, and where it does not cover a width the forward raises as soon
+as an input needs a gradient. With ``backward="plain"`` the
 backward is autograd of the plain version instead, which tells a fault of the
 backward kernel from one elsewhere. A failed build or launch raises; there is
 no fallback. :func:`window_attention_backward_reference` is the backward
@@ -34,10 +38,12 @@ from typing import Optional, Tuple
 import torch
 
 from strajnet_tpu_torch.ops.swin_block import (check_attention_args,
-                                               check_tensors, ptr)
+                                               check_tensors,
+                                               check_wgmma_widths, ptr)
 from strajnet_tpu_torch.ops.windows import window_partition, window_reverse
 
 GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+_BWD_KERNEL = "the window-attention backward kernels"
 
 
 def _rnd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -154,8 +160,16 @@ def _lib():
         lib.window_attention_bwd.restype = ctypes.c_int
         lib.window_attention_bwd_scratch_bf16.argtypes = [ctypes.c_int] * 4
         lib.window_attention_bwd_scratch_bf16.restype = ctypes.c_longlong
+        lib.window_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.window_attention_bwd_smem_bytes.restype = ctypes.c_size_t
         lib._bound = True
     return lib
+
+
+def bwd_kernel_smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one block of the backward window kernel at
+    channel width ``c`` (builds the kernels; needs nvcc)."""
+    return int(_lib().window_attention_bwd_smem_bytes(c))
 
 
 def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
@@ -175,6 +189,18 @@ def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
     return out
 
 
+def check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
+                   window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the backward kernel takes these arguments:
+    what :func:`check_attention_args` asks, a channel width the wgmma window
+    kernels are built for (96, 192, 384 with head_dim 32), and ``dy`` like
+    ``x``. Touches no kernel."""
+    check_attention_args(x, wqkv, bqkv, wproj, None, rel_bias, mask,
+                         window_size=window_size, num_heads=num_heads)
+    check_wgmma_widths(x.shape[-1], num_heads, _BWD_KERNEL)
+    check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
+
+
 def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
                          window_size: int, num_heads: int
                          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
@@ -190,10 +216,9 @@ def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
     if x.device.type != "cuda":
         raise ValueError(f"window_attention_bwd runs on CPU or CUDA tensors, "
                          f"got {x.device}")
+    check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy,
+                   window_size=window_size, num_heads=num_heads)
     b, h, w, c = x.shape
-    check_attention_args(x, wqkv, bqkv, wproj, None, rel_bias, mask,
-                         window_size=window_size, num_heads=num_heads)
-    check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
     lib = _lib()
     dev = x.device
     dx = torch.empty_like(x)
@@ -221,6 +246,10 @@ class _WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, window_size, num_heads, plain_backward, mask, x, wqkv,
                 bqkv, wproj, bproj, rel_bias):
+        if x.is_cuda and not plain_backward and any(ctx.needs_input_grad):
+            # what the backward kernel does not cover raises here, not first
+            # in the backward
+            check_wgmma_widths(x.shape[-1], num_heads, _BWD_KERNEL)
         ctx.save_for_backward(mask, x, wqkv, bqkv, wproj, bproj, rel_bias)
         ctx.cfg = (window_size, num_heads, plain_backward)
         return _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,

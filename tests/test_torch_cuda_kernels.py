@@ -157,23 +157,55 @@ def test_wgmma_operand_layouts_one_product_each(card):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("blocked", [False, True])
+def test_decoder_tail_operand_layouts_one_product_each(card):
+    """The two shifted A operands of ``csrc/decoder_tail.cu`` against
+    ``torch.matmul``, at 16 channels per tap: the input tile, channel-blocked
+    with nine pixels to a row, read by a 64-row wgmma whose 8-row groups are
+    pixel rows and whose taps are offsets of the start address; and the
+    intermediate read by ``wgmma.m64n8k16`` at an offset of ``8 u + v``
+    entries. For both warpgroups of a block (rows 0-7 and 8-15)."""
+    from strajnet_tpu_torch._build import load_library
+    lib = load_library("sm90_selftest")
+    lib.sm90_tail_selftest.argtypes = ([ctypes.c_void_p] * 6
+                                       + [ctypes.c_int, ctypes.c_void_p])
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    x = torch.randn(17, 9, 16, generator=g).to(bf).to(card)
+    w = torch.randn(64, 96, generator=g).to(bf).to(card)
+    e = torch.randn(144, 16, generator=g).to(bf).to(card)
+    ky = torch.randn(64, 8, generator=g).to(bf).to(card)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    for wg in (0, 1):
+        out_main = torch.zeros(64, 96, device=card)
+        out_conv = torch.zeros(64, 8, device=card)
+        assert lib.sm90_tail_selftest(p(x), p(w), p(e), p(ky), p(out_main),
+                                      p(out_conv), wg, stream) == 0
+        torch.cuda.synchronize()
+        want_main = torch.zeros(64, 96, device=card)
+        want_conv = torch.zeros(64, 8, device=card)
+        for tap, (u, v) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            rows = x[8 * wg + u:8 * wg + u + 8, v:v + 8].reshape(64, 16)
+            want_main += rows.float() @ w[16 * tap:16 * tap + 16].float()
+            shift = 64 * wg + 8 * u + v
+            want_conv += (e[shift:shift + 64].float()
+                          @ ky[16 * tap:16 * tap + 16].float())
+        torch.testing.assert_close(out_main, want_main, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(out_conv, want_conv, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("m,n,tokens", [(96, 288, 4800), (384, 96, 8192),
                                         (40, 1536, 640)])
-def test_split_k_pass_matches_matmul(card, m, n, tokens, blocked):
-    """dW += A^T B over all tokens, through TMA from row-major operands and
-    through bulk copies from the token-blocked ones; M and N that do not
-    fill the 128 x 128 tiles, a token count that does not divide into equal
-    slices. f32 sums of bf16 products in another order, with atomics."""
+def test_split_k_pass_matches_matmul(card, m, n, tokens):
+    """dW += A^T B over all tokens from the token-blocked operands the
+    backward window kernels write; M and N that do not fill the 128 x 128
+    tiles, a token count that does not divide into equal slices. f32 sums of
+    bf16 products in another order, with atomics."""
     g = torch.Generator().manual_seed(0)
     a = torch.randn(tokens, m, generator=g).to(torch.bfloat16).to(card)
     b = torch.randn(tokens, n, generator=g).to(torch.bfloat16).to(card)
     base = torch.randn(m, n, generator=g).to(card)
-    if blocked:
-        got = sb.atb_accum(sb.token_blocked(a), sb.token_blocked(b),
-                           base.clone())
-    else:
-        got = sb.atb_accum(a, b, base.clone())
+    got = sb.atb_accum(sb.token_blocked(a), sb.token_blocked(b), base.clone())
     want = base + a.float().t() @ b.float()
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
@@ -223,17 +255,95 @@ def test_window_attention_kernels_match_plain(card, c, heads, shift):
             2.0 ** -5 * scale
 
 
-@pytest.mark.parametrize("n,h,w,cin,cmid", [(2, 16, 16, 96, 48),
-                                            (1, 9, 20, 32, 16),
-                                            (1, 7, 15, 16, 4)])
-def test_decoder_tail_kernel_matches_plain(card, n, h, w, cin, cmid):
-    g = torch.Generator().manual_seed(0)
+def _tail_case(card, n, h, w, cin=96, cmid=48, seed=0):
+    g = torch.Generator().manual_seed(seed)
     r = lambda *s, k=1.0: torch.randn(*s, generator=g) * k  # noqa: E731
-    x = r(n, h, w, cin).to(torch.bfloat16).to(card)
-    w_up = r(3, 3, cin, cmid, k=(9 * cin) ** -0.5).to(card)
-    b_up = r(cmid, k=0.1).to(card)
-    w_out = r(3, 3, cmid, 2, k=(9 * cmid) ** -0.5).to(card)
-    b_out = r(2, k=0.1).to(card)
+    return (r(n, h, w, cin).to(torch.bfloat16).to(card),
+            r(3, 3, cin, cmid, k=(9 * cin) ** -0.5).to(card),
+            r(cmid, k=0.1).to(card),
+            r(3, 3, cmid, 2, k=(9 * cmid) ** -0.5).to(card),
+            r(2, k=0.1).to(card))
+
+
+@pytest.mark.parametrize("h,w", [(14, 6), (15, 7), (16, 8), (44, 20),
+                                 (45, 21), (46, 22)])
+def test_decoder_tail_kernel_at_tile_edges_and_twice(card, h, w):
+    """A tile owns 15 x 7 input pixels: images one under, at and one over one
+    and three tiles a side, so the last tile's rows and columns are cut at
+    every place, and three samples for a persistent grid that wraps. Twice
+    on the same inputs the output is bit-identical: nothing in the kernel
+    sums in an order that varies, and its barriers leave no race."""
+    args = _tail_case(card, 3, h, w, seed=h)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = dtl.decoder_tail(*args)
+        again = dtl.decoder_tail(*args)
+        rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+        ref32 = dtl.decoder_tail_reference(args[0].float(), args[1], args[2],
+                                           rnd(args[3]), rnd(args[4]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert torch.equal(got, again)
+    scale = float(ref32.abs().max())
+    assert float((got.float() - ref32).abs().max()) <= 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_window_attention_bwd_at_a_ragged_window_count_and_twice(card, c,
+                                                                 heads):
+    """[3, 40, 40, C] is 75 windows: odd, so the persistent backward's last
+    step has one window for two warpgroups, and with shift 4 every window
+    takes its own mask. Twice on the same inputs dx comes out bit-identical
+    (the weight ring's barriers leave no race); the parameter gradients sum
+    f32 atomics in varying order."""
+    args, mask, _, dy = _block_case(card, 3, 40, c, heads, 4, seed=2)
+    x, wqkv, bqkv, wproj, _, rel_bias = args[:6]
+    bwd_args = (x, wqkv, bqkv, wproj, rel_bias, mask, dy)
+    kw = dict(window_size=8, num_heads=heads)
+    with torch.no_grad():
+        dx, grads = wa.window_attention_bwd(*bwd_args, **kw)
+        dx2, grads2 = wa.window_attention_bwd(*bwd_args, **kw)
+        rdx, rgrads = wa.window_attention_backward_reference(*bwd_args, **kw)
+    assert torch.equal(dx, dx2)
+    for name, got, again, want in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads,
+                                      (dx2,) + grads2, (rdx,) + rgrads):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * scale, (name, err, scale)
+        assert float((got.float() - again.float()).abs().max()) <= \
+            1e-6 * scale, name
+
+
+def test_window_attention_refuses_widths_its_backward_does_not_cover(card):
+    """C = 64 with head_dim 32 is a width of the forward kernel but not of
+    the backward kernel: without gradients the forward runs; with them it
+    raises at the forward, before any launch, and the plain backward takes
+    it."""
+    args, mask, _, dy = _block_case(card, 1, 16, 64, 2, 4)
+    args = args[:6]
+    kw = dict(window_size=8, num_heads=2)
+    before = wa.window_attention.launches, wa.window_attention_bwd.launches
+    with torch.no_grad():
+        wa.window_attention(*args, mask, **kw)
+    assert wa.window_attention.launches == before[0] + 1
+    ins = [a.clone().requires_grad_(True) for a in args]
+    with pytest.raises(ValueError, match="built for C in"):
+        wa.window_attention(*ins, mask, **kw)
+    with pytest.raises(ValueError, match="built for C in"):
+        wa.window_attention_bwd(args[0], args[1], args[2], args[3], args[5],
+                                mask, dy, **kw)
+    assert (wa.window_attention.launches,
+            wa.window_attention_bwd.launches) == (before[0] + 1, before[1])
+    y = wa.window_attention(*ins, mask, backward="plain", **kw)
+    assert all(g is not None for g in torch.autograd.grad(y, ins, dy))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid", [(2, 16, 16, 96, 48),
+                                            (1, 9, 20, 96, 48),
+                                            (3, 20, 33, 96, 48)])
+def test_decoder_tail_kernel_matches_plain(card, n, h, w, cin, cmid):
+    x, w_up, b_up, w_out, b_out = _tail_case(card, n, h, w, cin, cmid)
     assert dtl.supports(h, w, cin, cmid, 2)
     before = dtl.decoder_tail.launches
     got = dtl.decoder_tail(x, w_up, b_up, w_out, b_out)
@@ -269,8 +379,8 @@ def test_decoder_tail_kernel_matches_plain(card, n, h, w, cin, cmid):
 
 @pytest.mark.parametrize("dtype,cin,match", [
     (torch.float32, 96, "bfloat16"),        # the kernel is bf16 only
-    (torch.bfloat16, 24, "does not cover"),  # Cin not in 16-wide steps
-    (torch.bfloat16, 1024, "CUDA error"),   # tiles outgrow shared memory
+    (torch.bfloat16, 24, "does not cover"),    # the kernel is built for
+    (torch.bfloat16, 1024, "does not cover"),  # Cin = 96, Cmid = 48
 ])
 def test_tail_kernel_mode_raises_where_the_kernel_does_not_apply(
         card, dtype, cin, match):

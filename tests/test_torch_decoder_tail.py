@@ -101,11 +101,12 @@ def test_folded_kernels_match_jax():
 @pytest.mark.parametrize("geometry,expect", [
     ((128, 128, 96, 48, 2), True),     # the flagship tail
     ((16, 16, 96, 48, 2), True),       # the TINY tail
-    ((9, 20, 32, 16, 2), True),        # ragged: the kernel masks its edges
+    ((9, 20, 96, 48, 2), True),        # ragged: the kernel masks its edges
     ((128, 128, 96, 48, 4), False),    # two output channels only
-    ((128, 128, 24, 48, 2), False),    # Cin in 16-wide tensor-core steps
-    ((128, 128, 96, 6, 2), False),     # 4*Cmid in 16-wide column tiles
-    ((128, 128, 1024, 48, 2), True),   # shared memory: the launch refuses
+    ((128, 128, 24, 48, 2), False),    # the kernel is built for the tails'
+    ((128, 128, 96, 6, 2), False),     # widths, Cin = 96 and Cmid = 48,
+    ((128, 128, 1024, 48, 2), False),  # and refuses any other
+    ((9, 20, 32, 16, 2), False),
 ])
 def test_supports(geometry, expect):
     assert dtl.supports(*geometry) is expect
@@ -138,3 +139,80 @@ def test_wrapper_on_cpu_takes_the_naive_composition_and_launches_nothing():
     assert dtl.decoder_tail.launches == before
     with pytest.raises(ValueError):
         dtl.decoder_tail(*[a.to("meta") for a in args])
+
+
+def test_phase_form_and_output_kernel_match_jax_on_a_ragged_image():
+    """``[3, 20, 33, 96]`` with 48 intermediate channels, the widths of the
+    CUDA kernel at an image that is neither square nor a multiple of
+    anything: the phase form, which is what that kernel computes, and the
+    re-bucketed output kernel against the JAX package's. f32 both sides, taps
+    summed in another order: rtol = atol = 1e-4."""
+    args = _inputs(3, 20, 33, 96, 48, seed=7)
+    jargs = [jnp.asarray(a) for a in args]
+    ours = dtl.decoder_tail_phase(*_t(args)).numpy()
+    assert ours.shape == (3, 40, 66, 2)
+    np.testing.assert_allclose(
+        ours, np.asarray(jtail.decoder_tail_phase(*jargs)), rtol=1e-4,
+        atol=1e-4)
+    np.testing.assert_allclose(
+        ours, np.asarray(jtail.decoder_tail_xla(*jargs)), rtol=1e-4,
+        atol=1e-4)
+    np.testing.assert_allclose(
+        dtl.build_ky(torch.from_numpy(args[3])).numpy(),
+        np.asarray(jtail.build_ky(jargs[3])), rtol=1e-6, atol=1e-6)
+
+
+def test_folds_match_their_written_out_index_formulas():
+    """``fold_kernel_2x`` and ``build_ky`` are one ``einsum`` each with a 0/1
+    selector; here they are held against the sums written out tap by tap."""
+    rng = np.random.RandomState(8)
+    w3 = torch.from_numpy(rng.randn(3, 3, 5, 6).astype(np.float32))
+    wo = torch.from_numpy(rng.randn(3, 3, 6, 2).astype(np.float32))
+    kf = dtl.fold_kernel_2x(w3)
+    rows = (((0,), (1, 2)), ((0, 1), (2,)))   # [phase][tap] -> 3x3 rows
+    for a in (0, 1):
+        for b in (0, 1):
+            for u in (0, 1):
+                for v in (0, 1):
+                    want = sum(w3[d, e] for d in rows[a][u]
+                               for e in rows[b][v])
+                    p = 2 * a + b
+                    np.testing.assert_allclose(
+                        kf[u, v, :, 6 * p:6 * p + 6].numpy(), want.numpy(),
+                        rtol=1e-6, atol=1e-6)
+    ky = dtl.build_ky(wo)
+    want = torch.zeros(2, 2, 4, 6, 8)
+    for a in (0, 1):
+        for b in (0, 1):
+            for kr in range(3):
+                for kc in range(3):
+                    # tap kr of phase a reads upsampled row 2i + a + kr - 1
+                    a2, b2 = (a + kr - 1) % 2, (b + kc - 1) % 2
+                    di, dj = (a + kr - 1 - a2) // 2, (b + kc - 1 - b2) // 2
+                    lane = (2 * a + b) * 2
+                    want[a2 + di, b2 + dj, 2 * a2 + b2, :, lane:lane + 2] += \
+                        wo[kr, kc]
+    np.testing.assert_allclose(ky.numpy(), want.reshape(2, 2, 24, 8).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _launch_case(cin=96, cmid=48, dtype=torch.bfloat16, cout=2, h=8, w=8):
+    return (torch.zeros(1, h, w, cin, dtype=dtype),
+            torch.zeros(3, 3, cin, cmid), torch.zeros(3, 3, cmid, cout))
+
+
+@pytest.mark.parametrize("case,what", [
+    (dict(dtype=torch.float32), "bfloat16"),
+    (dict(cin=24), "does not cover"),
+    (dict(cin=1024), "does not cover"),
+    (dict(cin=32, cmid=16), "does not cover"),
+    (dict(cmid=24), "does not cover"),
+    (dict(cout=4), "expected"),
+])
+def test_kernel_refuses_on_the_argument_check_alone(case, what):
+    """What the kernel is not built for raises ValueError from
+    ``check_launch_args``, which runs before any build or launch."""
+    with pytest.raises(ValueError, match=what):
+        dtl.check_launch_args(*_launch_case(**case))
+    dtl.check_launch_args(*_launch_case())
+    dtl.check_launch_args(*_launch_case(h=20, w=33))

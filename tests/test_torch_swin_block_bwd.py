@@ -205,21 +205,23 @@ def test_backward_reference_matches_jax_kernel_at_a_ragged_window_count():
 
 def test_atb_accum_on_cpu_and_the_token_blocked_layout():
     """The split-K pass's CPU path is the plain product, accumulated into
-    ``out``, from row-major or from token-blocked operands;
-    ``token_blocked`` is the per-window [M / 8][64][8] order in which the
-    backward kernel writes them."""
+    ``out``, from token-blocked operands; ``token_blocked`` is the
+    per-window [M / 8][64][8] order in which the backward kernels write
+    them. Row-major operands are refused."""
     rng = np.random.default_rng(7)
     a = torch.from_numpy(rng.standard_normal((128, 16)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((128, 24)).astype(np.float32))
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     want = a16.float().t() @ b16.float()
-    out = atb_accum(a16, b16)
+    out = atb_accum(token_blocked(a16), token_blocked(b16))
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     out2 = atb_accum(token_blocked(a16), token_blocked(b16), out.clone())
     np.testing.assert_allclose(out2.numpy(), 2 * want.numpy(), rtol=1e-6,
                                atol=1e-5)
     with pytest.raises(ValueError):
         atb_accum(token_blocked(a16), b16)
+    with pytest.raises(ValueError):
+        atb_accum(a16, b16)
     blk = token_blocked(a)
     assert blk.shape == (2, 2, 64, 8)
     for window, col, tok in ((0, 0, 0), (1, 9, 63), (0, 15, 17)):

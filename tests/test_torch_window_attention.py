@@ -183,3 +183,66 @@ def test_wrapper_on_cpu_takes_the_plain_version_and_launches_nothing():
     with pytest.raises(ValueError):
         wa.window_attention(*[a.to("meta") for a in _t(args)], None,
                             window_size=ws, num_heads=heads)
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_plain_backward_at_the_kernel_widths_and_a_ragged_window_count(
+        c, heads):
+    """``[3, 40, 40, C]`` with 8x8 windows shifted by 4 (75 windows, each
+    with its own mask) at the three widths the backward kernel is built for,
+    head_dim 32: the plain backward, which is that kernel's oracle on the
+    card, against the Pallas custom VJP (interpreted). Operands rounded to
+    bf16 as the JAX kernel rounds them; rtol = atol = 3e-4 of each result's
+    largest entry for all but at most one entry in a thousand (an f32 sum
+    taken in another order can round one bf16 operand the other way, which
+    moves the entries it feeds by a bf16 ulp of one term), 2e-3 for those."""
+    shape = (3, 40, 40, c, 8, heads)
+    args, mask, dy = _inputs(shape, 4, seed=c)
+    _, ref = _jax_fwd_and_vjp(args, mask, dy, 8, heads)
+    x, wqkv, bqkv, wproj, _, rel = _t(args)
+    dx, grads = wa.window_attention_backward_reference(
+        x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
+        window_size=8, num_heads=heads, operand_dtype=torch.bfloat16)
+    for name, got, want in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads, ref):
+        assert got.shape == want.shape, name
+        scale = max(1.0, float(np.abs(want).max()))
+        excess = np.abs(got.numpy() - want) - 3e-4 * np.abs(want)
+        assert float((excess > 3e-4 * scale).mean()) <= 1e-3, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-3,
+                                   atol=2e-3 * scale, err_msg=name)
+
+
+def _bwd_case(c, heads, ws=8, h=16, dtype=torch.bfloat16):
+    z = torch.zeros
+    return dict(x=z(1, h, h, c, dtype=dtype), wqkv=z(c, 3 * c, dtype=dtype),
+                bqkv=z(3 * c, dtype=dtype), wproj=z(c, c, dtype=dtype),
+                rel_bias=z(heads, ws * ws, ws * ws), mask=None,
+                dy=z(1, h, h, c, dtype=dtype)), dict(window_size=ws,
+                                                     num_heads=heads)
+
+
+@pytest.mark.parametrize("c,heads,ws,what", [
+    (32, 1, 8, "built for C in"),     # a width of the forward kernel only
+    (128, 4, 8, "built for C in"),    # head_dim 32, but not a model width
+    (96, 6, 8, "built for C in"),     # head_dim 16
+    (192, 3, 8, "built for C in"),    # head_dim 64
+    (96, 3, 4, "8x8 windows"),
+    (416, 13, 8, "C=416"),
+])
+def test_backward_kernel_refuses_on_the_argument_check_alone(c, heads, ws,
+                                                             what):
+    """What the backward kernel is not built for raises ValueError from
+    ``check_bwd_args``, which runs before any build or launch."""
+    args, kw = _bwd_case(c, heads, ws)
+    with pytest.raises(ValueError, match=what):
+        wa.check_bwd_args(**args, **kw)
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_backward_kernel_argument_check_passes_the_model_widths(c, heads):
+    args, kw = _bwd_case(c, heads)
+    wa.check_bwd_args(**args, **kw)
+    with pytest.raises(ValueError, match="dy"):
+        wa.check_bwd_args(**{**args, "dy": args["dy"].float()}, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        wa.check_bwd_args(**{**args, "x": args["x"].float()}, **kw)

@@ -47,13 +47,14 @@ PORT_KERNELS = (
     ("K1 pack_fwd_kernel (weights into tiles)", "pack_fwd_kernel"),
     ("K2 swin_block_bwd_window_kernel", "swin_block_bwd_window_kernel"),
     ("K2 pack_bwd_kernel (weights into tiles)", "pack_bwd_kernel"),
-    ("K2 split-K atb_accum_sm90_kernel<true>", "atb_accum_sm90_kernel<true>"),
+    ("K2 / K4 split-K atb_accum_sm90_kernel", "atb_accum_sm90_kernel"),
     ("K3 window_attention_fwd_kernel", "window_attention_fwd_kernel"),
     ("K4 window_attention_bwd_kernel", "window_attention_bwd_kernel"),
-    ("K4 split-K atb_accum_sm90_kernel<false>", "atb_accum_sm90_kernel<false>"),
+    ("K4 pack_attn_bwd_kernel (weights into tiles)", "pack_attn_bwd_kernel"),
     ("K5 warp_gather_fwd", "warp_gather_fwd"),
     ("K6 warp_gather_bwd", "warp_gather_bwd"),
-    ("K7 decoder_tail", "decoder_tail"),
+    ("K7 decoder_tail_kernel", "decoder_tail_kernel"),
+    ("K7 pack_tail_weights_kernel", "pack_tail_weights_kernel"),
 )
 # --mode -> use_pallas_attention
 MODES = {"kernel": None, "block_fwd": "block_fwd", "attn": "attn",
