@@ -10,11 +10,14 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
 
 - K1 ``swin_block`` and K2 ``swin_block_bwd`` at the four Swin-block
   geometries, K3 ``window_attention`` and K4 ``window_attention_bwd`` at the
-  same four; K1, K2 and K4 also at a ragged window count (``[3, 40, 40, C]``:
+  same four; all four also at a ragged window count (``[3, 40, 40, C]``:
   75 windows for blocks that take two at a time) and twice on the same
-  inputs (the forward and dx bit-identical); the split-K pass that sums K2's
-  and K4's weight gradients alone against ``A.float().T @ B.float()``;
-- K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``;
+  inputs (the forwards and dx bit-identical); K3 and K4 refusing C = 64
+  before a launch; the split-K pass that sums K2's and K4's weight
+  gradients alone against ``A.float().T @ B.float()``;
+- K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``,
+  K6 also on a smooth flow (neighbouring queries share corners), on queries
+  at the rows where its bands meet, and at several band counts;
 - K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``, at
   image sides one under, at and one over what its tiles own, and twice.
 
@@ -25,15 +28,17 @@ kernel and through the plain path; three synthetic batches through
 training steps through ``train.state.create_train_state`` and
 ``train.step.make_train_step``, whose first step it repeats with the
 ``"block_fwd"`` mode and with the plain path (loss, whole gradient and
-every parameter's gradient against the kernel path's); and the gradient of
+every parameter's gradient against the kernel path's), then in the ``"attn"``
+mode against the plain path and once more with ``remat_encoder`` against the
+``"attn"`` step without it (peak memory of both); and the gradient of
 ``core.sampling.flow_warp_origin`` with respect to the warped image, the one
 path that reaches K6 (the loss warps ground truth). The evaluation path
 follows: two synthetic batches through ``infer.evaluate.evaluate_batches``
 (the eval step: forward, loss, challenge metrics) on a model with
 ``use_pallas_attention="attn"`` and the decoder-tail kernel, so K3 runs in
 all eight Swin blocks and K7 in both tails, held against the same loop on
-the plain path; and one training step in the ``"attn"`` mode (K3 forward, K4
-backward) against the plain path's. The launch counters are
+the plain path, and timed once more on the compact feed (uint8 grids, f16
+map) that ``infer/evaluate.py`` reads by default. The launch counters are
 set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
@@ -84,8 +89,8 @@ from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
     swin_block_backward_reference, swin_block_bwd, swin_block_reference,
     token_blocked)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
-    gather_corners_reference, scatter_corners_reference, warp_gather_bwd,
-    warp_gather_fwd)
+    band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
+    warp_gather_bwd, warp_gather_fwd)
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
 from strajnet_tpu_torch.train.state import create_train_state  # noqa: E402
 from strajnet_tpu_torch.train.step import (  # noqa: E402
@@ -158,10 +163,13 @@ F32_ONE_MINUS_COS = 1e-3
 # the same number and its gradients differ by K2's sum order only; the plain
 # path also rounds its forward elsewhere. The limits sit a few times above
 # the readings on an H100 (loss 0 and 1.9e-3; gradient 4.3e-7 and 1.9e-5;
-# worst leaf, a rel-pos bias table each time, 1.8e-4 and 6.6e-4).
-STEP_LOSS_RTOL = {"block_fwd": 1e-6, False: 1e-2}
-STEP_GRAD_ONE_MINUS_COS = {"block_fwd": 1e-5, False: 1e-4}
-STEP_LEAF_ONE_MINUS_COS = {"block_fwd": 1e-3, False: 3e-3}
+# worst leaf, a rel-pos bias table each time, 1.8e-4 and 6.6e-4). The
+# "attn" step with remat_encoder against the same step without: the same
+# kernels on the same inputs, so the same loss, and gradients that differ
+# only by the order of f32 atomics.
+STEP_LOSS_RTOL = {"block_fwd": 1e-6, False: 1e-2, "remat": 0.0}
+STEP_GRAD_ONE_MINUS_COS = {"block_fwd": 1e-5, False: 1e-4, "remat": 1e-6}
+STEP_LEAF_ONE_MINUS_COS = {"block_fwd": 1e-3, False: 3e-3, "remat": 1e-5}
 # Its gradient is zero but for rounding (it shifts every logit of a softmax
 # row alike), so its direction is noise.
 ZERO_GRAD_LEAVES = ("fg_msa_layer.proj_k.bias",)
@@ -183,17 +191,34 @@ def one_minus_cos(a: torch.Tensor, b: torch.Tensor) -> float:
     return 1.0 - float((a @ b) / (a.norm() * b.norm()))
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+# Clock cycles the card idles per timed launch while the host enqueues
+# (about 1 ms at the H100's clock): see cuda_ms.
+AHEAD_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, iters: int = 20, ahead: bool = False) -> float:
+    """Mean ms of ``fn`` over ``iters`` runs by CUDA events, after one
+    warm-up. With ``ahead`` the card first sleeps while the host enqueues
+    all the runs, so that the reading is the device's time alone: a kernel
+    of 0.1 ms is otherwise paced by its wrapper's host work."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(AHEAD_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """The device's time of one run of ``fn`` (a kernel, its plain version
+    or a PyTorch call), host work between runs hidden."""
+    return cuda_ms(fn, iters, ahead=True)
 
 
 def bound(flops: float, nbytes: float):
@@ -291,7 +316,7 @@ def check_split_k(g: torch.Generator) -> dict:
                   f"split-K [{tokens},{m}]^T [{tokens},{n}] max_abs_err "
                   f"{err} <= {SPLIT_K_MAX_ABS_REL} * {scale}")
             dst = torch.zeros(m, n, device="cuda")
-            ms = cuda_ms(lambda: atb_accum(a, b, dst), iters=10)
+            ms = kernel_ms(lambda: atb_accum(a, b, dst), iters=10)
             bound_ms, by = bound(2.0 * m * n * tokens,
                                  (m + n) * tokens * 2 + m * n * 4)
             total += ms
@@ -352,22 +377,33 @@ def check_ragged_and_repeat(g: torch.Generator) -> None:
 
 
 def check_attention_ragged_and_repeat(g: torch.Generator) -> None:
-    """K4 at [3, 40, 40, C], shift 4 (75 windows: the last step of the
-    persistent kernel has one window for two warpgroups), twice on the same
-    inputs."""
+    """K3 and K4 at [3, 40, 40, C], shift 4 (75 windows: the last step of
+    the persistent kernels has one window for two warpgroups), twice on the
+    same inputs; and K3 and K4 refusing a width they are not built for
+    before any launch."""
     for c, heads in ((96, 3), (192, 6), (384, 12)):
         args, mask, _ = block_inputs(40, c, heads, 4, g, batch=3)
-        x, wqkv, bqkv, wproj, _, rel_bias = args[:6]
+        x, wqkv, bqkv, wproj, bproj, rel_bias = args[:6]
         dy = torch.randn(x.shape, generator=g,
                          device="cuda").to(torch.bfloat16)
         bwd_args = (x, wqkv, bqkv, wproj, rel_bias, mask, dy)
         kw = dict(window_size=8, num_heads=heads)
         with torch.no_grad():
+            y = wa.window_attention(*args[:6], mask, **kw)
+            y2 = wa.window_attention(*args[:6], mask, **kw)
             dx, grads = wa.window_attention_bwd(*bwd_args, **kw)
             dx2, grads2 = wa.window_attention_bwd(*bwd_args, **kw)
             torch.cuda.synchronize()
+            ref = wa.window_attention_reference(*args[:6], mask, **kw)
             rdx, rgrads = wa.window_attention_backward_reference(*bwd_args,
                                                                  **kw)
+        check(torch.equal(y, y2), f"K3 C={c}: two runs bit-identical")
+        err = float((y.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        omc = one_minus_cos(y, ref)
+        check(err <= K3_MAX_ABS_REL * scale and omc <= K3_ONE_MINUS_COS,
+              f"K3 ragged C={c}: max_abs_err {err} <= {K3_MAX_ABS_REL} * "
+              f"{scale}, 1-cos {omc}")
         check(torch.equal(dx, dx2), f"K4 C={c}: dx of two runs bit-identical")
         worst, drift = 0.0, 0.0
         for name, got, again, want in zip(
@@ -384,9 +420,34 @@ def check_attention_ragged_and_repeat(g: torch.Generator) -> None:
                   f"K4 C={c} {name}: two runs within "
                   f"{K4_REPEAT_MAX_ABS_REL}: {rep}")
             worst, drift = max(worst, gerr / gscale), max(drift, rep)
-        print(f"ragged [3,40,40,{c}] (75 windows), twice: K4 worst "
-              f"max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
+        print(f"ragged [3,40,40,{c}] (75 windows), twice: K3 max_abs_err="
+              f"{err} (max|ref|={scale}) 1-cos={omc:.3e}, bit-identical; K4 "
+              f"worst max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
               f"gradients of two runs within {drift:.1e}")
+
+    # C = 64 (head_dim 32) is no width of the wgmma window kernels: both
+    # raise before a launch, with or without gradients
+    args, mask, _ = block_inputs(16, 64, 2, 4, g, batch=1)
+    args = args[:6]
+    dy = torch.zeros_like(args[0])
+    kw = dict(window_size=8, num_heads=2)
+    before = wa.window_attention.launches, wa.window_attention_bwd.launches
+    ins = [a.clone().requires_grad_(True) for a in args]
+    for what, call in (
+            ("K3", lambda: wa.window_attention(*args, mask, **kw)),
+            ("K3 with gradients", lambda: wa.window_attention(*ins, mask,
+                                                              **kw)),
+            ("K4", lambda: wa.window_attention_bwd(
+                *args[:4], args[5], mask, dy, **kw))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"{what} at C=64 raises ValueError: {e}")
+        else:
+            check(False, f"{what} at C=64 must raise")
+    check((wa.window_attention.launches,
+           wa.window_attention_bwd.launches) == before,
+          "the refused K3 / K4 calls launched nothing")
 
 
 def check_swin_block(g: torch.Generator) -> dict:
@@ -403,9 +464,9 @@ def check_swin_block(g: torch.Generator) -> dict:
             err = float((y.float() - ref.float()).abs().max())
             scale = float(ref.float().abs().max())
             omc = one_minus_cos(y, ref)
-            t_plain = cuda_ms(lambda: swin_block_reference(*args, mask, dp,
+            t_plain = kernel_ms(lambda: swin_block_reference(*args, mask, dp,
                                                            **kw), iters=10)
-            t_kernel = cuda_ms(lambda: swin_block(*args, mask, dp, **kw),
+            t_kernel = kernel_ms(lambda: swin_block(*args, mask, dp, **kw),
                                iters=10)
         print(f"K1 swin_block [{BATCH},{h},{h},{c}] heads={heads} "
               f"shift={shift}: max_abs_err={err} (max|ref|={scale}) "
@@ -467,11 +528,11 @@ def check_swin_block_bwd(g: torch.Generator) -> dict:
             return torch.autograd.grad(y, ins, dy)
 
         with torch.no_grad():
-            t_kernel = cuda_ms(lambda: swin_block_bwd(*args, mask, dp, dy,
+            t_kernel = kernel_ms(lambda: swin_block_bwd(*args, mask, dp, dy,
                                                       **kw), iters=5)
-            t_plain = cuda_ms(lambda: swin_block_backward_reference(
+            t_plain = kernel_ms(lambda: swin_block_backward_reference(
                 *args, mask, dp, dy, **kw), iters=2)
-        t_autograd = cuda_ms(autograd_of_plain, iters=2)
+        t_autograd = kernel_ms(autograd_of_plain, iters=2)
         print(f"K2 swin_block_bwd [{BATCH},{h},{h},{c}] heads={heads} "
               f"shift={shift}: kernel_ms={t_kernel:.4f} "
               f"plain_ms={t_plain:.4f} autograd_of_plain_fwd_bwd_ms="
@@ -513,7 +574,8 @@ def check_window_attention(g: torch.Generator):
     window_attention_backward_reference (dx and the five gradients) at the
     four geometries; times summed over the eight blocks of one forward or
     step."""
-    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0)
+    k3 = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0.0, nbytes=0.0,
+              per_launch={}, call_per_launch={})
     k4 = dict(err=0.0, rel=0.0, ms=0.0, plain_ms=0.0, autograd_ms=0.0,
               flops=0.0, nbytes=0.0, per_launch={})
     for h, c, heads, shift, count in GEOMETRIES:
@@ -559,24 +621,34 @@ def check_window_attention(g: torch.Generator):
             return torch.autograd.grad(out, ins, dy)
 
         with torch.no_grad():
-            t3 = cuda_ms(lambda: wa.window_attention(*args, mask, **kw),
-                         iters=10)
-            t3_plain = cuda_ms(lambda: wa.window_attention_reference(
+            t3 = kernel_ms(lambda: wa.window_attention(*args, mask, **kw),
+                           iters=10)
+            # with the wrapper's host work between launches, as a caller
+            # that does not keep the card busy sees it
+            t3_call = cuda_ms(lambda: wa.window_attention(*args, mask, **kw),
+                              iters=10)
+            t3_plain = kernel_ms(lambda: wa.window_attention_reference(
                 *args, mask, **kw), iters=5)
-            t4 = cuda_ms(lambda: wa.window_attention_bwd(*bwd_args, **kw),
+            t4 = kernel_ms(lambda: wa.window_attention_bwd(*bwd_args, **kw),
                          iters=5)
-            t4_plain = cuda_ms(lambda: wa.window_attention_backward_reference(
-                *bwd_args, **kw), iters=2)
-        t4_autograd = cuda_ms(autograd_of_plain, iters=2)
+            t4_plain = kernel_ms(
+                lambda: wa.window_attention_backward_reference(*bwd_args,
+                                                               **kw),
+                iters=2)
+        t4_autograd = kernel_ms(autograd_of_plain, iters=2)
         print(f"K3 window_attention [{BATCH},{h},{h},{c}] heads={heads} "
               f"shift={shift}: max_abs_err={err} (max|ref|={scale}) "
-              f"1-cos={omc:.3e} kernel_ms={t3:.4f} plain_ms={t3_plain:.4f}")
+              f"1-cos={omc:.3e} kernel_ms={t3:.4f} (with the wrapper's host "
+          f"work between launches {t3_call:.4f}) plain_ms={t3_plain:.4f}")
         print(f"K4 window_attention_bwd [{BATCH},{h},{h},{c}] heads={heads} "
               f"shift={shift}: kernel_ms={t4:.4f} plain_ms={t4_plain:.4f} "
               f"autograd_of_plain_fwd_bwd_ms={t4_autograd:.4f}\n"
               f"  max_abs_err/max|ref| and 1-cos: " + ", ".join(report))
         k3["err"] = max(k3["err"], err)
         k3["ms"] += count * t3
+        key = f"{c}" + ("" if shift else " unshifted")
+        k3["per_launch"][key] = t3
+        k3["call_per_launch"][key] = t3_call
         k3["plain_ms"] += count * t3_plain
         k4["ms"] += count * t4
         k4["per_launch"][f"{c}" + ("" if shift else " unshifted")] = t4
@@ -589,7 +661,9 @@ def check_window_attention(g: torch.Generator):
     b3, by3 = bound(k3["flops"], k3["nbytes"])
     b4, by4 = bound(k4["flops"], k4["nbytes"])
     return (dict(max_abs_err=k3["err"], ms=k3["ms"], plain_ms=k3["plain_ms"],
-                 bound_ms=b3, bound_by=by3, library_ms=None),
+                 bound_ms=b3, bound_by=by3, library_ms=None,
+                 ms_per_launch=k3["per_launch"],
+                 call_ms_per_launch=k3["call_per_launch"]),
             dict(max_abs_err=k4["err"], max_abs_err_rel=k4["rel"],
                  ms=k4["ms"], plain_ms=k4["plain_ms"],
                  autograd_of_plain_ms=k4["autograd_ms"], bound_ms=b4,
@@ -684,10 +758,10 @@ def check_decoder_tail(g: torch.Generator) -> dict:
               f"K7 max_abs_err {err} <= {K7_MAX_ABS_REL} * {scale}")
         check(omc <= K7_ONE_MINUS_COS, f"K7 1-cos {omc} <= {K7_ONE_MINUS_COS}")
         del ref
-        t = [cuda_ms(fn, iters=5) for fn in (
+        t = [kernel_ms(fn, iters=5) for fn in (
             lambda: decoder_tail_reference(*args), lambda: decoder_tail(*args),
             lambda: decoder_tail(*args), lambda: decoder_tail_reference(*args))]
-        t_phase = cuda_ms(lambda: decoder_tail_phase(*args), iters=5)
+        t_phase = kernel_ms(lambda: decoder_tail_phase(*args), iters=5)
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     px = n * 4 * h * h  # upsampled pixels
     flops = 2.0 * px * (4 * cin) * cmid + 2.0 * px * 9 * cmid * 2
@@ -707,7 +781,10 @@ def check_decoder_tail(g: torch.Generator) -> dict:
 def check_warp_gather(g: torch.Generator):
     """K5 and K6 against their plain versions at the loss's shapes: S = 16
     samples x 8 waypoints, 256 x 256 queries at identity + a flow of a few
-    pixels, some of them past the border."""
+    pixels, some of them past the border. K6 also on a smooth flow (zero
+    flow plus one fractional offset: the four queries around a pixel share
+    it as a corner), on queries at the rows where its bands meet, and at
+    other band counts."""
     s, h, w = BATCH * 8, 256, 256
     hp, wp, n = h + 2, w + 2, h * w
     dev = "cuda"
@@ -731,42 +808,69 @@ def check_warp_gather(g: torch.Generator):
     ref = gather_corners_reference(img, x0f, y0f)
     err5 = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     check(err5 <= K5_MAX_ABS, f"K5 max_abs_err {err5} <= {K5_MAX_ABS}")
-    dimg = warp_gather_bwd((s, hp, wp), x0f, y0f, gs)
-    torch.cuda.synchronize()
-    rdimg = scatter_corners_reference((s, hp, wp), x0f, y0f, gs)
-    err6 = float((dimg - rdimg).abs().max())
-    scale6 = float(rdimg.abs().max())
-    check(err6 <= K6_MAX_ABS_REL * scale6,
-          f"K6 max_abs_err {err6} <= {K6_MAX_ABS_REL} * {scale6}")
+
+    def check_scatter(what, qx, qy):
+        dimg = warp_gather_bwd((s, hp, wp), qx, qy, gs)
+        torch.cuda.synchronize()
+        rdimg = scatter_corners_reference((s, hp, wp), qx, qy, gs)
+        err = float((dimg - rdimg).abs().max())
+        scale = float(rdimg.abs().max())
+        print(f"K6 warp_gather_bwd, {what}: max_abs_err={err} "
+              f"(max|ref|={scale})")
+        check(err <= K6_MAX_ABS_REL * scale,
+              f"K6 {what}: max_abs_err {err} <= {K6_MAX_ABS_REL} * {scale}")
+        return err
+
+    err6 = check_scatter("flow N(0, 4 px)", x0f, y0f)
+    # the smooth flow: every pixel the corner of four neighbouring queries
+    sx0 = (xs[None] + 1.0 + 0.3).floor().expand(s, h, w).reshape(s, n)
+    sy0 = (ys[None] + 1.0 + 0.6).floor().expand(s, h, w).reshape(s, n)
+    sx0, sy0 = sx0.contiguous(), sy0.contiguous()
+    err6 = max(err6, check_scatter("smooth flow", sx0, sy0))
+    # queries on the first and last rows and where two bands meet
+    rows = bwd_band_rows(hp, wp)
+    edge = torch.tensor(band_edge_rows(hp, rows), dtype=torch.float32,
+                        device=dev)
+    ey0 = edge.repeat(s * n // len(edge) + 1)[:s * n].reshape(s, n)
+    ex0 = torch.randint(0, wp - 1, (s, n), generator=g, device=dev).float()
+    err6 = max(err6, check_scatter(f"rows at band edges ({rows} rows a band)",
+                                   ex0, ey0.contiguous()))
 
     # one PyTorch call on precomputed int64 indices, as the yardstick
     base = (y0f.long() * wp + x0f.long())
     idx4 = torch.cat([base + o for o in (0, 1, wp, wp + 1)], dim=1)
     flat = img.reshape(s, hp * wp)
-    rows = (torch.arange(s, device=dev) * (hp * wp))[:, None]
-    idx_flat = (idx4 + rows).reshape(-1)
+    rows_off = (torch.arange(s, device=dev) * (hp * wp))[:, None]
+    idx_flat = (idx4 + rows_off).reshape(-1)
     src = torch.cat(gs, dim=1).reshape(-1)
     acc = torch.zeros(s * hp * wp, device=dev)
-    t5 = cuda_ms(lambda: warp_gather_fwd(img, x0f, y0f))
-    t5_plain = cuda_ms(lambda: gather_corners_reference(img, x0f, y0f))
-    t5_lib = cuda_ms(lambda: torch.gather(flat, 1, idx4))
-    t6 = cuda_ms(lambda: warp_gather_bwd((s, hp, wp), x0f, y0f, gs))
-    t6_plain = cuda_ms(lambda: scatter_corners_reference((s, hp, wp), x0f,
+    t5 = kernel_ms(lambda: warp_gather_fwd(img, x0f, y0f))
+    t5_plain = kernel_ms(lambda: gather_corners_reference(img, x0f, y0f))
+    t5_lib = kernel_ms(lambda: torch.gather(flat, 1, idx4))
+    t6 = kernel_ms(lambda: warp_gather_bwd((s, hp, wp), x0f, y0f, gs))
+    t6_smooth = kernel_ms(lambda: warp_gather_bwd((s, hp, wp), sx0, sy0, gs))
+    t6_plain = kernel_ms(lambda: scatter_corners_reference((s, hp, wp), x0f,
                                                          y0f, gs))
-    t6_lib = cuda_ms(lambda: acc.index_add_(0, idx_flat, src))
+    t6_lib = kernel_ms(lambda: acc.index_add_(0, idx_flat, src))
+    by_bands = {str(k): kernel_ms(lambda: warp_gather_bwd(
+        (s, hp, wp), x0f, y0f, gs, bands=k)) for k in (2, 3, 4, 6)}
     b5, by5 = bound(0.0, img.numel() * 4 + 2 * s * n * 4 + 4 * s * n * 4)
     b6, by6 = bound(0.0, 6 * s * n * 4 + img.numel() * 4)
     print(f"K5 warp_gather_fwd [{s},{hp},{wp}] x [{s},{n}] ({outside} "
           f"queries past the border): max_abs_err={err5} kernel_ms={t5:.4f} "
           f"plain_ms={t5_plain:.4f} torch.gather_ms={t5_lib:.4f} "
           f"bound_ms={b5:.4f}")
-    print(f"K6 warp_gather_bwd: max_abs_err={err6} (max|ref|={scale6}) "
-          f"kernel_ms={t6:.4f} plain_ms={t6_plain:.4f} "
-          f"index_add_ms={t6_lib:.4f} bound_ms={b6:.4f}")
+    print(f"K6 warp_gather_bwd: worst max_abs_err={err6} kernel_ms={t6:.4f} "
+          f"(smooth flow {t6_smooth:.4f}; by bands of a slice: "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in by_bands.items())
+          + f") plain_ms={t6_plain:.4f} index_add_ms={t6_lib:.4f} "
+          f"bound_ms={b6:.4f}")
     return (dict(max_abs_err=err5, ms=t5, plain_ms=t5_plain, bound_ms=b5,
                  bound_by=by5, library_ms=t5_lib),
             dict(max_abs_err=err6, ms=t6, plain_ms=t6_plain, bound_ms=b6,
-                 bound_by=by6, library_ms=t6_lib))
+                 bound_by=by6, library_ms=t6_lib, smooth_flow_ms=t6_smooth,
+                 ms_by_bands=by_bands, band_rows=rows,
+                 smem_bytes=4 * rows * wp))
 
 
 def to_device(batch, keys=MODEL_KEYS):
@@ -931,9 +1035,10 @@ def warp_gradient_path():
     return got
 
 
-def fresh_train_state(mode):
-    """A train state from seed-0 weights in the given Swin-block mode, with
-    every bias drawn from N(0, 0.1) instead of the init's zeros.
+def fresh_train_state(mode, remat=False):
+    """A train state from seed-0 weights in the given Swin-block mode (and
+    ``remat_encoder``), with every bias drawn from N(0, 0.1) instead of the
+    init's zeros.
 
     With all biases zero, a patch of an empty raster stays a constant token
     through every layer, each LayerNorm multiplies the gradient of the bias
@@ -944,7 +1049,8 @@ def fresh_train_state(mode):
     depth, where they already reach 1e25). Random biases keep the checks of
     this smoke out of that corner; :func:`real_init_report` prints what one
     step from the init itself does."""
-    cfg = dataclasses.replace(STRAJNET_CONFIG, use_pallas_attention=mode)
+    cfg = dataclasses.replace(STRAJNET_CONFIG, use_pallas_attention=mode,
+                              remat_encoder=remat)
     state = create_train_state(cfg, TrainConfig(batch_size=BATCH),
                                torch.Generator().manual_seed(0), "cuda")
     g = torch.Generator().manual_seed(1)
@@ -955,10 +1061,10 @@ def fresh_train_state(mode):
     return state, cfg
 
 
-def _first_step(mode, batch):
+def _first_step(mode, batch, remat=False):
     """One training step from those weights and seed-0 noise: (loss dict,
     flat gradient, initial parameters, state, step function, noise)."""
-    state, cfg = fresh_train_state(mode)
+    state, cfg = fresh_train_state(mode, remat)
     init = {k: v.detach().cpu().clone()
             for k, v in state.model.named_parameters()}
     step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
@@ -1071,27 +1177,44 @@ def train_steps():
     kernel_ref = ("kernel", grads, float(losses["total"]))
     compare_first_step(model, "block_fwd", batches[0],
                        counts(k1=8, k5=1), kernel_ref, "block_fwd")
-    plain_grads, plain_total, _ = compare_first_step(
+    plain_grads, plain_total, _, _ = compare_first_step(
         model, False, batches[0], counts(k5=1), kernel_ref, False)
     del grads, kernel_ref
-    _, _, attn_launches = compare_first_step(
+    attn_grads, attn_total, attn_launches, attn_mb = compare_first_step(
         model, "attn", batches[0], counts(k3=8, k4=8, k5=1),
         ("plain", plain_grads, plain_total), False)
-    del model, plain_grads
+    del plain_grads
+    # remat_encoder recomputes each block's forward in the backward: K3
+    # runs twice per block, and the step is the same step
+    _, _, remat_launches, remat_mb = compare_first_step(
+        model, "attn", batches[0], counts(k3=16, k4=8, k5=1),
+        ("attn", attn_grads, attn_total), "remat", remat=True)
+    print(f"remat_encoder, \"attn\" step: peak memory {remat_mb:.0f} MB "
+          f"against {attn_mb:.0f} MB without")
+    del model, attn_grads
     torch.cuda.empty_cache()
     real_init_report(batches[0])
-    return tuple(a + b for a, b in zip(launches, attn_launches))
+    return tuple(a + b + c for a, b, c in zip(launches, attn_launches,
+                                             remat_launches))
 
 
-def compare_first_step(model, mode, batch, expect, reference, limits):
-    """The first training step in ``mode`` against ``reference`` = (name,
-    flat gradient, total loss) of another mode's first step, under the
-    ``STEP_*[limits]`` limits; also that the step moved the parameters.
-    Returns (flat gradient, total loss, counters of the step)."""
+def compare_first_step(model, mode, batch, expect, reference, limits,
+                       remat=False):
+    """The first training step in ``mode`` (with ``remat_encoder=remat``)
+    against ``reference`` = (name, flat gradient, total loss) of another
+    mode's first step, under the ``STEP_*[limits]`` limits; also that the
+    step moved the parameters. Returns (flat gradient, total loss, counters
+    of the step, peak device memory of the step in MB: the model and its
+    optimizer state included)."""
     ref_name, ref_grads, ref_total = reference
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    losses, grads, init, state = _first_step(mode, batch)[:4]
+    losses, grads, init, state = _first_step(mode, batch, remat)[:4]
     got = read_counters()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if remat:
+        mode = f"{mode} + remat_encoder"
     check(got == expect, f"mode {mode!r}: launches {got}, expected {expect}")
     total = float(losses["total"])
     check(bool(np.isfinite(total)), f"mode {mode!r}: loss finite")
@@ -1103,8 +1226,9 @@ def compare_first_step(model, mode, batch, expect, reference, limits):
     omc = one_minus_cos(ref_grads, grads)
     leaves = worst_leaves(model, ref_grads, grads)
     print(f"first step, mode {mode!r} vs {ref_name} path: total loss "
-          f"{total:.6f} vs {ref_total:.6f}; gradient 1-cos={omc:.3e}; worst "
-          f"leaves by 1-cos (share of the gradient's norm): "
+          f"{total:.6f} vs {ref_total:.6f}; gradient 1-cos={omc:.3e}; peak "
+          f"memory {peak_mb:.0f} MB; worst leaves by 1-cos (share of the "
+          f"gradient's norm): "
           + ", ".join(f"{n} {v:.3e} ({share:.1e})" for v, share, n in leaves))
     check(abs(total - ref_total) <= STEP_LOSS_RTOL[limits] * abs(ref_total),
           f"mode {mode!r}: loss {total} within {STEP_LOSS_RTOL[limits]} of "
@@ -1115,13 +1239,29 @@ def compare_first_step(model, mode, batch, expect, reference, limits):
     check(leaves[0][0] <= STEP_LEAF_ONE_MINUS_COS[limits],
           f"mode {mode!r}: worst leaf {leaves[0][2]} 1-cos {leaves[0][0]} <= "
           f"{STEP_LEAF_ONE_MINUS_COS[limits]}")
-    return grads, total, got
+    return grads, total, got, peak_mb
 
 
 def eval_inputs(cfg, seeds):
+    """Synthetic f32 eval batches whose map raster holds multiples of 1/256,
+    as a record's int8 map divided by 256 does."""
     keys = MODEL_KEYS + ("gt_obs_ogm", "gt_occ_ogm", "gt_flow", "origin_flow")
-    return [{k: b[k] for k in keys}
-            for b in (synthetic_batch(cfg, BATCH, seed=s) for s in seeds)]
+    batches = [{k: b[k] for k in keys}
+               for b in (synthetic_batch(cfg, BATCH, seed=s) for s in seeds)]
+    for b in batches:
+        b["map_image"] = np.floor(b["map_image"] * 256.0) / 256.0
+    return batches
+
+
+def compact_feed(batch):
+    """The batch as ``infer/evaluate.py`` feeds it by default
+    (``compact=True``, ``data/schema.py``): binary grids as uint8, the map
+    raster as f16, the rest f32. Bit-exact for these values."""
+    out = dict(batch)
+    for k in ("ogm", "gt_obs_ogm", "gt_occ_ogm"):
+        out[k] = batch[k].astype(np.uint8)
+    out["map_image"] = batch["map_image"].astype(np.float16)
+    return out
 
 
 def eval_step_parts(model, batch, cfg):
@@ -1206,15 +1346,39 @@ def eval_path(state):
     for name, (fwd, loss, met) in zip(("kernels", "plain path"), parts):
         print(f"  one eval step by CUDA events, {name}: forward {fwd:.3f} ms, "
               f"loss {loss:.3f} ms, metrics {met:.3f} ms")
-    # what the loop spends outside the step: one batch from pageable host
-    # memory to the card, as evaluate_batches copies it
+
+    # the compact feed, which the CLI takes by default, through the same
+    # kernel model: the same values, a third of the bytes to copy
+    compact = [compact_feed(b) for b in batches]
+    evaluate_batches(models[0], eval_step, compact[:1])   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    to_device(batches[0], tuple(batches[0]))
+    res_compact = evaluate_batches(models[0], eval_step, compact)
     torch.cuda.synchronize()
-    copy_ms = (time.perf_counter() - t0) * 1e3
-    mb = sum(v.nbytes for v in batches[0].values()) / 2 ** 20
-    print(f"  one batch to the card: {mb:.0f} MB of f32 in {copy_ms:.1f} ms")
+    compact_s = time.perf_counter() - t0
+    worst = max(abs(v - res[k]) / max(abs(res[k]), 1e-30)
+                for k, v in res_compact.items())
+    print(f"eval path, kernels, compact feed (uint8 grids, f16 map): "
+          f"{compact_s * 1e3 / 2:.1f} ms/step ({n / compact_s:.1f} scenes/s) "
+          f"against {seconds[0] * 1e3 / 2:.1f} ms/step on the f32 feed; "
+          f"worst difference to the f32 feed's results {worst:.3e} relative")
+    check(set(res_compact) == set(res), "compact feed: the same keys")
+    for k, v in res_compact.items():
+        check(abs(v - res[k]) <= EVAL_METRIC_RTOL * abs(res[k])
+              + EVAL_METRIC_ATOL,
+              f"compact feed {k}: {v} within {EVAL_METRIC_RTOL} of {res[k]}")
+
+    # what the loop spends outside the step: one batch from pageable host
+    # memory to the card, as evaluate_batches copies it, in either feed
+    for name, batch in (("f32", batches[0]), ("compact", compact[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_device(batch, tuple(batch))
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        mb = sum(v.nbytes for v in batch.values()) / 2 ** 20
+        print(f"  one batch to the card, {name} feed: {mb:.0f} MB in "
+              f"{copy_ms:.1f} ms")
     return launches
 
 
@@ -1300,16 +1464,22 @@ def main(argv=None) -> int:
         kernels["window_attention"].update(k3)
         kernels["window_attention_bwd"].update(k4)
         check_attention_ragged_and_repeat(g)
-        res = kernel_resources(builds["window_attention"].log,
-                               "window_attention_bwd_kernel")
-        kernels["window_attention_bwd"].update(
-            regs={str(c): r for c, (r, _) in res.items()},
-            spill_bytes={str(c): sp for c, (_, sp) in res.items()},
-            smem_bytes={str(c): wa.bwd_kernel_smem_bytes(c)
-                        for c in (96, 192, 384)})
+        for name, kernel, smem in (
+                ("window_attention", "window_attention_fwd_kernel",
+                 wa.fwd_kernel_smem_bytes),
+                ("window_attention_bwd", "window_attention_bwd_kernel",
+                 wa.bwd_kernel_smem_bytes)):
+            res = kernel_resources(builds["window_attention"].log, kernel)
+            kernels[name].update(
+                regs={str(c): r for c, (r, _) in res.items()},
+                spill_bytes={str(c): sp for c, (_, sp) in res.items()},
+                smem_bytes={str(c): smem(c) for c in (96, 192, 384)})
         k5, k6 = check_warp_gather(g)
         kernels["warp_gather_fwd"].update(k5)
         kernels["warp_gather_bwd"].update(k6)
+        regs, spill = kernel_resources(builds["warp_gather"].log,
+                                       "warp_gather_bwd_kernel")[0]
+        kernels["warp_gather_bwd"].update(regs=regs, spill_bytes=spill)
         kernels["decoder_tail"].update(check_decoder_tail(g))
         regs, spill = kernel_resources(builds["decoder_tail"].log,
                                        "decoder_tail_kernel")[0]

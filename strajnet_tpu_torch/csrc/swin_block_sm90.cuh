@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the fused Swin-block kernels
-// (swin_block.cu, swin_block_bwd.cu), of the window-attention backward
-// (window_attention.cu), of the decoder tail (decoder_tail.cu) and of the
-// split-K pass that sums a weight gradient over all tokens:
+// (swin_block.cu, swin_block_bwd.cu), of the window-attention forward and
+// backward (window_attention.cu), of the decoder tail (decoder_tail.cu) and
+// of the split-K pass that sums a weight gradient over all tokens:
 //
 // - PTX wrappers: mbarriers, bulk asynchronous copies (cp.async.bulk), named
 //   barriers, wgmma descriptors and instructions;
@@ -14,7 +14,9 @@
 //   multiplied by wgmma straight from those tiles;
 // - the forward of one Swin block on one 64-token window, owned by one
 //   warpgroup from LayerNorm to the last residual, with weights streamed
-//   through a ring of shared-memory stages by a producer warp.
+//   through a ring of shared-memory stages by a producer warp; its heads and
+//   output projection (attention_heads_and_proj) are also the whole of the
+//   window-attention forward, which hands the projection another epilogue.
 //
 // A wgmma accumulator of a 64 x N product lives in registers: thread `lane`
 // of warp `w` of the warpgroup holds, for every 8-column block j, columns
@@ -809,9 +811,9 @@ __device__ __forceinline__ Window make_window(const BlockArgs& p, long long inde
 }
 
 // The window's 64 rows of `x` as they are into the A operand `hbuf` ([64, C]
-// K-major) and into `rows_out` ([64, C] token-blocked): 16 bytes a thread,
-// eight lanes on eight rows of one column block (dense loads and stores, as
-// in layernorm_window below).
+// K-major) and into `rows_out` ([64, C] token-blocked, or null): 16 bytes a
+// thread, eight lanes on eight rows of one column block (dense loads and
+// stores, as in layernorm_window below).
 template <int C>
 __device__ __forceinline__ void copy_window(const bf16* x, const Window& win,
                                             uint8_t* hbuf, bf16* rows_out, int tid) {
@@ -829,7 +831,7 @@ __device__ __forceinline__ void copy_window(const bf16* x, const Window& win,
     for (int i = 0; i < kPer; ++i) {
       const int c0 = (4 * i + q) * 8;
       *reinterpret_cast<uint4*>(hbuf + kmaj_off(row, c0, 64)) = v[i];
-      *reinterpret_cast<uint4*>(rows_out + blk_off(row, c0)) = v[i];
+      if (rows_out) *reinterpret_cast<uint4*>(rows_out + blk_off(row, c0)) = v[i];
     }
   }
 }
@@ -1061,23 +1063,26 @@ __device__ __noinline__ HeadOut attention_head(uint32_t h_addr, uint8_t* kdir, i
   return out;
 }
 
-// The attention half of the block for one window:
-//   LN1(x) -> hbuf;  per head: q|k|v, softmax, P v -> merged (registers);
-//   r1 = x + dp1 * (merged @ wproj + bproj) -> `park` (64 * C / 2 pairs of
-//   this window, park_idx) and hbuf;  LN2(r1) -> hbuf.
+// The heads and the output projection of one window, with its input (LN1(x)
+// in K1 and K2, x itself in the window-attention forward) in the A operand
+// at `h_addr`:
+//   per head: q|k|v, softmax, P v -> merged (registers);
+//   per 96-column chunk nc: acc = merged @ wproj, and for each of this
+//   thread's pairs epi.put(nc, j, half, row, col, a0, a1) with
+//   a = acc + bproj in f32 (columns col, col + 1 of `row`, 8-column block j
+//   of the chunk). epi.load(nc, j) runs before the chunk's product, beside
+//   the load of bproj, so that its loads are in flight while the tensor
+//   cores work.
 // `kv` is 16 KB of shared memory for two heads' k and v^T tiles. Consumes
-// kHeads * kNks + kNc * kNks ring tiles. Ends with the warpgroup in step and
-// hbuf visible to wgmma.
-template <int C>
-__device__ __forceinline__ void window_attention_half(
-    const BlockArgs& p, const Window& win, uint8_t* hbuf, uint8_t* kv, Ring& ring,
-    uint32_t* park, const FwdSaves& sv, RowStats& stats, int bar_id, const Lane& L) {
+// kHeads * kNks + kNc * kNks ring tiles. Every warp's reads of the A operand
+// (the last head's q|k|v product) lie before its last barrier here, so the
+// operand may be overwritten as soon as this returns; the k | v^T tiles are
+// read until the end of the last head.
+template <int C, typename Epilogue>
+__device__ __forceinline__ void attention_heads_and_proj(
+    const BlockArgs& p, const Window& win, uint32_t h_addr, uint8_t* kv, Ring& ring,
+    const FwdSaves& sv, int bar_id, const Lane& L, Epilogue& epi) {
   using K = Cfg<C>;
-  layernorm_window<C>(p.x, win, p.ln1s, p.ln1b, p.eps, hbuf, sv.h1, L.tid);
-  fence_proxy_async();
-  named_bar_sync(bar_id, 128);
-
-  const uint32_t h_addr = smem_u32(hbuf);
   const float* mask_w = p.mask ? p.mask + (size_t)win.wi * kTok * kTok : nullptr;
   uint32_t ma[C / 16][4];   // merged heads as A fragments
 #pragma unroll
@@ -1092,22 +1097,14 @@ __device__ __forceinline__ void window_attention_half(
     ring.stage = ho.stage;
     ring.phase = ho.phase;
   }
-  // every warp's reads of hbuf (the last head's q|k|v product) lie before
-  // its last barrier above: hbuf may now take r1
 
-  // ---- r1 = x + dp1 * (merged @ wproj + bproj): parked and into hbuf ----
-  float rsum[2] = {0.f, 0.f};
 #pragma unroll 1
   for (int nc = 0; nc < K::kNc; ++nc) {
-    uint32_t bp[12], xr[12][2];
+    uint32_t bp[12];
 #pragma unroll
     for (int j = 0; j < 12; ++j) {
-      const int col = 96 * nc + 8 * j + 2 * L.t;
-      bp[j] = *reinterpret_cast<const uint32_t*>(p.bproj + col);
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        xr[j][half] = *reinterpret_cast<const uint32_t*>(
-            p.x + win.ofs<C>(L.row0 + 8 * half) + col);
+      bp[j] = *reinterpret_cast<const uint32_t*>(p.bproj + 96 * nc + 8 * j + 2 * L.t);
+      epi.load(nc, j);
     }
     float acc[48];
 #pragma unroll
@@ -1118,25 +1115,67 @@ __device__ __forceinline__ void window_attention_half(
       const int col = 96 * nc + 8 * j + 2 * L.t;
       const float2 bias = unpack_bf16(bp[j]);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = L.row0 + 8 * half;
-        const float2 xv = unpack_bf16(xr[j][half]);
-        const uint32_t r =
-            pack_bf16(xv.x + win.dp1 * (acc[4 * j + 2 * half] + bias.x),
-                      xv.y + win.dp1 * (acc[4 * j + 2 * half + 1] + bias.y));
-        park[park_idx((12 * nc + j) * 2 + half, L)] = r;
-        *reinterpret_cast<uint32_t*>(hbuf + kmaj_off(row, col, 64)) = r;
-        const float2 rf = unpack_bf16(r);
-        rsum[half] += rf.x + rf.y;
-      }
+      for (int half = 0; half < 2; ++half)
+        epi.put(nc, j, half, L.row0 + 8 * half, col, acc[4 * j + 2 * half] + bias.x,
+                acc[4 * j + 2 * half + 1] + bias.y);
     }
   }
+}
+
+// The block's epilogue of the projection: r1 = x + dp1 * (merged @ wproj +
+// bproj), rounded once, parked (64 * C / 2 pairs of this window, park_idx)
+// and written over the A operand for LN2; sums each row for its mean.
+template <int C>
+struct ResidualEpilogue {
+  const BlockArgs& p;
+  const Window& win;
+  uint8_t* hbuf;
+  uint32_t* park;
+  const Lane& L;
+  float rsum[2];
+  uint32_t xr[12][2];
+
+  __device__ __forceinline__ void load(int nc, int j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      xr[j][half] = *reinterpret_cast<const uint32_t*>(
+          p.x + win.ofs<C>(L.row0 + 8 * half) + 96 * nc + 8 * j + 2 * L.t);
+  }
+  __device__ __forceinline__ void put(int nc, int j, int half, int row, int col,
+                                      float a0, float a1) {
+    const float2 xv = unpack_bf16(xr[j][half]);
+    const uint32_t r = pack_bf16(xv.x + win.dp1 * a0, xv.y + win.dp1 * a1);
+    park[park_idx((12 * nc + j) * 2 + half, L)] = r;
+    *reinterpret_cast<uint32_t*>(hbuf + kmaj_off(row, col, 64)) = r;
+    const float2 rf = unpack_bf16(r);
+    rsum[half] += rf.x + rf.y;
+  }
+};
+
+// The attention half of the block for one window:
+//   LN1(x) -> hbuf;  per head: q|k|v, softmax, P v -> merged (registers);
+//   r1 = x + dp1 * (merged @ wproj + bproj) -> `park` (64 * C / 2 pairs of
+//   this window, park_idx) and hbuf;  LN2(r1) -> hbuf.
+// `kv` is 16 KB of shared memory for two heads' k and v^T tiles. Consumes
+// kHeads * kNks + kNc * kNks ring tiles. Ends with the warpgroup in step and
+// hbuf visible to wgmma.
+template <int C>
+__device__ __forceinline__ void window_attention_half(
+    const BlockArgs& p, const Window& win, uint8_t* hbuf, uint8_t* kv, Ring& ring,
+    uint32_t* park, const FwdSaves& sv, RowStats& stats, int bar_id, const Lane& L) {
+  layernorm_window<C>(p.x, win, p.ln1s, p.ln1b, p.eps, hbuf, sv.h1, L.tid);
+  fence_proxy_async();
+  named_bar_sync(bar_id, 128);
+
+  // hbuf takes r1 as soon as the heads have read it
+  ResidualEpilogue<C> epi = {p, win, hbuf, park, L, {0.f, 0.f}, {}};
+  attention_heads_and_proj<C>(p, win, smem_u32(hbuf), kv, ring, sv, bar_id, L, epi);
 
   // ---- LN2 in place: every thread normalises the elements it wrote ----
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = L.row0 + 8 * half;
-    const float mu = quad_sum(rsum[half]) / C;
+    const float mu = quad_sum(epi.rsum[half]) / C;
     float sq = 0.f;
 #pragma unroll 4
     for (int jc = 0; jc < C / 8; ++jc) {

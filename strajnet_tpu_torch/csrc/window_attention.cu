@@ -9,7 +9,9 @@
 // the qkv projection, per head softmax(scale q k^T + rel-pos bias + 0/-100
 // SW-MSA mask) v inside each 8x8 window, the head merge and the output
 // projection. It is the fused Swin block without its two LayerNorms,
-// residuals and MLP.
+// residuals and MLP, and both kernels run on that block's device code
+// (swin_block_sm90.cuh, swin_block_bwd_sm90.cuh), built for C in 96 / 192 /
+// 384 with head_dim 32.
 //
 // One 64-token window is computed on its own, so no cross-window mask is
 // needed: the TPU kernel's dense strips, with their -1e9 mask and
@@ -19,168 +21,187 @@
 // Rounding points follow the TPU kernels. Forward: qkv is summed in f32, gets
 // its bias in f32 and is rounded to bf16; logits, bias, mask and softmax are
 // f32; P is rounded before P v, the merged heads before the projection; the
-// projection and its bias are f32, rounded once on the way out. Backward:
-// every product takes bf16 operands (dy, d(merged) per head, P, dS, dq|dk|dv)
-// and sums in f32; dS uses the f32 softmax; dbqkv sums the rounded dqkv;
-// dbproj sums the rounded dy; dbias sums f32 dS.
+// projection and its bias are f32, rounded once on the way out (the fused
+// block's heads round at the same points, so the forward shares them).
+// Backward: every product takes bf16 operands (dy, d(merged) per head, P,
+// dS, dq|dk|dv) and sums in f32; dS uses the f32 softmax; dbqkv sums the
+// rounded dqkv; dbproj sums the rounded dy; dbias sums f32 dS.
 //
 // By count both are bound by operations on the H100: 8 C^2 + 256 C FLOPs per
 // token forward, 22 C^2 + 768 C backward, against x in and y out once.
 //
-// The forward (window_attention_fwd_kernel, one block of 8 warps per window)
-// still runs on WMMA with weight fragments read from global memory (L2) once
-// per window (swin_block_common.cuh): fragment loads, not the tensor cores,
-// set its speed.
+// The forward is the attention half of the fused block's forward
+// (swin_block.cu). Two kernels:
+//
+// 1. pack_attn_fwd_kernel packs wqkv by head and wproj by 96-column chunk
+//    into tiles in the order of use and in the shared-memory operand layout.
+// 2. window_attention_fwd_kernel, persistent, two windows per block step: one
+//    consumer warpgroup owns one window, a producer warp streams the packed
+//    tiles through a ring of shared-memory stages (cp.async.bulk, mbarriers).
+//    The warpgroup copies its window of x, 16 bytes a thread, into a K-major
+//    operand; per head q|k|v = x @ wqkv[:, head] by wgmma with B from the
+//    ring, k and v^T through shared memory, q k^T, softmax and P v in
+//    registers (attention_head); the merged heads stay in registers as the A
+//    fragments of the projection, whose epilogue adds bproj in f32 and stores
+//    the rounded pairs straight into y at the window's grid positions.
 //
 // The backward is the Swin-block backward (swin_block_bwd.cu) without its
-// LayerNorms and MLP, on the same device code (swin_block_sm90.cuh,
-// swin_block_bwd_sm90.cuh). Three kernels:
+// LayerNorms and MLP. Three kernels:
 //
 // 1. pack_attn_bwd_kernel packs wqkv by head, wproj^T and wqkv^T into tiles in
 //    the order of use and in the shared-memory operand layout.
-// 2. window_attention_bwd_kernel, persistent, two windows per block step: one
-//    consumer warpgroup owns one window, a producer warp streams the packed
-//    tiles through a ring of shared-memory stages (cp.async.bulk, mbarriers),
-//    every product is wgmma with B from that ring. The warpgroup copies the
-//    window of x into a K-major operand, recomputes q|k|v, the softmax and
-//    the heads' outputs (attention_head of the forward block), loads dy over
-//    x, forms d(merged) = dy @ wproj^T per three heads, walks each head back
-//    (dP, dS, dq, dk, dv in registers, the transposed products from P^T and
-//    dS^T in shared memory) and ends with dx = dqkv @ wqkv^T, rounded once.
-//    dbqkv (and dbproj where shared memory has room, C <= 192) are column
-//    sums by reduce-scatter kept in shared memory over all windows of a
-//    warpgroup and added to device memory once; dbias takes one f32 pair per
-//    thread and head. For the two weight gradients it writes x, dqkv, the
+// 2. window_attention_bwd_kernel, persistent like the forward. The warpgroup
+//    copies the window of x into a K-major operand, recomputes q|k|v, the
+//    softmax and the heads' outputs (attention_head of the forward block),
+//    loads dy over x, forms d(merged) = dy @ wproj^T per three heads, walks
+//    each head back (dP, dS, dq, dk, dv in registers, the transposed products
+//    from P^T and dS^T in shared memory) and ends with dx = dqkv @ wqkv^T,
+//    rounded once. dbqkv (and dbproj where shared memory has room, C <= 192)
+//    are column sums by reduce-scatter kept in shared memory over all windows
+//    of a warpgroup and added to device memory once; dbias takes one f32 pair
+//    per thread and head. For the two weight gradients it writes x, dqkv, the
 //    merged heads and dy into scratch, token-blocked per window.
 // 3. atb_accum_sm90_kernel sums dwqkv = x^T dqkv and dwproj = merged^T dy over
 //    all tokens (the split-K pass of the Swin-block backward).
 //
-// Shared memory per block: per warpgroup one [64, C] operand (x, then dy),
-// 36 KB of per-head tiles (the forward's k | v^T tiles lie in them first) and
-// the column sums; the rest is the ring: 7 stages of 18 KB at C=96, 8 of 12 KB
-// at C=192, 4 of 12 KB at C=384 (the Swin-block backward has 5, 3, 2). What
-// bounds it as built: as in that kernel, one warpgroup's chain of dependent
-// elementwise instructions around small products (the heads' backward and the
-// recomputed softmax), not the tensor cores.
+// Shared memory per block. Forward: per warpgroup one [64, C] operand (x) and
+// 16 KB for two heads' k | v^T tiles, as in the fused block; with no MLP
+// tiles to hold, the ring takes all the rest: 9 stages of 18 KB at C=96, 12
+// of 12 KB at C=192, 8 of 12 KB at C=384. Backward: per warpgroup one [64, C]
+// operand (x, then dy), 36 KB of per-head tiles (the forward's k | v^T tiles
+// lie in them first) and the column sums; the rest is the ring: 7 stages of
+// 18 KB at C=96, 8 of 12 KB at C=192, 4 of 12 KB at C=384 (the Swin-block
+// backward has 5, 3, 2). What bounds both as built: as in the fused block,
+// one warpgroup's chain of dependent elementwise instructions around small
+// products (the softmax, and in the backward the heads' backward), not the
+// tensor cores.
 
-#include "swin_block_common.cuh"
 #include "swin_block_bwd_sm90.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward (WMMA)
+// Forward (wgmma)
 // ---------------------------------------------------------------------------
 namespace fwd {
 
-using namespace wmma_attn;
+using namespace sm90;
 
-struct AttnParams {
-  const bf16* x;
-  const bf16* wqkv;   // [C, 3C]
-  const bf16* bqkv;   // [3C]
-  const bf16* wproj;  // [C, C]
-  const bf16* bproj;  // [C]
-  const float* rel_bias;  // [heads, 64, 64]
-  const float* mask;      // [nW, 64, 64] or null
+// Ring stages: as many as fit beside the two warpgroups' operand and k | v^T
+// tiles, up to 16.
+template <int C>
+__host__ __device__ constexpr int attn_fwd_stages() {
+  constexpr int room = 232448 - 256 - kConsumers * (Cfg<C>::kBufBytes + 16384);
+  constexpr int fit = room / (Cfg<C>::kStageBytes + 16);
+  return fit < 16 ? fit : 16;
+}
+
+template <int C>
+constexpr int attn_fwd_smem_bytes() {
+  return kConsumers * (Cfg<C>::kBufBytes + 16384) +
+         attn_fwd_stages<C>() * (Cfg<C>::kStageBytes + 16) + 128;
+}
+
+template <int C>
+__global__ void pack_attn_fwd_kernel(uint8_t* dst, const bf16* wqkv,
+                                     const bf16* wproj) {
+  constexpr long long n = fwd_attn_tiles_bytes<C>() / 16;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    pack_attention_tiles<C>(dst, wqkv, wproj, i);
+}
+
+// The projection's epilogue: y = merged @ wproj + bproj in f32, rounded once
+// into `out` at the window's grid positions (4 bytes a thread, as the fused
+// block stores its output).
+template <int C>
+struct StoreEpilogue {
   bf16* out;
-  int B, H, W, C, heads, hd;
-  float scale;
-};
+  const Window& win;
 
-struct AttnLayout {
-  int ldh, lda, ldqkv, ldstg, lds, ldp, ldo32, ldo;
-  size_t off_acc, off_qkv, off_stg, off_p, off_o, total;
-};
-
-// hbuf, acc [64][C], qkv, stg, pbuf, obuf.
-__host__ __device__ inline AttnLayout make_attn_layout(int C, int hd) {
-  AttnLayout L;
-  L.ldh = C + kPad16;
-  L.lda = C + kPad32;
-  L.ldqkv = 3 * hd + kPad16;
-  L.ldstg = 3 * hd + kPad32;
-  L.lds = kTok + kPad32;
-  L.ldp = kTok + kPad16;
-  L.ldo32 = hd + kPad32;
-  L.ldo = hd + kPad16;
-  const int stg_ld = L.ldstg > L.lds ? L.ldstg : L.lds;
-  size_t off = round_up((size_t)kTok * L.ldh * sizeof(bf16), 128);
-  L.off_acc = off;
-  off = round_up(off + (size_t)kTok * L.lda * sizeof(float), 128);
-  L.off_qkv = off;
-  off = round_up(off + (size_t)kTok * L.ldqkv * sizeof(bf16), 128);
-  L.off_stg = off;
-  off = round_up(off + (size_t)kTok * stg_ld * sizeof(float), 128);
-  L.off_p = off;
-  off = round_up(off + (size_t)kTok * L.ldp * sizeof(bf16), 128);
-  L.off_o = off;
-  off = round_up(off + (size_t)kTok * L.ldo * sizeof(bf16), 128);
-  L.total = off;
-  return L;
-}
-
-struct WindowPos {
-  int b, wi, wy, wx;
-};
-
-__device__ inline WindowPos window_pos(const AttnParams& p) {
-  const int nwx = p.W / kWs, nwy = p.H / kWs;
-  WindowPos w;
-  w.b = blockIdx.x / (nwx * nwy);
-  w.wi = blockIdx.x % (nwx * nwy);
-  w.wy = w.wi / nwx;
-  w.wx = w.wi % nwx;
-  return w;
-}
-
-// token t of the window -> element offset of its channel vector
-__device__ inline size_t token_offset(const AttnParams& p, const WindowPos& w,
-                                      int t) {
-  const int row = w.wy * kWs + t / kWs, col = w.wx * kWs + t % kWs;
-  return ((size_t)(w.b * p.H + row) * p.W + col) * (size_t)p.C;
-}
-
-__global__ void __launch_bounds__(kThreads)
-window_attention_fwd_kernel(const AttnParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.C, hd = p.hd;
-  const AttnLayout L = make_attn_layout(C, hd);
-  bf16* hbuf = reinterpret_cast<bf16*>(smem);
-  float* acc = reinterpret_cast<float*>(smem + L.off_acc);
-  bf16* qkv = reinterpret_cast<bf16*>(smem + L.off_qkv);
-  float* stg = reinterpret_cast<float*>(smem + L.off_stg);
-  bf16* pbuf = reinterpret_cast<bf16*>(smem + L.off_p);
-  bf16* obuf = reinterpret_cast<bf16*>(smem + L.off_o);
-  const WindowPos w = window_pos(p);
-
-  // the window's tokens -> hbuf; zero the projection accumulator
-  for (int idx = threadIdx.x; idx < kTok * C; idx += kThreads) {
-    const int t = idx / C, c = idx % C;
-    hbuf[t * L.ldh + c] = p.x[token_offset(p, w, t) + c];
-    acc[t * L.lda + c] = 0.f;
+  __device__ __forceinline__ void load(int, int) {}
+  __device__ __forceinline__ void put(int, int, int, int row, int col, float a0,
+                                      float a1) {
+    *reinterpret_cast<uint32_t*>(out + win.ofs<C>(row) + col) = pack_bf16(a0, a1);
   }
+};
+
+template <int C>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+window_attention_fwd_kernel(const BlockArgs p, const uint8_t* __restrict__ packed,
+                            bf16* __restrict__ out, long long nwin) {
+  using K = Cfg<C>;
+  constexpr int kStages = attn_fwd_stages<C>();
+  constexpr int kTiles = (K::kHeads + K::kNc) * K::kNks;
+  extern __shared__ uint8_t attn_fwd_smem_raw[];
+  uint8_t* smem =
+      attn_fwd_smem_raw + ((128u - (smem_u32(attn_fwd_smem_raw) & 127u)) & 127u);
+  constexpr int kPerWg = K::kBufBytes + 16384;
+  const uint32_t ring_data = smem_u32(smem) + kConsumers * kPerWg;
+  const uint32_t full = ring_data + kStages * K::kStageBytes;
+  const uint32_t empty = full + 8 * kStages;
+  const long long steps = (nwin + kConsumers - 1) / kConsumers;
+
+  if (threadIdx.x == 0) ring_init(full, empty, kStages);
   __syncthreads();
 
-  const AttnBufs S = {hbuf, L.ldh, qkv, L.ldqkv, stg, L.ldstg, L.lds, L.ldo32,
-                      pbuf, L.ldp};
-  const AttnWeights Wt = {
-      p.wqkv, p.bqkv, p.rel_bias,
-      p.mask ? p.mask + (size_t)w.wi * kTok * kTok : nullptr, C, hd, p.scale};
-  for (int h = 0; h < p.heads; ++h) {
-    attn_head_qkv(S, Wt, h);
-    attn_head_softmax(S, Wt, h);
-    attn_head_pv(S, hd);
-    attn_head_project(S, h, C, hd, obuf, L.ldo, acc, L.lda, p.wproj);
-  }
-
-  for (int idx = threadIdx.x; idx < kTok * C; idx += kThreads) {
-    const int t = idx / C, c = idx % C;
-    p.out[token_offset(p, w, t) + c] = __float2bfloat16(
-        acc[t * L.lda + c] + __bfloat162float(p.bproj[c]));
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      const int mine =
+          blockIdx.x < steps ? (int)((steps - blockIdx.x + gridDim.x - 1) / gridDim.x) : 0;
+      ring_produce(ring_data, full, empty, kStages, K::kStageBytes, packed, mine,
+                   kTiles, [](int) -> uint32_t { return K::kKs * 96 * 2; });
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    Ring ring = {ring_data, full, empty, kStages, K::kStageBytes, 0, 0u};
+    const Lane L = make_lane();
+    uint8_t* xbuf = smem + wg * kPerWg;
+    uint8_t* kv = xbuf + K::kBufBytes;
+    const FwdSaves none = {nullptr, nullptr, nullptr, nullptr};
+    for (long long s = blockIdx.x; s < steps; s += gridDim.x) {
+      const long long index = s * kConsumers + wg;
+      if (index >= nwin) {
+        ring_drain(ring, kTiles);
+        continue;
+      }
+      const Window win = window_at(p.H, p.W, index);
+      // every warp's reads of xbuf and of the k | v^T tiles for the previous
+      // window lie before it reaches this barrier
+      copy_window<C>(p.x, win, xbuf, nullptr, L.tid);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      StoreEpilogue<C> epi = {out, win};
+      attention_heads_and_proj<C>(p, win, smem_u32(xbuf), kv, ring, none, 1 + wg, L,
+                                  epi);
+    }
   }
 }
 
+template <int C>
+cudaError_t launch_attn_fwd(const BlockArgs& p, const bf16* wqkv, const bf16* wproj,
+                            uint8_t* packed, bf16* out, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  constexpr long long blocks16 = fwd_attn_tiles_bytes<C>() / 16;
+  pack_attn_fwd_kernel<C><<<(unsigned)((blocks16 + 255) / 256), 256, 0, st>>>(
+      packed, wqkv, wproj);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int smem = attn_fwd_smem_bytes<C>();
+  err = cudaFuncSetAttribute(window_attention_fwd_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long nwin = (long long)p.B * (p.H / kWs) * (p.W / kWs);
+  const long long steps = (nwin + kConsumers - 1) / kConsumers;
+  const unsigned grid = (unsigned)(steps < sms ? steps : sms);
+  window_attention_fwd_kernel<C><<<grid, kBlockThreads, smem, st>>>(p, packed, out,
+                                                                    nwin);
+  return cudaGetLastError();
+}
 
 }  // namespace fwd
 
@@ -455,39 +476,60 @@ int window_attention_bwd_phase_clocks(long long* out) {
 }
 #endif
 
+// Dynamic shared memory one block of the forward window kernel takes at
+// channel width C (0: not covered).
+size_t window_attention_fwd_smem_bytes(int C) {
+  switch (C) {
+    case 96: return fwd::attn_fwd_smem_bytes<96>();
+    case 192: return fwd::attn_fwd_smem_bytes<192>();
+    case 384: return fwd::attn_fwd_smem_bytes<384>();
+  }
+  return 0;
+}
+
+// Bytes of scratch a forward launch needs: the packed wqkv and wproj tiles
+// (0: width not covered).
+long long window_attention_fwd_scratch_bytes(int C) {
+  switch (C) {
+    case 96: return sm90::fwd_attn_tiles_bytes<96>();
+    case 192: return sm90::fwd_attn_tiles_bytes<192>();
+    case 384: return sm90::fwd_attn_tiles_bytes<384>();
+  }
+  return 0;
+}
+
 // Launches the forward on `stream` (a cudaStream_t) and returns the CUDA
-// error code of the launch (0 on success). x/out [B, H, W, C] bf16 with H and
-// W multiples of 8; C a multiple of 32 and at most 384; C / heads a multiple
-// of 16. `mask` may be null.
+// error code of the first failed launch (0 on success). x/out [B, H, W, C]
+// bf16 with H and W multiples of 8; C one of 96, 192, 384 with C / heads ==
+// 32; `mask` may be null; `scratch` holds window_attention_fwd_scratch_bytes.
 int window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                          const void* wproj, const void* bproj,
                          const void* rel_bias, const void* mask, void* out,
-                         int B, int H, int W, int C, int heads, void* stream) {
-  fwd::AttnParams p = {};
+                         void* scratch, int B, int H, int W, int C, int heads,
+                         void* stream) {
+  if (heads * sm90::kHd != C || H % sm90::kWs || W % sm90::kWs)
+    return (int)cudaErrorInvalidValue;
+  sm90::BlockArgs p = {};
   p.x = static_cast<const bf16*>(x);
-  p.wqkv = static_cast<const bf16*>(wqkv);
   p.bqkv = static_cast<const bf16*>(bqkv);
-  p.wproj = static_cast<const bf16*>(wproj);
   p.bproj = static_cast<const bf16*>(bproj);
   p.rel_bias = static_cast<const float*>(rel_bias);
   p.mask = static_cast<const float*>(mask);
-  p.out = static_cast<bf16*>(out);
   p.B = B;
   p.H = H;
   p.W = W;
-  p.C = C;
-  p.heads = heads;
-  p.hd = C / heads;
-  p.scale = 1.0f / sqrtf((float)p.hd);
-  const size_t smem = fwd::make_attn_layout(C, p.hd).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd::window_attention_fwd_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * (H / fwd::kWs) * (W / fwd::kWs)));
-  fwd::window_attention_fwd_kernel<<<grid, fwd::kThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.scale = 1.0f / sqrtf((float)sm90::kHd);
+  const bf16* wq = static_cast<const bf16*>(wqkv);
+  const bf16* wp = static_cast<const bf16*>(wproj);
+  uint8_t* pk = static_cast<uint8_t*>(scratch);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 96: return (int)fwd::launch_attn_fwd<96>(p, wq, wp, pk, o, st);
+    case 192: return (int)fwd::launch_attn_fwd<192>(p, wq, wp, pk, o, st);
+    case 384: return (int)fwd::launch_attn_fwd<384>(p, wq, wp, pk, o, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Backward on `stream`; returns the CUDA error code of the first failed

@@ -86,7 +86,8 @@ class STrajNet(nn.Module):
             cfg.input_size, cfg.patch_size, cfg.embed_dim, cfg.depths,
             cfg.num_heads, cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
             cfg.patch_norm, cfg.ogm_past_steps, kernel_mode, dt,
-            cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate)
+            cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate,
+            cfg.remat_encoder)
         self.fg_msa_layer = FGMSA(
             (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
             cfg.fgmsa_groups, bd, bd, dt)

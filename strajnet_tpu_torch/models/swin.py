@@ -17,6 +17,9 @@ multipliers (the fused block takes them as ``drop_path``); the rates rise
 linearly over the blocks to ``drop_path_rate`` and the flow branch takes
 stage 0's. The block has no place for the in-block dropouts (``drop_rate``,
 ``attn_drop_rate``; 0 in every supported config), so a non-zero value raises.
+``remat`` (the model's ``remat_encoder``) recomputes a block's forward in its
+backward instead of saving its intermediates, as the JAX encoder's
+``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from strajnet_tpu_torch.ops.dropout import drop_path_multipliers
 from strajnet_tpu_torch.ops.swin_block import swin_block, swin_block_reference
@@ -95,13 +99,23 @@ class SwinTransformerBlock(nn.Module):
     "attn" (LayerNorm, MLP and residuals in plain torch around the
     window-attention wrapper, whose kernels run on CUDA tensors) or False (the
     plain version everywhere).
+
+    ``remat``: while gradients are recorded, the ``"attn"`` and plain modes
+    run the block under ``torch.utils.checkpoint``, which keeps only its
+    input and recomputes the rest in the backward (JAX's ``nn.remat`` around
+    the block, which also does not look at the training flag). The drop-path
+    multipliers are drawn before, outside the recomputed part, so the
+    recomputation sees the same ones and the generator advances as without
+    remat. The ``"block"`` and ``"block_fwd"`` modes save only the block's
+    inputs already (``ops/swin_block.py``), so there the flag changes
+    nothing.
     """
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  kernel_mode="block", dtype: torch.dtype = torch.float32,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, remat: bool = False):
         super().__init__()
         if kernel_mode not in ("block", "block_fwd", "attn", False):
             raise ValueError(f"unknown kernel_mode {kernel_mode!r}")
@@ -115,6 +129,7 @@ class SwinTransformerBlock(nn.Module):
         self.window_size, self.shift_size = window_size, shift_size
         self.kernel_mode, self.dtype = kernel_mode, dtype
         self.drop_path = float(drop_path)
+        self.remat = bool(remat)
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim)
@@ -128,15 +143,29 @@ class SwinTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = self.input_resolution
-        s, dt = self.shift_size, self.dtype
         c = x.shape[-1]
-        attn, mlp = self.attn, self.mlp
+        attn = self.attn
         qkv_b = (attn.qkv.bias if attn.qkv.bias is not None
                  else torch.zeros(3 * c, device=x.device))
         dpm = drop_path_multipliers(x.numel() // (h * w * c), self.drop_path,
                                     self.training, generator, x.device)
-        if self.kernel_mode == "attn":
-            return self._forward_attn(x, qkv_b, dpm)
+        body = (self._forward_attn if self.kernel_mode == "attn"
+                else self._forward_block)
+        if (self.remat and self.kernel_mode in ("attn", False)
+                and torch.is_grad_enabled()):
+            # nothing inside draws random numbers: no RNG state to replay
+            return checkpoint(body, x, qkv_b, dpm, use_reentrant=False,
+                              preserve_rng_state=False)
+        return body(x, qkv_b, dpm)
+
+    def _forward_block(self, x: torch.Tensor, qkv_b: torch.Tensor,
+                       dpm: Optional[torch.Tensor]) -> torch.Tensor:
+        """Roll -> the fused block (or its plain version) -> roll back, in
+        ``[B, L, C]``."""
+        h, w = self.input_resolution
+        s, dt = self.shift_size, self.dtype
+        c = x.shape[-1]
+        attn, mlp = self.attn, self.mlp
         xb = x.reshape(-1, h, w, c).to(dt)
         if s > 0:
             xb = torch.roll(xb, shifts=(-s, -s), dims=(1, 2))
@@ -224,14 +253,15 @@ class BasicLayer(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  downsample: bool = False, kernel_mode="block",
                  dtype: torch.dtype = torch.float32,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (), remat: bool = False):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             self.add_module(f"blocks{i}", SwinTransformerBlock(
                 dim, input_resolution, num_heads, window_size,
                 0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                kernel_mode, dtype, drop_path[i] if len(drop_path) else 0.0))
+                kernel_mode, dtype, drop_path[i] if len(drop_path) else 0.0,
+                remat))
         self.downsample = (PatchMerging(input_resolution, dim, dtype)
                            if downsample else None)
 
@@ -288,7 +318,7 @@ class SwinTransformerEncoder(nn.Module):
                  patch_norm: bool = True, ogm_past_steps: int = 11,
                  kernel_mode="block", dtype: torch.dtype = torch.float32,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, remat: bool = False):
         super().__init__()
         if drop_rate or attn_drop_rate:
             raise NotImplementedError(
@@ -306,7 +336,7 @@ class SwinTransformerEncoder(nn.Module):
                 (self.pr[0] // 2 ** i, self.pr[1] // 2 ** i), depths[i],
                 num_heads[i], window_size, mlp_ratio, qkv_bias, downsample,
                 kernel_mode, dtype,
-                tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]))
+                tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]), remat)
 
         self.patch_embed_flow = PatchEmbed(patch_size, 2, embed_dim,
                                            patch_norm, dtype)

@@ -37,7 +37,6 @@ import torch
 import torch.nn.functional as F
 
 _KERNEL_WINDOW = 8   # ws * ws == 64 tokens: one wgmma M tile per window
-_MAX_CHANNELS = 384   # the window-attention forward's shared memory at C=384
 _BLOCK_CHANNELS = (96, 192, 384)   # widths the wgmma window kernels are built for
 _HEAD_DIM = 32
 
@@ -243,12 +242,14 @@ def check_tensors(expect, device) -> None:
 
 
 def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
-                         window_size: int, num_heads: int) -> None:
+                         window_size: int, num_heads: int,
+                         what: str = "the window kernels") -> None:
     """Raises ValueError unless the windowed-attention part of the CUDA
-    kernels takes these arguments: bf16 activations, matrix weights, ``bqkv``
-    and ``bproj``; f32 ``rel_bias`` and mask; 8x8 windows; C a multiple of 32
-    up to 384; head_dim a multiple of 16. ``bproj`` may be None (the
-    backward of the attention does not read it)."""
+    kernels (``what``, for the message) takes these arguments: bf16
+    activations, matrix weights, ``bqkv`` and ``bproj``; f32 ``rel_bias``
+    and mask; 8x8 windows; a channel width the wgmma window kernels are built
+    for (:func:`check_wgmma_widths`). ``bproj`` may be None (the backward of
+    the attention does not read it)."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -257,12 +258,7 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
                          f"window_size={window_size}")
     if h % window_size or w % window_size:
         raise ValueError(f"H={h}, W={w} must be multiples of {window_size}")
-    if c % 32 or c > _MAX_CHANNELS:
-        raise ValueError(f"C={c} must be a multiple of 32 and <= "
-                         f"{_MAX_CHANNELS}")
-    if c % num_heads or (c // num_heads) % 16:
-        raise ValueError(f"head_dim C/heads = {c}/{num_heads} must be a "
-                         f"multiple of 16")
+    check_wgmma_widths(c, num_heads, what)
     n = window_size * window_size
     bf = torch.bfloat16
     expect = {
@@ -281,8 +277,9 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
 
 
 def check_wgmma_widths(c: int, num_heads: int, what: str) -> None:
-    """Raises ValueError unless the wgmma window kernels (K1, K2, K4) are
-    built for this channel width and head count."""
+    """Raises ValueError unless the wgmma window kernels (all four: the
+    block's forward and backward, the window attention's forward and
+    backward) are built for this channel width and head count."""
     if c not in _BLOCK_CHANNELS or c != num_heads * _HEAD_DIM:
         raise ValueError(f"{what} are built for C in {_BLOCK_CHANNELS} with "
                          f"head_dim {_HEAD_DIM}, got C={c}, "
@@ -294,15 +291,15 @@ def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                       window_size: int, num_heads: int) -> None:
     """Raises ValueError unless the CUDA kernels take these arguments.
 
-    What :func:`check_attention_args` asks, and f32 LayerNorm params, ``b1``,
-    ``b2`` and drop-path multipliers; bf16 ``w1`` and ``w2``; a channel width
-    the kernels are built for (96, 192, 384) with head_dim 32; MLP hidden
-    width a multiple of 64.
+    What :func:`check_attention_args` asks (among it a channel width the
+    kernels are built for: 96, 192, 384 with head_dim 32), and f32 LayerNorm
+    params, ``b1``, ``b2`` and drop-path multipliers; bf16 ``w1`` and ``w2``;
+    MLP hidden width a multiple of 64.
     """
     check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                         window_size=window_size, num_heads=num_heads)
+                         window_size=window_size, num_heads=num_heads,
+                         what="the Swin-block kernels")
     b, c = x.shape[0], x.shape[-1]
-    check_wgmma_widths(c, num_heads, "the Swin-block kernels")
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
     if hidden <= 0 or hidden % 64:
         raise ValueError(f"MLP hidden width {hidden} must be a multiple of "

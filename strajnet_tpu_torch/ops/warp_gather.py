@@ -9,8 +9,9 @@ and fetches the four corners ``img[y0 + a, x0 + b]`` of the zero-padded image
 through :func:`gather_corners`:
 
 - a CUDA image launches ``csrc/warp_gather.cu`` (forward: one thread per
-  query loads its four corners; backward: four ``atomicAdd`` per query into
-  the zeroed image cotangent) or raises; there is no fallback;
+  query loads its four corners; backward: one block per band of rows of a
+  slice's image cotangent, summed in shared memory and written once) or
+  raises; there is no fallback;
 - a CPU image takes the plain versions :func:`gather_corners_reference` and
   :func:`scatter_corners_reference`.
 
@@ -23,12 +24,20 @@ weights by autograd, as on the portable path. ``warp_gather_fwd.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Corners = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# Bands of rows per image slice in the backward kernel, at least: each band
+# is one block, which reads the whole slice's floor rows (the bands of a
+# slice run side by side, so all but the first read come from L2). A 258 x
+# 258 slice needs two; three or four were slower on the H100 (PERF.md).
+BWD_BANDS = 2
+# Shared memory one block may take on the H100, bytes.
+_MAX_SMEM = 232448
 
 
 def _corner_index(x0f: torch.Tensor, y0f: torch.Tensor, wp: int):
@@ -65,6 +74,10 @@ def _check(img, x0f, y0f, extra=()):
         raise ValueError(f"img [S, Hp, Wp] and x0f/y0f [S, N] expected, got "
                          f"{tuple(img.shape)}, {tuple(x0f.shape)}, "
                          f"{tuple(y0f.shape)}")
+    for name, t in extra:
+        if t.shape != x0f.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(x0f.shape)}")
     for name, t in (("img", img), ("x0f", x0f), ("y0f", y0f), *extra):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes "
@@ -85,7 +98,10 @@ def _lib():
             + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p])
         lib.warp_gather_fwd.restype = ctypes.c_int
-        lib.warp_gather_bwd.argtypes = lib.warp_gather_fwd.argtypes
+        lib.warp_gather_bwd.argtypes = (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p])
         lib.warp_gather_bwd.restype = ctypes.c_int
         lib._bound = True
     return lib
@@ -128,24 +144,54 @@ def warp_gather_fwd(img: torch.Tensor, x0f: torch.Tensor,
     return out
 
 
+def bwd_band_rows(hp: int, wp: int, bands: Optional[int] = None) -> int:
+    """Rows of one band of the backward kernel for a ``[Hp, Wp]`` slice: the
+    slice cut into ``bands`` (default :data:`BWD_BANDS`) or into as many as
+    shared memory needs, whichever are more. Raises ValueError when one row
+    of ``Wp`` floats does not fit a block's shared memory."""
+    if 4 * wp > _MAX_SMEM:
+        raise ValueError(f"one row of Wp={wp} floats does not fit the "
+                         f"{_MAX_SMEM} bytes of shared memory of a block")
+    want = max(BWD_BANDS if bands is None else bands,
+               math.ceil(4 * hp * wp / _MAX_SMEM))
+    rows = math.ceil(hp / want)
+    return min(rows, _MAX_SMEM // (4 * wp))
+
+
+def band_edge_rows(hp: int, rows: int) -> Tuple[int, ...]:
+    """Floor rows ``y0`` (``0 <= y0 <= Hp - 2``) at which the backward's
+    bands of ``rows`` rows meet, with the first and the last: a query on
+    one of them has its two corner rows in two bands, or sits at the
+    image's edge."""
+    near = {0, hp - 2}
+    for r in range(rows, hp, rows):
+        near.update((r - 2, r - 1, r))
+    return tuple(sorted(y for y in near if 0 <= y <= hp - 2))
+
+
 def warp_gather_bwd(img_shape: Sequence[int], x0f: torch.Tensor,
-                    y0f: torch.Tensor,
-                    gs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The image cotangent [S, Hp, Wp] f32 of :func:`warp_gather_fwd`."""
+                    y0f: torch.Tensor, gs: Sequence[torch.Tensor],
+                    bands: Optional[int] = None) -> torch.Tensor:
+    """The image cotangent [S, Hp, Wp] f32 of :func:`warp_gather_fwd`;
+    ``bands`` as in :func:`bwd_band_rows`."""
     if x0f.device.type == "cpu":
         return scatter_corners_reference(img_shape, x0f, y0f, gs)
     if x0f.device.type != "cuda":
         raise ValueError(f"warp_gather runs on CPU or CUDA tensors, got "
                          f"{x0f.device}")
     s, hp, wp = img_shape
+    if hp < 2 or wp < 2:
+        raise ValueError(f"the padded image must be at least 2 x 2, got "
+                         f"{hp} x {wp}")
+    rows = bwd_band_rows(hp, wp, bands)
     gs = tuple(g.contiguous() for g in gs)
-    dimg = torch.zeros(s, hp, wp, dtype=torch.float32, device=x0f.device)
+    dimg = torch.empty(s, hp, wp, dtype=torch.float32, device=x0f.device)
     _check(dimg, x0f, y0f, tuple((f"g{i}", g) for i, g in enumerate(gs)))
     n = x0f.shape[1]
     stream = torch.cuda.current_stream(x0f.device).cuda_stream
     err = _lib().warp_gather_bwd(_ptr(x0f), _ptr(y0f),
                                  *(_ptr(g) for g in gs), _ptr(dimg), s, n,
-                                 hp, wp, ctypes.c_void_p(stream))
+                                 hp, wp, rows, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"warp_gather_bwd kernel launch failed with CUDA "
                            f"error {err}")

@@ -17,15 +17,15 @@ A CUDA tensor goes through a ``torch.autograd.Function``: the forward launches
 ``window_attention_fwd`` of ``csrc/window_attention.cu`` and saves only its
 inputs; the backward launches ``window_attention_bwd``
 (:func:`window_attention_bwd`), which recomputes qkv and the softmax and
-returns dx and the five parameter gradients. The forward kernel takes C in
-multiples of 32 up to 384 and head dims in multiples of 16; the backward
-kernel is built, as the Swin-block kernels are, for C of 96, 192 or 384 with
-head_dim 32, and where it does not cover a width the forward raises as soon
-as an input needs a gradient. With ``backward="plain"`` the
-backward is autograd of the plain version instead, which tells a fault of the
-backward kernel from one elsewhere. A failed build or launch raises; there is
-no fallback. :func:`window_attention_backward_reference` is the backward
-written out step by step with the kernel's rounding points.
+returns dx and the five parameter gradients. Both are ``wgmma`` kernels on
+the fused Swin block's device code, built as the Swin-block kernels are for C
+of 96, 192 or 384 with head_dim 32; any other width raises before a launch
+(the plain version serves every width on the CPU only). With
+``backward="plain"`` the backward is autograd of the plain version instead,
+which tells a fault of the backward kernel from one elsewhere. A failed build
+or launch raises; there is no fallback.
+:func:`window_attention_backward_reference` is the backward written out step
+by step with the kernel's rounding points.
 ``window_attention.launches`` and ``window_attention_bwd.launches`` count
 kernel launches.
 """
@@ -38,11 +38,11 @@ from typing import Optional, Tuple
 import torch
 
 from strajnet_tpu_torch.ops.swin_block import (check_attention_args,
-                                               check_tensors,
-                                               check_wgmma_widths, ptr)
+                                               check_tensors, ptr)
 from strajnet_tpu_torch.ops.windows import window_partition, window_reverse
 
 GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+_FWD_KERNEL = "the window-attention forward kernels"
 _BWD_KERNEL = "the window-attention backward kernels"
 
 
@@ -153,8 +153,12 @@ def _lib():
     lib = load_library("window_attention")
     if not getattr(lib, "_bound", False):
         lib.window_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.window_attention_fwd.restype = ctypes.c_int
+        lib.window_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int]
+        lib.window_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
+        lib.window_attention_fwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.window_attention_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.window_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.window_attention_bwd.restype = ctypes.c_int
@@ -166,22 +170,42 @@ def _lib():
     return lib
 
 
+def fwd_kernel_smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one block of the forward window kernel at
+    channel width ``c`` (builds the kernels; needs nvcc)."""
+    return int(_lib().window_attention_fwd_smem_bytes(c))
+
+
 def bwd_kernel_smem_bytes(c: int) -> int:
     """Dynamic shared memory of one block of the backward window kernel at
     channel width ``c`` (builds the kernels; needs nvcc)."""
     return int(_lib().window_attention_bwd_smem_bytes(c))
 
 
+def check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
+                   window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the forward kernel takes these arguments
+    (:func:`check_attention_args`: among it C of 96, 192 or 384 with
+    head_dim 32). Touches no kernel."""
+    check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                         window_size=window_size, num_heads=num_heads,
+                         what=_FWD_KERNEL)
+
+
 def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
                 num_heads):
-    check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                         window_size=window_size, num_heads=num_heads)
+    check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                   window_size=window_size, num_heads=num_heads)
     b, h, w, c = x.shape
+    lib = _lib()
     out = torch.empty_like(x)
+    scratch = torch.empty(lib.window_attention_fwd_scratch_bytes(c),
+                          dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().window_attention_fwd(
+    err = lib.window_attention_fwd(
         ptr(x), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj), ptr(rel_bias),
-        ptr(mask), ptr(out), b, h, w, c, num_heads, ctypes.c_void_p(stream))
+        ptr(mask), ptr(out), ptr(scratch), b, h, w, c, num_heads,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"window_attention kernel launch failed with CUDA "
                            f"error {err}")
@@ -192,12 +216,12 @@ def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
 def check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
                    window_size: int, num_heads: int) -> None:
     """Raises ValueError unless the backward kernel takes these arguments:
-    what :func:`check_attention_args` asks, a channel width the wgmma window
-    kernels are built for (96, 192, 384 with head_dim 32), and ``dy`` like
-    ``x``. Touches no kernel."""
+    what :func:`check_attention_args` asks (among it a channel width the
+    wgmma window kernels are built for: 96, 192, 384 with head_dim 32) and
+    ``dy`` like ``x``. Touches no kernel."""
     check_attention_args(x, wqkv, bqkv, wproj, None, rel_bias, mask,
-                         window_size=window_size, num_heads=num_heads)
-    check_wgmma_widths(x.shape[-1], num_heads, _BWD_KERNEL)
+                         window_size=window_size, num_heads=num_heads,
+                         what=_BWD_KERNEL)
     check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
 
 
@@ -246,10 +270,6 @@ class _WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, window_size, num_heads, plain_backward, mask, x, wqkv,
                 bqkv, wproj, bproj, rel_bias):
-        if x.is_cuda and not plain_backward and any(ctx.needs_input_grad):
-            # what the backward kernel does not cover raises here, not first
-            # in the backward
-            check_wgmma_widths(x.shape[-1], num_heads, _BWD_KERNEL)
         ctx.save_for_backward(mask, x, wqkv, bqkv, wproj, bproj, rel_bias)
         ctx.cfg = (window_size, num_heads, plain_backward)
         return _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,

@@ -316,27 +316,111 @@ def test_window_attention_bwd_at_a_ragged_window_count_and_twice(card, c,
 
 
 def test_window_attention_refuses_widths_its_backward_does_not_cover(card):
-    """C = 64 with head_dim 32 is a width of the forward kernel but not of
-    the backward kernel: without gradients the forward runs; with them it
-    raises at the forward, before any launch, and the plain backward takes
-    it."""
+    """C = 64 with head_dim 32 is no width of the wgmma window kernels: the
+    forward raises as the backward does, with or without gradients, before
+    any launch; only the CPU takes it (the plain version)."""
     args, mask, _, dy = _block_case(card, 1, 16, 64, 2, 4)
     args = args[:6]
     kw = dict(window_size=8, num_heads=2)
     before = wa.window_attention.launches, wa.window_attention_bwd.launches
-    with torch.no_grad():
+    with torch.no_grad(), pytest.raises(ValueError, match="built for C in"):
         wa.window_attention(*args, mask, **kw)
-    assert wa.window_attention.launches == before[0] + 1
     ins = [a.clone().requires_grad_(True) for a in args]
-    with pytest.raises(ValueError, match="built for C in"):
-        wa.window_attention(*ins, mask, **kw)
+    for backward in ("kernel", "plain"):
+        with pytest.raises(ValueError, match="built for C in"):
+            wa.window_attention(*ins, mask, backward=backward, **kw)
     with pytest.raises(ValueError, match="built for C in"):
         wa.window_attention_bwd(args[0], args[1], args[2], args[3], args[5],
                                 mask, dy, **kw)
     assert (wa.window_attention.launches,
-            wa.window_attention_bwd.launches) == (before[0] + 1, before[1])
-    y = wa.window_attention(*ins, mask, backward="plain", **kw)
-    assert all(g is not None for g in torch.autograd.grad(y, ins, dy))
+            wa.window_attention_bwd.launches) == before
+    cpu = [a.cpu() for a in args]
+    y = wa.window_attention(*cpu, None if mask is None else mask.cpu(), **kw)
+    assert y.shape == args[0].shape
+    assert wa.window_attention.launches == before[0]
+
+
+@pytest.mark.parametrize("h,c,heads,shift", [
+    (128, 96, 3, 0), (128, 96, 3, 4), (64, 192, 6, 4), (32, 384, 12, 4)])
+def test_window_attention_forward_at_the_flagship_geometries(card, h, c,
+                                                            heads, shift):
+    """The forward kernel at the four Swin-block geometries of the flagship
+    model, batch 16, against the plain version: the same rounding points,
+    f32 sums in another order."""
+    args, mask, _, _ = _block_case(card, 16, h, c, heads, shift, seed=h + c)
+    args = args[:6]
+    kw = dict(window_size=8, num_heads=heads)
+    before = wa.window_attention.launches
+    with torch.no_grad():
+        y = wa.window_attention(*args, mask, **kw)
+        ref = wa.window_attention_reference(*args, mask, **kw)
+    assert wa.window_attention.launches == before + 1
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= 2.0 ** -5 * scale
+    a, b = y.double().flatten(), ref.double().flatten()
+    assert 1.0 - float(a @ b / (a.norm() * b.norm())) <= 1e-4
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_window_attention_forward_at_a_ragged_window_count_and_twice(
+        card, c, heads):
+    """[3, 40, 40, C] is 75 windows: odd, so the persistent forward's last
+    step has one window for two warpgroups, and with shift 4 every window
+    takes its own mask. Twice on the same inputs the output is bit-identical:
+    the forward sums nothing with atomics."""
+    args, mask, _, _ = _block_case(card, 3, 40, c, heads, 4, seed=3)
+    args = args[:6]
+    kw = dict(window_size=8, num_heads=heads)
+    with torch.no_grad():
+        y = wa.window_attention(*args, mask, **kw)
+        again = wa.window_attention(*args, mask, **kw)
+        ref = wa.window_attention_reference(*args, mask, **kw)
+    assert torch.equal(y, again)
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= 2.0 ** -5 * scale
+
+
+def _scatter_case(s, size, seed, smooth):
+    """Floor indices on a ``[size + 2]^2`` padded image: a smooth flow (the
+    four queries around a pixel share it as a corner), or queries on the
+    first and last rows and where the kernel's bands meet."""
+    hp = wp = size + 2
+    rng = np.random.default_rng(seed)
+    n = size * size
+    if smooth:
+        ys, xs = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        x0f = np.floor(xs + 1.3).reshape(1, n).repeat(s, 0)
+        y0f = np.floor(ys + 1.6).reshape(1, n).repeat(s, 0)
+    else:
+        edge = wg.band_edge_rows(hp, wg.bwd_band_rows(hp, wp))
+        y0f = np.resize(np.array(edge), (s, n))
+        x0f = rng.integers(0, wp - 1, (s, n))
+    gs = [torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32))
+          for _ in range(4)]
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    return (s, hp, wp), t(x0f), t(y0f), gs
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("s,size", [(4, 32), (3, 256)])
+def test_warp_gather_bwd_on_shared_corners_and_band_rows(card, s, size,
+                                                        smooth):
+    """The banded backward on a smooth flow and on queries at the rows where
+    its bands meet, against the plain scatter: f32 sums in another order.
+    Every entry of the image cotangent is written (no zeroing needed)."""
+    shape, x0f, y0f, gs = _scatter_case(s, size, size, smooth)
+    ref = wg.scatter_corners_reference(shape, x0f, y0f, gs)
+    before = wg.warp_gather_bwd.launches
+    got = wg.warp_gather_bwd(shape, x0f.to(card), y0f.to(card),
+                             [g.to(card) for g in gs])
+    assert wg.warp_gather_bwd.launches == before + 1
+    scale = float(ref.abs().max())
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5 * scale
+    for bands in (3, 5):
+        again = wg.warp_gather_bwd(shape, x0f.to(card), y0f.to(card),
+                                   [g.to(card) for g in gs], bands=bands)
+        assert float((again.cpu() - ref).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("n,h,w,cin,cmid", [(2, 16, 16, 96, 48),

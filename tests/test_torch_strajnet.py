@@ -280,6 +280,107 @@ def test_cpu_forward_with_kernel_mode_takes_plain_path(case):
     np.testing.assert_array_equal(out, _torch_forward(plain, batch))
 
 
+def _output_and_grads(model, batch, generator=None):
+    """The model's output and the gradients of ``sum(out ** 2)`` with
+    respect to every parameter."""
+    t = {k: torch.from_numpy(batch[k]) for k in MODEL_KEYS}
+    out = model(ogm=t["ogm"], map_img=t["map_image"], obs=t["actors"],
+                occ=t["occl_actors"], mapt=t["centerlines"],
+                flow=t["vec_flow"], generator=generator)
+    params = [p for _, p in model.named_parameters()]
+    grads = torch.autograd.grad((out.float() ** 2).sum(), params,
+                                allow_unused=True)
+    return out.detach(), dict(zip([n for n, _ in model.named_parameters()],
+                                  grads))
+
+
+def _counting(monkeypatch, name):
+    """Replaces ``models.swin.<name>`` with a wrapper that counts its calls."""
+    from strajnet_tpu_torch.models import swin
+
+    calls = [0]
+    fn = getattr(swin, name)
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(swin, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("mode,inner", [("attn", "window_attention"),
+                                        (False, "swin_block_reference")])
+def test_remat_encoder_changes_nothing_but_recomputes(case, monkeypatch, mode,
+                                                      inner, training):
+    """``remat_encoder=True`` gives the same output and every parameter the
+    same gradient as ``False``, in the ``"attn"`` and plain modes, f32; and
+    each Swin block's forward runs twice (once more in the backward). In
+    training mode drop-path is on (rate 0.2) and both runs take their noise
+    from one seed: the multipliers are drawn outside the recomputed part, so
+    the recomputation sees the same ones and the generator advances alike."""
+    _, params, batch = case
+    cfg = dataclasses.replace(CFG, use_pallas_attention=mode,
+                              drop_path_rate=0.2 if training else 0.0)
+    calls = _counting(monkeypatch, inner)
+    results = []
+    for remat in (False, True):
+        model = _torch_model(dataclasses.replace(cfg, remat_encoder=remat),
+                             params).train(training)
+        gen = torch.Generator().manual_seed(5) if training else None
+        before = calls[0]
+        results.append(_output_and_grads(model, batch, gen) + (
+            calls[0] - before,))
+    (out, grads, n), (rout, rgrads, rn) = results
+    blocks = sum(CFG.depths) + CFG.depths[0]   # three stages and the flow
+    assert (n, rn) == (blocks, 2 * blocks)
+    np.testing.assert_allclose(rout.numpy(), out.numpy(), rtol=0, atol=1e-6)
+    assert rgrads.keys() == grads.keys()
+    for name, g in grads.items():
+        if g is None:
+            assert rgrads[name] is None, name
+            continue
+        np.testing.assert_allclose(rgrads[name].numpy(), g.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_remat_encoder_matches_jax_remat(case):
+    """The port with ``remat_encoder=True`` against the JAX package with
+    ``remat_encoder=True`` (``nn.remat`` around each Swin block), f32, the
+    random parts off: the output, and the gradients of ``sum(out ** 2)`` for
+    every parameter relative to the leaf's largest entry (the init's zero
+    biases make some of them large; see the zero-bias test of the training
+    step)."""
+    _, params, batch = case
+    cfg = dataclasses.replace(CFG, remat_encoder=True)
+    jmodel = JaxSTrajNet(cfg=cfg)
+    jb = {k: jnp.asarray(batch[k]) for k in MODEL_KEYS}
+
+    def loss(p):
+        out = jmodel.apply({"params": p}, ogm=jb["ogm"],
+                           map_img=jb["map_image"], obs=jb["actors"],
+                           occ=jb["occl_actors"], mapt=jb["centerlines"],
+                           flow=jb["vec_flow"])
+        return jnp.sum(out.astype(jnp.float32) ** 2), out
+
+    (_, ref), ref_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    out, grads = _output_and_grads(_torch_model(cfg, params), batch)
+    # f32 both sides; summation order differs across ~60 layers
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, ref_grads))
+    assert set(want) == set(grads)
+    for name, g in grads.items():
+        if name == "fg_msa_layer.proj_k.bias":   # zero but for rounding
+            continue
+        w = want[name].numpy()
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
 def test_port_imports_no_jax_or_flax():
     code = (
         "import importlib, json, pkgutil, sys\n"

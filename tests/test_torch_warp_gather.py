@@ -193,3 +193,71 @@ def test_flow_warp_origin_kernel_route_raises_on_unsupported_shape():
     with pytest.raises(ValueError):
         flow_warp_origin(occ, flow, use_kernel=True)
     assert flow_warp_origin(occ, flow, use_kernel=False).shape == (2, 8, 8, 3)
+
+
+def _band_cases(s, size, seed):
+    """Floor indices and cotangents of two query sets the banded backward
+    kernel must get right: a smooth flow (zero flow plus one fractional
+    offset, so the four queries around every pixel share it as a corner)
+    and queries on the first and last rows of the padded image and on the
+    rows where its bands meet."""
+    hp = wp = size + 2
+    ys, xs = np.meshgrid(np.arange(size, dtype=np.float32),
+                         np.arange(size, dtype=np.float32), indexing="ij")
+    warp = np.stack([xs + 0.3, ys + 0.6], -1)[None].repeat(s, 0)
+    img = np.zeros((s, size, size, 1), np.float32)
+    _, sx0, sy0 = _floor_indices(img, warp)
+    rng = np.random.default_rng(seed)
+    edge = wg.band_edge_rows(hp, wg.bwd_band_rows(hp, wp, bands=3))
+    ey0 = np.resize(np.array(edge), sy0.shape).astype(np.float32)
+    ex0 = rng.integers(0, wp - 1, sx0.shape).astype(np.float32)
+    return (hp, wp), ((sx0, sy0), (ex0, ey0))
+
+
+@pytest.mark.parametrize("s,size", CASES)
+def test_scatter_reference_on_shared_corners_and_band_rows(s, size):
+    """``scatter_corners_reference`` (the backward kernel's oracle on the
+    card) against the interpreted Pallas backward on the smooth flow, where
+    every pixel sums four corners, and on queries at the first and last
+    rows and at the rows where three bands of the kernel meet."""
+    (hp, wp), sets = _band_cases(s, size, seed=9)
+    rng = np.random.default_rng(10)
+    for x0f, y0f in sets:
+        gs = [rng.standard_normal(x0f.shape).astype(np.float32)
+              for _ in range(4)]
+        ours = wg.scatter_corners_reference(
+            (s, hp, wp), torch.from_numpy(x0f), torch.from_numpy(y0f),
+            [torch.from_numpy(g) for g in gs])
+        php, pwp = hp + (-hp % 8), wp + (-wp % 128)
+        ref = jwg._bwd_call((s, php, pwp), jnp.asarray(x0f),
+                            jnp.asarray(y0f), [jnp.asarray(g) for g in gs],
+                            True)
+        ref = np.asarray(ref)
+        # nothing lands in the Pallas buffer's padding
+        assert not ref[:, hp:].any() and not ref[:, :, wp:].any()
+        # f32 sums of a few terms per pixel, in another order
+        np.testing.assert_allclose(ours.numpy(), ref[:, :hp, :wp], atol=1e-5)
+
+
+@pytest.mark.parametrize("hp,wp,bands,rows", [
+    (258, 258, None, 129),    # the loss's slices: two bands by default
+    (258, 258, 3, 86),
+    (258, 258, 1, 129),       # one band of 266 KB does not fit: two
+    (18, 18, None, 9),
+    (3, 3, 4, 1),
+    (1000, 4000, None, 14),   # as many bands as shared memory needs
+])
+def test_backward_band_rows(hp, wp, bands, rows):
+    assert wg.bwd_band_rows(hp, wp, bands) == rows
+    assert 4 * rows * wp <= 232448
+
+
+def test_band_edge_rows():
+    assert wg.band_edge_rows(258, 129) == (0, 127, 128, 129, 256)
+    assert wg.band_edge_rows(18, 6) == (0, 4, 5, 6, 10, 11, 12, 16)
+    assert wg.band_edge_rows(3, 1) == (0, 1)
+
+
+def test_backward_band_rows_refuses_a_row_wider_than_shared_memory():
+    with pytest.raises(ValueError, match="does not fit"):
+        wg.bwd_band_rows(4, 60000)

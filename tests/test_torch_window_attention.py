@@ -222,7 +222,7 @@ def _bwd_case(c, heads, ws=8, h=16, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("c,heads,ws,what", [
-    (32, 1, 8, "built for C in"),     # a width of the forward kernel only
+    (32, 1, 8, "built for C in"),     # head_dim 32, but not a model width
     (128, 4, 8, "built for C in"),    # head_dim 32, but not a model width
     (96, 6, 8, "built for C in"),     # head_dim 16
     (192, 3, 8, "built for C in"),    # head_dim 64
@@ -246,3 +246,38 @@ def test_backward_kernel_argument_check_passes_the_model_widths(c, heads):
         wa.check_bwd_args(**{**args, "dy": args["dy"].float()}, **kw)
     with pytest.raises(ValueError, match="dtype"):
         wa.check_bwd_args(**{**args, "x": args["x"].float()}, **kw)
+
+
+def _fwd_case(c, heads, ws=8, h=16):
+    args, kw = _bwd_case(c, heads, ws, h)
+    del args["dy"]
+    args["bproj"] = torch.zeros(c, dtype=torch.bfloat16)
+    return args, kw
+
+
+@pytest.mark.parametrize("c,heads,ws,what", [
+    (64, 2, 8, "built for C in"),     # head_dim 32, but not a model width
+    (96, 6, 8, "built for C in"),     # head_dim 16
+    (192, 3, 8, "built for C in"),    # head_dim 64
+    (32, 1, 8, "built for C in"),     # head_dim 32, below the model widths
+    (96, 3, 4, "8x8 windows"),
+])
+def test_forward_kernel_refuses_on_the_argument_check_alone(c, heads, ws,
+                                                            what):
+    """The forward kernel is built for the widths of the backward and of the
+    Swin-block kernels only: anything else raises ValueError from
+    ``check_fwd_args``, which runs before any build or launch."""
+    args, kw = _fwd_case(c, heads, ws)
+    with pytest.raises(ValueError, match=what):
+        wa.check_fwd_args(**args, **kw)
+
+
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
+def test_forward_kernel_argument_check_passes_the_model_widths(c, heads):
+    args, kw = _fwd_case(c, heads)
+    wa.check_fwd_args(**args, **kw)
+    wa.check_fwd_args(**{**args, "mask": torch.zeros(4, 64, 64)}, **kw)
+    with pytest.raises(ValueError, match="bproj"):
+        wa.check_fwd_args(**{**args, "bproj": args["bproj"].float()}, **kw)
+    with pytest.raises(ValueError, match="mask"):
+        wa.check_fwd_args(**{**args, "mask": torch.zeros(3, 64, 64)}, **kw)

@@ -49,6 +49,7 @@ PORT_KERNELS = (
     ("K2 pack_bwd_kernel (weights into tiles)", "pack_bwd_kernel"),
     ("K2 / K4 split-K atb_accum_sm90_kernel", "atb_accum_sm90_kernel"),
     ("K3 window_attention_fwd_kernel", "window_attention_fwd_kernel"),
+    ("K3 pack_attn_fwd_kernel (weights into tiles)", "pack_attn_fwd_kernel"),
     ("K4 window_attention_bwd_kernel", "window_attention_bwd_kernel"),
     ("K4 pack_attn_bwd_kernel (weights into tiles)", "pack_attn_bwd_kernel"),
     ("K5 warp_gather_fwd", "warp_gather_fwd"),
