@@ -38,22 +38,36 @@ follows: two synthetic batches through ``infer.evaluate.evaluate_batches``
 ``use_pallas_attention="attn"`` and the decoder-tail kernel, so K3 runs in
 all eight Swin blocks and K7 in both tails, held against the same loop on
 the plain path, and timed once more on the compact feed (uint8 grids, f16
-map) that ``infer/evaluate.py`` reads by default. The launch counters are
+map) that ``infer/evaluate.py`` reads by default; then on six batches of
+each feed with the device prefetch (``data/pipeline.py::
+prefetch_to_device``) and with the pageable copies it replaced, in turns.
+Last, the training loop, ``train.loop.train``, on synthetic compact-feed
+batches handed in through ``batches=`` (6 train, 2 val): one epoch from a
+step-0 checkpoint, a run that resumes at epoch 1 and takes epoch 2 (the
+log, the checkpoints, 8/8/1 launches of K1/K2/K5 per train step and 8/2 of
+K1/K5 per val step, the newest checkpoint restoring bit for bit, a
+checkpoint's save and restore times), the bare ``make_train_step`` on the
+same batches on the card twice, a third epoch; then three steps and one val
+batch of ``STRAJNET_TRAIN_PY_CONFIG`` (no FG-MSA). The launch counters are
 set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
-``--phases`` runs a subset (kernels, forward, serve, train, eval) while
-developing; with no arguments every phase runs.
+``--phases`` runs a subset (kernels, forward, serve, train, eval, loop)
+while developing; with no arguments every phase runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import csv
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -67,8 +81,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from strajnet_tpu_torch import _build  # noqa: E402
 from strajnet_tpu_torch.core.sampling import flow_warp_origin  # noqa: E402
 from strajnet_tpu_torch.config import (  # noqa: E402
-    STRAJNET_CONFIG, WAYMO_TASK_CONFIG, LossConfig, TrainConfig)
+    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_TASK_CONFIG, LossConfig,
+    TrainConfig)
+from strajnet_tpu_torch.data.pipeline import prefetch_to_device  # noqa: E402
 from strajnet_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from strajnet_tpu_torch.infer import evaluate as evaluate_mod  # noqa: E402
 from strajnet_tpu_torch.infer.evaluate import evaluate_batches  # noqa: E402
 from strajnet_tpu_torch.infer.proto import iter_fields  # noqa: E402
 from strajnet_tpu_torch.infer.runner import run_shard  # noqa: E402
@@ -92,9 +109,13 @@ from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
     warp_gather_bwd, warp_gather_fwd)
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
+from strajnet_tpu_torch.train.checkpoints import (  # noqa: E402
+    CheckpointManager)
+from strajnet_tpu_torch.train.loop import train  # noqa: E402
 from strajnet_tpu_torch.train.state import create_train_state  # noqa: E402
 from strajnet_tpu_torch.train.step import (  # noqa: E402
-    ensure_f32, make_eval_step, make_predict_step, make_train_step)
+    ensure_f32, make_eval_step, make_predict_step, make_train_step,
+    zero_loss_sums)
 
 BATCH = 16
 KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather",
@@ -178,7 +199,7 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
               (32, 384, 12, 4, 2))
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
-PHASES = ("kernels", "forward", "serve", "train", "eval")
+PHASES = ("kernels", "forward", "serve", "train", "eval", "loop")
 
 
 def check(ok: bool, what: str) -> None:
@@ -1035,10 +1056,10 @@ def warp_gradient_path():
     return got
 
 
-def fresh_train_state(mode, remat=False):
-    """A train state from seed-0 weights in the given Swin-block mode (and
-    ``remat_encoder``), with every bias drawn from N(0, 0.1) instead of the
-    init's zeros.
+def fresh_train_state(mode, remat=False, base=STRAJNET_CONFIG):
+    """A train state of ``base`` (default ``STRAJNET_CONFIG``) from seed-0
+    weights in the given Swin-block mode (and ``remat_encoder``), with every
+    bias drawn from N(0, 0.1) instead of the init's zeros.
 
     With all biases zero, a patch of an empty raster stays a constant token
     through every layer, each LayerNorm multiplies the gradient of the bias
@@ -1049,7 +1070,7 @@ def fresh_train_state(mode, remat=False):
     depth, where they already reach 1e25). Random biases keep the checks of
     this smoke out of that corner; :func:`real_init_report` prints what one
     step from the init itself does."""
-    cfg = dataclasses.replace(STRAJNET_CONFIG, use_pallas_attention=mode,
+    cfg = dataclasses.replace(base, use_pallas_attention=mode,
                               remat_encoder=remat)
     state = create_train_state(cfg, TrainConfig(batch_size=BATCH),
                                torch.Generator().manual_seed(0), "cuda")
@@ -1368,8 +1389,15 @@ def eval_path(state):
               + EVAL_METRIC_ATOL,
               f"compact feed {k}: {v} within {EVAL_METRIC_RTOL} of {res[k]}")
 
-    # what the loop spends outside the step: one batch from pageable host
-    # memory to the card, as evaluate_batches copies it, in either feed
+    # the device prefetch against the pageable copies it replaced, both
+    # feeds, six batches each
+    more = eval_inputs(cfg, range(210, 216))
+    for name, feed in (("f32", more),
+                       ("compact", [compact_feed(b) for b in more])):
+        eval_prefetch_ab(models[0], eval_step, feed, name)
+    del more, feed
+
+    # one batch from pageable host memory to the card, in either feed
     for name, batch in (("f32", batches[0]), ("compact", compact[0])):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1380,6 +1408,231 @@ def eval_path(state):
         print(f"  one batch to the card, {name} feed: {mb:.0f} MB in "
               f"{copy_ms:.1f} ms")
     return launches
+
+
+def pageable_copies(batches, device):
+    """The feed of ``evaluate_batches`` before the device prefetch: each
+    numpy batch copied to the card from pageable memory when its step
+    comes, on the consumer's thread."""
+    for batch in batches:
+        yield {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def eval_prefetch_ab(model, eval_step, batches, name):
+    """``evaluate_batches`` over ``batches`` with the device prefetch and
+    with the copies of the loop it replaced, in turns (without, with, three
+    times); returns (ms/step without, ms/step with), each the mean of its
+    turns, and holds the results of the two against each other."""
+    evaluate_batches(model, eval_step, batches[:1])   # warm-up, pinned ring
+    times, results = {}, {}
+    for prefetch in (False, True) * 3:
+        if not prefetch:
+            evaluate_mod.prefetch_to_device = pageable_copies
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate_batches(model, eval_step, batches)
+            torch.cuda.synchronize()
+        finally:
+            evaluate_mod.prefetch_to_device = prefetch_to_device
+        times.setdefault(prefetch, []).append(
+            (time.perf_counter() - t0) * 1e3 / len(batches))
+        results.setdefault(prefetch, res)
+    for k, v in results[True].items():
+        ref = results[False][k]
+        check(abs(v - ref) <= EVAL_METRIC_RTOL * abs(ref) + EVAL_METRIC_ATOL,
+              f"{name} feed {k}: {v} with the prefetch, {ref} without")
+    print(f"eval loop, {name} feed: results with and without the prefetch "
+          f"bit-identical: {results[True] == results[False]}")
+    print(f"eval loop, {name} feed, {len(batches)} batches of {BATCH}: "
+          f"pageable copies {np.mean(times[False]):.1f} ms/step "
+          f"({', '.join(f'{t:.1f}' for t in times[False])}), device prefetch "
+          f"{np.mean(times[True]):.1f} ms/step "
+          f"({', '.join(f'{t:.1f}' for t in times[True])})")
+    return float(np.mean(times[False])), float(np.mean(times[True]))
+
+
+class Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what the loop prints."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.text.append(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_loop(cfg, save_dir, epochs, source):
+    """``train.loop.train`` on the card from ``save_dir``; returns (state,
+    ms per train step of each epoch it ran, as the loop prints them, peak
+    device MB of the call, counters of the call)."""
+    tee = Tee(sys.stdout)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with contextlib.redirect_stdout(tee):
+        state = train(cfg, train_cfg=TrainConfig(
+            batch_size=BATCH, epochs=epochs, save_dir=save_dir),
+            batches=source, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [float(m) for m in re.findall(r"steps in [\d.]+ s \(([\d.]+) ms/step",
+                                       "".join(tee.text))]
+    return state, ms, peak_mb, launches
+
+
+def write_step0(cfg, save_dir):
+    """A step-0 checkpoint of ``fresh_train_state`` (biases from N(0, 0.1):
+    the init's zero biases overflow Nadam at this depth), epoch 0; returns
+    (seconds of the save, bytes of the checkpoint)."""
+    state, _ = fresh_train_state(None, base=cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(save_dir).save(
+        0, state, metrics={"val_loss": 0.0, "epoch": 0, "steps_per_epoch": 0})
+    seconds = time.perf_counter() - t0
+    return seconds, os.path.getsize(os.path.join(save_dir, "0", "state.pt"))
+
+
+def read_log(save_dir):
+    with open(os.path.join(save_dir, "train_log.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+def loop_phase():
+    """The training loop, ``train.loop.train``, at ``STRAJNET_CONFIG``, batch
+    16, on synthetic compact-feed batches (6 train, 2 val) handed in through
+    ``batches=`` (no TensorFlow here): one epoch from a step-0 checkpoint,
+    then a second run that resumes at epoch 1 and takes epoch 2. Checks the
+    log, the checkpoints, the launches per step, and that the newest
+    checkpoint restores bit for bit; times the loop against the bare step
+    on the same batches already on the card, and a checkpoint's save and
+    restore. Then three steps and one val batch of
+    ``STRAJNET_TRAIN_PY_CONFIG`` (no FG-MSA). Returns the counters."""
+    cfg = STRAJNET_CONFIG
+    n_train, n_val = 6, 2
+    train_batches = [compact_feed(b) for b in
+                     eval_inputs(cfg, range(300, 300 + n_train))]
+    val_batches = [compact_feed(b) for b in eval_inputs(cfg, (400, 401))]
+    data = {"train": train_batches, "val": val_batches}
+
+    def per_run(train_steps, val_steps):
+        return counts(k1=8 * (train_steps + val_steps), k2=8 * train_steps,
+                      k5=train_steps + 2 * val_steps)
+
+    total = counts()
+    with tempfile.TemporaryDirectory() as save_dir:
+        save0_s, ckpt_bytes = write_step0(cfg, save_dir)
+        source = lambda split, epoch: data[split]   # noqa: E731
+        _, ms1, _, launches = run_loop(cfg, save_dir, 1, source)
+        check(launches == per_run(n_train, n_val),
+              f"epoch 1: launches {launches}, expected "
+              f"{per_run(n_train, n_val)} (K1/K2/K5 8/8/1 per train step, "
+              f"K1/K5 8/2 per val step)")
+        check(CheckpointManager(save_dir).latest_step() == n_train,
+              "a checkpoint after epoch 1")
+        total = tuple(a + b for a, b in zip(total, launches))
+        state, ms2, peak_mb, launches = run_loop(cfg, save_dir, 2, source)
+        check(launches == per_run(n_train, n_val),
+              f"resumed epoch 2: launches {launches}")
+        total = tuple(a + b for a, b in zip(total, launches))
+        check(len(ms1) == 1 and len(ms2) == 1,
+              f"the resumed run took one epoch, got {ms1} then {ms2}")
+        log = read_log(save_dir)
+        check([r["epoch"] for r in log] == ["1", "2"],
+              f"train_log.csv rows for epochs 1 and 2, got {log}")
+        for row in log:
+            check(all(np.isfinite(float(v)) for v in row.values()),
+                  f"train_log.csv epoch {row['epoch']} finite: {row}")
+        ckpt = CheckpointManager(save_dir)
+        check(ckpt.latest_step() == 2 * n_train and state.step == 2 * n_train,
+              f"latest step {ckpt.latest_step()}, state step {state.step}")
+        check(ckpt.metadata()["epoch"] == 2, f"sidecar {ckpt.metadata()}")
+        params, _ = ckpt.restore_params()
+        live = state.model.state_dict()
+        check(list(params) == list(live) and all(
+            torch.equal(params[k], live[k].cpu()) for k in live),
+            "restore_params equals the live model bit for bit")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as other:
+            t0 = time.perf_counter()
+            CheckpointManager(other).save(state.step, state)
+            save_s = time.perf_counter() - t0
+        print("train_log.csv:\n" + "\n".join(
+            ", ".join(f"{k}={v}" for k, v in row.items()) for row in log))
+
+        # the bare step on the same batches, already on the card, from the
+        # loop's state (warm), twice; then the loop once more (epoch 3)
+        on_card = [to_device(b, tuple(b)) for b in train_batches]
+        step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
+                               cfg.num_waypoints, accumulate=True)
+        noise = torch.Generator(device="cuda").manual_seed(0)
+        state.model.train()
+        bare_ms = []
+        for _ in range(2):
+            sums = zero_loss_sums("cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in on_card:
+                state, sums = step(state, b, noise, sums)
+            sums = torch.stack(list(sums.values())).tolist()
+            bare_ms.append((time.perf_counter() - t0) * 1e3 / len(on_card))
+            check(all(np.isfinite(v) for v in sums),
+                  "bare steps: losses finite")
+        del state, on_card, params, live
+        _, ms3, _, launches = run_loop(cfg, save_dir, 3, source)
+        check(len(ms3) == 1 and launches == per_run(n_train, n_val),
+              f"resumed epoch 3: {ms3}, launches {launches}")
+        total = tuple(a + b for a, b in zip(total, launches))
+    loop_ms = (ms2[0] + ms3[0]) / 2
+    bare = sum(bare_ms) / 2
+    print(f"training loop, STRAJNET_CONFIG, batch {BATCH}, {n_train} steps an "
+          f"epoch: epoch 1 {ms1[0]:.1f} ms/step (the process's first steps "
+          f"of the loop), resumed epochs 2 and 3 {ms2[0]:.1f}, {ms3[0]:.1f} "
+          f"ms/step against the bare make_train_step on the same batches on "
+          f"the card between them {bare_ms[0]:.1f}, {bare_ms[1]:.1f} ms/step "
+          f"({(loop_ms / bare - 1) * 100:+.1f} %); peak memory of the resumed "
+          f"run {peak_mb:.0f} MB; checkpoint {ckpt_bytes} bytes, save "
+          f"{save_s:.3f} s (step 0: {save0_s:.3f} s), restore {restore_s:.3f}"
+          f" s; launches per train step K1/K2/K5 8/8/1, per val step K1/K5 "
+          f"8/2")
+
+    # the checked-in training variant: no FG-MSA, no flow head
+    variant = STRAJNET_TRAIN_PY_CONFIG
+    data = {"train": train_batches[:3], "val": val_batches[:1]}
+    with tempfile.TemporaryDirectory() as save_dir:
+        write_step0(variant, save_dir)
+        state, ms_v, peak_v, launches = run_loop(
+            variant, save_dir, 1, lambda split, epoch: data[split])
+        check(launches == per_run(3, 1),
+              f"STRAJNET_TRAIN_PY_CONFIG: launches {launches}, expected "
+              f"{per_run(3, 1)}")
+        check(not hasattr(state.model, "fg_msa_layer"),
+              "STRAJNET_TRAIN_PY_CONFIG builds no FG-MSA")
+        log = read_log(save_dir)
+        check(len(log) == 1 and all(np.isfinite(float(v))
+                                    for v in log[0].values()),
+              f"STRAJNET_TRAIN_PY_CONFIG: finite log {log}")
+        check(state.step == 3, f"three steps, got {state.step}")
+        del state
+    total = tuple(a + b for a, b in zip(total, launches))
+    print(f"training loop, STRAJNET_TRAIN_PY_CONFIG (no FG-MSA), batch "
+          f"{BATCH}: {ms_v[0]:.1f} ms/step over 3 steps, peak memory "
+          f"{peak_v:.0f} MB, against STRAJNET_CONFIG's {loop_ms:.1f} ms/step "
+          f"and {peak_mb:.0f} MB; loss {log[0]['loss']}, val_loss "
+          f"{log[0]['val_loss']}")
+    torch.cuda.empty_cache()
+    return total
 
 
 def main(argv=None) -> int:
@@ -1502,6 +1755,8 @@ def main(argv=None) -> int:
     if "train" in phases:
         add_launches(train_steps())
         add_launches(warp_gradient_path())
+    if "loop" in phases:
+        add_launches(loop_phase())
 
     print(smi)
     print(json.dumps({"kernels": [

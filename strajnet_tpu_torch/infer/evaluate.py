@@ -5,11 +5,14 @@ Counterpart of ``strajnet_tpu/infer/evaluate.py``. Usage:
     python -m strajnet_tpu_torch.infer.evaluate --file_dir .../preprocessed_data \\
         --weight_path weights.pt --batch_size 16 --pallas attn
 
-``--weight_path`` takes a ``.pt`` state dict, for example one written by
-``tools/flax_to_torch.py`` from a checkpoint of the JAX package; without it
-the weights are drawn from seed 0. ``--pallas`` picks the Swin blocks' kernel
-mode as the JAX CLI does (auto | off | attn | block | block_fwd). The model
-runs on ``--device`` (default ``cuda``); a device that is not there raises.
+``--weight_path`` takes a checkpoint directory of the training loop (the
+newest checkpoint in it, through ``CheckpointManager.restore_params``) or a
+``.pt`` state dict, for example one written by ``tools/flax_to_torch.py`` from
+a checkpoint of the JAX package; without it the weights are drawn from seed
+0. ``--pallas`` picks the Swin blocks' kernel mode as the JAX CLI does (auto |
+off | attn | block | block_fwd). The model runs on ``--device`` (default
+``cuda``); a device that is not there raises. Like the JAX CLI it builds
+``STRAJNET_CONFIG``.
 """
 
 from __future__ import annotations
@@ -25,15 +28,14 @@ from torch import nn
 
 from strajnet_tpu_torch.config import (STRAJNET_CONFIG, WAYMO_TASK_CONFIG,
                                        LossConfig)
+from strajnet_tpu_torch.data.pipeline import prefetch_to_device
 from strajnet_tpu_torch.device import resolve_device
-from strajnet_tpu_torch.models.strajnet import STrajNet, init_params
+from strajnet_tpu_torch.models.strajnet import (PALLAS_MODES, STrajNet,
+                                                init_params)
 from strajnet_tpu_torch.objective.metrics import (MetricsAccumulator,
                                                   print_metrics)
+from strajnet_tpu_torch.train.checkpoints import load_weights
 from strajnet_tpu_torch.train.step import make_eval_step
-
-_PALLAS_MODES = {"off": False, "attn": "attn", "block": "block",
-                 "block_fwd": "block_fwd"}
-
 
 def _tfrecord_batches(file_pattern: str, batch_size: int,
                       compact: bool) -> Iterable[Dict[str, np.ndarray]]:
@@ -51,17 +53,17 @@ def evaluate_batches(model: nn.Module, eval_step: Callable,
     """Runs ``eval_step`` over numpy batches and returns the means of the
     seven ``val_*`` metrics and the five ``val_*`` losses over the batches.
 
-    Each batch goes to the model's device in one copy. Loss and metric sums
-    stay device scalars; the one fetch to the host comes after the loop.
-    An empty iterable gives an empty dict.
+    The batches reach the model's device through
+    :func:`~strajnet_tpu_torch.data.pipeline.prefetch_to_device`, so the
+    copy of the next batch runs under the current step. Loss and metric
+    sums stay device scalars; the one fetch to the host comes after the
+    loop. An empty iterable gives an empty dict.
     """
     device = next(model.parameters()).device
     acc = MetricsAccumulator("val", no_warp=no_warp)
     losses_sum: Dict[str, torch.Tensor] = {}
     n = 0
-    for batch in batches:
-        tbatch = {k: torch.from_numpy(np.asarray(v)).to(device)
-                  for k, v in batch.items()}
+    for tbatch in prefetch_to_device(batches, device):
         losses, metrics = eval_step(model, tbatch)
         acc.update_state(metrics)
         for k, v in losses.items():
@@ -91,13 +93,11 @@ def evaluate(file_pattern: str, weight_path: str = "", batch_size: int = 16,
     cfg = STRAJNET_CONFIG
     if pallas != "auto":
         cfg = dataclasses.replace(cfg,
-                                  use_pallas_attention=_PALLAS_MODES[pallas])
+                                  use_pallas_attention=PALLAS_MODES[pallas])
     device = resolve_device(device)
     model = STrajNet(cfg)
     if weight_path:
-        model.load_state_dict(torch.load(weight_path, map_location="cpu",
-                                         weights_only=True))
-        print(f"loaded weights from {weight_path}")
+        model.load_state_dict(load_weights(weight_path))
     else:
         model.load_state_dict(init_params(cfg,
                                           torch.Generator().manual_seed(0)))
@@ -121,12 +121,13 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--file_dir", type=str,
                    default="./Waymo_Dataset/preprocessed_data")
     p.add_argument("--weight_path", type=str, default="",
-                   help=".pt state dict (tools/flax_to_torch.py converts a "
+                   help="checkpoint directory of the training loop, or a .pt "
+                        "state dict (tools/flax_to_torch.py converts a "
                         "checkpoint of the JAX package)")
     p.add_argument("--batch_size", type=int, default=16,
                    help="scenarios per device batch")
     p.add_argument("--pallas", type=str, default="auto",
-                   choices=["auto"] + list(_PALLAS_MODES),
+                   choices=["auto"] + list(PALLAS_MODES),
                    help="Swin-block kernel mode (the train CLI's choices)")
     p.add_argument("--no_compact", action="store_true",
                    help="feed f32 from the host instead of uint8/f16")

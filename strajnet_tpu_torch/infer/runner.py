@@ -5,9 +5,11 @@ Counterpart of ``strajnet_tpu/infer/runner.py``. Usage:
     python -m strajnet_tpu_torch.infer.runner --ids_dir ... --save_dir ... \\
         --file_dir ... --weight_path weights.pt
 
-``--weight_path`` takes a ``.pt`` state dict, for example one written by
+``--weight_path`` takes a checkpoint directory of the training loop (its
+newest checkpoint) or a ``.pt`` state dict, for example one written by
 ``tools/flax_to_torch.py`` from a checkpoint of the JAX package. The model
 runs on ``--device`` (default ``cuda``); a device that is not there raises.
+Like the JAX CLI it builds ``STRAJNET_CONFIG``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from strajnet_tpu_torch.config import STRAJNET_CONFIG
+from strajnet_tpu_torch.data.pipeline import prefetch_to_device
 from strajnet_tpu_torch.device import resolve_device
 from strajnet_tpu_torch.infer.submission import (
     ChallengeSubmission,
@@ -32,6 +35,7 @@ from strajnet_tpu_torch.infer.submission import (
 )
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params
 from strajnet_tpu_torch.objective.loss import WaypointGrids
+from strajnet_tpu_torch.train.checkpoints import load_weights
 from strajnet_tpu_torch.train.step import make_predict_step
 
 _ID_KEY = "scenario/id"
@@ -65,10 +69,12 @@ def run_shard(model: nn.Module, predict_step: Callable, shard_path: str,
 
     ``batches`` are dicts of numpy arrays with the parsed-TFRecord keys plus
     ``scenario/id``; by default they are read from ``shard_path``, which
-    also names the output file. Each batch goes to the model's device in one
-    copy and comes back in one fetch; per-scenario quantization (24 zlib
-    compressions each) runs on a thread pool, since zlib releases the GIL.
-    Returns the number of scenarios written.
+    also names the output file. The batches reach the model's device through
+    :func:`~strajnet_tpu_torch.data.pipeline.prefetch_to_device` (the next
+    batch's copy runs under the current forward) and come back in one fetch
+    each; per-scenario quantization (24 zlib compressions each) runs on a
+    thread pool, since zlib releases the GIL. Returns the number of
+    scenarios written.
     """
     if batches is None:
         batches = _tfrecord_batches(shard_path, batch_size, compact)
@@ -77,7 +83,7 @@ def run_shard(model: nn.Module, predict_step: Callable, shard_path: str,
           f"{os.path.basename(shard_path)}...")
     submission = ChallengeSubmission()
     count = 0
-    for batch in batches:
+    for batch in prefetch_to_device(batches, device):
         sc_ids = [s.decode("utf-8") if isinstance(s, bytes) else str(s)
                   for s in batch[_ID_KEY]]
         if ids is not None:
@@ -85,8 +91,7 @@ def run_shard(model: nn.Module, predict_step: Callable, shard_path: str,
             if unknown:
                 raise ValueError(f"scenario ids not in the whitelist: "
                                  f"{unknown[:5]}")
-        tbatch = {k: torch.from_numpy(np.asarray(v)).to(device)
-                  for k, v in batch.items() if k != _ID_KEY}
+        tbatch = {k: v for k, v in batch.items() if k != _ID_KEY}
         pred = predict_step(model, tbatch)
         pred_np = WaypointGrids(*(a.cpu().numpy() for a in pred))
 
@@ -114,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--file_dir", type=str,
                    default="./Waymo_Dataset/preprocessed_data/test/")
     p.add_argument("--weight_path", type=str, default="",
-                   help=".pt state dict (tools/flax_to_torch.py converts a "
+                   help="checkpoint directory of the training loop, or a .pt "
+                        "state dict (tools/flax_to_torch.py converts a "
                         "checkpoint of the JAX package)")
     p.add_argument("--no_id_check", action="store_true")
     p.add_argument("--batch_size", type=int, default=16,
@@ -132,10 +138,7 @@ def main(argv: Optional[Sequence[str]] = None):
     device = resolve_device(args.device)
     model = STrajNet(cfg)
     if args.weight_path:
-        state = torch.load(args.weight_path, map_location="cpu",
-                           weights_only=True)
-        model.load_state_dict(state)
-        print(f"loaded weights from {args.weight_path}")
+        model.load_state_dict(load_weights(args.weight_path))
     else:
         model.load_state_dict(init_params(cfg,
                                           torch.Generator().manual_seed(0)))

@@ -2,10 +2,10 @@
 
 Counterpart of ``strajnet_tpu/models/fgmsa.py`` at STrajNet's settings: stage
 index 3 (3x3 offset conv), ``offset_range_factor`` 2, rel-pos bias on, the
-flow head on (``fg=True``) and the reference's ``deform_kv=False`` behaviour,
-where K/V come from the unsampled features and the deformation reaches only
-the rel-pos bias and the returned positions; the other variants are still
-to be ported (ROADMAP.md). ``attn_drop`` and ``proj_drop`` (0 in every
+flow head on or off (``fg``) and the reference's ``deform_kv=False``
+behaviour, where K/V come from the unsampled features and the deformation
+reaches only the rel-pos bias and the returned positions; the other variants
+are still to be ported (ROADMAP.md). ``attn_drop`` and ``proj_drop`` (0 in every
 supported config) act in training mode, with noise from the generator handed
 to ``forward``.
 """
@@ -35,9 +35,9 @@ class FGMSA(nn.Module):
                  n_head_channels: int = 48, n_groups: int = 8,
                  out_dim: int = 384, in_dim: int = 384,
                  dtype: torch.dtype = torch.float32, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, fg: bool = True):
         super().__init__()
-        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.attn_drop, self.proj_drop, self.fg = attn_drop, proj_drop, fg
         nc = n_head_channels * n_heads
         if nc != in_dim:
             raise ValueError(f"heads*head_channels {nc} != in_dim {in_dim}")
@@ -48,7 +48,8 @@ class FGMSA(nn.Module):
         self.conv_offset_0 = nn.Conv2d(nc, nc, 3, padding=1, groups=n_groups)
         self.conv_norm = LayerNorm(nc, 1e-3, dtype)
         self.conv_offset_proj = nn.Conv2d(nc // n_groups, 2, 1, bias=False)
-        self.conv_offset_proj2 = nn.Conv2d(2, out_dim, 1)
+        if fg:
+            self.conv_offset_proj2 = nn.Conv2d(2, out_dim, 1)
         self.proj_k = nn.Conv2d(in_dim, nc, 1)
         self.proj_v = nn.Conv2d(in_dim, nc, 1)
         self.proj_out = nn.Conv2d(nc, out_dim, 1)
@@ -57,7 +58,8 @@ class FGMSA(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None):
         """x: [B, h, w, C] -> (y [B, h, w, out], pos [B, G, h, w, 2],
-        flow_hidden [B, G, h, w, out])."""
+        flow_hidden [B, G, h, w, out]); without the flow head (``fg=False``)
+        the third is the reference grid, [B, G, h, w, 2]."""
         dt = self.dtype
         g, nh, hc = self.n_groups, self.n_heads, self.n_head_channels
         nc = nh * hc
@@ -78,9 +80,12 @@ class FGMSA(nn.Module):
                                     device=x.device)
         offset = torch.tanh(offset) * offset_range
 
-        flow_hidden = _conv1x1(self.conv_offset_proj2,
-                               offset.reshape(b, g, hk, wk, 2), dt)
         reference = ref_points(hk, wk, dt, x.device)
+        if self.fg:
+            third = _conv1x1(self.conv_offset_proj2,
+                             offset.reshape(b, g, hk, wk, 2), dt)
+        else:
+            third = reference.expand(b, g, hk, wk, 2)
         pos = offset + reference                      # [B*G, hk, wk, 2]
 
         def heads_to_batch(t: torch.Tensor) -> torch.Tensor:
@@ -106,4 +111,4 @@ class FGMSA(nn.Module):
         out = out.reshape(b, c, h, w).permute(0, 2, 3, 1)
         y = dropout(_conv1x1(self.proj_out, out, dt), self.proj_drop,
                     self.training, generator)
-        return y, pos.reshape(b, g, hk, wk, 2), flow_hidden
+        return y, pos.reshape(b, g, hk, wk, 2), third

@@ -1,16 +1,19 @@
 """STrajNet top-level model.
 
 Counterpart of ``strajnet_tpu/models/strajnet.py``: Swin encoder -> FG-MSA
-over the bottleneck -> waypoint-repeated query plus the flow-head injection
--> per-waypoint trajectory cross-attention -> 3D pyramid decoder ->
-waypoint-major output ``[B, H, W, T*4]`` (channel ``k*4 + {0: observed,
-1: occluded, 2: dx, 3: dy}``), f32.
+over the bottleneck (``fg_msa``) -> waypoint-repeated query plus the
+flow-head injection (``fg``) -> per-waypoint trajectory cross-attention ->
+3D pyramid decoder -> waypoint-major output ``[B, H, W, T*4]`` (channel
+``k*4 + {0: observed, 1: occluded, 2: dx, 3: dy}``), f32.
 
 The port computes the forward of STrajNet's flag set, in inference and in
 training mode (dropout and drop-path noise from an explicit generator),
-(``sep_encode``, ``flow_sep``, ``use_flow``, ``large_input``, ``fg_msa`` and
-``fg`` on, ``actor_only``, pyramid decoder with ``flow_sep_decode`` and
-``rep_res``); other flag values raise NotImplementedError.
+(``sep_encode``, ``flow_sep``, ``use_flow``, ``large_input``,
+``actor_only``, pyramid decoder with ``flow_sep_decode`` and ``rep_res``),
+with FG-MSA and its flow head on or off: ``STRAJNET_CONFIG`` and
+``STRAJNET_TRAIN_PY_CONFIG`` (``fg_msa=False, fg=False``). As in the JAX
+package, ``fg`` is ignored without ``fg_msa``. Other flag values raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,9 +35,14 @@ from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
 _PORTED_FLAGS = dict(sep_encode=True, flow_sep=True, use_flow=True,
                      no_map=False, large_input=True, ape=False,
                      patch_norm=True, actor_only=True, sep_actors=False,
-                     fg_msa=True, fg=True, deform_kv=False, use_pyramid=True,
+                     deform_kv=False, use_pyramid=True,
                      flow_sep_decode=True, conv_cnn=False, sep_conv=False,
                      rep_res=True, stp_grad=False, spatial_shard=False)
+
+
+# The CLIs' --pallas choices (besides "auto") -> use_pallas_attention.
+PALLAS_MODES = {"off": False, "attn": "attn", "block": "block",
+                "block_fwd": "block_fwd"}
 
 
 def resolve_kernel_knobs(cfg: ModelConfig):
@@ -88,9 +96,10 @@ class STrajNet(nn.Module):
             cfg.patch_norm, cfg.ogm_past_steps, kernel_mode, dt,
             cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate,
             cfg.remat_encoder)
-        self.fg_msa_layer = FGMSA(
-            (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
-            cfg.fgmsa_groups, bd, bd, dt)
+        if cfg.fg_msa:
+            self.fg_msa_layer = FGMSA(
+                (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
+                cfg.fgmsa_groups, bd, bd, dt, fg=cfg.fg)
         self.trajnet_attn = TrajNetCrossAttention(
             (bh, bw), bd, cfg.obs_actors, cfg.occ_actors, cfg.actor_feats,
             cfg.traj_heads, cfg.att_heads, cfg.traj_out_dim,
@@ -115,12 +124,16 @@ class STrajNet(nn.Module):
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
         res_list = self.encoder(ogm, map_img, flow, generator)
-        q = res_list[-1].reshape(-1, bh, bw, bd)
-        res, _, ref = self.fg_msa_layer(q, generator)
-        q = (res + q).reshape(-1, bh * bw, bd)
-        # per-group flow features projected onto the waypoint axis
-        # (n_groups is reused as T)
-        query = ref.reshape(-1, t, bh * bw, bd) + q[:, None]
+        q = res_list[-1]                              # [B, bh*bw, bd]
+        if cfg.fg_msa:
+            q = q.reshape(-1, bh, bw, bd)
+            res, _, ref = self.fg_msa_layer(q, generator)
+            q = (res + q).reshape(-1, bh * bw, bd)
+        query = q[:, None].repeat(1, t, 1, 1)         # [B, T, N, D]
+        if cfg.fg_msa and cfg.fg:
+            # per-group flow features projected onto the waypoint axis
+            # (n_groups is reused as T)
+            query = ref.reshape(-1, t, bh * bw, bd) + query
         obs_value = self.trajnet_attn(query, obs, occ, generator)
         y = self.decoder(obs_value, res_list)
         _, _, oh, ow, c = y.shape

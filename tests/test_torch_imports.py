@@ -77,7 +77,8 @@ def test_package_imports_without_triton_or_nvcc():
                    "train.state", "train.step", "objective.loss",
                    "objective.schedule", "data.pipeline", "infer.submission",
                    "ops.window_attention", "ops.decoder_tail",
-                   "objective.pr_auc", "infer.evaluate"):
+                   "objective.pr_auc", "infer.evaluate", "train.loop",
+                   "train.checkpoints"):
         assert f"strajnet_tpu_torch.{expect}" in mods
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
@@ -232,3 +233,22 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from strajnet_tpu_torch.infer import evaluate
     with pytest.raises(RuntimeError, match="--device cpu"):
         evaluate.main(["--file_dir", "/nonexistent"])
+
+
+@pytest.mark.parametrize("module", ["strajnet_tpu_torch.train.loop",
+                                    "strajnet_tpu_torch.train.checkpoints"])
+def test_loop_and_checkpoints_load_no_jax_orbax_or_tensorflow(module):
+    """In a fresh interpreter: the training loop and the checkpoints import
+    neither JAX, Flax, Orbax nor TensorFlow (the loop loads TensorFlow only
+    when it reads TFRecords)."""
+    import json
+    import subprocess
+    import sys
+    code = (f"import json, sys\nimport {module}\n"
+            "print(json.dumps(sorted(k for k in ('jax', 'flax', 'orbax', "
+            "'tensorflow') if k in sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

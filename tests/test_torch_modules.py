@@ -197,6 +197,29 @@ def test_fgmsa_matches_jax():
     np.testing.assert_allclose(hidden.numpy(), np.asarray(jhidden), **TOL)
 
 
+def test_fgmsa_without_flow_head_matches_jax():
+    """``fg=False``: no ``conv_offset_proj2`` (the state dict loads the Flax
+    tree strictly), and the third output is the reference grid."""
+    rng = np.random.RandomState(7)
+    h = w = 4
+    c = 64
+    x = _rand(rng, 2, h, w, c)
+    jm = jfgmsa.FGMSA(q_size=(h, w), kv_size=(h, w), n_heads=8,
+                      n_head_channels=8, n_groups=8, out_dim=c, in_dim=c,
+                      fg=False, deform_kv=False)
+    params = _params(jm, x)
+    assert "conv_offset_proj2" not in params["params"]
+    params["params"]["rpe_table"] = _rand(rng, 2 * h - 1, 2 * w - 1, 8)
+    ours = _load(FGMSA((h, w), 8, 8, 8, c, c, fg=False), params)
+    assert not hasattr(ours, "conv_offset_proj2")
+    with torch.no_grad():
+        outs = ours(_t(x))
+    ref = _apply(jm, params, x)
+    assert outs[2].shape == (2, 8, h, w, 2)
+    for o, r in zip(outs, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+
+
 def test_trajnet_cross_attention_matches_jax():
     rng = np.random.RandomState(7)
     bh, bw = 2, 2

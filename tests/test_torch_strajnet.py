@@ -263,7 +263,29 @@ def test_kernel_knobs():
         with pytest.raises(ValueError):
             resolve_kernel_knobs(dataclasses.replace(CFG, **kw))
     with pytest.raises(NotImplementedError):
-        STrajNet(dataclasses.replace(CFG, fg_msa=False))
+        STrajNet(dataclasses.replace(CFG, deform_kv=True))
+
+
+@pytest.mark.parametrize("flags", [dict(fg_msa=False, fg=False),
+                                   dict(fg_msa=True, fg=False),
+                                   dict(fg_msa=False, fg=True)])
+def test_variant_forward_f32_matches_jax(case, flags):
+    """Without FG-MSA (``STRAJNET_TRAIN_PY_CONFIG``'s flags; ``fg`` is
+    ignored then, as in JAX) and with FG-MSA but without its flow head: the
+    Flax tree of the variant loads strictly and the forward matches."""
+    _, _, batch = case
+    cfg = dataclasses.replace(CFG, **flags)
+    state = create_train_state(cfg, TrainConfig(), jit_init=True)
+    params = jax.tree_util.tree_map(np.asarray, state.params)
+    assert ("fg_msa_layer" in params) == cfg.fg_msa
+    if cfg.fg_msa:
+        assert "conv_offset_proj2" not in params["fg_msa_layer"]
+    model = _torch_model(cfg, params)
+    assert len(model.state_dict()) == _count_leaves(params)
+    ref = _jax_forward(cfg, params, batch)
+    ours = _torch_forward(model, batch)
+    # f32 both sides; summation order differs across ~60 layers
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_cpu_forward_with_kernel_mode_takes_plain_path(case):

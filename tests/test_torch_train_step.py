@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from strajnet_tpu.config import STRAJNET_TRAIN_PY_CONFIG as JTRAIN_PY
 from strajnet_tpu.config import ULTRA_TINY_MODEL_CONFIG as JCFG
 from strajnet_tpu.config import LossConfig as JLossConfig
 from strajnet_tpu.config import TrainConfig as JTrainConfig
@@ -57,11 +58,11 @@ def _without_key_bias(name, arr):
     return arr
 
 
-def _perturbed_params():
+def _perturbed_params(cfg=JCFG):
     """The JAX init with every bias drawn from N(0, 0.1): with zero biases an
     empty patch stays a constant token, every LayerNorm multiplies its bias
     gradients by eps^-1/2, and the comparison would be of rounding noise."""
-    state = jstate_mod.create_train_state(JCFG, JTrainConfig(), jit_init=True)
+    state = jstate_mod.create_train_state(cfg, JTrainConfig(), jit_init=True)
     params = jax.tree_util.tree_map(np.asarray, state.params)
     rng = np.random.default_rng(0)
 
@@ -81,10 +82,10 @@ def case():
     return params, batch
 
 
-def _jax_reference(params, batch, steps):
+def _jax_reference(params, batch, steps, cfg=JCFG):
     """Loss dicts, first-step gradients and the parameters after ``steps``
     Nadam updates on one batch, dropout off."""
-    model = JaxSTrajNet(cfg=JCFG)
+    model = JaxSTrajNet(cfg=cfg)
     loss_fn = jloss.OGMFlowLoss(JTASK, JLossConfig())
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     true = jloss.true_waypoints_from_batch(jb)
@@ -94,7 +95,7 @@ def _jax_reference(params, batch, steps):
                           map_img=jb["map_image"], obs=jb["actors"],
                           occ=jb["occl_actors"], mapt=jb["centerlines"],
                           flow=jb["vec_flow"], training=False)
-        d = loss_fn(true, jloss.split_pred_waypoints(out, JCFG.num_waypoints))
+        d = loss_fn(true, jloss.split_pred_waypoints(out, cfg.num_waypoints))
         total = (d["observed_xe"] + d["occluded_xe"] + d["flow"]
                  + d["flow_warp_xe"])
         return total, dict(d, total=total)
@@ -126,10 +127,12 @@ def _tbatch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def test_two_steps_match_jax(case):
-    params, batch = case
-    ref_losses, ref_grads, ref_params = _jax_reference(params, batch, 2)
-    state = _torch_state(params)
+def _check_two_steps(params, batch, **flags):
+    """Two port steps against two JAX steps, at ``ULTRA_TINY`` with
+    ``flags`` replaced on both packages' configs."""
+    jcfg = dataclasses.replace(JCFG, **flags)
+    ref_losses, ref_grads, ref_params = _jax_reference(params, batch, 2, jcfg)
+    state = _torch_state(params, dataclasses.replace(CFG, **flags))
     step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
                            CFG.num_waypoints)
     tb = _tbatch(batch)
@@ -163,6 +166,22 @@ def test_two_steps_match_jax(case):
             _without_key_bias(name, p.detach().numpy()),
             _without_key_bias(name, want[name].numpy()),
             rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_two_steps_match_jax(case):
+    _check_two_steps(*case)
+
+
+def test_train_py_variant_steps_match_jax(case):
+    """``STRAJNET_TRAIN_PY_CONFIG``'s flags (no FG-MSA, no flow head) at this
+    size: losses, every gradient and the parameters after two Nadam steps,
+    against ``jax.grad`` and the JAX Nadam."""
+    _, batch = case
+    flags = dict(fg_msa=False, fg=False)
+    assert all(getattr(JTRAIN_PY, k) == v for k, v in flags.items())
+    params = _perturbed_params(dataclasses.replace(JCFG, **flags))
+    assert "fg_msa_layer" not in params
+    _check_two_steps(params, batch, **flags)
 
 
 def test_zero_bias_init_blows_up_bias_gradients_as_in_jax():
