@@ -48,14 +48,25 @@ log, the checkpoints, 8/8/1 launches of K1/K2/K5 per train step and 8/2 of
 K1/K5 per val step, the newest checkpoint restoring bit for bit, a
 checkpoint's save and restore times), the bare ``make_train_step`` on the
 same batches on the card twice, a third epoch; then three steps and one val
-batch of ``STRAJNET_TRAIN_PY_CONFIG`` (no FG-MSA). The launch counters are
-set to zero just before each path and read just after. Any failed check
+batch of ``STRAJNET_TRAIN_PY_CONFIG`` (no FG-MSA). Then the model variants
+(phase ``variants``): three training steps each of ``STRAJNET_CONFIG`` and
+of its map variant (``actor_only=False``: the centerline encoder and the
+per-waypoint map blocks) on the same batches, step time and peak memory side
+by side, and the map variant's first step on the plain path against the
+kernel path's; one eval-mode forward per variant group (``sep_actors``,
+``deform_kv``, the ConvLSTM stages, ``sep_conv`` with the tail kernel after
+its ConvLSTM, ``ape``, no pyramid, the 256² geometry without
+``large_input``, the wirings without a flow stage, ``rep_res=False`` at
+batch 8) through the kernels against the plain path; FG-MSA's rel-pos bias
+as a blend of table windows against the direct gather it replaced, the two
+held against each other in f32 and timed forward and backward. The launch
+counters are set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
-``--phases`` runs a subset (kernels, forward, serve, train, eval, loop)
-while developing; with no arguments every phase runs.
+``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
+variants) while developing; with no arguments every phase runs.
 """
 
 from __future__ import annotations
@@ -79,7 +90,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from strajnet_tpu_torch import _build  # noqa: E402
-from strajnet_tpu_torch.core.sampling import flow_warp_origin  # noqa: E402
+from strajnet_tpu_torch.core.sampling import (  # noqa: E402
+    flow_warp_origin, ref_points, rpe_bias)
 from strajnet_tpu_torch.config import (  # noqa: E402
     STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_TASK_CONFIG, LossConfig,
     TrainConfig)
@@ -108,6 +120,7 @@ from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
     warp_gather_bwd, warp_gather_fwd)
+from strajnet_tpu_torch.ops.rpe_window import rpe_window_bias  # noqa: E402
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
 from strajnet_tpu_torch.train.checkpoints import (  # noqa: E402
     CheckpointManager)
@@ -199,7 +212,32 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
               (32, 384, 12, 4, 2))
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
-PHASES = ("kernels", "forward", "serve", "train", "eval", "loop")
+PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants")
+# FG-MSA's rel-pos bias, the window form against the direct gather, f32:
+# the bias and its two gradients by cosine.
+RPE_ONE_MINUS_COS = 1e-4
+# The variants phase's eval-mode forwards: (name, flags replaced on
+# STRAJNET_CONFIG, batch, kernel launches per forward). rep_res=False
+# reshapes each residual to [-1, 8, ...]: the JAX package runs it at batch 8.
+VARIANT_FORWARDS = (
+    ("sep_actors", dict(sep_actors=True), BATCH, dict(k1=8)),
+    ("deform_kv", dict(deform_kv=True), BATCH, dict(k1=8)),
+    ("conv_cnn", dict(conv_cnn=True), BATCH, dict(k1=8)),
+    ("sep_conv + tail kernel",
+     dict(sep_conv=True, use_pallas_decoder_tail=True), BATCH,
+     dict(k1=8, k7=2)),
+    ("ape", dict(ape=True), BATCH, dict(k1=8)),
+    ("use_pyramid=False", dict(use_pyramid=False), BATCH, dict(k1=8)),
+    ("large_input=False at 256^2",
+     dict(large_input=False, input_size=(256, 256)), BATCH, dict(k1=8)),
+    ("no_map, flow_sep=False, flow_sep_decode=False",
+     dict(no_map=True, flow_sep=False, flow_sep_decode=False), BATCH,
+     dict(k1=6)),
+    ("sep_encode=False, use_flow=False, flow_sep_decode=False at 256^2",
+     dict(sep_encode=False, use_flow=False, flow_sep_decode=False,
+          large_input=False, input_size=(256, 256)), BATCH, dict(k1=6)),
+    ("rep_res=False", dict(rep_res=False), 8, dict(k1=8)),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1082,10 +1120,10 @@ def fresh_train_state(mode, remat=False, base=STRAJNET_CONFIG):
     return state, cfg
 
 
-def _first_step(mode, batch, remat=False):
+def _first_step(mode, batch, remat=False, base=STRAJNET_CONFIG):
     """One training step from those weights and seed-0 noise: (loss dict,
     flat gradient, initial parameters, state, step function, noise)."""
-    state, cfg = fresh_train_state(mode, remat)
+    state, cfg = fresh_train_state(mode, remat, base)
     init = {k: v.detach().cpu().clone()
             for k, v in state.model.named_parameters()}
     step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
@@ -1220,18 +1258,18 @@ def train_steps():
 
 
 def compare_first_step(model, mode, batch, expect, reference, limits,
-                       remat=False):
-    """The first training step in ``mode`` (with ``remat_encoder=remat``)
-    against ``reference`` = (name, flat gradient, total loss) of another
-    mode's first step, under the ``STEP_*[limits]`` limits; also that the
-    step moved the parameters. Returns (flat gradient, total loss, counters
-    of the step, peak device memory of the step in MB: the model and its
-    optimizer state included)."""
+                       remat=False, base=STRAJNET_CONFIG):
+    """The first training step of ``base`` in ``mode`` (with
+    ``remat_encoder=remat``) against ``reference`` = (name, flat gradient,
+    total loss) of another mode's first step, under the ``STEP_*[limits]``
+    limits; also that the step moved the parameters. Returns (flat gradient,
+    total loss, counters of the step, peak device memory of the step in MB:
+    the model and its optimizer state included)."""
     ref_name, ref_grads, ref_total = reference
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    losses, grads, init, state = _first_step(mode, batch, remat)[:4]
+    losses, grads, init, state = _first_step(mode, batch, remat, base)[:4]
     got = read_counters()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     if remat:
@@ -1635,6 +1673,196 @@ def loop_phase():
     return total
 
 
+def variant_state(cfg):
+    """Seed-0 weights of ``cfg`` with every bias and the absolute position
+    embedding drawn from N(0, 0.1) instead of zeros."""
+    state = init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for k, v in state.items():
+        if k.endswith("bias") or k.endswith("absolute_pos_embed"):
+            state[k] = torch.randn(v.shape, generator=g) * 0.1
+    return state
+
+
+def map_variant_training():
+    """Three training steps at batch 16 of ``STRAJNET_CONFIG`` and of its
+    map variant (``actor_only=False``: centerline encoder, eight
+    per-waypoint map blocks) through the kernels, on the same batches, in
+    one call: launches per step, finite losses, every parameter moved, step
+    time and peak memory side by side. Then the map variant's first step on
+    the plain path against the kernel path's. Returns the counters of the
+    kernel runs."""
+    variant = dataclasses.replace(STRAJNET_CONFIG, actor_only=False)
+    all_keys = MODEL_KEYS + ("gt_obs_ogm", "gt_occ_ogm", "gt_flow",
+                             "origin_flow")
+    batches = [to_device(synthetic_batch(variant, BATCH, seed=600 + i),
+                         all_keys) for i in range(3)]
+    total, rows = counts(), {}
+    for name, base in (("STRAJNET_CONFIG", STRAJNET_CONFIG),
+                       ("actor_only=False", variant)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        losses, grads, init, state, step, noise = _first_step(
+            None, batches[0], base=base)
+        check(read_counters() == counts(k1=8, k2=8, k5=1),
+              f"{name}: launches of K1/K2/K5 in one step are 8/8/1 and no "
+              f"other, got {read_counters()}")
+        history, step_ms = [losses], []
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss_dict = step(state, b, noise)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append(loss_dict)
+        launches = read_counters()
+        check(launches == counts(k1=24, k2=24, k5=3),
+              f"{name}: launches over three steps {launches}")
+        total = tuple(a + b for a, b in zip(total, launches))
+        for i, loss_dict in enumerate(history):
+            vals = {k: float(v) for k, v in loss_dict.items()}
+            print(f"{name}, train step {i}: " + " ".join(
+                f"{k}={v:.6f}" for k, v in vals.items()))
+            check(all(np.isfinite(v) for v in vals.values()),
+                  f"{name}: losses of step {i} finite")
+        stuck = [n for n, p in state.model.named_parameters()
+                 if torch.equal(p.detach().cpu(), init[n])
+                 and n not in ZERO_GRAD_LEAVES]
+        check(not stuck, f"{name}: parameters {stuck[:5]} did not move")
+        rows[name] = (step_ms, torch.cuda.max_memory_allocated() / 2 ** 20,
+                      sum(p.numel() for p in state.model.parameters()))
+        if base is variant:
+            model = state.model
+            kernel_ref = ("kernel", grads, float(losses["total"]))
+        del state, step, grads, init
+    for name, (step_ms, peak_mb, n_params) in rows.items():
+        print(f"training, batch {BATCH} bf16, kernel path, {name}: "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} ms per step after "
+              f"the first; peak memory {peak_mb:.0f} MB; {n_params} "
+              f"parameters")
+    check(hasattr(model.trajnet_attn, "map_cross_attn"),
+          "the map variant builds the map blocks")
+    compare_first_step(model, False, batches[0], counts(k5=1), kernel_ref,
+                       False, base=variant)
+    del model, kernel_ref, batches
+    torch.cuda.empty_cache()
+    return total
+
+
+def variant_forward(name, flags, batch_size, expect):
+    """One eval-mode forward of ``STRAJNET_CONFIG`` with ``flags`` through
+    the kernels against the plain path (kernels off) on the same weights.
+    Returns the counters of the kernel forward."""
+    cfg = dataclasses.replace(STRAJNET_CONFIG, **flags)
+    plain_cfg = dataclasses.replace(cfg, use_pallas_attention=False,
+                                    use_pallas_decoder_tail=False)
+    state = variant_state(cfg)
+    models = []
+    for c in (cfg, plain_cfg):
+        m = STrajNet(c)
+        m.load_state_dict(state)
+        models.append(m.cuda().eval())
+    batch = to_device(synthetic_batch(cfg, batch_size, seed=500))
+    oh, ow = cfg.output_size
+    with torch.inference_mode():
+        reset_counters()
+        y = forward(models[0], batch)
+        torch.cuda.synchronize()
+        got = read_counters()
+        y_plain = forward(models[1], batch)
+        ms = cuda_ms(lambda: forward(models[0], batch), iters=3)
+    check(got == counts(**expect),
+          f"variant {name}: launches {got}, expected {counts(**expect)}")
+    check(tuple(y.shape) == (batch_size, oh, ow, 4 * cfg.num_waypoints),
+          f"variant {name}: shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"variant {name}: output finite")
+    omc = one_minus_cos(y, y_plain)
+    print(f"variant {name}: forward [{batch_size},{oh},{ow},"
+          f"{4 * cfg.num_waypoints}] kernels vs plain path 1-cos={omc:.3e}; "
+          f"{ms:.3f} ms through the kernels; launches K1..K7 = {got}")
+    check(omc <= FWD_ONE_MINUS_COS,
+          f"variant {name}: 1-cos {omc} <= {FWD_ONE_MINUS_COS}")
+    del models, batch, y, y_plain
+    torch.cuda.empty_cache()
+    return got
+
+
+def rpe_bias_timing() -> None:
+    """FG-MSA's rel-pos bias at the flagship shape (batch 16 x 8 groups =
+    128 table slices of 31 x 31, 256 keys on the 16 x 16 grid, offsets
+    bounded by 8): the window form (``ops/rpe_window.py``, which FG-MSA now
+    takes) against the direct gather (``core/sampling.py::rpe_bias``, which
+    it took before). Both in f32 must agree, the bias and its table and
+    position gradients; then the forward and the forward plus backward of
+    each as the model runs them (the window form with bf16 compute, the
+    gather in f32), by device time, gather, window, window, gather."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    s, h = BATCH * 8, 16
+    n = h * h
+    table = torch.randn(s, 2 * h - 1, 2 * h - 1, 1, generator=g,
+                        device="cuda") * 0.1
+    # tanh-bounded offsets as FG-MSA draws them, kept off the integer
+    # lattice: at a tie the two forms take different one-sided derivatives
+    grid = ref_points(h, h, device="cuda").reshape(1, n, 2)
+    pos = grid + torch.tanh(torch.randn(s, n, 2, generator=g,
+                                        device="cuda")) * (h / 2.0 - 0.01)
+    dout = torch.randn(s, n, n, 1, generator=g, device="cuda")
+    forms = {
+        "gather": lambda t, p: rpe_bias(t, p, (h, h)),
+        "window": lambda t, p: rpe_window_bias(t, p, (h, h), h / 2.0,
+                                               torch.bfloat16),
+    }
+
+    def value_and_grads(fn):
+        t = table.detach().requires_grad_()
+        p = pos.detach().requires_grad_()
+        out = fn(t, p)
+        return (out.detach(),) + torch.autograd.grad(out, (t, p), dout)
+
+    window32 = value_and_grads(
+        lambda t, p: rpe_window_bias(t, p, (h, h), h / 2.0))
+    gather32 = value_and_grads(forms["gather"])
+    for what, a, b in zip(("bias", "d/d table", "d/d pos"), window32,
+                          gather32):
+        omc = one_minus_cos(a, b)
+        print(f"FG-MSA bias [{s},{n},{n},1], window form vs gather, f32, "
+              f"{what}: 1-cos={omc:.3e} max_abs_err="
+              f"{float((a - b).abs().max())} (max|gather|="
+              f"{float(b.abs().max())})")
+        check(omc <= RPE_ONE_MINUS_COS,
+              f"FG-MSA bias {what}: 1-cos {omc} <= {RPE_ONE_MINUS_COS}")
+    del window32, gather32
+    times = {k: [] for k in forms}
+    for name in ("gather", "window", "window", "gather"):
+        fn = forms[name]
+
+        def fwd():
+            with torch.no_grad():
+                fn(table, pos)
+
+        times[name].append((kernel_ms(fwd),
+                            kernel_ms(lambda: value_and_grads(fn))))
+    for name, runs in times.items():
+        print(f"FG-MSA bias, {name} form: forward "
+              + " / ".join(f"{f:.3f}" for f, _ in runs) + " ms, backward "
+              + " / ".join(f"{b - f:.3f}" for f, b in runs)
+              + " ms (forward plus backward less forward; device time)")
+    torch.cuda.empty_cache()
+
+
+def variants_phase():
+    """The model variants at full width: the map variant's training, one
+    eval-mode forward per variant group against the plain path, FG-MSA's
+    bias in its two forms. Returns the counters of the kernel runs."""
+    total = map_variant_training()
+    for name, flags, batch_size, expect in VARIANT_FORWARDS:
+        got = variant_forward(name, flags, batch_size, expect)
+        total = tuple(a + b for a, b in zip(total, got))
+    rpe_bias_timing()
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -1757,6 +1985,8 @@ def main(argv=None) -> int:
         add_launches(warp_gradient_path())
     if "loop" in phases:
         add_launches(loop_phase())
+    if "variants" in phases:
+        add_launches(variants_phase())
 
     print(smi)
     print(json.dumps({"kernels": [

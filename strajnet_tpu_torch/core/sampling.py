@@ -7,10 +7,12 @@ clamped to ``[0, size-2]`` and weights to ``[0, 1]``; ``PixelType.INTEGER``
 puts pixel centres on integral coordinates; ``BorderType.ZERO`` pads one zero
 pixel on each side and shifts the warp by +1.
 
-:func:`rpe_bias` is FG-MSA's continuous relative-position bias, which the JAX
-package computes with one-hot contractions for the TPU
-(``sample_small_table`` / ``ops/rpe_window.py``). Here it is the direct
-4-corner gather with the same ZERO-border, INTEGER-pixel numerics.
+:func:`rpe_bias` is FG-MSA's continuous relative-position bias in its
+general form (a reference that is not the query grid, or unbounded offsets),
+which the JAX package computes with one-hot contractions for the TPU
+(``sample_small_table``): here the direct 4-corner gather with the same
+ZERO-border, INTEGER-pixel numerics. Where the queries form the grid and the
+offsets are bounded, FG-MSA takes ``ops/rpe_window.py`` instead, as JAX does.
 """
 
 from __future__ import annotations

@@ -8,12 +8,15 @@ The port's modules carry the Flax module names, so each leaf maps by path:
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``;
 - Conv ``kernel`` HWIO -> OIHW ``weight``, grouped convs included (Flax's
   ``[kh, kw, in/groups, out]`` is PyTorch's ``[out, in/groups, kh, kw]``);
-- the 1-wide Conv1D ``node_feature`` ``kernel [1, in, out]`` -> Linear
-  ``weight [out, in]``;
+- the 1-wide Conv1Ds (``node_feature``, the LSTM encoder's ``embed``)
+  ``kernel [1, in, out]`` -> Linear ``weight [out, in]``;
 - ``TemporalConv`` ``kernel [kt, C, F]``, the MHA kernels ``[h, in, d]`` /
-  ``[h, d, out]`` and the rel-pos tables keep their layout;
-- ``nn.vmap``-stacked subtrees (``cross_attn_obs``: one leading waypoint
-  axis on every leaf) split into ``cross_attn_obs.<t>.`` entries.
+  ``[h, d, out]``, the rel-pos tables and ``absolute_pos_embed`` keep their
+  layout (the LSTM cell's gate projections ``ii``/``hi`` ... ``io``/``ho``
+  are Dense kernels);
+- ``nn.vmap``-stacked subtrees (``cross_attn_obs`` and ``map_cross_attn``:
+  one leading waypoint axis on every leaf) split into ``<name>.<t>.``
+  entries.
 
 The optimizer's moments ``mu`` and ``nu`` are trees of the parameters' shape
 and convert leaf by leaf with the same mapping; the step count and the
@@ -27,7 +30,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-_STACKED = ("cross_attn_obs",)
+_STACKED = ("cross_attn_obs", "map_cross_attn")
+_CONV1D = ("node_feature", "embed")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -51,7 +55,7 @@ def convert_leaf(path: Tuple[str, ...], arr: np.ndarray
             name, arr = "weight", arr.T
         elif arr.ndim == 4:                        # Conv HWIO
             name, arr = "weight", arr.transpose(3, 2, 0, 1)
-        elif arr.ndim == 3 and mod and mod[-1] == "node_feature":
+        elif arr.ndim == 3 and mod and mod[-1] in _CONV1D:
             name, arr = "weight", arr[0].T         # Conv1D, width 1
         elif arr.ndim != 3:                        # TemporalConv keeps [kt,C,F]
             raise ValueError(f"unexpected kernel {'/'.join(path)} "

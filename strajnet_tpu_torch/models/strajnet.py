@@ -2,18 +2,23 @@
 
 Counterpart of ``strajnet_tpu/models/strajnet.py``: Swin encoder -> FG-MSA
 over the bottleneck (``fg_msa``) -> waypoint-repeated query plus the
-flow-head injection (``fg``) -> per-waypoint trajectory cross-attention ->
-3D pyramid decoder -> waypoint-major output ``[B, H, W, T*4]`` (channel
-``k*4 + {0: observed, 1: occluded, 2: dx, 3: dy}``), f32.
+flow-head injection (``fg``) -> per-waypoint cross-attention with the
+actors (and the centerlines, ``actor_only=False``) -> 3D pyramid decoder ->
+waypoint-major output ``[B, H, W, T*4]`` (channel ``k*4 + {0: observed,
+1: occluded, 2: dx, 3: dy}``), f32.
 
-The port computes the forward of STrajNet's flag set, in inference and in
-training mode (dropout and drop-path noise from an explicit generator),
-(``sep_encode``, ``flow_sep``, ``use_flow``, ``large_input``,
-``actor_only``, pyramid decoder with ``flow_sep_decode`` and ``rep_res``),
-with FG-MSA and its flow head on or off: ``STRAJNET_CONFIG`` and
-``STRAJNET_TRAIN_PY_CONFIG`` (``fg_msa=False, fg=False``). As in the JAX
-package, ``fg`` is ignored without ``fg_msa``. Other flag values raise
-NotImplementedError.
+Every flag of ``ModelConfig`` is ported but ``spatial_shard`` (a sharding
+hint for a TPU mesh), which raises NotImplementedError: the encoder wirings
+(``sep_encode``, ``flow_sep``, ``use_flow``, ``no_map``, ``large_input``,
+``ape``, ``patch_norm``), the fusion (``actor_only``, ``sep_actors``),
+FG-MSA (``fg_msa``, ``fg``, ``deform_kv``) and the decoder
+(``use_pyramid``, ``flow_sep_decode``, ``conv_cnn``, ``sep_conv``,
+``rep_res``, ``stp_grad``), in inference and in training mode (dropout and
+drop-path noise from an explicit generator). A variant is
+``dataclasses.replace(STRAJNET_CONFIG, ...)``. Where the JAX package cannot
+run a combination of flags (shapes that do not meet, a flow branch that is
+not there), the port raises too, at construction or in the forward. As in
+the JAX package, ``fg`` is ignored without ``fg_msa``.
 """
 
 from __future__ import annotations
@@ -25,19 +30,15 @@ import torch
 from torch import nn
 
 from strajnet_tpu_torch.config import ModelConfig
-from strajnet_tpu_torch.models.decoder import Pyramid3DDecoder, TemporalConv
+from strajnet_tpu_torch.models.decoder import (ConvLSTM2D, Pyramid3DDecoder,
+                                               TemporalConv)
 from strajnet_tpu_torch.models.fgmsa import FGMSA
 from strajnet_tpu_torch.models.swin import SwinTransformerEncoder
 from strajnet_tpu_torch.models.trajnet import TrajNetCrossAttention
 from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
 
-# Flags the port implements, at the values it implements them.
-_PORTED_FLAGS = dict(sep_encode=True, flow_sep=True, use_flow=True,
-                     no_map=False, large_input=True, ape=False,
-                     patch_norm=True, actor_only=True, sep_actors=False,
-                     deform_kv=False, use_pyramid=True,
-                     flow_sep_decode=True, conv_cnn=False, sep_conv=False,
-                     rep_res=True, stp_grad=False, spatial_shard=False)
+# Flags the port implements only at these values.
+_PORTED_FLAGS = dict(spatial_shard=False)
 
 
 # The CLIs' --pallas choices (besides "auto") -> use_pallas_attention.
@@ -84,7 +85,8 @@ class STrajNet(nn.Module):
                if getattr(cfg, k) != v}
         if off:
             raise NotImplementedError(
-                f"STrajNet flags {off} are still to be ported (ROADMAP.md)")
+                f"STrajNet flags {off} are not ported: spatial sharding "
+                f"over a mesh has no counterpart on one card (ROADMAP.md)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         kernel_mode, tail_mode = resolve_kernel_knobs(cfg)
@@ -95,30 +97,40 @@ class STrajNet(nn.Module):
             cfg.num_heads, cfg.window_size, cfg.mlp_ratio, cfg.qkv_bias,
             cfg.patch_norm, cfg.ogm_past_steps, kernel_mode, dt,
             cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate,
-            cfg.remat_encoder)
+            cfg.remat_encoder, cfg.ape, cfg.sep_encode, cfg.no_map,
+            cfg.flow_sep, cfg.use_flow, cfg.large_input, cfg.ogm_classes)
         if cfg.fg_msa:
             self.fg_msa_layer = FGMSA(
                 (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
-                cfg.fgmsa_groups, bd, bd, dt, fg=cfg.fg)
+                cfg.fgmsa_groups, bd, bd, dt, fg=cfg.fg, kv_size=(bh, bw),
+                deform_kv=cfg.deform_kv)
         self.trajnet_attn = TrajNetCrossAttention(
             (bh, bw), bd, cfg.obs_actors, cfg.occ_actors, cfg.actor_feats,
             cfg.traj_heads, cfg.att_heads, cfg.traj_out_dim,
-            cfg.num_waypoints, dt)
-        res_dims = tuple(cfg.embed_dim * 2 ** i
-                         for i in range(len(cfg.depths)))
+            cfg.num_waypoints, dt, cfg.actor_only, cfg.sep_actors,
+            cfg.map_points, cfg.map_feats)
+        # the channels of the encoder's residuals, the flow stage's first
+        res_dims = [cfg.embed_dim * 2 ** i for i in range(len(cfg.depths))]
+        if self.encoder.flow_stage:
+            res_dims.insert(0, cfg.embed_dim)
+        flow_res_dim = None
+        if cfg.flow_sep_decode:
+            flow_res_dim, res_dims = res_dims[0], res_dims[1:]
         self.decoder = Pyramid3DDecoder(
-            bd, res_dims, cfg.embed_dim, cfg.shallow_decode,
-            cfg.num_waypoints, (bh, bw), dt, tail_mode)
+            bd, res_dims, flow_res_dim, cfg.shallow_decode,
+            cfg.num_waypoints, (bh, bw), dt, tail_mode, cfg.use_pyramid,
+            cfg.flow_sep_decode, cfg.conv_cnn, cfg.sep_conv, cfg.rep_res,
+            cfg.stp_grad)
 
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
                 obs: torch.Tensor, occ: torch.Tensor,
                 mapt: Optional[torch.Tensor] = None,
                 flow: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``mapt`` (centerlines) is unused on this path (``actor_only``); it
-        is accepted so batches pass through unchanged. In training mode the
-        dropout and drop-path noise comes from ``generator``, which lives on
-        the model's device."""
+        """``mapt`` (centerlines, ``[B, segments, points, feats]``) is read
+        only with ``actor_only=False``, ``flow`` not without ``use_flow``.
+        In training mode the dropout and drop-path noise comes from
+        ``generator``, which lives on the model's device."""
         cfg = self.cfg
         t = cfg.num_waypoints
         bh, bw = cfg.bottleneck_size
@@ -127,14 +139,15 @@ class STrajNet(nn.Module):
         q = res_list[-1]                              # [B, bh*bw, bd]
         if cfg.fg_msa:
             q = q.reshape(-1, bh, bw, bd)
-            res, _, ref = self.fg_msa_layer(q, generator)
+            res, _, ref = self.fg_msa_layer(q, generator=generator)
             q = (res + q).reshape(-1, bh * bw, bd)
         query = q[:, None].repeat(1, t, 1, 1)         # [B, T, N, D]
         if cfg.fg_msa and cfg.fg:
             # per-group flow features projected onto the waypoint axis
             # (n_groups is reused as T)
             query = ref.reshape(-1, t, bh * bw, bd) + query
-        obs_value = self.trajnet_attn(query, obs, occ, generator)
+        obs_value = self.trajnet_attn(query, obs, occ, mapt,
+                                       generator=generator)
         y = self.decoder(obs_value, res_list)
         _, _, oh, ow, c = y.shape
         return y.permute(0, 2, 3, 1, 4).reshape(-1, oh, ow, t * c).float()
@@ -170,14 +183,25 @@ def _glorot_(p: torch.Tensor, fan_in: int, fan_out: int,
     p.uniform_(-limit, limit, generator=generator)
 
 
+def _orthogonal_conv_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's ``orthogonal()`` for a conv kernel: the HWIO kernel as a
+    ``[kh * kw * in, out]`` matrix with orthonormal columns (rows, if
+    fewer), written into the OIHW weight."""
+    out_c, in_c, kh, kw = w.shape
+    m = torch.empty(out_c, kh * kw * in_c)
+    torch.nn.init.orthogonal_(m, generator=generator)
+    w.copy_(m.reshape(out_c, kh, kw, in_c).permute(0, 3, 1, 2))
+
+
 def init_params(cfg: ModelConfig,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for ``STrajNet(cfg)`` drawn like the Flax init.
 
     Glorot-uniform Dense/Conv/MHA/temporal-conv kernels with Flax's fans
     (receptive field times in/out features), zero biases, LayerNorm scales
-    one, ``truncated_normal(0.01)`` for FG-MSA's ``rpe_table`` and zeros for
-    the Swin rel-pos tables. The draws come from ``generator`` (a CPU
+    one, ``truncated_normal(0.01)`` for FG-MSA's ``rpe_table``, zeros for
+    the Swin rel-pos tables and the absolute position embedding, and an
+    orthogonal ``conv_h`` kernel in each ``ConvLSTM2D``. The draws come from ``generator`` (a CPU
     generator); they are not the JAX init's numbers.
     """
     model = STrajNet(cfg)
@@ -210,4 +234,7 @@ def init_params(cfg: ModelConfig,
         for name, p in model.named_parameters():
             if name.endswith("relative_position_bias_table"):
                 p.zero_()
+        for module in model.modules():
+            if isinstance(module, ConvLSTM2D):
+                _orthogonal_conv_(module.conv_h.weight, generator)
     return model.state_dict()

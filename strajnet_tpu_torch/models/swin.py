@@ -1,8 +1,13 @@
 """Swin-Transformer encoder.
 
-Counterpart of ``strajnet_tpu/models/swin.py`` at the STrajNet wiring
-(``sep_encode``, ``flow_sep``, ``use_flow``, ``large_input``, no absolute
-position embedding). Module and parameter names follow the Flax tree so that
+Counterpart of ``strajnet_tpu/models/swin.py`` with every wiring of the JAX
+encoder: the separate patch embeds of the vehicle OGM, the map and the flow
+(``sep_encode``) or one patch embed of them concatenated; the flow through
+a Swin stage of its own (``flow_sep`` with ``use_flow``) or added after its
+patch embed; no map (``no_map``); the 512² OGM with the 256² map padded
+into the centre of the patch grid and centre-cropped residuals
+(``large_input``) or all rasters at one size; the absolute position
+embedding (``ape``). Module and parameter names follow the Flax tree so that
 ``interop/from_flax.py`` maps it leaf by leaf.
 
 Tensors are token-major ``[B, L, C]`` between modules, as in JAX. Parameters
@@ -306,8 +311,10 @@ def _center_crop_tokens(res: torch.Tensor, grid: int, dim: int):
 class SwinTransformerEncoder(nn.Module):
     """3-branch hierarchical encoder over the OGM / map / flow rasters.
 
-    Returns ``res_list = [flow_res, res0, res1, res2]``; at the flagship
-    config ``[64^2 x 96, 64^2 x 96, 32^2 x 192, 16^2 x 384]``.
+    Returns ``res_list``: the flow branch's residual first where there is a
+    flow stage (``sep_encode``, ``flow_sep``, ``use_flow`` and a map), then
+    one residual per stage; at the flagship config
+    ``[64^2 x 96, 64^2 x 96, 32^2 x 192, 16^2 x 384]``.
     """
 
     def __init__(self, img_size: Tuple[int, int] = (512, 512),
@@ -318,7 +325,11 @@ class SwinTransformerEncoder(nn.Module):
                  patch_norm: bool = True, ogm_past_steps: int = 11,
                  kernel_mode="block", dtype: torch.dtype = torch.float32,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0, remat: bool = False):
+                 drop_path_rate: float = 0.0, remat: bool = False,
+                 ape: bool = False, sep_encode: bool = True,
+                 no_map: bool = False, flow_sep: bool = True,
+                 use_flow: bool = True, large_input: bool = True,
+                 ogm_classes: int = 2):
         super().__init__()
         if drop_rate or attn_drop_rate:
             raise NotImplementedError(
@@ -329,6 +340,11 @@ class SwinTransformerEncoder(nn.Module):
         self.num_layers = len(depths)
         self.embed_dim, self.dtype = embed_dim, dtype
         self.pr = (img_size[0] // patch_size, img_size[1] // patch_size)
+        self.sep_encode, self.no_map = sep_encode, no_map
+        self.flow_sep, self.use_flow = flow_sep, use_flow
+        self.large_input, self.ape = large_input, ape
+        # the flow through a Swin stage of its own
+        self.flow_stage = sep_encode and not no_map and flow_sep and use_flow
 
         def stage(i: int, downsample: bool) -> BasicLayer:
             return BasicLayer(
@@ -338,40 +354,85 @@ class SwinTransformerEncoder(nn.Module):
                 kernel_mode, dtype,
                 tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]), remat)
 
-        self.patch_embed_flow = PatchEmbed(patch_size, 2, embed_dim,
-                                           patch_norm, dtype)
-        self.flow_norm = LayerNorm(embed_dim, 1e-5, dtype)
-        self.flow_layer = stage(0, self.num_layers > 1)
-        self.patch_embed_vehicle = PatchEmbed(patch_size, ogm_past_steps,
-                                              embed_dim, patch_norm, dtype)
-        self.patch_embed_map = PatchEmbed(patch_size, 3, embed_dim,
-                                          patch_norm, dtype)
+        def embed(in_chans: int) -> PatchEmbed:
+            return PatchEmbed(patch_size, in_chans, embed_dim, patch_norm,
+                              dtype)
+
+        if sep_encode:
+            self.patch_embed_vehicle = embed(ogm_past_steps)
+            if self.flow_stage:
+                self.flow_norm = LayerNorm(embed_dim, 1e-5, dtype)
+                self.flow_layer = stage(0, self.num_layers > 1)
+            if not no_map:
+                self.patch_embed_map = embed(3)
+                if use_flow:
+                    self.patch_embed_flow = embed(2)
+        else:
+            in_chans = ogm_past_steps * ogm_classes
+            if not no_map and use_flow:
+                in_chans += 3 + 2
+            elif not use_flow:
+                in_chans += 3
+            self.patch_embed_vehicle = embed(in_chans)
+        if ape:
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, self.pr[0] * self.pr[1], embed_dim))
         self.all_patch_norm = LayerNorm(embed_dim, 1e-5, dtype)
         for i in range(self.num_layers):
             self.add_module(f"layers{i}", stage(i, i < self.num_layers - 1))
 
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
-                flow: torch.Tensor,
+                flow: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> List[torch.Tensor]:
         dt, pr, e = self.dtype, self.pr, self.embed_dim
-        vec = ogm[..., 0].to(dt)  # the vehicle channel only
-        f = self.flow_norm(self.patch_embed_flow(flow.to(dt)))
-        flow_x, flow_res = self.flow_layer(f, generator)
-        x = self.patch_embed_vehicle(vec)
-        maps = self.patch_embed_map(map_img.to(dt))
-        # the map raster covers the centre half of the patch grid: zero-pad
-        # it out to the full grid
-        mg, pad = pr[0] // 2, pr[0] // 4
-        maps = F.pad(maps.reshape(-1, mg, mg, e), (0, 0, pad, pad, pad, pad))
-        x = self.all_patch_norm(x + maps.reshape(-1, pr[0] * pr[1], e))
+        ogm, map_img = ogm.to(dt), map_img.to(dt)
+        flow_x = flow_res = None
+        if self.sep_encode:
+            vec = ogm[..., 0]  # the vehicle channel only
+            if self.no_map:
+                x = self.patch_embed_vehicle(vec)
+            elif self.flow_stage:
+                f = self.flow_norm(self.patch_embed_flow(flow.to(dt)))
+                flow_x, flow_res = self.flow_layer(f, generator)
+                x = self.patch_embed_vehicle(vec)
+                maps = self.patch_embed_map(map_img)
+                if self.large_input:
+                    # the map raster covers the centre half of the patch
+                    # grid: zero-pad it out to the full grid
+                    mg, pad = pr[0] // 2, pr[0] // 4
+                    maps = F.pad(maps.reshape(-1, mg, mg, e),
+                                 (0, 0, pad, pad, pad, pad))
+                    maps = maps.reshape(-1, pr[0] * pr[1], e)
+                x = x + maps
+            else:
+                x = self.patch_embed_vehicle(vec)
+                x = x + self.patch_embed_map(map_img)
+                if self.use_flow:
+                    x = x + self.patch_embed_flow(flow.to(dt))
+        else:
+            b, h, w, t, cc = ogm.shape
+            x = ogm.reshape(-1, h, w, t * cc)
+            if not self.no_map and self.use_flow:
+                x = torch.cat([x, map_img, flow.to(dt)], dim=-1)
+            elif not self.use_flow:
+                x = torch.cat([x, map_img], dim=-1)
+            x = self.patch_embed_vehicle(x)
+        if self.ape:
+            x = x + self.absolute_pos_embed.to(dt)
+        x = self.all_patch_norm(x)
 
         res_list = []
         for i in range(self.num_layers):
             x, res = getattr(self, f"layers{i}")(x, generator)
-            if i == 0:
+            if i == 0 and self.flow_sep and self.use_flow:
+                # flow_x is None where the wiring has no flow stage: raises,
+                # as in JAX
                 x = x + flow_x
-                res_list.append(_center_crop_tokens(flow_res, pr[0], e))
-            res_list.append(_center_crop_tokens(res, pr[0] // 2 ** i,
-                                                e * 2 ** i))
+                if self.large_input:
+                    flow_res = _center_crop_tokens(flow_res, pr[0], e)
+                res_list.append(flow_res)
+            if self.large_input:
+                res = _center_crop_tokens(res, pr[0] // 2 ** i, e * 2 ** i)
+            res_list.append(res)
         return res_list

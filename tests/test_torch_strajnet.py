@@ -262,8 +262,9 @@ def test_kernel_knobs():
                dict(use_pallas_decoder_tail="fused")):
         with pytest.raises(ValueError):
             resolve_kernel_knobs(dataclasses.replace(CFG, **kw))
+    # the one flag left unported: a sharding hint for a TPU mesh
     with pytest.raises(NotImplementedError):
-        STrajNet(dataclasses.replace(CFG, deform_kv=True))
+        STrajNet(dataclasses.replace(CFG, spatial_shard=True))
 
 
 @pytest.mark.parametrize("flags", [dict(fg_msa=False, fg=False),
