@@ -79,6 +79,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -104,6 +105,7 @@ from strajnet_tpu_torch.infer.runner import run_shard  # noqa: E402
 from strajnet_tpu_torch.infer.submission import (  # noqa: E402
     SCENARIO_ID, SCENARIO_WAYPOINTS, SUBMISSION_SCENARIO_PREDICTIONS)
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params  # noqa: E402
+from strajnet_tpu_torch.models.swin import BasicLayerDecoder  # noqa: E402
 from strajnet_tpu_torch.objective.loss import (  # noqa: E402
     OGMFlowLoss, split_pred_waypoints, true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (  # noqa: E402
@@ -122,6 +124,8 @@ from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     warp_gather_bwd, warp_gather_fwd)
 from strajnet_tpu_torch.ops.rpe_window import rpe_window_bias  # noqa: E402
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
+from strajnet_tpu_torch.parallel.ddp import (  # noqa: E402
+    allreduce_sum_hook, destroy, init_distributed, unwrap)
 from strajnet_tpu_torch.train.checkpoints import (  # noqa: E402
     CheckpointManager)
 from strajnet_tpu_torch.train.loop import train  # noqa: E402
@@ -212,7 +216,8 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
               (32, 384, 12, 4, 2))
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
-PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants")
+PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
+          "ddp")
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -1863,11 +1868,344 @@ def variants_phase():
     return total
 
 
+DDP_RANKS = 2
+DDP_RANK_TIMEOUT_S = 300
+DDP_TIMED_STEPS = 4
+# BasicLayerDecoder at the encoder's second stage: 16^2 x 384 -> 32^2 x 192
+DECODER_LAYER = dict(dim=384, input_resolution=(16, 16), depth=2,
+                     num_heads=6, window_size=8, res_connection=True)
+
+
+def loop_first_step(cfg, step0_dir, save_dir, batch):
+    """One training step of ``train.loop.train`` from ``step0_dir``'s
+    checkpoint (no val batch): (total loss as the log holds it, the flat
+    gradient the step left, the counters)."""
+    shutil.copytree(step0_dir, save_dir)
+    state, _, _, launches = run_loop(
+        cfg, save_dir, 1, lambda split, epoch: [batch] if split == "train"
+        else [])
+    grads = torch.cat([p.grad.flatten().float()
+                       for p in unwrap(state.model).parameters()])
+    check(bool(torch.isfinite(grads).all()), "loop step: gradients finite")
+    total = float(read_log(save_dir)[0]["loss"])
+    del state
+    torch.cuda.empty_cache()
+    return total, grads, launches
+
+
+def ddp_rank(rank: int, directory: str) -> None:
+    """One of the ``ddp`` phase's rank processes (``--ddp-rank``): joins a
+    ``gloo`` group of ``DDP_RANKS`` on this card (NCCL refuses two ranks on
+    one device), evaluates its half of the two val batches, takes one
+    training step on its half of the train batch (batch 16 over the ranks),
+    times ``DDP_TIMED_STEPS`` more, and saves what it saw to
+    ``directory``."""
+    init_distributed("cuda:0", backend="gloo",
+                     init_method="file://" + os.path.join(directory, "store"),
+                     rank=rank, world_size=DDP_RANKS)
+    try:
+        cfg = STRAJNET_CONFIG
+        half = BATCH // DDP_RANKS
+        train_batch = eval_inputs(cfg, (600,))[0]
+        val_batches = eval_inputs(cfg, (601, 602))
+
+        def mine(batch):
+            return {k: torch.from_numpy(
+                np.ascontiguousarray(v[rank * half:(rank + 1) * half])
+            ).cuda() for k, v in batch.items()}
+
+        state, _ = fresh_train_state(None)
+        check(type(state.model).__name__ == "DistributedDataParallel",
+              "the rank's model is wrapped in DDP")
+        eval_step = make_eval_step(WAYMO_TASK_CONFIG, LossConfig(),
+                                   cfg.num_waypoints)
+        state.model.eval()
+        reset_counters()
+        val = [eval_step(state.model, mine(b)) for b in val_batches]
+        torch.cuda.synchronize()
+        val_launches = read_counters()
+        state.model.train()
+        step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
+                               cfg.num_waypoints)
+        noise = torch.Generator(device="cuda").manual_seed(0)
+        batch = mine(train_batch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        allreduce_sum_hook.bytes = 0
+        state, losses = step(state, batch, noise)
+        torch.cuda.synchronize()
+        train_launches = read_counters()
+        step_bytes = allreduce_sum_hook.bytes
+        grads = torch.cat([p.grad.flatten().float()
+                           for p in unwrap(state.model).parameters()])
+        t0 = time.perf_counter()
+        for _ in range(DDP_TIMED_STEPS):
+            state, _ = step(state, batch, noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DDP_TIMED_STEPS
+        result = dict(
+            losses={k: float(v) for k, v in losses.items()},
+            val_losses=[{k: float(v) for k, v in l.items()} for l, _ in val],
+            val_metrics=[{k: float(v) for k, v in m.items()} for _, m in val],
+            val_launches=val_launches, train_launches=train_launches,
+            step_bytes=step_bytes, ms_per_step=ms,
+            peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+            grads=grads.cpu() if rank == 0 else None)
+        torch.save(result, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        destroy()
+
+
+def run_ranks(directory: str):
+    """Starts the ``DDP_RANKS`` rank processes (:func:`ddp_rank`) and waits
+    for them, each within ``DDP_RANK_TIMEOUT_S``; a rank that fails or
+    hangs fails the phase. Returns their results and seconds."""
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(directory, f"rank{r}.log"), "w")
+            for r in range(DDP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         "--ddp-dir", directory], stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=DDP_RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(directory, f"rank{r}.log")) as f:
+                print(f.read()[-6000:])
+        check(p.returncode == 0,
+              f"rank {r} of {DDP_RANKS} exited with {p.returncode}")
+    return ([torch.load(os.path.join(directory, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DDP_RANKS)],
+            time.perf_counter() - t0)
+
+
+def check_decoder_layer():
+    """``BasicLayerDecoder`` at C/2 = 192, batch 16, bf16, forward and
+    backward through K1 and K2 against its plain path from the same
+    weights: output, input gradient and whole parameter gradient within
+    ``FWD_ONE_MINUS_COS``. Returns the kernel run's counters."""
+    g = torch.Generator().manual_seed(3)
+    ref = BasicLayerDecoder(**DECODER_LAYER, kernel_mode=False,
+                            dtype=torch.bfloat16)
+    params = {}
+    for name, p in ref.state_dict().items():
+        noise = torch.randn(p.shape, generator=g)
+        if "norm" in name and name.endswith("weight"):
+            params[name] = 1.0 + 0.1 * noise
+        elif p.dim() >= 2 and "relative_position" not in name:
+            params[name] = noise / np.sqrt(p[0].numel())
+        else:
+            params[name] = 0.1 * noise
+    h, w = DECODER_LAYER["input_resolution"]
+    c = DECODER_LAYER["dim"]
+    x = torch.randn(BATCH, h, w, c, generator=g).cuda()
+    res = torch.randn(BATCH, 2 * h, 2 * w, c // 2, generator=g).cuda()
+    dy = torch.randn(BATCH, 2 * h, 2 * w, c // 2, generator=g).cuda()
+    runs = {}
+    for mode in (False, "block"):
+        layer = BasicLayerDecoder(**DECODER_LAYER, kernel_mode=mode,
+                                  dtype=torch.bfloat16)
+        layer.load_state_dict(params)
+        layer = layer.cuda().train()
+        xi = x.clone().requires_grad_()
+        reset_counters()
+        y = layer(xi, res)
+        y.float().backward(dy)
+        torch.cuda.synchronize()
+        runs[mode] = (y.detach().float(), xi.grad, torch.cat(
+            [p.grad.flatten().float() for p in layer.parameters()]),
+            read_counters())
+    plain, kern = runs[False], runs["block"]
+    check(plain[3] == counts(), f"plain decoder layer: launches {plain[3]}")
+    check(kern[3] == counts(k1=2, k2=2),
+          f"decoder layer: launches {kern[3]}, expected K1 2, K2 2")
+    errs = [one_minus_cos(a, b) for a, b in zip(kern[:3], plain[:3])]
+    print(f"BasicLayerDecoder (16^2 x 384 -> 32^2 x 192, 6 heads, depth 2, "
+          f"1x1-conv residual), batch {BATCH}, bf16, K1/K2 vs plain: output "
+          f"1-cos={errs[0]:.3e}, input gradient {errs[1]:.3e}, parameter "
+          f"gradient {errs[2]:.3e}")
+    for what, err in zip(("output", "input gradient", "parameter gradient"),
+                         errs):
+        check(err <= FWD_ONE_MINUS_COS,
+              f"decoder layer {what}: 1-cos {err} <= {FWD_ONE_MINUS_COS}")
+    return kern[3]
+
+
+def ddp_phase():
+    """Data parallelism at ``STRAJNET_CONFIG``, batch 16: (i) the training
+    loop under a world-size-1 NCCL group (the model in DDP) against the
+    plain one-device loop, first step and ms/step, parent-style in turns;
+    (ii) two ``gloo`` rank processes on this card at 8 each against one
+    process at 16 on the same batches: the first step, then two val
+    batches; (iii) each rank's launches, peak memory and the bytes its
+    gradients all-reduce; (iv) ``BasicLayerDecoder`` through K1 and K2.
+    Returns the counters of this process's runs and the ranks'."""
+    cfg = STRAJNET_CONFIG
+    train_batches = [compact_feed(b) for b in
+                     eval_inputs(cfg, range(500, 500 + DDP_TIMED_STEPS))]
+    total = counts()
+
+    def add(launches):
+        nonlocal total
+        total = tuple(a + b for a, b in zip(total, launches))
+
+    with tempfile.TemporaryDirectory() as root:
+        step0 = os.path.join(root, "step0")
+        write_step0(cfg, step0)
+        source = lambda split, epoch: (   # noqa: E731
+            train_batches if split == "train" else [])
+
+        def timed(name):
+            _, ms, peak, launches = run_loop(
+                cfg, shutil.copytree(step0, os.path.join(root, name)), 1,
+                source)
+            check(launches == counts(k1=8 * DDP_TIMED_STEPS,
+                                     k2=8 * DDP_TIMED_STEPS,
+                                     k5=DDP_TIMED_STEPS),
+                  f"{name}: launches {launches}")
+            add(launches)
+            torch.cuda.empty_cache()
+            return ms[0], peak
+
+        plain_total, plain_grads, launches = loop_first_step(
+            cfg, step0, os.path.join(root, "plain0"), train_batches[0])
+        add(launches)
+        plain_ms = [timed("plain1")]
+        init_distributed("cuda:0", init_method="file://" + os.path.join(
+            root, "store"), rank=0, world_size=1)
+        try:
+            allreduce_sum_hook.bytes = 0
+            ddp_total, ddp_grads, launches = loop_first_step(
+                cfg, step0, os.path.join(root, "ddp0"), train_batches[0])
+            step_bytes = allreduce_sum_hook.bytes
+            add(launches)
+            ddp_ms = [timed("ddp1"), timed("ddp2")]
+        finally:
+            destroy()
+        plain_ms.append(timed("plain2"))
+    model = STrajNet(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    omc = one_minus_cos(plain_grads, ddp_grads)
+    leaves = worst_leaves(model, plain_grads, ddp_grads)
+    print(f"ddp (i): the loop under a world-size-1 NCCL group against the "
+          f"plain loop, batch {BATCH}: first-step loss {ddp_total:.7f} vs "
+          f"{plain_total:.7f}, gradient 1-cos={omc:.3e}, worst leaf "
+          f"{leaves[0][2]} {leaves[0][0]:.3e}; {DDP_TIMED_STEPS}-step epochs "
+          f"plain {plain_ms[0][0]:.1f}, DDP {ddp_ms[0][0]:.1f}, DDP "
+          f"{ddp_ms[1][0]:.1f}, plain {plain_ms[1][0]:.1f} ms/step; peak "
+          f"MB plain {plain_ms[0][1]:.0f} / {plain_ms[1][1]:.0f}, DDP "
+          f"{ddp_ms[0][1]:.0f} / {ddp_ms[1][1]:.0f}; {step_bytes} bytes "
+          f"all-reduced in the step ({n_params} f32 parameters)")
+    check(abs(ddp_total - plain_total) <= STEP_LOSS_RTOL["block_fwd"]
+          * abs(plain_total), "ddp (i): loss")
+    check(omc <= STEP_GRAD_ONE_MINUS_COS["block_fwd"], "ddp (i): gradient")
+    check(leaves[0][0] <= STEP_LEAF_ONE_MINUS_COS["block_fwd"],
+          "ddp (i): worst leaf")
+    check(step_bytes == 4 * n_params, f"ddp (i): {step_bytes} bytes reduced")
+
+    # (ii) one process at 16, then two ranks at 8 on the same batches
+    train_batch = eval_inputs(cfg, (600,))[0]
+    val_batches = eval_inputs(cfg, (601, 602))
+    state, _ = fresh_train_state(None)
+    eval_step = make_eval_step(WAYMO_TASK_CONFIG, LossConfig(),
+                               cfg.num_waypoints)
+    state.model.eval()
+    single_val = [eval_step(state.model, to_device(b, tuple(b)))
+                  for b in val_batches]
+    single_val = [({k: float(v) for k, v in l.items()},
+                   {k: float(v) for k, v in m.items()})
+                  for l, m in single_val]
+    state.model.train()
+    step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
+                           cfg.num_waypoints)
+    state, losses = step(state, to_device(train_batch, tuple(train_batch)),
+                         torch.Generator(device="cuda").manual_seed(0))
+    single_total = float(losses["total"])
+    single_grads = torch.cat([p.grad.flatten().float()
+                              for p in state.model.parameters()])
+    del state, losses
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as directory:
+        ranks, seconds = run_ranks(directory)
+    rank_total = sum(r["losses"]["total"] for r in ranks)
+    omc = one_minus_cos(single_grads.cpu(), ranks[0]["grads"])
+    leaves = worst_leaves(model, single_grads.cpu(), ranks[0]["grads"])
+    print(f"ddp (ii): {DDP_RANKS} gloo ranks on this card at "
+          f"{BATCH // DDP_RANKS} each against one process at {BATCH} "
+          f"({seconds:.1f} s for the ranks): first-step loss {rank_total:.7f}"
+          f" (shares " + ", ".join(f"{r['losses']['total']:.7f}"
+                                   for r in ranks)
+          + f") vs {single_total:.7f}, gradient 1-cos={omc:.3e}, worst leaf "
+          f"{leaves[0][2]} {leaves[0][0]:.3e}")
+    check(abs(rank_total - single_total) <= STEP_LOSS_RTOL["block_fwd"]
+          * abs(single_total), "ddp (ii): loss")
+    check(omc <= STEP_GRAD_ONE_MINUS_COS["block_fwd"], "ddp (ii): gradient")
+    check(leaves[0][0] <= STEP_LEAF_ONE_MINUS_COS["block_fwd"],
+          "ddp (ii): worst leaf")
+    for i, (losses, metrics) in enumerate(single_val):
+        for k, v in losses.items():
+            got = sum(r["val_losses"][i][k] for r in ranks)
+            check(abs(got - v) <= EVAL_LOSS_RTOL * abs(v) + EVAL_METRIC_ATOL,
+                  f"ddp (ii) val batch {i} loss {k}: {got} vs {v}")
+        for r in ranks:
+            for k, v in metrics.items():
+                got = r["val_metrics"][i][k]
+                check(abs(got - v) <= EVAL_METRIC_RTOL * abs(v)
+                      + EVAL_METRIC_ATOL,
+                      f"ddp (ii) val batch {i} metric {k}: {got} vs {v}")
+    print("ddp (ii) val: " + "; ".join(
+        f"batch {i} total {sum(r['val_losses'][i]['total'] for r in ranks):.6f}"
+        f" vs {l['total']:.6f}, obs AUC "
+        f"{ranks[0]['val_metrics'][i]['vehicles_observed_auc']:.6f} vs "
+        f"{m['vehicles_observed_auc']:.6f}"
+        for i, (l, m) in enumerate(single_val)))
+    for i, r in enumerate(ranks):
+        # (iii)
+        print(f"ddp (iii) rank {i}: launches K1/K2/K5 a train step "
+              f"{r['train_launches'][0]}/{r['train_launches'][1]}/"
+              f"{r['train_launches'][4]}, K1/K5 over 2 val steps "
+              f"{r['val_launches'][0]}/{r['val_launches'][4]}; peak "
+              f"{r['peak_mb']:.0f} MB; {r['step_bytes']} gradient bytes "
+              f"all-reduced a step; {r['ms_per_step']:.1f} ms/step (both "
+              f"ranks on one card, gloo through the host)")
+        check(r["train_launches"] == counts(k1=8, k2=8, k5=1),
+              f"rank {i}: train launches {r['train_launches']}")
+        check(r["val_launches"] == counts(k1=16, k5=4),
+              f"rank {i}: val launches {r['val_launches']}")
+        check(r["step_bytes"] == 4 * n_params,
+              f"rank {i}: {r['step_bytes']} bytes reduced")
+        add(r["train_launches"])
+        add(r["val_launches"])
+    add(check_decoder_layer())
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
+    parser.add_argument("--ddp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--ddp-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.ddp_rank is not None:
+        # one of the ddp phase's rank processes
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ddp_rank(args.ddp_rank, args.ddp_dir)
+        return 0
     phases = tuple(args.phases.split(","))
     if set(phases) - set(PHASES):
         parser.error(f"unknown phases {set(phases) - set(PHASES)}")
@@ -1987,6 +2325,8 @@ def main(argv=None) -> int:
         add_launches(loop_phase())
     if "variants" in phases:
         add_launches(variants_phase())
+    if "ddp" in phases:
+        add_launches(ddp_phase())
 
     print(smi)
     print(json.dumps({"kernels": [

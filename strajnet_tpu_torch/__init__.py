@@ -12,10 +12,12 @@ CPU tensors take and a launch counter.
 - ``core``      bilinear sampling and the flow warp
 - ``models``    Swin encoder, FG-MSA, TrajNet fusion, pyramid decoder, STrajNet
 - ``objective`` the 4-term loss, LR schedules, waypoint slicing
-- ``train``     Keras Nadam, the train state, the train and predict steps
+- ``train``     Keras Nadam, the train state, the train and predict steps,
+                the training loop and its checkpoints
 - ``data``      synthetic batches, the TFRecord schema and host pipeline
 - ``infer``     batch inference and the challenge submission writer
 - ``interop``   Flax parameter trees and Nadam state -> ``state_dict``
+- ``parallel``  data-parallel training over ranks (DDP)
 
 This package imports no JAX, Flax or optax and nothing of ``strajnet_tpu``:
 it keeps its own copy of every module it needs. Only the tests import both.

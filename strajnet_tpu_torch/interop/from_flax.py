@@ -18,6 +18,10 @@ The port's modules carry the Flax module names, so each leaf maps by path:
   one leading waypoint axis on every leaf) split into ``<name>.<t>.``
   entries.
 
+Modules outside the model map by the same rules, e.g. ``BasicLayerDecoder``'s
+``upsample/up_emb`` (Dense), ``conv_layer`` (1x1 Conv), ``norm`` and
+``blocks<i>`` (as the encoder's blocks).
+
 The optimizer's moments ``mu`` and ``nu`` are trees of the parameters' shape
 and convert leaf by leaf with the same mapping; the step count and the
 momentum-cache product are scalars.

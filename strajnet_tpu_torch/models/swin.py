@@ -24,7 +24,9 @@ stage 0's. The block has no place for the in-block dropouts (``drop_rate``,
 ``attn_drop_rate``; 0 in every supported config), so a non-zero value raises.
 ``remat`` (the model's ``remat_encoder``) recomputes a block's forward in its
 backward instead of saving its intermediates, as the JAX encoder's
-``nn.remat`` does.
+``nn.remat`` does. :class:`BasicLayerDecoder` and :class:`PatchUpsampling`,
+the reference's upsampling stage, complete the module inventory; nothing
+builds them.
 """
 
 from __future__ import annotations
@@ -278,6 +280,69 @@ class BasicLayer(nn.Module):
         if self.downsample is not None:
             x = self.downsample(x)
         return x, res
+
+
+class PatchUpsampling(nn.Module):
+    """2x nearest upsampling of ``[B, H, W, C]`` -> Dense(C/2) without bias
+    (``up_emb``)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.up_emb = nn.Linear(dim, dim // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return dense(self.up_emb, x, self.dtype)
+
+
+class BasicLayerDecoder(nn.Module):
+    """Swin upsampling stage: :class:`PatchUpsampling` of the ``[B, H, W,
+    dim]`` input, with ``res_connection`` plus a 1x1 conv of ``res``
+    (reshaped to the upsampled grid), LayerNorm, then ``depth`` Swin blocks
+    of ``dim // 2`` channels with alternating shifts at ``2H x 2W``; returns
+    ``[B, 2H, 2W, dim // 2]``. ``input_resolution`` is ``(H, W)`` (the JAX
+    module reads the blocks' resolution off the upsampled input; the port
+    builds their shift masks up front). Its blocks take ``kernel_mode`` as
+    the encoder's do, so on the card they run the fused Swin-block kernels.
+    Nothing in the model builds it; the reference defines it beside the
+    encoder's stage."""
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 depth: int, num_heads: int, window_size: int,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path: Sequence[float] = (),
+                 res_connection: bool = False, kernel_mode="block",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.depth = dtype, depth
+        c = dim // 2
+        self.resolution = (2 * input_resolution[0], 2 * input_resolution[1])
+        self.upsample = PatchUpsampling(dim, dtype)
+        self.conv_layer = nn.Conv2d(c, c, 1) if res_connection else None
+        self.norm = LayerNorm(c, 1e-5, dtype)
+        for i in range(depth):
+            self.add_module(f"blocks{i}", SwinTransformerBlock(
+                c, self.resolution, num_heads, window_size,
+                0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
+                kernel_mode, dtype, drop_path[i] if len(drop_path) else 0.0))
+
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.upsample(x)
+        b, h, w, c = x.shape
+        if (h, w) != self.resolution:
+            raise ValueError(f"upsampled grid {(h, w)}, the blocks were "
+                             f"built for {self.resolution}")
+        if self.conv_layer is not None:
+            dt = self.dtype
+            x = x + conv2d_nhwc(res.reshape(b, h, w, c).to(dt),
+                                self.conv_layer.weight.to(dt),
+                                self.conv_layer.bias.to(dt))
+        x = self.norm(x.reshape(b, h * w, c))
+        for i in range(self.depth):
+            x = getattr(self, f"blocks{i}")(x, generator)
+        return x.reshape(b, h, w, c)
 
 
 class PatchEmbed(nn.Module):

@@ -25,12 +25,20 @@ PR-AUC of the warped origin being > 0, which for this input family equals
 ``any(true_all != 0)``; that is what is computed here, as in the JAX package.
 
 ``replica`` stays at 1.0 and exists only for numerical-parity testing.
+
+Data parallelism (``parallel/ddp.py``): the JAX step computes the loss of the
+global batch. With ``reduce_sum`` each rank computes its share of it: the
+gates, the flow-cell counts and the element counts that the terms divide by
+are those of the global batch, summed over the ranks in one all-reduce of a
+small label-derived tensor (no gradient flows through it), so the ranks'
+shares sum to the global loss and their gradients to its gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
@@ -134,23 +142,66 @@ class OGMFlowLoss:
     loss_cfg: LossConfig = LossConfig()
     replica: float = 1.0
     use_bce_warp: bool = False
+    reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __call__(self, true_waypoints: WaypointGrids,
                  pred_waypoint_logits: WaypointGrids
                  ) -> Dict[str, torch.Tensor]:
         return ogmflow_loss(self.config, self.loss_cfg, true_waypoints,
                             pred_waypoint_logits, replica=self.replica,
-                            use_bce_warp=self.use_bce_warp)
+                            use_bce_warp=self.use_bce_warp,
+                            reduce_sum=self.reduce_sum)
+
+
+def _flow_exists(true_flow: torch.Tensor) -> torch.Tensor:
+    """1.0 on the cells whose true flow is nonzero, ``[..., 1]`` f32."""
+    return ((true_flow[..., 0:1] != 0.0)
+            | (true_flow[..., 1:2] != 0.0)).float()
+
+
+def _normalisers(true_all: torch.Tensor, true_flow: torch.Tensor,
+                 reduce_sum) -> Tuple[torch.Tensor, torch.Tensor,
+                                      Union[float, torch.Tensor]]:
+    """What the terms divide by, per waypoint of ``[B, T, ...]`` grids:
+    the empty-scene gates ``[T]`` (1 where a cell is occupied), the counts
+    of cells with a true flow ``[T]``, and the element count of one
+    waypoint's grid over the batch. With ``reduce_sum`` the counts are
+    summed over the ranks first: those of the global batch."""
+    dims = (0,) + tuple(range(2, true_all.dim()))
+    occupied = (true_all != 0).sum(dim=dims)
+    flow_cells = _flow_exists(true_flow).sum(dim=dims)
+    per_sample = true_all[:1, 0].numel()
+    if reduce_sum is None:
+        return ((occupied > 0).float(), flow_cells,
+                float(true_all.shape[0] * per_sample))
+    counts = reduce_sum(torch.cat([
+        torch.tensor([true_all.shape[0]], dtype=torch.float64,
+                     device=true_all.device),
+        occupied.double(), flow_cells.double()]))
+    n_wp = occupied.shape[0]
+    return ((counts[1:1 + n_wp] > 0).float(), counts[1 + n_wp:].float(),
+            (counts[0] * per_sample).float())
 
 
 def ogmflow_loss(config: TaskConfig, loss_cfg: LossConfig,
                  true_waypoints: WaypointGrids,
                  pred_waypoint_logits: WaypointGrids,
                  replica: float = 1.0,
-                 use_bce_warp: bool = False) -> Dict[str, torch.Tensor]:
-    """Returns the four scalar loss terms, weighted and normalized."""
+                 use_bce_warp: bool = False,
+                 reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None) -> Dict[str, torch.Tensor]:
+    """Returns the four scalar loss terms, weighted and normalized.
+
+    ``reduce_sum`` sums a tensor over the data-parallel ranks
+    (``parallel/ddp.py::sum_over_ranks``); with it the terms are this rank's
+    share of the global batch's loss (see the module docstring)."""
     n_wp = true_waypoints.observed_occupancy.shape[1]
     device = pred_waypoint_logits.flow.device
+    true_all_wp = torch.clamp(true_waypoints.observed_occupancy
+                              + true_waypoints.occluded_occupancy, 0.0, 1.0)
+    gates_wp, flow_cells, numel = _normalisers(true_all_wp,
+                                               true_waypoints.flow,
+                                               reduce_sum)
 
     warped_all = None
     if not loss_cfg.no_use_warp:
@@ -181,22 +232,25 @@ def ogmflow_loss(config: TaskConfig, loss_cfg: LossConfig,
 
         obs_terms.append(_occupancy_xe(true_obs, pred_obs,
                                        loss_cfg.ogm_weight,
-                                       loss_cfg.use_focal_loss, replica))
+                                       loss_cfg.use_focal_loss, replica,
+                                       numel))
         occ_terms.append(_occupancy_xe(true_occ, pred_occ,
                                        loss_cfg.occ_weight,
-                                       loss_cfg.use_focal_loss, replica))
+                                       loss_cfg.use_focal_loss, replica,
+                                       numel))
 
-        true_all = torch.clamp(true_obs + true_occ, 0.0, 1.0)
+        true_all = true_all_wp[:, k]
 
         if loss_cfg.use_gt:
             # the empty-scene gate (see the module docstring)
-            gate = (true_all != 0).any().float()
+            gate = gates_wp[k]
         else:
             gate = torch.ones((), dtype=torch.float32, device=device)
         gates.append(gate)
 
         flow_terms.append(gate * _flow_l1(true_flow, pred_flow,
-                                          loss_cfg.flow_weight, replica))
+                                          loss_cfg.flow_weight, replica,
+                                          flow_cells[k]))
 
         if not loss_cfg.no_use_warp:
             warped = warped_all[:, k]
@@ -209,7 +263,7 @@ def ogmflow_loss(config: TaskConfig, loss_cfg: LossConfig,
             warp_terms.append(gate * _warp_xe(
                 true_all, mult_obs, mult_occ, warped,
                 loss_cfg.flow_origin_weight, loss_cfg.use_focal_loss,
-                loss_cfg.use_pred, use_bce_warp, replica))
+                loss_cfg.use_pred, use_bce_warp, replica, numel))
 
     gate_sum = sum(gates)
     out = {
@@ -225,29 +279,27 @@ def ogmflow_loss(config: TaskConfig, loss_cfg: LossConfig,
     return out
 
 
-def _occupancy_xe(true_occ, pred_logit, weight, use_focal, replica):
+def _occupancy_xe(true_occ, pred_logit, weight, use_focal, replica, numel):
+    """``numel``: the elements of the (global) batch's grid."""
     labels = _batch_flat(true_occ).float()
     logits = _batch_flat(pred_logit).float()
     xe_sum = _sigmoid_xe(labels, logits).sum()
     if use_focal:
         xe_sum = xe_sum + _focal_keras_reduced(labels, logits,
                                                from_logits=True)
-    return weight * xe_sum / (float(pred_logit.numel()) * replica)
+    return weight * xe_sum / (numel * replica)
 
 
-def _flow_l1(true_flow, pred_flow, weight, replica):
-    diff = true_flow - pred_flow
-    flow_exists = ((true_flow[..., 0:1] != 0.0)
-                   | (true_flow[..., 1:2] != 0.0)).float()
-    diff = diff * flow_exists
+def _flow_l1(true_flow, pred_flow, weight, replica, flow_cells):
+    """``flow_cells``: the (global) batch's cells with a true flow."""
+    diff = (true_flow - pred_flow) * _flow_exists(true_flow)
     diff_norm = diff.abs().sum(dim=-1)
-    mean_diff = _div_no_nan(diff_norm.sum(),
-                            flow_exists.sum() * replica / 2.0)
+    mean_diff = _div_no_nan(diff_norm.sum(), flow_cells * replica / 2.0)
     return weight * mean_diff
 
 
 def _warp_xe(true_all, mult_obs, mult_occ, warped_origin,
-             weight, use_focal, use_pred, use_bce_warp, replica):
+             weight, use_focal, use_pred, use_bce_warp, replica, numel):
     """The warp term. ``mult_obs/mult_occ`` feed the clip(sigmoid+sigmoid)
     multiplier: predicted logits on the use_pred path, TRUE binary
     occupancies otherwise."""
@@ -267,4 +319,4 @@ def _warp_xe(true_all, mult_obs, mult_occ, warped_origin,
         # parity: the probability product passed as a *logit*
         xe_sum = _sigmoid_xe(labels, joint).sum()
 
-    return weight * xe_sum / (float(true_all.numel()) * replica)
+    return weight * xe_sum / (numel * replica)

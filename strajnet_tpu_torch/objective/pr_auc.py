@@ -9,8 +9,9 @@ pure function.
   as predicted-positive at threshold t iff ``pred > t``.
 - Counting: ``torch.bucketize(pred, thresholds)`` gives the number of
   thresholds strictly below each prediction, the positives and negatives of
-  each bucket are counted with ``bincount`` (int64, exact), and a reversed
-  cumulative sum turns bucket counts into per-threshold counts. O(N) memory,
+  each bucket are counted with ``bincount`` (int64, exact; a histogram that
+  data-parallel ranks can sum), and a reversed cumulative sum turns bucket
+  counts into per-threshold counts. O(N) memory,
   no ``[N, T]`` comparison matrix. One pass counts every waypoint of a
   ``[B, T, ...]`` grid at once (``group_dim``).
 - The value uses Keras' ``interpolate_pr_auc`` (Davis & Goadrich 2006).
@@ -30,29 +31,31 @@ def _keras_thresholds(num_thresholds: int, device=None) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-def confusion_counts(y_true: torch.Tensor, y_pred: torch.Tensor,
-                     num_thresholds: int = 100, group_dim=None):
-    """Per-threshold (tp, fp, tn, fn) with Keras AUC semantics.
+def bucket_histogram(y_true: torch.Tensor, y_pred: torch.Tensor,
+                     num_thresholds: int = 100, group_dim=None
+                     ) -> torch.Tensor:
+    """The counts behind Keras' AUC: ``[G, 2, num_thresholds + 1]`` int64,
+    per group the negatives (row 0) and positives (row 1) whose prediction
+    lies above exactly ``j`` thresholds, for every ``j``.
 
     Args:
       y_true: any shape; Keras casts labels to bool, so any nonzero value
         counts as one full positive.
       y_pred: same shape, values in [0, 1].
-      group_dim: None for one set of counts over all elements, or a
-        dimension of the inputs (the waypoint axis) whose every index gets
-        its own counts, all from one pass over the data.
+      group_dim: None for one group of all elements, or a dimension of the
+        inputs (the waypoint axis) whose every index is a group of its own,
+        all counted in one pass over the data.
 
-    Returns:
-      Four float32 tensors, ``[num_thresholds]`` or ``[G, num_thresholds]``.
+    Histograms of disjoint parts of the data add up to the histogram of
+    the whole (the data-parallel ranks sum theirs).
     """
     thresholds = _keras_thresholds(num_thresholds, y_pred.device)
     if group_dim is None:
-        groups, lead = 1, ()
+        groups = 1
         pos = y_true.reshape(1, -1) != 0
         pred = y_pred.reshape(1, -1)
     else:
         groups = y_pred.shape[group_dim]
-        lead = (groups,)
         pos = y_true.movedim(group_dim, 0).reshape(groups, -1) != 0
         pred = y_pred.movedim(group_dim, 0).reshape(groups, -1)
     # bucket = number of thresholds t with t < pred, so pred > thresholds[j]
@@ -62,14 +65,28 @@ def confusion_counts(y_true: torch.Tensor, y_pred: torch.Tensor,
     slot = (torch.arange(groups, device=pred.device)[:, None] * 2
             + pos.long()) * n_buckets + bucket
     hist = torch.bincount(slot.reshape(-1), minlength=groups * 2 * n_buckets)
-    hist = hist.reshape(groups, 2, n_buckets)
+    return hist.reshape(groups, 2, n_buckets)
+
+
+def counts_from_histogram(hist: torch.Tensor):
+    """Per-threshold (tp, fp, tn, fn), float32 ``[G, num_thresholds]``, of
+    a :func:`bucket_histogram`."""
     # samples with bucket > j, for every threshold j
     above = hist.flip(-1).cumsum(-1).flip(-1)[..., 1:].float()
     fp, tp = above[:, 0], above[:, 1]
-    total_pos = pos.sum(-1, keepdim=True).float()
-    total_neg = pos.shape[1] - total_pos
-    return tuple(t.reshape(lead + (num_thresholds,))
-                 for t in (tp, fp, total_neg - fp, total_pos - tp))
+    totals = hist.sum(-1).float()
+    total_neg, total_pos = totals[:, 0:1], totals[:, 1:2]
+    return tp, fp, total_neg - fp, total_pos - tp
+
+
+def confusion_counts(y_true: torch.Tensor, y_pred: torch.Tensor,
+                     num_thresholds: int = 100, group_dim=None):
+    """Per-threshold (tp, fp, tn, fn) with Keras AUC semantics: four
+    float32 tensors, ``[num_thresholds]``, or ``[G, num_thresholds]`` with
+    ``group_dim`` (see :func:`bucket_histogram`)."""
+    counts = counts_from_histogram(bucket_histogram(
+        y_true, y_pred, num_thresholds, group_dim))
+    return counts if group_dim is not None else tuple(t[0] for t in counts)
 
 
 def _interpolate_pr_auc(tp, fp, fn, num_thresholds: int) -> torch.Tensor:
@@ -103,6 +120,13 @@ def pr_auc(y_true: torch.Tensor, y_pred: torch.Tensor,
     tp, fp, _, fn = confusion_counts(y_true, y_pred, num_thresholds,
                                      group_dim)
     return _interpolate_pr_auc(tp, fp, fn, num_thresholds)
+
+
+def pr_auc_from_histogram(hist: torch.Tensor) -> torch.Tensor:
+    """PR-AUC per group ``[G]`` of a :func:`bucket_histogram` (or of the
+    sum of several)."""
+    tp, fp, _, fn = counts_from_histogram(hist)
+    return _interpolate_pr_auc(tp, fp, fn, hist.shape[-1] - 1)
 
 
 def pr_auc_from_counts(tp, fp, fn, num_thresholds: int = 100) -> torch.Tensor:

@@ -3,6 +3,15 @@
 The training step hands one generator down the model, so two runs from one
 seed draw the same noise and nothing reads the global generator. The
 generator lives on the device of the tensors it draws for.
+
+Under data parallelism (``parallel/ddp.py``) every rank seeds the same
+generator and draws each mask at the shape of the global batch, whose
+leading dimension is ``world_size`` times its own, and keeps its own rows
+(rank ``r`` holds rows ``r * B .. (r + 1) * B - 1`` of the concatenated
+batch). So ``world_size`` ranks draw the noise of one process on the
+concatenated batch, as the JAX step draws every mask of the global batch
+from one key. Every tensor drawn for is batch-major (batch, or batch times
+heads or actors, outermost) and the ranks' batches are equal.
 """
 
 from __future__ import annotations
@@ -10,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from strajnet_tpu_torch.parallel.ddp import rank, world_size
 
 
 def _require(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -19,6 +30,18 @@ def _require(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator
 
 
+def _uniform(shape, device, generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) of ``shape``: this rank's rows of one draw at the global
+    batch's shape (the draw itself at world size 1)."""
+    ranks = world_size()
+    if ranks == 1:
+        return torch.rand(shape, device=device, generator=generator)
+    rows = shape[0]
+    u = torch.rand((ranks * rows,) + tuple(shape[1:]), device=device,
+                   generator=generator)
+    return u[rank() * rows:(rank() + 1) * rows]
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Flax ``nn.Dropout``: keeps each element with probability ``1 - rate``
@@ -26,8 +49,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device,
-                      generator=_require(generator)) < keep
+    mask = _uniform(x.shape, x.device, _require(generator)) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -41,6 +63,6 @@ def drop_path_multipliers(batch: int, rate: float, training: bool,
         return None
     keep = 1.0 - rate
     g = _require(generator)
-    draws = [torch.floor(keep + torch.rand(batch, device=device, generator=g))
-             / keep for _ in range(2)]
+    draws = [torch.floor(keep + _uniform((batch,), device, g)) / keep
+             for _ in range(2)]
     return torch.stack(draws, dim=1)

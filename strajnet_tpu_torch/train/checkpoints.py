@@ -10,6 +10,11 @@ leaves no checkpoint that :meth:`CheckpointManager.latest_step` would pick.
 Beside it, ``meta_<step>.json`` holds what the caller passes as ``metrics``
 (the training loop: ``epoch``, ``val_loss``, ``steps_per_epoch``), which
 resume reads its epoch from. Reading uses ``weights_only=True``.
+
+Under data parallelism (``parallel/ddp.py``) rank 0 writes, from the module
+inside the DDP wrapper (no ``module.`` keys: a checkpoint of a DDP run loads
+into one process and the other way round), and every rank waits at a
+barrier until it has; every rank restores after a barrier.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from strajnet_tpu_torch.parallel.ddp import barrier, rank, unwrap
 
 _STATE_FILE = "state.pt"
 
@@ -49,8 +56,14 @@ class CheckpointManager:
     def save(self, step: int, state: Any, metrics: Optional[dict] = None):
         """Writes ``state`` (a ``TrainState``) as checkpoint ``step``;
         ``metrics`` (e.g. val_loss, epoch) also land in the JSON sidecar.
-        Keeps the newest ``max_to_keep`` checkpoints."""
-        payload = {"model": state.model.state_dict(),
+        Keeps the newest ``max_to_keep`` checkpoints. Under data parallelism
+        rank 0 writes and every rank returns once it has."""
+        if rank() == 0:
+            self._write(step, state, metrics)
+        barrier()
+
+    def _write(self, step: int, state: Any, metrics: Optional[dict]):
+        payload = {"model": unwrap(state.model).state_dict(),
                    "optimizer": state.optimizer.state_dict(),
                    "step": int(state.step)}
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
@@ -101,13 +114,15 @@ class CheckpointManager:
     def restore(self, state: Any, step: Optional[int] = None):
         """Loads checkpoint ``step`` (default: the newest) into ``state``'s
         model, optimizer and step in place; returns ``(state, step)``, or
-        ``(None, None)`` when there is no checkpoint."""
+        ``(None, None)`` when there is no checkpoint. Under data parallelism
+        every rank waits for the others first, then reads the same one."""
+        barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
             return None, None
         payload = self._load(step)
-        state.model.load_state_dict(payload["model"])
+        unwrap(state.model).load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state, step

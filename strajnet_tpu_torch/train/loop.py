@@ -6,6 +6,11 @@ Counterpart of ``strajnet_tpu/train/loop.py``. Usage:
         --file_dir ./Waymo_Dataset/preprocessed_data --batch_size 16 \\
         --epochs 15 --lr 1e-4
 
+and data-parallel over N cards of one host (``batch_size`` is the global
+batch, ``batch_size // N`` a card):
+
+    torchrun --nproc_per_node N -m strajnet_tpu_torch.train.loop ...
+
 What it does, as the JAX loop does:
 
 - resumes from the newest checkpoint in ``--save_dir``, at the epoch its
@@ -15,7 +20,7 @@ What it does, as the JAX loop does:
   end of an epoch;
 - after each epoch, a validation pass over the eval step (loss and challenge
   metrics) with the model in ``eval()``; on one device the split's last,
-  partial batch is evaluated too;
+  partial batch is evaluated too, above one rank it is dropped;
 - appends a row per epoch to ``<save_dir>/train_log.csv`` (epoch, loss,
   val_loss, the seven val metrics) and writes a checkpoint per epoch.
 
@@ -25,7 +30,17 @@ drop-path noise. It is seeded from ``TrainConfig.seed`` at every start of
 :func:`train`, as the JAX loop re-creates ``PRNGKey(seed)``: a resumed run
 draws its noise anew, and holds no generator state in its checkpoints.
 The loop runs on ``--device`` (default ``cuda``); a device that is not
-there raises. Only one device: ``--model_axis`` other than 1 raises.
+there raises.
+
+Data parallelism (``parallel/ddp.py``), as the JAX loop's ``'data'`` axis:
+started by ``torchrun`` (or under a process group the caller made), each
+rank trains the DDP-wrapped model on ``batch_size // world_size`` samples
+(a batch size the world size does not divide raises), reads the record
+shard ``rank`` of ``world_size`` of each split, and computes the loss and
+metrics of the global batch; the loss sums are summed over the ranks only
+when the host reads them. An epoch ends on every rank at the first step
+where one has no batch left. Rank 0 prints, writes ``train_log.csv`` and the
+checkpoints. ``--model_axis`` other than 1 (tensor parallelism) raises.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, Iterable, Optional, Sequence, Union
@@ -49,6 +65,9 @@ from strajnet_tpu_torch.device import resolve_device
 from strajnet_tpu_torch.models.strajnet import PALLAS_MODES
 from strajnet_tpu_torch.objective.metrics import (MetricsAccumulator,
                                                   print_metrics)
+from strajnet_tpu_torch.parallel.ddp import (common_steps, destroy,
+                                             init_distributed, rank,
+                                             sum_over_ranks, world_size)
 from strajnet_tpu_torch.train.checkpoints import CheckpointManager
 from strajnet_tpu_torch.train.state import create_train_state
 from strajnet_tpu_torch.train.step import (make_eval_step, make_train_step,
@@ -81,17 +100,26 @@ class LossMeans:
 
 def _host_means(sums: Dict[str, torch.Tensor], count: int
                 ) -> Dict[str, float]:
-    """``sums / count`` as floats, in one fetch from the device."""
+    """``sums / count`` as floats, in one fetch from the device; under data
+    parallelism the sums (of loss shares) are summed over the ranks first,
+    so every rank must call this at the same point."""
     if not sums:
         return {}
-    values = torch.stack([s.float() for s in sums.values()]).tolist()
+    values = sum_over_ranks(
+        torch.stack([s.float() for s in sums.values()])).tolist()
     return {k: v / max(count, 1) for k, v in zip(sums, values)}
 
 
-def tfrecord_batches(train_cfg: TrainConfig) -> BatchSource:
-    """The default batch source: ``<file_dir>/{train,val}/*.tfrecords``, the
-    train split shuffled with seed ``seed + epoch``. TensorFlow loads here,
-    at the first split read."""
+def tfrecord_batches(train_cfg: TrainConfig, local_batch: int,
+                     shard_index: int = 0, shard_count: int = 1
+                     ) -> BatchSource:
+    """The default batch source: batches of ``local_batch`` records of
+    shard ``shard_index`` of ``shard_count`` (records ``shard_index``,
+    ``shard_index + shard_count``, ...) of ``<file_dir>/{train,val}/
+    *.tfrecords``, the train split shuffled with seed ``seed + epoch``.
+    The val split keeps its last, partial batch on one shard and drops it
+    on several, as the JAX loop does. TensorFlow loads here, at the first
+    split read."""
 
     def batches(split: str, epoch: int):
         from strajnet_tpu_torch.data.pipeline import (as_numpy,
@@ -99,15 +127,18 @@ def tfrecord_batches(train_cfg: TrainConfig) -> BatchSource:
                                                       make_train_dataset)
         pattern = f"{train_cfg.file_dir}/{split}/*.tfrecords"
         if split == "train":
-            ds = make_train_dataset(pattern, train_cfg.batch_size,
+            ds = make_train_dataset(pattern, local_batch,
                                     train_cfg.shuffle_buffer,
+                                    shard_index=shard_index,
+                                    shard_count=shard_count,
                                     seed=train_cfg.seed + epoch,
                                     compact=train_cfg.compact_feed)
         else:
-            # one device: the last, partial batch is evaluated too
-            ds = make_eval_dataset(pattern, train_cfg.batch_size,
+            ds = make_eval_dataset(pattern, local_batch,
+                                   shard_index=shard_index,
+                                   shard_count=shard_count,
                                    compact=train_cfg.compact_feed,
-                                   drop_remainder=False)
+                                   drop_remainder=shard_count > 1)
         return as_numpy(ds)
 
     return batches
@@ -125,22 +156,32 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     """Trains ``model_cfg`` for ``train_cfg.epochs`` epochs, resuming from
     the newest checkpoint in ``train_cfg.save_dir``; returns the train state.
 
-    ``batches(split, epoch)`` gives the numpy batches of ``"train"`` or
-    ``"val"`` for an epoch; by default they are read from
-    ``train_cfg.file_dir`` (:func:`tfrecord_batches`). ``profile_dir`` gets
-    a ``torch.profiler`` trace of steps 10 to 20 of the first epoch run.
+    ``batches(split, epoch)`` gives this rank's numpy batches of
+    ``"train"`` or ``"val"`` for an epoch; by default they are read from
+    ``train_cfg.file_dir`` (:func:`tfrecord_batches`, this rank's shard).
+    ``train_cfg.batch_size`` is the global batch. ``device`` is this rank's
+    device. ``profile_dir`` gets a ``torch.profiler`` trace of steps 10 to
+    20 of the first epoch run (rank 0's).
     """
     if model_axis != 1:
         raise ValueError(
-            f"model_axis={model_axis}: the port trains on one device; data "
-            f"and model parallelism are still to be ported (ROADMAP.md §1, "
-            f"queue 1 item 3)")
+            f"model_axis={model_axis}: the port trains data-parallel only; "
+            f"tensor parallelism and spatial_shard are still to be ported "
+            f"(ROADMAP.md §1, queue 1 item 3)")
     device = resolve_device(device)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+    ranks, me = world_size(), rank()
+    if train_cfg.batch_size % ranks != 0:
+        raise ValueError(f"global batch {train_cfg.batch_size} not divisible "
+                         f"by the world size {ranks}")
+    local_bs = train_cfg.batch_size // ranks
+    say = print if me == 0 else (lambda *a, **kw: None)
+    say(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else "")
+        + (f", rank {me} of {ranks}, {local_bs} samples a rank"
+           if ranks > 1 else ""))
     if batches is None:
-        batches = tfrecord_batches(train_cfg)
+        batches = tfrecord_batches(train_cfg, local_bs, me, ranks)
 
     state = create_train_state(model_cfg, train_cfg, device=device)
     ckpt = CheckpointManager(train_cfg.save_dir)
@@ -148,7 +189,7 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     start_epoch = 0
     if restored is not None:
         start_epoch = int(ckpt.metadata(step0).get("epoch", 0))
-        print(f"resumed from step {step0} (epoch {start_epoch})")
+        say(f"resumed from step {step0} (epoch {start_epoch})")
 
     train_step = make_train_step(task_cfg, loss_cfg, model_cfg.num_waypoints,
                                  accumulate=True)
@@ -156,16 +197,18 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
     val_losses = LossMeans()
     val_metrics = MetricsAccumulator("val")
-    profiler, profiled = None, profile_dir is None
+    # rank 0 alone traces
+    profiler, profiled = None, profile_dir is None or me != 0
 
     log_path = os.path.join(train_cfg.save_dir, "train_log.csv")
     for epoch in range(start_epoch, train_cfg.epochs):
-        print(f"\nepoch {epoch + 1}/{train_cfg.epochs}")
+        say(f"\nepoch {epoch + 1}/{train_cfg.epochs}")
         state.model.train()
         t0 = time.perf_counter()
         n = 0
         loss_sums = zero_loss_sums(device)
-        for batch in prefetch_to_device(batches("train", epoch), device):
+        for batch in common_steps(prefetch_to_device(batches("train", epoch),
+                                                     device)):
             if not profiled:
                 if n == 10 and profiler is None:
                     profiler = _start_profiler(device)
@@ -178,23 +221,25 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
                 # the only host<->device sync in the loop
                 means = _host_means(loss_sums, n)
                 rate = n * train_cfg.batch_size / (time.perf_counter() - t0)
-                print(f"  step {n}: total={means['total']:.4f} "
-                      f"obs={means['observed_xe']:.4f} "
-                      f"({rate:.1f} scenes/s)")
+                say(f"  step {n}: total={means['total']:.4f} "
+                    f"obs={means['observed_xe']:.4f} "
+                    f"({rate:.1f} scenes/s)")
         train_means = _host_means(loss_sums, n) if n else {}
         seconds = time.perf_counter() - t0
-        print(f"  {n} steps in {seconds:.3f} s"
-              + (f" ({seconds * 1e3 / n:.1f} ms/step)" if n else ""))
+        say(f"  {n} steps in {seconds:.3f} s"
+            + (f" ({seconds * 1e3 / n:.1f} ms/step)" if n else ""))
 
         state.model.eval()
-        for batch in prefetch_to_device(batches("val", epoch), device):
+        for batch in common_steps(prefetch_to_device(batches("val", epoch),
+                                                     device)):
             losses, metrics = eval_step(state.model, batch)
             val_losses.update(losses)
             val_metrics.update_state(metrics)
         state.model.train()
 
         res = val_metrics.get_result()
-        print_metrics(res, "val")
+        if me == 0:
+            print_metrics(res, "val")
 
         log = {"epoch": epoch + 1,
                "loss": train_means.get("total", 0.0),
@@ -202,12 +247,13 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
         # the JAX loop's columns: its jitted eval step returns the metrics
         # with their keys sorted
         log.update(sorted(res.items()))
-        write_header = not os.path.exists(log_path)
-        with open(log_path, "a", newline="") as f:
-            w = csv.writer(f)
-            if write_header:
-                w.writerow(log.keys())
-            w.writerow(log.values())
+        if me == 0:
+            write_header = not os.path.exists(log_path)
+            with open(log_path, "a", newline="") as f:
+                w = csv.writer(f)
+                if write_header:
+                    w.writerow(log.keys())
+                w.writerow(log.values())
 
         ckpt.save(state.step, state,
                   metrics={"val_loss": log["val_loss"], "epoch": epoch + 1,
@@ -251,7 +297,7 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--no_fg_msa", action="store_true",
                    help="train.py-parity variant without FG-MSA")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="only 1: the port trains on one device")
+                   help="only 1: the port trains data-parallel only")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--pallas", type=str, default="auto",
@@ -262,7 +308,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--remat", action="store_true",
                    help="recompute the encoder blocks in the backward")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device of the model; 'cpu' only when asked")
+                   help="torch device of the model; 'cpu' only when asked; "
+                        "under torchrun cuda:LOCAL_RANK")
     args = p.parse_args(argv)
 
     model_cfg = STRAJNET_TRAIN_PY_CONFIG if args.no_fg_msa else STRAJNET_CONFIG
@@ -274,9 +321,18 @@ def main(argv: Optional[Sequence[str]] = None):
     train_cfg = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,
                             lr=args.lr, use_schedule=not args.constant_lr,
                             save_dir=args.save_dir, file_dir=args.file_dir)
-    train(model_cfg=model_cfg, train_cfg=train_cfg,
-          model_axis=args.model_axis, profile_dir=args.profile_dir,
-          device=args.device)
+    run = functools.partial(train, model_cfg=model_cfg, train_cfg=train_cfg,
+                            model_axis=args.model_axis,
+                            profile_dir=args.profile_dir)
+    if "WORLD_SIZE" not in os.environ:
+        run(device=args.device)
+        return
+    # started by torchrun: one process a rank
+    device = init_distributed(args.device)
+    try:
+        run(device=device)
+    finally:
+        destroy()
 
 
 if __name__ == "__main__":

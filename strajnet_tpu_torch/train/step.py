@@ -3,6 +3,13 @@
 Counterpart of ``strajnet_tpu/train/step.py`` (``make_train_step``,
 ``make_eval_step``, ``make_predict_step``). PyTorch runs eagerly, so a step
 is a plain function: there is no jit and nothing to donate.
+
+Under data parallelism (``parallel/ddp.py``, world size above 1 when the
+step is made) the loss and the metrics are those of the global batch: each
+rank's loss terms are its shares of the global batch's (they sum to it over
+the ranks), the model's DDP wrapper sums the shares' gradients, and the
+metrics come back alike on every rank. At world size 1 nothing changes and
+no collective runs.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from strajnet_tpu_torch.objective.loss import (OGMFlowLoss, WaypointGrids,
                                                true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (
     apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics)
+from strajnet_tpu_torch.parallel.ddp import sum_over_ranks, world_size
 
 # The model casts its input rasters to its compute dtype itself, so compact
 # uint8 / f16 feeds of these pass through unwidened.
@@ -47,6 +55,12 @@ def _total(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
             + loss_dict["flow"] + loss_dict["flow_warp_xe"])
 
 
+def _ranks_reduce_sum():
+    """The loss's and metrics' ``reduce_sum`` of this process: a sum over
+    the ranks under data parallelism, else None."""
+    return sum_over_ranks if world_size() > 1 else None
+
+
 def zero_loss_sums(device=None) -> Dict[str, torch.Tensor]:
     """Initial device-resident loss accumulator for the accumulating step."""
     return {k: torch.zeros((), dtype=torch.float32, device=device)
@@ -62,13 +76,14 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
     (state, loss_dict)``. With ``accumulate=True``: ``step(state, batch,
     generator, loss_sums) -> (state, loss_sums + losses)``; the running sums
     stay on the device. Neither forces a host sync: the losses come back as
-    device scalars. ``state`` is a :class:`~strajnet_tpu_torch.train.state.
+    device scalars (under data parallelism: this rank's shares of the global
+    batch's losses). ``state`` is a :class:`~strajnet_tpu_torch.train.state.
     TrainState`; its model and optimizer are updated in place. The model runs
     in the mode it is in: ``model.train()`` draws dropout and drop-path noise
     from ``generator`` (on the model's device), ``model.eval()`` switches the
     random parts off. The gradients of the step stay in ``p.grad``.
     """
-    loss_fn = OGMFlowLoss(task_cfg, loss_cfg)
+    loss_fn = OGMFlowLoss(task_cfg, loss_cfg, reduce_sum=_ranks_reduce_sum())
 
     def _step_math(state, batch, generator):
         batch = ensure_f32(batch)
@@ -106,9 +121,11 @@ def make_eval_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
     autograd on a model in ``eval()`` mode (a model in training mode raises:
     its dropout would need a generator). Both dicts hold device scalars.
     ``no_warp`` leaves the flow-grounded metrics out; the loss is the
-    training loss either way.
+    training loss either way. Under data parallelism the losses are this
+    rank's shares and the metrics those of the global batch.
     """
-    loss_fn = OGMFlowLoss(task_cfg, loss_cfg)
+    reduce_sum = _ranks_reduce_sum()
+    loss_fn = OGMFlowLoss(task_cfg, loss_cfg, reduce_sum=reduce_sum)
 
     def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
         if model.training:
@@ -122,7 +139,7 @@ def make_eval_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
             total = _total(loss_dict)
             metrics = compute_occupancy_flow_metrics(
                 true_waypoints, apply_sigmoid_to_occupancy_logits(logits),
-                no_warp=no_warp)
+                no_warp=no_warp, reduce_sum=reduce_sum)
         return dict(loss_dict, total=total), metrics
 
     return eval_step

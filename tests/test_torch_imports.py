@@ -78,7 +78,7 @@ def test_package_imports_without_triton_or_nvcc():
                    "objective.schedule", "data.pipeline", "infer.submission",
                    "ops.window_attention", "ops.decoder_tail",
                    "objective.pr_auc", "infer.evaluate", "train.loop",
-                   "train.checkpoints"):
+                   "train.checkpoints", "parallel.ddp"):
         assert f"strajnet_tpu_torch.{expect}" in mods
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
