@@ -59,14 +59,22 @@ its ConvLSTM, ``ape``, no pyramid, the 256² geometry without
 ``large_input``, the wirings without a flow stage, ``rep_res=False`` at
 batch 8) through the kernels against the plain path; FG-MSA's rel-pos bias
 as a blend of table windows against the direct gather it replaced, the two
-held against each other in f32 and timed forward and backward. The launch
+held against each other in f32 and timed forward and backward. Last, the
+offline preprocessor (phase ``preprocess``): the C library's sine and cosine
+and the fused multiply-add of ``core/libm.py`` on the card against the CPU,
+four synthetic WOMD scenarios at full size (128 agents x 91 steps, 20 000
+roadgraph samples) rasterized by ``Processor.raster_features`` on the card
+and on its CPU twin (0 cells may differ; ms a scenario, scenarios/s, peak
+memory, the renders one by one, a profile), and their actor and centerline
+vectors against the record's shapes; it launches no kernel. The launch
 counters are set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
-variants) while developing; with no arguments every phase runs.
+variants, ddp, preprocess) while developing; with no arguments every phase
+runs.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -94,10 +103,17 @@ from strajnet_tpu_torch import _build  # noqa: E402
 from strajnet_tpu_torch.core.sampling import (  # noqa: E402
     flow_warp_origin, ref_points, rpe_bias)
 from strajnet_tpu_torch.config import (  # noqa: E402
-    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_TASK_CONFIG, LossConfig,
-    TrainConfig)
+    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_OGM_TASK_CONFIG,
+    WAYMO_TASK_CONFIG, LossConfig, TrainConfig)
+from strajnet_tpu_torch.core.libm import cosf, fmaf, sinf  # noqa: E402
 from strajnet_tpu_torch.data.pipeline import prefetch_to_device  # noqa: E402
+from strajnet_tpu_torch.data.preprocess import Processor  # noqa: E402
+from strajnet_tpu_torch.data.raster import (  # noqa: E402
+    render_backward_flow, render_occupancy)
+from strajnet_tpu_torch.data.schema import SHAPES  # noqa: E402
 from strajnet_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from strajnet_tpu_torch.data.womd import (  # noqa: E402
+    NUM_AGENTS, NUM_FUTURE_STEPS, NUM_PAST_STEPS, NUM_ROADGRAPH_SAMPLES)
 from strajnet_tpu_torch.infer import evaluate as evaluate_mod  # noqa: E402
 from strajnet_tpu_torch.infer.evaluate import evaluate_batches  # noqa: E402
 from strajnet_tpu_torch.infer.proto import iter_fields  # noqa: E402
@@ -217,7 +233,7 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
 PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
-          "ddp")
+          "ddp", "preprocess")
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -2192,6 +2208,225 @@ def ddp_phase():
     return total
 
 
+PREPROCESS_SCENARIOS = 4
+
+
+def womd_scenario(seed: int):
+    """One WOMD scenario at the tf_example's full sizes (128 agents x 91
+    steps, 20 000 roadgraph samples) as ``parse_womd_example`` gives it,
+    made from a seed: vehicles, pedestrians, cyclists and others moving
+    straight at their own speed and heading within 60 m of the SDC; a
+    sixth of them seen only in the future (occluded), a sixth that drop out
+    mid-history, a sixth that leave in the future; 400 polylines of 50
+    samples over the road types."""
+    rng = np.random.default_rng(seed)
+    a = NUM_AGENTS
+    t = (np.arange(NUM_PAST_STEPS + 1 + NUM_FUTURE_STEPS)
+         - NUM_PAST_STEPS) * 0.1  # seconds from the current step
+    types = rng.choice([1, 2, 3, 4], a, p=[0.6, 0.2, 0.15, 0.05])
+    types[0] = 1
+    speed = np.choose(types - 1, [10.0, 1.4, 5.0, 3.0]) * rng.uniform(0, 1.5,
+                                                                      a)
+    heading = rng.uniform(-np.pi, np.pi, a)
+    vx, vy = speed * np.cos(heading), speed * np.sin(heading)
+    x0, y0 = rng.uniform(-60, 60, (2, a))
+    x0[0] = y0[0] = 0.0
+    length = np.choose(types - 1, [4.5, 0.6, 1.8, 2.0]) * rng.uniform(
+        0.8, 1.3, a)
+    width = np.choose(types - 1, [2.0, 0.6, 0.7, 1.0]) * rng.uniform(
+        0.8, 1.2, a)
+    steps = t.size
+    fields = {
+        "x": x0[:, None] + vx[:, None] * t,
+        "y": y0[:, None] + vy[:, None] * t,
+        "bbox_yaw": heading[:, None] + rng.normal(0, 0.02, (a, steps)),
+        "length": np.repeat(length[:, None], steps, 1),
+        "width": np.repeat(width[:, None], steps, 1),
+        "velocity_x": np.repeat(vx[:, None], steps, 1),
+        "velocity_y": np.repeat(vy[:, None], steps, 1),
+    }
+    valid = np.ones((a, steps), np.int64)
+    picks = rng.permutation(np.arange(1, a))
+    k = a // 6
+    valid[picks[:k], :NUM_PAST_STEPS + 1] = 0
+    valid[picks[k:2 * k], 5:NUM_PAST_STEPS + 1] = 0
+    valid[picks[2 * k:3 * k], 50:] = 0
+    s = {"state/type": types.astype(np.float32),
+         "state/is_sdc": (np.arange(a) == 0).astype(np.int64)}
+    for time, lo, hi in (("past", 0, NUM_PAST_STEPS),
+                         ("current", NUM_PAST_STEPS, NUM_PAST_STEPS + 1),
+                         ("future", NUM_PAST_STEPS + 1, steps)):
+        for name, value in fields.items():
+            s[f"state/{time}/{name}"] = value[:, lo:hi].astype(np.float32)
+        s[f"state/{time}/valid"] = valid[:, lo:hi]
+    lines, per_line = 400, NUM_ROADGRAPH_SAMPLES // 400
+    start = rng.uniform(-80, 80, (lines, 1, 2))
+    angle = rng.uniform(-np.pi, np.pi, (lines, 1))
+    direction = np.stack([np.cos(angle), np.sin(angle)], -1)
+    xy = start + np.arange(per_line)[None, :, None] * 1.0 * direction
+    road_types = np.array([1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 15, 16, 17,
+                           18, 19])
+    rg = lambda v: v.reshape(NUM_ROADGRAPH_SAMPLES, -1)  # noqa: E731
+    s["roadgraph_samples/xyz"] = rg(np.concatenate(
+        [xy, np.zeros((lines, per_line, 1))], -1)).astype(np.float32)
+    s["roadgraph_samples/dir"] = rg(np.concatenate(
+        [np.broadcast_to(direction, xy.shape), np.zeros((lines, per_line, 1))],
+        -1)).astype(np.float32)
+    s["roadgraph_samples/id"] = rg(np.repeat(np.arange(lines), per_line))
+    s["roadgraph_samples/type"] = rg(np.repeat(
+        road_types[np.arange(lines) % road_types.size], per_line))
+    s["roadgraph_samples/valid"] = rg((rng.random((lines, per_line)) < 0.95
+                                       ).astype(np.int64))
+    return s
+
+
+def differing(a: np.ndarray, b: np.ndarray) -> int:
+    """Elements whose bits differ (NaN against NaN included)."""
+    view = {1: np.uint8, 4: np.uint32, 8: np.uint64}[a.itemsize]
+    return int((a.view(view) != b.view(view)).sum())
+
+
+def preprocess_breakdown(proc, scenarios) -> None:
+    """Where ``Processor.raster_features`` spends its time on the card: the
+    seven renders of ``create_timestep_grids`` one by one on the first
+    scenario (host clock, each synchronised), then ``torch.profiler`` over
+    the whole call on two scenarios: the device's busy share of the window,
+    its largest kernels and the host operators that took longest."""
+    cfg, s = WAYMO_OGM_TASK_CONFIG, scenarios[0]
+    steps = ["past", "current", "future"]
+    occupancy = functools.partial(render_occupancy, s, config=cfg,
+                                  device=proc.device)
+    flow = functools.partial(render_backward_flow, s, config=cfg,
+                             device=proc.device)
+    renders = (
+        ("current", lambda: occupancy(["current"])),
+        ("past", lambda: occupancy(["past"])),
+        ("history flow", lambda: flow(["past", "current"],
+                                      waypoint_size=NUM_PAST_STEPS)),
+        ("future observed", lambda: occupancy(["future"],
+                                              include_occluded=False)),
+        ("future occluded", lambda: occupancy(["future"],
+                                              include_observed=False)),
+        ("all occupancy", lambda: occupancy(steps)),
+        ("all flow", lambda: flow(steps, waypoint_size=(
+            cfg.num_future_steps // cfg.num_waypoints))),
+    )
+    split = []
+    for name, fn in renders:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        split.append(f"{name} {(time.perf_counter() - t0) * 1e3:.2f}")
+    print("preprocess renders, ms on the host clock: " + ", ".join(split))
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in scenarios[:2]:
+            proc.raster_features(s)
+        torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # kernels and copies only: an operator's device time counts them again
+    on_device = sorted(
+        (e for e in events if e.device_time_total > 0 and
+         e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: -e.device_time_total)
+    busy_ms = sum(e.device_time_total for e in on_device) / 1e3
+    print(f"preprocess profile, raster_features of 2 scenarios: window "
+          f"{window_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / window_ms:.1f} %); largest on the device: "
+          + "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3:.2f} ms"
+                      f" x{e.count}" for e in on_device[:6]))
+    on_host = sorted(events, key=lambda e: -e.self_cpu_time_total)
+    print("preprocess profile, host operators by self time: "
+          + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms"
+                      f" x{e.count}" for e in on_host[:8]))
+
+
+def preprocess_phase() -> None:
+    """The offline preprocessor's tensor and vector parts at the full WOMD
+    geometry (TensorFlow and matplotlib, which read and write shards and
+    draw the map, are not here): (i) the C library's sine and cosine and
+    the fused multiply-add (``core/libm.py``) on the card against the CPU,
+    over every path of the reduction; (ii) ``PREPROCESS_SCENARIOS``
+    scenarios through ``Processor.raster_features`` on the card and on its
+    CPU twin, every array equal (0 cells differ), ms a scenario of each
+    after a warm-up (host clock, the copy to numpy included), scenarios/s
+    and the card's peak memory; (iii) ``Processor.vector_features``
+    against ``data/schema.py::SHAPES``. No kernel launches."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    x = np.concatenate([
+        rng.uniform(-8, 8, n), rng.uniform(-200, 200, n // 4),
+        10.0 ** rng.uniform(-40, 38, n // 4) * rng.choice([-1, 1], n // 4),
+    ]).astype(np.float32)
+    xs = torch.from_numpy(x)
+    for name, fn in (("sinf", sinf), ("cosf", cosf),
+                     ("fmaf", lambda v: fmaf(v, v.flip(0), v.roll(1)))):
+        bad = differing(fn(xs.cuda()).cpu().numpy(), fn(xs).numpy())
+        print(f"preprocess: {name} on the card vs the CPU, {x.size} float32 "
+              f"values: {bad} differ")
+        check(bad == 0, f"{name}: {bad} values differ on the card")
+
+    scenarios = [womd_scenario(seed) for seed in range(PREPROCESS_SCENARIOS)]
+    card = Processor(device="cuda")
+    host = Processor(device="cpu")
+    reset_counters()
+    card.raster_features(scenarios[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grids, card_ms = [], []
+    for s in scenarios:
+        t0 = time.perf_counter()
+        grids.append(card.raster_features(s))
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(read_counters() == counts(), "the preprocessor launched a kernel")
+    host_ms, cells, bad = [], 0, 0
+    for s, ours in zip(scenarios, grids):
+        t0 = time.perf_counter()
+        ref = host.raster_features(s)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(sorted(ours) == sorted(ref), "raster keys")
+        for k in ref:
+            check(ours[k].dtype == ref[k].dtype and
+                  ours[k].shape == ref[k].shape, f"{k} dtype or shape")
+            cells += ref[k].size
+            bad += differing(ours[k], ref[k])
+        check(ours["ogm"].any() and np.abs(ours["gt_flow"]).sum() > 0,
+              "empty grids")
+        check(ours["ogm"].shape == SHAPES["ogm"] and
+              ours["gt_flow"].shape == SHAPES["gt_flow"], "raster shapes")
+    mean_card = sum(card_ms) / len(card_ms)
+    print(f"preprocess raster, {len(scenarios)} scenarios at 512^2 (128 "
+          f"agents x 91 steps, 48x16 points a box): card "
+          f"{mean_card:.2f} ms/scenario (each "
+          f"{', '.join(f'{t:.2f}' for t in card_ms)}), "
+          f"{1e3 / mean_card:.2f} scenarios/s, peak {peak_mb:.1f} MB; CPU "
+          f"twin {sum(host_ms) / len(host_ms):.1f} ms/scenario; card vs CPU "
+          f"{bad} of {cells} cells differ")
+    check(bad == 0, f"preprocess: {bad} cells differ between card and CPU")
+
+    preprocess_breakdown(card, scenarios)
+
+    vector_ms = []
+    for s in scenarios:
+        t0 = time.perf_counter()
+        vectors, _ = card.vector_features(s)
+        vector_ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in vectors.items():
+            check(v.shape == SHAPES[k] and v.dtype == np.float64 and
+                  np.isfinite(v).all(), f"vector feature {k}")
+        check(np.abs(vectors["actors"]).sum() > 0 and
+              np.abs(vectors["centerlines"]).sum() > 0, "empty vectors")
+    print(f"preprocess vectors (numpy): "
+          f"{sum(vector_ms) / len(vector_ms):.1f} ms/scenario")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2327,6 +2562,8 @@ def main(argv=None) -> int:
         add_launches(variants_phase())
     if "ddp" in phases:
         add_launches(ddp_phase())
+    if "preprocess" in phases:
+        preprocess_phase()
 
     print(smi)
     print(json.dumps({"kernels": [

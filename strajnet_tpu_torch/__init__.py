@@ -9,12 +9,14 @@ CPU tensors take and a launch counter.
 - ``config``    the dataclass tree of model, loss, train and task settings
 - ``ops``       the fused Swin-block kernels (forward and backward), the warp
                 gather kernels, window helpers, attention, upconv, dropout
-- ``core``      bilinear sampling and the flow warp
+- ``core``      bilinear sampling and the flow warp, grid transforms, the C
+                library's float32 sine and cosine
 - ``models``    Swin encoder, FG-MSA, TrajNet fusion, pyramid decoder, STrajNet
 - ``objective`` the 4-term loss, LR schedules, waypoint slicing
 - ``train``     Keras Nadam, the train state, the train and predict steps,
                 the training loop and its checkpoints
-- ``data``      synthetic batches, the TFRecord schema and host pipeline
+- ``data``      synthetic batches, the TFRecord schema and host pipeline,
+                the WOMD rasterizer and the offline preprocessor
 - ``infer``     batch inference and the challenge submission writer
 - ``interop``   Flax parameter trees and Nadam state -> ``state_dict``
 - ``parallel``  data-parallel training over ranks (DDP)

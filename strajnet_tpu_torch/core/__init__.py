@@ -1,1 +1,2 @@
-"""Bilinear sampling with challenge-parity semantics."""
+"""Bilinear sampling with challenge-parity semantics, world-to-grid
+transforms, and the C library's float32 sine and cosine."""

@@ -59,9 +59,12 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                                   for p in _port_sources()])
 def test_file_imports_only_the_port_torch_numpy_and_stdlib(path):
     """Per file: beyond the standard library, only torch, numpy, the port
-    itself and (lazily, to read real shards) tensorflow."""
+    itself and (lazily, to read real shards) tensorflow; the map raster
+    also (lazily) matplotlib, which draws it."""
     import sys
     allowed = {"torch", "numpy", "strajnet_tpu_torch", "tensorflow"}
+    if path == os.path.join("strajnet_tpu_torch", "data", "map_raster.py"):
+        allowed.add("matplotlib")
     for name, line in _imports(os.path.join(REPO, path)):
         top = name.split(".")[0]
         assert top in allowed or top in sys.stdlib_module_names, (path, line,
@@ -78,7 +81,9 @@ def test_package_imports_without_triton_or_nvcc():
                    "objective.schedule", "data.pipeline", "infer.submission",
                    "ops.window_attention", "ops.decoder_tail",
                    "objective.pr_auc", "infer.evaluate", "train.loop",
-                   "train.checkpoints", "parallel.ddp"):
+                   "train.checkpoints", "parallel.ddp", "core.grid",
+                   "core.libm", "data.raster", "data.preprocess",
+                   "data.womd", "data.vectorize", "data.map_raster"):
         assert f"strajnet_tpu_torch.{expect}" in mods
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
@@ -233,6 +238,25 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from strajnet_tpu_torch.infer import evaluate
     with pytest.raises(RuntimeError, match="--device cpu"):
         evaluate.main(["--file_dir", "/nonexistent"])
+    from strajnet_tpu_torch.data import preprocess
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        preprocess.main(["--file_dir", "/nonexistent"])
+
+
+def _modules_loaded_by_import(module, names):
+    """Which of ``names`` a fresh interpreter holds after importing
+    ``module``."""
+    import json
+    import subprocess
+    import sys
+    code = (f"import json, sys\nimport {module}\n"
+            f"print(json.dumps(sorted(k for k in {tuple(names)!r} "
+            "if k in sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("module", ["strajnet_tpu_torch.train.loop",
@@ -241,14 +265,27 @@ def test_loop_and_checkpoints_load_no_jax_orbax_or_tensorflow(module):
     """In a fresh interpreter: the training loop and the checkpoints import
     neither JAX, Flax, Orbax nor TensorFlow (the loop loads TensorFlow only
     when it reads TFRecords)."""
-    import json
-    import subprocess
-    import sys
-    code = (f"import json, sys\nimport {module}\n"
-            "print(json.dumps(sorted(k for k in ('jax', 'flax', 'orbax', "
-            "'tensorflow') if k in sys.modules)))\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    assert _modules_loaded_by_import(
+        module, ("jax", "flax", "orbax", "tensorflow")) == []
+
+
+@pytest.mark.parametrize("module", ["strajnet_tpu_torch.data.raster",
+                                    "strajnet_tpu_torch.data.preprocess"])
+def test_rasterizer_and_preprocessor_load_no_jax_tensorflow_or_matplotlib(
+        module):
+    """In a fresh interpreter: the rasterizer and the preprocessor import
+    neither JAX, TensorFlow nor matplotlib (the preprocessor loads the two
+    where it reads and writes shards and draws the map)."""
+    assert _modules_loaded_by_import(
+        module, ("jax", "tensorflow", "matplotlib")) == []
+
+
+@pytest.mark.parametrize("name", ["womd", "vectorize", "map_raster"])
+def test_preprocessor_copies_equal_their_originals(name):
+    """The numpy modules of the preprocessor are copies: their source is
+    the JAX package's with the package renamed."""
+    def source(package):
+        with open(os.path.join(REPO, package, "data", name + ".py")) as f:
+            return f.read()
+    assert source("strajnet_tpu_torch") == source("strajnet_tpu").replace(
+        "strajnet_tpu.", "strajnet_tpu_torch.")
