@@ -66,14 +66,23 @@ four synthetic WOMD scenarios at full size (128 agents x 91 steps, 20 000
 roadgraph samples) rasterized by ``Processor.raster_features`` on the card
 and on its CPU twin (0 cells may differ; ms a scenario, scenarios/s, peak
 memory, the renders one by one, a profile), and their actor and centerline
-vectors against the record's shapes; it launches no kernel. The launch
+vectors against the record's shapes; it launches no kernel. Last, the
+measuring tools (phase ``tools``): the bench (``tools/bench.py``: forward
+and training step at batch 16, forward at 32; min <= median <= max, the
+model FLOP utilisation in (0, 1.05], 8 K1 a forward and 8/8/1 K1/K2/K5 a
+step), the forward-mode probe (tails ``xla`` and ``infer`` x modes
+``block`` and ``attn``; ``infer`` runs K7 twice a forward), the parts
+profile over the five coarse parts, ``entry()``'s forward bit-equal to the
+module's, the forward with ``spatial_shard`` bit-equal to the one without,
+and ``sample``'s eight option combinations and ``dense_image_warp`` on the
+card against the CPU. The launch
 counters are set to zero just before each path and read just after. Any failed check
 raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
-variants, ddp, preprocess) while developing; with no arguments every phase
+variants, ddp, preprocess, tools) while developing; with no arguments every phase
 runs.
 """
 
@@ -101,7 +110,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from strajnet_tpu_torch import _build  # noqa: E402
 from strajnet_tpu_torch.core.sampling import (  # noqa: E402
-    flow_warp_origin, ref_points, rpe_bias)
+    BorderType, PixelType, ResamplingType, dense_image_warp, flow_warp_origin,
+    ref_points, rpe_bias, sample)
 from strajnet_tpu_torch.config import (  # noqa: E402
     STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_OGM_TASK_CONFIG,
     WAYMO_TASK_CONFIG, LossConfig, TrainConfig)
@@ -149,13 +159,16 @@ from strajnet_tpu_torch.train.state import create_train_state  # noqa: E402
 from strajnet_tpu_torch.train.step import (  # noqa: E402
     ensure_f32, make_eval_step, make_predict_step, make_train_step,
     zero_loss_sums)
+from strajnet_tpu_torch.tools import (  # noqa: E402
+    bench, graft_entry, probe_forward_modes, profile_parts)
+# K1 .. K7 in COUNTERS' order, the order of the kernels line
+from strajnet_tpu_torch.tools.timing import (  # noqa: E402
+    COUNTERS, bound, cuda_ms, gpu_identity, kernel_ms, read_counters,
+    reset_counters)
 
 BATCH = 16
 KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather",
                   "window_attention", "decoder_tail")
-# Published peaks of one H100 SXM: bf16 dense tensor-core rate and HBM rate.
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 # K1 vs its plain version, both bf16 with f32 accumulation but rounding at
 # different points: at most 4 bf16 ulps of the largest output, and 1 - cos
 # at bf16 noise level.
@@ -233,7 +246,7 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
 PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
-          "ddp", "preprocess")
+          "ddp", "preprocess", "tools")
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -269,43 +282,6 @@ def check(ok: bool, what: str) -> None:
 def one_minus_cos(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return 1.0 - float((a @ b) / (a.norm() * b.norm()))
-
-
-# Clock cycles the card idles per timed launch while the host enqueues
-# (about 1 ms at the H100's clock): see cuda_ms.
-AHEAD_CYCLES = 2_000_000
-
-
-def cuda_ms(fn, iters: int = 20, ahead: bool = False) -> float:
-    """Mean ms of ``fn`` over ``iters`` runs by CUDA events, after one
-    warm-up. With ``ahead`` the card first sleeps while the host enqueues
-    all the runs, so that the reading is the device's time alone: a kernel
-    of 0.1 ms is otherwise paced by its wrapper's host work."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if ahead:
-        torch.cuda._sleep(AHEAD_CYCLES * iters)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_ms(fn, iters: int = 20) -> float:
-    """The device's time of one run of ``fn`` (a kernel, its plain version
-    or a PyTorch call), host work between runs hidden."""
-    return cuda_ms(fn, iters, ahead=True)
-
-
-def bound(flops: float, nbytes: float):
-    """(least ms on the card, which of the two rates sets it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes")
 
 
 def block_work(h: int, c: int, heads: int, shift: int, backward: bool):
@@ -963,21 +939,6 @@ def forward(model, b):
                  flow=b["vec_flow"])
 
 
-# K1 .. K7, in the order of the kernels line
-COUNTERS = dict(k1=swin_block, k2=swin_block_bwd, k3=wa.window_attention,
-                k4=wa.window_attention_bwd, k5=warp_gather_fwd,
-                k6=warp_gather_bwd, k7=decoder_tail)
-
-
-def reset_counters() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
-
-
-def read_counters():
-    return tuple(fn.launches for fn in COUNTERS.values())
-
-
 def counts(**launches):
     """A counter reading with the named kernels' launches and 0 elsewhere."""
     unknown = set(launches) - set(COUNTERS)
@@ -1131,14 +1092,7 @@ def fresh_train_state(mode, remat=False, base=STRAJNET_CONFIG):
     step from the init itself does."""
     cfg = dataclasses.replace(base, use_pallas_attention=mode,
                               remat_encoder=remat)
-    state = create_train_state(cfg, TrainConfig(batch_size=BATCH),
-                               torch.Generator().manual_seed(0), "cuda")
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for name, p in state.model.named_parameters():
-            if name.endswith("bias"):
-                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
-    return state, cfg
+    return bench.train_state(cfg, BATCH, "cuda"), cfg
 
 
 def _first_step(mode, batch, remat=False, base=STRAJNET_CONFIG):
@@ -2427,6 +2381,135 @@ def preprocess_phase() -> None:
           f"{sum(vector_ms) / len(vector_ms):.1f} ms/scenario")
 
 
+# The tools phase: the bench's repeats and iterations, the probe's
+# combinations and rounds, the parts profile's iterations.
+TOOLS_BENCH = dict(repeats=3, iters=5)
+TOOLS_PROBE = dict(tails=("xla", "infer"), modes=("block", "attn"),
+                   batches=(BATCH,), rounds=3)
+TOOLS_PARTS_ITERS = 10
+# Launches per call of each bench phase, and per forward of each probe mode
+# and tail.
+BENCH_LAUNCHES = {"forward": dict(k1=8), "train": dict(k1=8, k2=8, k5=1)}
+PROBE_LAUNCHES = {"block": dict(k1=8), "attn": dict(k3=8),
+                  "xla": {}, "infer": dict(k7=2)}
+# sample and dense_image_warp, card against CPU, f32: the same operations
+# in the same order, so only the last bit of a blend may differ.
+SAMPLE_MAX_ABS = 1e-6
+
+
+def check_spread(what: str, s: dict) -> None:
+    vals = (s["min"], s["median"], s["max"])
+    check(all(np.isfinite(v) for v in vals) and vals[0] <= vals[1] <= vals[2],
+          f"{what}: min <= median <= max, all finite, got {vals}")
+
+
+def check_sampling_on_card() -> None:
+    """``sample``'s eight option combinations and ``dense_image_warp`` on
+    the card against the CPU, f32, on seeded warps with out-of-range
+    points and exact .5 ties."""
+    g = torch.Generator().manual_seed(0)
+    image = torch.rand(4, 64, 48, 3, generator=g)
+    warp = torch.rand(4, 40, 30, 2, generator=g) * 80.0 - 10.0
+    warp[:, ::3] = torch.round(warp[:, ::3]) + 0.5
+    flow = torch.randn(4, 64, 48, 2, generator=g) * 6.0
+    worst = 0.0
+    for r in ResamplingType:
+        for b in BorderType:
+            for p in PixelType:
+                cpu = sample(image, warp, r, b, p)
+                card = sample(image.cuda(), warp.cuda(), r, b, p).cpu()
+                check(card.shape == cpu.shape, f"sample {r} {b} {p} shape")
+                worst = max(worst, float((card - cpu).abs().max()))
+    err = float((dense_image_warp(image.cuda(), flow.cuda()).cpu()
+                 - dense_image_warp(image, flow)).abs().max())
+    print(f"sample, 8 option combinations, card vs CPU: max abs err {worst}; "
+          f"dense_image_warp {err}")
+    check(max(worst, err) <= SAMPLE_MAX_ABS,
+          f"sample / dense_image_warp card vs CPU {max(worst, err)} <= "
+          f"{SAMPLE_MAX_ABS}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (a transposed convolution may
+    otherwise sum with atomics), for the comparisons bit for bit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def tools_phase():
+    """The measuring tools on the card: the bench, the forward-mode probe,
+    the parts profile and the graft entry; ``spatial_shard`` as the
+    identity; ``sample``'s options and ``dense_image_warp``. Returns every
+    launch of K1 .. K7 the phase made (the tools' warm-ups and the parts
+    profile's runs included)."""
+    t0 = time.perf_counter()
+    reset_counters()
+    result = bench.run(STRAJNET_CONFIG, "cuda", budget_s=600.0,
+                       **TOOLS_BENCH)
+    check(not result["skipped"], f"every bench phase ran: {result}")
+    for name, line in result["phases"].items():
+        check_spread(f"bench {name} ms", line["ms"])
+        check_spread(f"bench {name} scenes/s", line["scenes_per_s"])
+        check(0.0 < line["mfu"] <= 1.05, f"bench {name} mfu {line['mfu']}")
+        per_call = BENCH_LAUNCHES[line["phase"]]
+        want = {k: line["calls"] * per_call.get(k, 0) for k in COUNTERS}
+        check(line["launches"] == want,
+              f"bench {name} launches {line['launches']}, want {want}")
+    check(result["phases"][f"train@{bench.TRAIN_BATCH}"]["loss_sum_finite"],
+          "bench training losses finite")
+
+    probe = probe_forward_modes.run(STRAJNET_CONFIG, "cuda", **TOOLS_PROBE)
+    for key, row in probe.items():
+        tail, mode, _ = key.split("/")
+        check_spread(f"probe {key} ms", row["ms"])
+        want = dict(k1=0, k3=0, k7=0)
+        want.update(PROBE_LAUNCHES[mode])
+        want.update(PROBE_LAUNCHES[tail])
+        check(row["launches_per_forward"] == want,
+              f"probe {key} launches {row['launches_per_forward']}, "
+              f"want {want}")
+
+    parts = profile_parts.run(STRAJNET_CONFIG, "cuda", BATCH,
+                              TOOLS_PARTS_ITERS, profile_parts.COARSE)
+    for part, row in parts.items():
+        check(all(np.isfinite(row[k]) and row[k] > 0
+                  for k in ("ms", "device_ms", "flops")),
+              f"part {part}: {row}")
+
+    state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))
+    with torch.inference_mode(), deterministic_cudnn():
+        fn, args = graft_entry.entry()
+        y_entry = fn(*args)
+        model = bench.load_model(STRAJNET_CONFIG, state, "cuda")
+        y_model = model(*args[1:])
+        check(torch.equal(y_entry, y_model),
+              "entry()'s forward equals STrajNet(STRAJNET_CONFIG)'s")
+        del fn, args
+        inputs = bench.model_inputs(STRAJNET_CONFIG, BATCH, "cuda")
+        sharded = bench.load_model(
+            dataclasses.replace(STRAJNET_CONFIG, spatial_shard=True), state,
+            "cuda")
+        y = model(**inputs)
+        y_sharded = sharded(**inputs)
+        check(torch.equal(y, y_sharded) and bool(torch.isfinite(y).all()),
+              "the flagship forward with spatial_shard equals the one "
+              "without")
+    print(f"entry() forward {tuple(y_entry.shape)} equals the module's; "
+          f"spatial_shard=True forward [{BATCH}, ...] equals the one without")
+    del model, sharded, y, y_sharded, y_entry
+    check_sampling_on_card()
+    torch.cuda.empty_cache()
+    launches = read_counters()
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s; launches K1-K7 "
+          f"{launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2450,9 +2533,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = gpu_identity()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
@@ -2564,6 +2645,8 @@ def main(argv=None) -> int:
         add_launches(ddp_phase())
     if "preprocess" in phases:
         preprocess_phase()
+    if "tools" in phases:
+        add_launches(tools_phase())
 
     print(smi)
     print(json.dumps({"kernels": [

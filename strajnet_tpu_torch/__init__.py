@@ -18,8 +18,12 @@ CPU tensors take and a launch counter.
 - ``data``      synthetic batches, the TFRecord schema and host pipeline,
                 the WOMD rasterizer and the offline preprocessor
 - ``infer``     batch inference and the challenge submission writer
-- ``interop``   Flax parameter trees and Nadam state -> ``state_dict``
+- ``interop``   Flax parameter trees and Nadam state -> ``state_dict``; the
+                reference's Keras checkpoints -> ``state_dict``
 - ``parallel``  data-parallel training over ranks (DDP)
+- ``tools``     the bench, the forward-mode probe, the per-part profile,
+                the graft entry, the Keras-checkpoint import CLI, and the
+                timing helpers they and ``chip_smoke.py`` share
 
 This package imports no JAX, Flax or optax and nothing of ``strajnet_tpu``:
 it keeps its own copy of every module it needs. Only the tests import both.

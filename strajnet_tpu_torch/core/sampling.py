@@ -1,11 +1,14 @@
 """Bilinear image sampling with challenge-parity semantics.
 
-Counterpart of ``strajnet_tpu/core/sampling.py`` (``interpolate_bilinear``,
-``sample``, ``identity_warp_indices``, ``flow_warp_origin``): TF-Addons
-bilinear interpolation, where floor indices are
-clamped to ``[0, size-2]`` and weights to ``[0, 1]``; ``PixelType.INTEGER``
-puts pixel centres on integral coordinates; ``BorderType.ZERO`` pads one zero
-pixel on each side and shifts the warp by +1.
+Counterpart of ``strajnet_tpu/core/sampling.py`` (``ResamplingType``,
+``BorderType``, ``PixelType``, ``interpolate_bilinear``, ``sample``,
+``dense_image_warp``, ``identity_warp_indices``, ``flow_warp_origin``):
+TF-Addons bilinear interpolation, where floor indices are clamped to
+``[0, size-2]`` and weights to ``[0, 1]``; ``PixelType.INTEGER`` puts pixel
+centres on integral coordinates, ``HALF_INTEGER`` shifts the warp by -0.5
+first; ``ResamplingType.NEAREST`` rounds the warp, half to even;
+``BorderType.ZERO`` pads one zero pixel on each side and shifts the warp by
++1, ``DUPLICATE`` pads nothing and leaves the edge to the clamps.
 
 :func:`rpe_bias` is FG-MSA's continuous relative-position bias in its
 general form (a reference that is not the query grid, or unbounded offsets),
@@ -17,8 +20,25 @@ offsets are bounded, FG-MSA takes ``ops/rpe_window.py`` instead, as JAX does.
 
 from __future__ import annotations
 
+import enum
+
 import torch
 import torch.nn.functional as F
+
+
+class ResamplingType(enum.Enum):
+    NEAREST = 0
+    BILINEAR = 1
+
+
+class BorderType(enum.Enum):
+    ZERO = 0
+    DUPLICATE = 1
+
+
+class PixelType(enum.Enum):
+    INTEGER = 0
+    HALF_INTEGER = 1
 
 
 def interpolate_bilinear(grid: torch.Tensor, query_points: torch.Tensor,
@@ -61,11 +81,18 @@ def interpolate_bilinear(grid: torch.Tensor, query_points: torch.Tensor,
     return alphas[0] * (interp_bottom - interp_top) + interp_top
 
 
-def sample(image: torch.Tensor, warp: torch.Tensor) -> torch.Tensor:
-    """Samples ``image`` [B, H, W, C] at (x, y) ``warp`` [B, ..., 2].
+def sample(image: torch.Tensor, warp: torch.Tensor,
+           resampling_type: ResamplingType = ResamplingType.BILINEAR,
+           border_type: BorderType = BorderType.ZERO,
+           pixel_type: PixelType = PixelType.INTEGER) -> torch.Tensor:
+    """Samples ``image`` [B, H, W, C] at (x, y) ``warp`` [B, ..., 2]
+    (x indexes the width). Returns [B, ..., C].
 
-    BILINEAR resampling, ZERO border, INTEGER pixels: the only mode any call
-    site of the reference uses. Returns [B, ..., C].
+    The defaults, BILINEAR resampling, ZERO border and INTEGER pixels, are
+    the only mode any call site of the reference uses. The other options
+    apply in this order: the half-integer shift, the rounding
+    (``torch.round`` rounds half to even, as ``jnp.round`` does), then the
+    zero pad and the +1.
     """
     if image.dim() != 4:
         raise ValueError(f"image must be rank 4, got {image.dim()}")
@@ -74,11 +101,31 @@ def sample(image: torch.Tensor, warp: torch.Tensor) -> torch.Tensor:
                          f"{tuple(warp.shape)}")
     if image.shape[0] != warp.shape[0]:
         raise ValueError("image and warp batch dimensions must match")
-    image = F.pad(image, (0, 0, 1, 1, 1, 1))
-    warp = warp + 1.0
+    if pixel_type == PixelType.HALF_INTEGER:
+        warp = warp - 0.5
+    if resampling_type == ResamplingType.NEAREST:
+        warp = torch.round(warp)
+    if border_type == BorderType.ZERO:
+        image = F.pad(image, (0, 0, 1, 1, 1, 1))
+        warp = warp + 1.0
     b = warp.shape[0]
     flat = interpolate_bilinear(image, warp.reshape(b, -1, 2), indexing="xy")
     return flat.reshape(warp.shape[:-1] + (image.shape[-1],))
+
+
+def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Per-pixel backward warp (TF-Addons ``dense_image_warp``):
+    ``out[b, j, i] = image[b, j - flow[b, j, i, 0], i - flow[b, j, i, 1]]``,
+    bilinear, the edges clamped. The (row, col) queries are made in the
+    flow's dtype."""
+    b, h, w, c = image.shape
+    grid_y, grid_x = torch.meshgrid(torch.arange(h, device=flow.device),
+                                    torch.arange(w, device=flow.device),
+                                    indexing="ij")
+    stacked = torch.stack([grid_y, grid_x], dim=-1).to(flow.dtype)
+    query = (stacked[None] - flow).reshape(b, h * w, 2)
+    return interpolate_bilinear(image, query, indexing="ij").reshape(
+        b, h, w, c)
 
 
 def ref_points(h: int, w: int, dtype=torch.float32,

@@ -7,9 +7,7 @@ actors (and the centerlines, ``actor_only=False``) -> 3D pyramid decoder ->
 waypoint-major output ``[B, H, W, T*4]`` (channel ``k*4 + {0: observed,
 1: occluded, 2: dx, 3: dy}``), f32.
 
-Every flag of ``ModelConfig`` is ported but ``spatial_shard`` (a sharding
-hint for a TPU mesh), which raises NotImplementedError: the encoder wirings
-(``sep_encode``, ``flow_sep``, ``use_flow``, ``no_map``, ``large_input``,
+Every flag of ``ModelConfig`` is ported: the encoder wirings (``sep_encode``, ``flow_sep``, ``use_flow``, ``no_map``, ``large_input``,
 ``ape``, ``patch_norm``), the fusion (``actor_only``, ``sep_actors``),
 FG-MSA (``fg_msa``, ``fg``, ``deform_kv``) and the decoder
 (``use_pyramid``, ``flow_sep_decode``, ``conv_cnn``, ``sep_conv``,
@@ -18,7 +16,10 @@ drop-path noise from an explicit generator). A variant is
 ``dataclasses.replace(STRAJNET_CONFIG, ...)``. Where the JAX package cannot
 run a combination of flags (shapes that do not meet, a flow branch that is
 not there), the port raises too, at construction or in the forward. As in
-the JAX package, ``fg`` is ignored without ``fg_msa``.
+the JAX package, ``fg`` is ignored without ``fg_msa``. ``spatial_shard``
+computes nothing: in JAX it adds sharding hints over a mesh's ``'model'``
+axis, which return their input unchanged without a mesh, and the port runs
+no such axis (``train/loop.py`` refuses ``model_axis`` > 1).
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ from strajnet_tpu_torch.models.fgmsa import FGMSA
 from strajnet_tpu_torch.models.swin import SwinTransformerEncoder
 from strajnet_tpu_torch.models.trajnet import TrajNetCrossAttention
 from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
-
-# Flags the port implements only at these values.
-_PORTED_FLAGS = dict(spatial_shard=False)
-
 
 # The CLIs' --pallas choices (besides "auto") -> use_pallas_attention.
 PALLAS_MODES = {"off": False, "attn": "attn", "block": "block",
@@ -81,12 +78,6 @@ def resolve_kernel_knobs(cfg: ModelConfig):
 class STrajNet(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        off = {k: getattr(cfg, k) for k, v in _PORTED_FLAGS.items()
-               if getattr(cfg, k) != v}
-        if off:
-            raise NotImplementedError(
-                f"STrajNet flags {off} are not ported: spatial sharding "
-                f"over a mesh has no counterpart on one card (ROADMAP.md)")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         kernel_mode, tail_mode = resolve_kernel_knobs(cfg)

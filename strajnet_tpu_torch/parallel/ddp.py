@@ -24,8 +24,8 @@ batch, and these pieces keep the global batch's numbers:
 
 Without a process group, :func:`rank` is 0, :func:`world_size` is 1 and
 every helper here does nothing, so one process runs as before. Tensor
-parallelism (the mesh's ``'model'`` axis) and ``spatial_shard`` are not
-ported.
+parallelism (the mesh's ``'model'`` axis) is not ported, so ``spatial_shard``
+is the identity, as in JAX without a mesh.
 """
 
 from __future__ import annotations

@@ -166,8 +166,8 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     if model_axis != 1:
         raise ValueError(
             f"model_axis={model_axis}: the port trains data-parallel only; "
-            f"tensor parallelism and spatial_shard are still to be ported "
-            f"(ROADMAP.md §1, queue 1 item 3)")
+            f"tensor parallelism and spatial_shard over a 'model' axis are "
+            f"still to be ported (ROADMAP.md §1, tensor parallelism)")
     device = resolve_device(device)
     ranks, me = world_size(), rank()
     if train_cfg.batch_size % ranks != 0:

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package.
 
-Walks every source file of ``strajnet_tpu_torch`` and ``chip_smoke.py`` with
-``ast``; checks that the package imports where neither ``triton`` nor ``nvcc``
+Walks every source file of ``strajnet_tpu_torch``, ``chip_smoke.py`` and the
+port's scripts under ``tools/`` with ``ast``; checks that the package imports where neither ``triton`` nor ``nvcc``
 exists; that the port's own copies of the framework-free modules still agree
 with the JAX package's; and that the entry points run on the card unless told
 otherwise.
@@ -12,6 +12,7 @@ import dataclasses
 import importlib
 import os
 import pkgutil
+import re
 import shutil
 
 import numpy as np
@@ -24,11 +25,17 @@ import strajnet_tpu_torch.config as tconfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "chex", "strajnet_tpu")
+# The port's scripts under tools/, beside the JAX package's.
+PORT_SCRIPTS = ("profile_train_step_gpu.py", "profile_loop_gpu.py",
+                "swin_block_bwd_phases.py")
+# Numbers of the TPU and A100 rounds, which are not the port's.
+FOREIGN_NUMBERS = ("197e12", "1365e9", "293.0")
 
 
 def _port_sources():
     root = os.path.join(REPO, "strajnet_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in PORT_SCRIPTS]
     for dirpath, _, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -60,11 +67,19 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 def test_file_imports_only_the_port_torch_numpy_and_stdlib(path):
     """Per file: beyond the standard library, only torch, numpy, the port
     itself and (lazily, to read real shards) tensorflow; the map raster
-    also (lazily) matplotlib, which draws it."""
+    also (lazily) matplotlib, which draws it; the Keras import also (lazily)
+    tf_keras, which builds the reference model; the scripts under ``tools/``
+    also ``chip_smoke``, whose helpers they share."""
     import sys
     allowed = {"torch", "numpy", "strajnet_tpu_torch", "tensorflow"}
     if path == os.path.join("strajnet_tpu_torch", "data", "map_raster.py"):
         allowed.add("matplotlib")
+    if path in (os.path.join("strajnet_tpu_torch", "interop", "refload.py"),
+                os.path.join("strajnet_tpu_torch", "interop",
+                             "ref_import.py")):
+        allowed.add("tf_keras")
+    if path.startswith("tools" + os.sep):
+        allowed.add("chip_smoke")
     for name, line in _imports(os.path.join(REPO, path)):
         top = name.split(".")[0]
         assert top in allowed or top in sys.stdlib_module_names, (path, line,
@@ -83,7 +98,11 @@ def test_package_imports_without_triton_or_nvcc():
                    "objective.pr_auc", "infer.evaluate", "train.loop",
                    "train.checkpoints", "parallel.ddp", "core.grid",
                    "core.libm", "data.raster", "data.preprocess",
-                   "data.womd", "data.vectorize", "data.map_raster"):
+                   "data.womd", "data.vectorize", "data.map_raster",
+                   "core.sampling", "tools.timing", "tools.bench",
+                   "tools.probe_forward_modes", "tools.profile_parts",
+                   "tools.graft_entry", "tools.import_ref_weights",
+                   "interop.ref_import", "interop.refload"):
         assert f"strajnet_tpu_torch.{expect}" in mods
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
@@ -289,3 +308,79 @@ def test_preprocessor_copies_equal_their_originals(name):
             return f.read()
     assert source("strajnet_tpu_torch") == source("strajnet_tpu").replace(
         "strajnet_tpu.", "strajnet_tpu_torch.")
+
+
+def test_no_source_of_the_port_states_a_tpu_or_a100_number():
+    """The JAX bench's v5e peak, its FLOP count taken from a TPU compile and
+    its A100-derived yardstick do not cross over."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        bad += [(os.path.relpath(path, REPO), n) for n in FOREIGN_NUMBERS
+                if n in text]
+    assert bad == []
+
+
+def test_keras_import_tables_equal_the_jax_package():
+    """The port's copies of the mapping tables and of the name mapping."""
+    from strajnet_tpu.interop import ref_import as ref
+    from strajnet_tpu_torch.interop import ref_import as ours
+    assert ours._DUP_MAP == ref._DUP_MAP
+    assert ours._SKIP == ref._SKIP
+    assert ours._EXPLICIT_HEAD.pattern == ref._EXPLICIT_HEAD.pattern
+    assert ours.trajnet_order() == ref.trajnet_order()
+    assert ours.trajnet_order(3) == ref.trajnet_order(3)
+    probe = np.arange(8 * 2 * 3, dtype=np.float32).reshape(8, 1, 1, 2, 3)
+    for a, b in ((ours.fgmsa_order(), ref.fgmsa_order()),
+                 (ours.decoder_order(), ref.decoder_order())):
+        assert [p for p, _ in a] == [p for p, _ in b]
+        for (_, fa), (_, fb) in zip(a, b):
+            assert (fa is None) == (fb is None)
+            if fa is not None:
+                np.testing.assert_array_equal(fa(probe), fb(probe))
+    names = ["swin_transformer_encoder/patch_embed/proj/kernel:0",
+             "a/patch_embed/proj/kernel:0", "patch_embed/norm/gamma:0",
+             "b/all_norm/gamma:0", "c/d/all_norm/beta:0", "all_norm/gamma:0",
+             "basic_layer_2/flow_layers0/blocks1/attn/qkv/kernel:0",
+             "basic_layer/layers2/downsample/norm/beta:0"]
+    seen_a, seen_b = {}, {}
+    assert ([ours.keras_name_to_flax_path(n, seen_a) for n in names]
+            == [ref.keras_name_to_flax_path(n, seen_b) for n in names])
+
+
+def test_reference_loader_copy_equals_its_original():
+    """``interop/refload.py`` is the JAX package's with no default for the
+    reference's source directory: every caller names it."""
+    def source(package):
+        with open(os.path.join(REPO, package, "interop", "refload.py")) as f:
+            return f.read()
+    theirs = re.sub(r"\nDEFAULT_REF_DIR = .*\n", "\n", source("strajnet_tpu"))
+    assert source("strajnet_tpu_torch") == theirs.replace(
+        "fg=True,\n", "fg=True, *,\n").replace(": str = DEFAULT_REF_DIR",
+                                                ": str")
+
+
+@pytest.mark.parametrize("module", ["strajnet_tpu_torch.tools.bench",
+                                    "strajnet_tpu_torch.tools.profile_parts",
+                                    "strajnet_tpu_torch.interop.ref_import",
+                                    "strajnet_tpu_torch.tools."
+                                    "import_ref_weights"])
+def test_tools_and_keras_import_load_no_jax_or_tensorflow(module):
+    """In a fresh interpreter: the tools and the Keras import load neither
+    JAX nor TensorFlow (the import loads TensorFlow when it builds the
+    reference model)."""
+    assert _modules_loaded_by_import(
+        module, ("jax", "flax", "tensorflow", "tf_keras")) == []
+
+
+def test_tools_default_to_the_card_and_raise_without_one():
+    from strajnet_tpu_torch.tools import (bench, graft_entry,
+                                          probe_forward_modes, profile_parts)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    for main in (bench.main, probe_forward_modes.main, profile_parts.main):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main([])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        graft_entry.entry()

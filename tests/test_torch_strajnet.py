@@ -262,9 +262,27 @@ def test_kernel_knobs():
                dict(use_pallas_decoder_tail="fused")):
         with pytest.raises(ValueError):
             resolve_kernel_knobs(dataclasses.replace(CFG, **kw))
-    # the one flag left unported: a sharding hint for a TPU mesh
-    with pytest.raises(NotImplementedError):
-        STrajNet(dataclasses.replace(CFG, spatial_shard=True))
+
+
+def test_spatial_shard_forward_equals_the_one_without(case):
+    """``spatial_shard`` is a sharding hint over a mesh's ``'model'`` axis,
+    the identity without one: on the CPU in f32 the forward with the flag
+    is the forward without it, bit for bit."""
+    _, params, batch = case
+    plain = _torch_forward(_torch_model(CFG, params), batch)
+    sharded = _torch_forward(_torch_model(
+        dataclasses.replace(CFG, spatial_shard=True), params), batch)
+    np.testing.assert_array_equal(sharded, plain)
+
+
+def test_spatial_shard_forward_matches_jax_with_the_flag(case):
+    """The JAX model with the flag (its hints return their input without a
+    mesh) against the port's with it."""
+    _, params, batch = case
+    cfg = dataclasses.replace(CFG, spatial_shard=True)
+    ref = _jax_forward(cfg, params, batch)
+    ours = _torch_forward(_torch_model(cfg, params), batch)
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("flags", [dict(fg_msa=False, fg=False),

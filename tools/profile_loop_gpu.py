@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -45,6 +44,7 @@ from strajnet_tpu_torch.config import (  # noqa: E402
 from strajnet_tpu_torch.data.pipeline import prefetch_to_device  # noqa: E402
 from strajnet_tpu_torch.train.step import (  # noqa: E402
     make_train_step, zero_loss_sums)
+from strajnet_tpu_torch.tools.timing import gpu_identity  # noqa: E402
 
 
 def run(state, step, feed, noise):
@@ -83,9 +83,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device; none is available", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(gpu_identity())
     _build.build_all(cs.KERNEL_SOURCES)
     cfg = STRAJNET_CONFIG
     batches = [cs.compact_feed(b) for b in

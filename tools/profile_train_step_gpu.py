@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -39,6 +38,7 @@ from strajnet_tpu_torch.objective.loss import (  # noqa: E402
     OGMFlowLoss, split_pred_waypoints, true_waypoints_from_batch)
 from strajnet_tpu_torch.train.step import (  # noqa: E402
     _forward, ensure_f32, make_train_step)
+from strajnet_tpu_torch.tools.timing import gpu_identity  # noqa: E402
 
 LINES = []
 # (row of the summary, what the kernel's name contains)
@@ -168,9 +168,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True).stdout.strip())
+    say(gpu_identity())
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     cs._build.build_all(cs.KERNEL_SOURCES)
     keys = cs.MODEL_KEYS + ("gt_obs_ogm", "gt_occ_ogm", "gt_flow",

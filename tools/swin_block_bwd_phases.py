@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 import sys
 
 import torch
@@ -34,6 +33,7 @@ from strajnet_tpu_torch.ops import decoder_tail as dtl  # noqa: E402
 from strajnet_tpu_torch.ops import swin_block as sb  # noqa: E402
 from strajnet_tpu_torch.ops import window_attention as wa  # noqa: E402
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
+from strajnet_tpu_torch.tools.timing import gpu_identity  # noqa: E402
 
 K2_PHASES = ("attention half, recomputed", "dz2", "MLP epilogue (gelu, dz1)",
              "dh2", "LN2 backward", "d(merged) and heads", "dh1",
@@ -184,9 +184,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(gpu_identity())
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DSWIN_PHASE_CLOCKS",)
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, fn in (("k2", swin_block_bwd_phases),
