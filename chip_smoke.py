@@ -81,9 +81,21 @@ raises and the script exits non-zero. The last line is a JSON object naming
 the device; the line before it lists each kernel with its launches on those
 paths, its error against the plain version, its times and its bound.
 
+Phase ``tp``, tensor parallelism (``parallel/mesh.py``): two ``gloo`` rank
+processes on this card on a 1 x 2 ``('data', 'model')`` mesh take the
+flagship step at batch 16 (K1 8, K2 8 and K5 1 on each rank; K3 8 and K4 8
+in the ``"attn"`` mode) and an eval step (K1 8, K5 2) against one process on
+the same batches (loss, terms, metrics, whole gradient), and after four
+steps the replicated parameters are bit-equal on both ranks; the forward
+with ``spatial_shard`` is bit-equal to the one without and its hinted
+activations are recorded with their split over ``'model'``; each rank's ms
+per step, peak memory and the bytes moved over each axis beside one
+process's; then
+``tools/graft_entry.py::dryrun_multichip`` over four ranks on a 2 x 2 mesh.
+
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
-variants, ddp, preprocess, tools) while developing; with no arguments every phase
-runs.
+variants, ddp, tp, preprocess, tools) while developing; with no arguments
+every phase runs.
 """
 
 from __future__ import annotations
@@ -150,6 +162,7 @@ from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     warp_gather_bwd, warp_gather_fwd)
 from strajnet_tpu_torch.ops.rpe_window import rpe_window_bias  # noqa: E402
 from strajnet_tpu_torch.ops.windows import shifted_window_mask  # noqa: E402
+from strajnet_tpu_torch.parallel import mesh as tp  # noqa: E402
 from strajnet_tpu_torch.parallel.ddp import (  # noqa: E402
     allreduce_sum_hook, destroy, init_distributed, unwrap)
 from strajnet_tpu_torch.train.checkpoints import (  # noqa: E402
@@ -246,7 +259,7 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
 PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
-          "ddp", "preprocess", "tools")
+          "ddp", "tp", "preprocess", "tools")
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -1926,20 +1939,25 @@ def ddp_rank(rank: int, directory: str) -> None:
         destroy()
 
 
-def run_ranks(directory: str):
-    """Starts the ``DDP_RANKS`` rank processes (:func:`ddp_rank`) and waits
-    for them, each within ``DDP_RANK_TIMEOUT_S``; a rank that fails or
-    hangs fails the phase. Returns their results and seconds."""
+def run_ranks(directory: str, ranks: int = None, flag: str = "--ddp",
+              timeout_s: float = None):
+    """Starts the rank processes (``ranks``, default ``DDP_RANKS``, of
+    :func:`ddp_rank`, or of :func:`tp_rank` with ``flag="--tp"``) and waits
+    for them, each within ``timeout_s`` (default ``DDP_RANK_TIMEOUT_S``); a
+    rank that fails or hangs fails the phase. Returns their results and
+    seconds."""
+    ranks = DDP_RANKS if ranks is None else ranks
+    timeout_s = DDP_RANK_TIMEOUT_S if timeout_s is None else timeout_s
     t0 = time.perf_counter()
     logs = [open(os.path.join(directory, f"rank{r}.log"), "w")
-            for r in range(DDP_RANKS)]
+            for r in range(ranks)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
-         "--ddp-dir", directory], stdout=log, stderr=subprocess.STDOUT)
+        [sys.executable, os.path.abspath(__file__), flag + "-rank", str(r),
+         flag + "-dir", directory], stdout=log, stderr=subprocess.STDOUT)
         for r, log in enumerate(logs)]
     try:
         for p in procs:
-            p.wait(timeout=DDP_RANK_TIMEOUT_S)
+            p.wait(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -1954,9 +1972,9 @@ def run_ranks(directory: str):
             with open(os.path.join(directory, f"rank{r}.log")) as f:
                 print(f.read()[-6000:])
         check(p.returncode == 0,
-              f"rank {r} of {DDP_RANKS} exited with {p.returncode}")
+              f"rank {r} of {ranks} exited with {p.returncode}")
     return ([torch.load(os.path.join(directory, f"rank{r}.pt"),
-                        weights_only=False) for r in range(DDP_RANKS)],
+                        weights_only=False) for r in range(ranks)],
             time.perf_counter() - t0)
 
 
@@ -2158,6 +2176,289 @@ def ddp_phase():
         add(r["train_launches"])
         add(r["val_launches"])
     add(check_decoder_layer())
+    torch.cuda.empty_cache()
+    return total
+
+
+TP_RANKS = 2
+TP_RANK_TIMEOUT_S = 600
+TP_TIMED_STEPS = 3
+TP_DRYRUN_DEVICES = 4
+# The step on a 1 x 2 mesh against one process on the same batch, bf16:
+# the Swin blocks run the same kernels on the same inputs, but TrajNet's
+# head-parallel attention and its row-parallel FFN round their partial
+# sums to bf16 before the sum over 'model', so the order of bf16 additions
+# changes there. Total loss relative, whole gradient 1 - cos, each loss term
+# and val metric relative (the eval path's limits).
+TP_LOSS_RTOL = 1e-4
+TP_GRAD_ONE_MINUS_COS = 1e-4
+TP_TERM_RTOL = 2e-3
+
+
+def _whole_grads(model):
+    """The flat gradient of ``model`` with each sharded parameter's gathered
+    whole over 'model' (a collective: both ranks call it)."""
+    flat = []
+    for p in unwrap(model).parameters():
+        dim = tp.placement(p)
+        g = p.grad if dim is None else tp.all_gather(p.grad, dim, tp.MODEL)
+        flat.append(g.flatten().float())
+    return torch.cat(flat)
+
+
+def _replicated_agree(model) -> bool:
+    """Whether every parameter not split over 'model' is bit-equal on the
+    peers along 'model' (a collective: both ranks call it)."""
+    flat = torch.cat([p.detach().flatten() for p in unwrap(model).parameters()
+                      if tp.placement(p) is None])
+    peers = tp.all_gather(flat[None], 0, tp.MODEL)
+    return bool((peers == peers[0]).all())
+
+
+def tp_rank(rank: int, directory: str) -> None:
+    """One of the ``tp`` phase's rank processes (``--tp-rank``): joins a
+    ``gloo`` group of ``TP_RANKS`` on this card, builds a 1 x TP_RANKS
+    ``('data', 'model')`` mesh, and on it evaluates one val batch and takes
+    one training step at batch 16 in the default mode and one in the
+    ``"attn"`` mode (launches, losses, metrics, the whole gradient, the
+    bytes moved over each axis), times ``TP_TIMED_STEPS`` more default
+    steps and then holds the replicated parameters bit-equal across the
+    ranks, and runs the forward with and without ``spatial_shard``."""
+    init_distributed("cuda:0", backend="gloo",
+                     init_method="file://" + os.path.join(directory, "store"),
+                     rank=rank, world_size=TP_RANKS)
+    try:
+        mesh = tp.create_mesh(TP_RANKS, "cuda")
+        cfg = STRAJNET_CONFIG
+        batch = eval_inputs(cfg, (600,))[0]
+        batch = to_device(batch, tuple(batch))
+        val = eval_inputs(cfg, (601,))[0]
+        val = to_device(val, tuple(val))
+        result = dict(coord=tuple(mesh.get_coordinate()))
+        with tp.use_mesh(mesh):
+            for mode in (None, "attn"):
+                state, _ = fresh_train_state(mode)
+                check(type(state.model).__name__ == "STrajNet",
+                      "a data axis of one rank runs no DDP")
+                step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
+                                       cfg.num_waypoints)
+                got = {}
+                if mode is None:
+                    eval_step = make_eval_step(WAYMO_TASK_CONFIG,
+                                               LossConfig(),
+                                               cfg.num_waypoints)
+                    state.model.eval()
+                    reset_counters()
+                    losses, metrics = eval_step(state.model, val)
+                    torch.cuda.synchronize()
+                    got.update(val_launches=read_counters(),
+                               val_losses={k: float(v)
+                                           for k, v in losses.items()},
+                               val_metrics={k: float(v)
+                                            for k, v in metrics.items()})
+                    state.model.train()
+                noise = torch.Generator(device="cuda").manual_seed(0)
+                before = dict(tp.collective_bytes)
+                torch.cuda.reset_peak_memory_stats()
+                reset_counters()
+                state, losses = step(state, batch, noise)
+                torch.cuda.synchronize()
+                got.update(
+                    launches=read_counters(),
+                    losses={k: float(v) for k, v in losses.items()},
+                    moved={k: tp.collective_bytes[k] - before[k]
+                           for k in before},
+                    split=sum(tp.placement(p) is not None
+                              for p in state.model.parameters()))
+                grads = _whole_grads(state.model)
+                check(bool(torch.isfinite(grads).all()), "gradients finite")
+                got["grads"] = grads.cpu() if rank == 0 else None
+                if mode is None:
+                    t0 = time.perf_counter()
+                    for _ in range(TP_TIMED_STEPS):
+                        state, _ = step(state, batch, noise)
+                    torch.cuda.synchronize()
+                    got["ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                          / TP_TIMED_STEPS)
+                    got["peak_mb"] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 20)
+                    got["replicated_equal"] = _replicated_agree(state.model)
+                result[mode or "block"] = got
+                del state, step, losses
+                torch.cuda.empty_cache()
+            outs = {}
+            for sp in (False, True):
+                state, _ = fresh_train_state(
+                    None, base=dataclasses.replace(cfg, spatial_shard=sp))
+                state.model.eval()
+                with torch.inference_mode(), tp.record_hints() as hints:
+                    outs[sp] = (forward(state.model, val), list(hints))
+                del state
+            result["sp_equal"] = torch.equal(outs[False][0], outs[True][0])
+            result["hints"] = outs[True][1]
+            result["no_hints"] = outs[False][1]
+        torch.save(result, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        destroy()
+
+
+def tp_phase():
+    """Tensor parallelism at ``STRAJNET_CONFIG``, full depth and width,
+    bf16, batch 16 (``parallel/mesh.py``): (i) two ``gloo`` rank processes
+    on this card on a 1 x 2 mesh ('data' 1, 'model' 2) against one process
+    on the same batches: one val batch, the first training step in the
+    default mode and in ``"attn"``, launches on each rank, losses, terms,
+    metrics and gradients within the limits above, the replicated
+    parameters bit-equal across the ranks after the timed steps; each
+    rank's ms per step against one process, peak MB and the bytes moved
+    over each axis in a step; (ii) ``spatial_shard=True`` on the same mesh:
+    the forward bit-equal, the hinted activations recorded with their split
+    over 'model'; (iii)
+    ``dryrun_multichip`` over four ranks on a 2 x 2 mesh. Returns the
+    counters of the single process's runs and of the ranks' steps."""
+    cfg = STRAJNET_CONFIG
+    batch = eval_inputs(cfg, (600,))[0]
+    batch = to_device(batch, tuple(batch))
+    val = eval_inputs(cfg, (601,))[0]
+    val = to_device(val, tuple(val))
+    total = counts()
+
+    def add(launches):
+        nonlocal total
+        total = tuple(a + b for a, b in zip(total, launches))
+
+    single = {}
+    for mode in (None, "attn"):
+        state, _ = fresh_train_state(mode)
+        step = make_train_step(WAYMO_TASK_CONFIG, LossConfig(),
+                               cfg.num_waypoints)
+        got = {}
+        reset_counters()
+        if mode is None:
+            state.model.eval()
+            losses, metrics = make_eval_step(
+                WAYMO_TASK_CONFIG, LossConfig(), cfg.num_waypoints)(
+                    state.model, val)
+            got.update(val_losses={k: float(v) for k, v in losses.items()},
+                       val_metrics={k: float(v) for k, v in metrics.items()})
+            state.model.train()
+        noise = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        state, losses = step(state, batch, noise)
+        got["losses"] = {k: float(v) for k, v in losses.items()}
+        got["grads"] = torch.cat([p.grad.flatten().float()
+                                  for p in state.model.parameters()]).cpu()
+        if mode is None:
+            t0 = time.perf_counter()
+            for _ in range(TP_TIMED_STEPS):
+                state, _ = step(state, batch, noise)
+            torch.cuda.synchronize()
+            got["ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                  / TP_TIMED_STEPS)
+            got["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        torch.cuda.synchronize()
+        add(read_counters())
+        single[mode or "block"] = got
+        del state, step, losses
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as directory:
+        ranks, seconds = run_ranks(directory, TP_RANKS, "--tp",
+                                   TP_RANK_TIMEOUT_S)
+    model = STrajNet(cfg)
+    smi = gpu_identity()
+    for mode, expect in (("block", counts(k1=8, k2=8, k5=1)),
+                         ("attn", counts(k3=8, k4=8, k5=1))):
+        want = single[mode]
+        rank_total = ranks[0][mode]["losses"]["total"]
+        rel = abs(rank_total - want["losses"]["total"]) / abs(
+            want["losses"]["total"])
+        omc = one_minus_cos(want["grads"], ranks[0][mode]["grads"])
+        leaves = worst_leaves(model, want["grads"], ranks[0][mode]["grads"])
+        terms = {k: abs(ranks[0][mode]["losses"][k] - v) / max(abs(v), 1e-30)
+                 for k, v in want["losses"].items()}
+        print(f"tp (i) {mode}: {TP_RANKS} gloo ranks on a 1x{TP_RANKS} mesh "
+              f"({ranks[0][mode]['split']} parameters split over 'model'; "
+              f"{seconds:.1f} s for the ranks) against one process, batch "
+              f"{BATCH}, bf16: loss {rank_total:.7f} vs "
+              f"{want['losses']['total']:.7f}, relative {rel:.3e} (limit "
+              f"{TP_LOSS_RTOL:g}); gradient 1-cos {omc:.3e} (limit "
+              f"{TP_GRAD_ONE_MINUS_COS:g}), worst leaf {leaves[0][2]} "
+              f"{leaves[0][0]:.3e}; worst term "
+              f"{max(terms, key=terms.get)} {max(terms.values()):.3e} "
+              f"(limit {TP_TERM_RTOL:g})")
+        check(rel <= TP_LOSS_RTOL, f"tp (i) {mode}: loss")
+        check(omc <= TP_GRAD_ONE_MINUS_COS, f"tp (i) {mode}: gradient")
+        for k, err in terms.items():
+            check(err <= TP_TERM_RTOL, f"tp (i) {mode}: term {k} {err}")
+        for r, out in enumerate(ranks):
+            got = out[mode]
+            check(got["losses"] == ranks[0][mode]["losses"],
+                  f"tp (i) {mode}: rank {r} has rank 0's losses")
+            check(got["launches"] == expect,
+                  f"tp (i) {mode}: rank {r} launches {got['launches']}, "
+                  f"expected {expect}")
+            add(got["launches"])
+    for r, out in enumerate(ranks):
+        got = out["block"]
+        check(got["replicated_equal"], f"tp (i) rank {r}: the replicated "
+              f"parameters differ across 'model' after "
+              f"{TP_TIMED_STEPS + 1} steps")
+        check(got["val_launches"] == counts(k1=8, k5=2),
+              f"tp (i) rank {r}: val launches {got['val_launches']}")
+        add(got["val_launches"])
+        worst = {}
+        for k, v in single["block"]["val_losses"].items():
+            worst[k] = abs(got["val_losses"][k] - v) / max(abs(v), 1e-30)
+            check(worst[k] <= TP_TERM_RTOL, f"tp (i) val loss {k}")
+        for k, v in single["block"]["val_metrics"].items():
+            err = abs(got["val_metrics"][k] - v)
+            worst[k] = err / max(abs(v), 1e-30)
+            check(err <= TP_TERM_RTOL * abs(v) + EVAL_METRIC_ATOL,
+                  f"tp (i) val metric {k}: {got['val_metrics'][k]} vs {v}")
+        k = max(worst, key=worst.get)
+        print(f"tp (i) rank {r} at {out['coord']}: launches K1/K2/K5 a "
+              f"train step {got['launches'][0]}/{got['launches'][1]}/"
+              f"{got['launches'][4]}, K3/K4/K5 in 'attn' "
+              f"{out['attn']['launches'][2]}/{out['attn']['launches'][3]}/"
+              f"{out['attn']['launches'][4]}, K1/K5 an eval step "
+              f"{got['val_launches'][0]}/{got['val_launches'][4]}; worst val "
+              f"term or metric {k} {worst[k]:.3e} (limit {TP_TERM_RTOL:g}); "
+              f"{got['ms_per_step']:.1f} ms/step against one process's "
+              f"{single['block']['ms_per_step']:.1f} (both ranks on one "
+              f"card, collectives through gloo); peak "
+              f"{got['peak_mb']:.0f} MB against "
+              f"{single['block']['peak_mb']:.0f}; bytes moved a step: "
+              f"'model' {got['moved']['model']}, 'data' "
+              f"{got['moved']['data']} ('attn' step: 'model' "
+              f"{out['attn']['moved']['model']}); replicated parameters "
+              f"bit-equal across 'model' after {TP_TIMED_STEPS + 1} steps "
+              f"[{smi}]")
+        # (ii)
+        check(out["sp_equal"], f"tp (ii) rank {r}: spatial_shard forward "
+              f"bit-equal")
+        check(out["no_hints"] == [], "tp (ii): no hints without the flag")
+        enc = [h for h in out["hints"] if len(h[0]) == 3]
+        dec = [h for h in out["hints"] if len(h[0]) == 5]
+        check(enc and dec, "tp (ii): encoder and decoder activations hinted")
+        for axes, local, whole in out["hints"]:
+            d = axes.index("model")
+            check(local[d] * TP_RANKS == whole[d],
+                  f"tp (ii): {axes} {local} of {whole}")
+        print(f"tp (ii) rank {r}: spatial_shard forward bit-equal; "
+              f"{len(out['hints'])} activations hinted split over 'model' "
+              f"(recorded, not moved): encoder {enc[0][2]} -> local {enc[0][1]}, "
+              f"decoder {dec[0][2]} -> local {dec[0][1]}")
+    # (iii)
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(TP_DRYRUN_DEVICES, device="cuda",
+                                         timeout_s=TP_RANK_TIMEOUT_S)
+    check(len(lines) == 3, f"tp (iii): dryrun_multichip printed {lines}")
+    for ln in lines:
+        check("mesh=(2x2)" in ln and np.isfinite(float(ln.split("loss=")[1])),
+              f"tp (iii): {ln}")
+    print(f"tp (iii) dryrun_multichip({TP_DRYRUN_DEVICES}) on this card: "
+          f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return total
 
@@ -2517,12 +2818,18 @@ def main(argv=None) -> int:
     parser.add_argument("--ddp-rank", type=int, default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--ddp-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.ddp_rank is not None:
-        # one of the ddp phase's rank processes
+    if args.ddp_rank is not None or args.tp_rank is not None:
+        # one of the ddp or tp phase's rank processes
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        ddp_rank(args.ddp_rank, args.ddp_dir)
+        if args.ddp_rank is not None:
+            ddp_rank(args.ddp_rank, args.ddp_dir)
+        else:
+            tp_rank(args.tp_rank, args.tp_dir)
         return 0
     phases = tuple(args.phases.split(","))
     if set(phases) - set(PHASES):
@@ -2643,6 +2950,8 @@ def main(argv=None) -> int:
         add_launches(variants_phase())
     if "ddp" in phases:
         add_launches(ddp_phase())
+    if "tp" in phases:
+        add_launches(tp_phase())
     if "preprocess" in phases:
         preprocess_phase()
     if "tools" in phases:

@@ -185,12 +185,20 @@ def flow_warp_origin(flow_origin_occupancy: torch.Tensor, flow: torch.Tensor,
         ``ops/warp_gather.py`` (the CUDA kernel on CUDA tensors, its plain
         version on CPU tensors), which raises on any other shape than a
         single-channel occupancy; False takes :func:`sample`. The two agree
-        up to f32 blend rounding, for any f32 occupancy values.
+        up to f32 blend rounding, for any f32 occupancy values. Under a
+        ``('data', 'model')`` mesh the kernel runs on this rank's rows
+        (``parallel/mesh.py::data_shard_map``); rows that differ over the
+        data axis are refused by the train and eval steps before their
+        forward (``parallel/mesh.py::check_rows``).
     """
     from strajnet_tpu_torch.ops import warp_gather
+    from strajnet_tpu_torch.parallel import mesh as tp
 
     _, h, w, _ = flow_origin_occupancy.shape
     warp = identity_warp_indices(h, w, flow.dtype, flow.device)[None] + flow
     if use_kernel:
-        return warp_gather.sample_dense(flow_origin_occupancy, warp)
+        # under a mesh, on this rank's rows (JAX falls through to XLA where
+        # they do not divide the data axis; the port's steps raise there)
+        return tp.data_shard_map(warp_gather.sample_dense, tp.active_mesh(),
+                                 2, 0)(flow_origin_occupancy, warp)
     return sample(flow_origin_occupancy, warp)

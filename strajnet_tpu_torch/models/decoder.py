@@ -14,6 +14,14 @@ the phase form, or the fused kernel. ``TimeSharedConv`` is defined as in JAX
 and, as there, no path calls it.
 
 Volumes are ``[B, T, H, W, C]``; the time-shared convs fold T into the batch.
+
+Under a ``('data', 'model')`` mesh (``parallel/mesh.py``) the fused tail
+kernel (the ``"kernel"`` form, and ``"infer"`` in ``eval()``) runs inside
+``data_shard_map`` on this rank's rows, and ``spatial_shard`` hints each
+volume of the upsampling stages split over ``'model'`` on its H axis, as
+``strajnet_tpu/models/decoder.py`` does; the hint records that split and
+leaves the volume whole (the halo exchange of a conv on H shards is not
+done: nothing is computed split).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from strajnet_tpu_torch.ops.decoder_tail import (decoder_tail,
                                                  decoder_tail_phase,
                                                  decoder_tail_reference)
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc, upsample2x_conv3x3
+from strajnet_tpu_torch.parallel import mesh as tp
 
 DECODER_CHANNELS = (48, 96, 128, 192, 384)
 # use_tail_kernel -> the tail's form; "infer" resolves at call time
@@ -198,7 +207,7 @@ class Pyramid3DDecoder(nn.Module):
                  use_tail_kernel: str = "xla", use_pyramid: bool = True,
                  flow_sep_decode: bool = True, conv_cnn: bool = False,
                  sep_conv: bool = False, rep_res: bool = True,
-                 stp_grad: bool = False):
+                 stp_grad: bool = False, spatial_shard: bool = False):
         super().__init__()
         if use_tail_kernel != "infer" and use_tail_kernel not in _TAIL_FNS:
             raise ValueError(f"unknown use_tail_kernel={use_tail_kernel!r}")
@@ -206,6 +215,7 @@ class Pyramid3DDecoder(nn.Module):
         self.use_pyramid, self.flow_sep_decode = use_pyramid, flow_sep_decode
         self.conv_cnn, self.sep_conv = conv_cnn, sep_conv
         self.rep_res, self.stp_grad = rep_res, stp_grad
+        self.spatial_shard = spatial_shard
         t = num_waypoints
         ch = DECODER_CHANNELS
         self.decode_inds = [4, 3, 2, 1, 0][shallow_decode:]
@@ -268,11 +278,24 @@ class Pyramid3DDecoder(nn.Module):
         mode = self.use_tail_kernel
         if mode == "infer":
             mode = "xla" if self.training else "kernel"
-        # the ops keep the JAX kernel layout, HWIO
-        o = _TAIL_FNS[mode](x.reshape(b * t, h, w, c).to(self.dtype),
-                            up.conv.weight.permute(2, 3, 1, 0), up.conv.bias,
-                            out.weight.permute(2, 3, 1, 0), out.bias)
+        fn = _TAIL_FNS[mode]
+
+        def run(x, w_up, b_up, w_out, b_out):
+            # the ops keep the JAX kernel layout, HWIO
+            return fn(x, w_up.permute(2, 3, 1, 0), b_up,
+                      w_out.permute(2, 3, 1, 0), b_out)
+
+        if mode == "kernel":
+            run = tp.data_shard_map(run, tp.active_mesh(), 1, 4)
+        o = run(x.reshape(b * t, h, w, c).to(self.dtype), up.conv.weight,
+                up.conv.bias, out.weight, out.bias)
         return o.reshape(b, t, 2 * h, 2 * w, -1)
+
+    def _sp(self, v: torch.Tensor) -> torch.Tensor:
+        """``spatial_shard``'s hint on a ``[B, T, H, W, C]`` volume."""
+        if not self.spatial_shard:
+            return v
+        return tp.sharding_hint(v, tp.DATA, None, tp.MODEL, None, None)
 
     def _out_conv(self, out: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         """A 3x3 output conv of a branch that ends in a ConvLSTM."""
@@ -297,6 +320,7 @@ class Pyramid3DDecoder(nn.Module):
                 x = getattr(self, f"uplstmconv_{di}_0")(upsample2x_time(x))
             else:
                 x = getattr(self, f"upconv_{di}_0")(x)
+            x = self._sp(x)
             if self.use_pyramid and i < len(self.ind_list):
                 res = res_list[self.ind_list[i]]
                 rd = self.reshape_dim[i]
@@ -323,6 +347,7 @@ class Pyramid3DDecoder(nn.Module):
                 f = getattr(self, f"upconvf_{di}_0")(upsample2x_time(f))
             else:
                 f = getattr(self, f"upconvf_{di}_0")(f)
+            f = self._sp(f)
         if self.flow_tail_di is not None:
             fo = self._tail(getattr(self, f"upconvf_{self.flow_tail_di}_0"),
                             self.outconv_f, f)

@@ -17,6 +17,10 @@ integer grid and the offsets are bounded, the blend of table windows
 the direct gather ``core/sampling.py::rpe_bias`` of the table in the
 compute dtype. ``attn_drop`` and ``proj_drop`` act in training mode, with
 noise from the generator handed to ``forward``.
+
+No parameter of FG-MSA matches JAX's tensor-parallel rules (its
+projections are 1x1 convs), so under a ``'model'`` axis
+(``parallel/mesh.py``) it runs whole on every rank.
 """
 
 from __future__ import annotations

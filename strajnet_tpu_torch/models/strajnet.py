@@ -17,9 +17,12 @@ drop-path noise from an explicit generator). A variant is
 run a combination of flags (shapes that do not meet, a flow branch that is
 not there), the port raises too, at construction or in the forward. As in
 the JAX package, ``fg`` is ignored without ``fg_msa``. ``spatial_shard``
-computes nothing: in JAX it adds sharding hints over a mesh's ``'model'``
-axis, which return their input unchanged without a mesh, and the port runs
-no such axis (``train/loop.py`` refuses ``model_axis`` > 1).
+adds JAX's sharding hints: under a mesh with a ``'model'`` axis
+(``parallel/mesh.py``) the encoder's tokens after every Swin block and the
+decoder's upsampled volumes record the split over ``'model'`` that JAX
+lays out and stay whole (nothing computes on a split activation yet), so
+the forward is the same with and without it; without such an axis the
+hints return their input, as in JAX.
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ class STrajNet(nn.Module):
             cfg.patch_norm, cfg.ogm_past_steps, kernel_mode, dt,
             cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate,
             cfg.remat_encoder, cfg.ape, cfg.sep_encode, cfg.no_map,
-            cfg.flow_sep, cfg.use_flow, cfg.large_input, cfg.ogm_classes)
+            cfg.flow_sep, cfg.use_flow, cfg.large_input, cfg.ogm_classes,
+            cfg.spatial_shard)
         if cfg.fg_msa:
             self.fg_msa_layer = FGMSA(
                 (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,
@@ -111,7 +115,7 @@ class STrajNet(nn.Module):
             bd, res_dims, flow_res_dim, cfg.shallow_decode,
             cfg.num_waypoints, (bh, bw), dt, tail_mode, cfg.use_pyramid,
             cfg.flow_sep_decode, cfg.conv_cnn, cfg.sep_conv, cfg.rep_res,
-            cfg.stp_grad)
+            cfg.stp_grad, cfg.spatial_shard)
 
     def forward(self, ogm: torch.Tensor, map_img: torch.Tensor,
                 obs: torch.Tensor, occ: torch.Tensor,

@@ -27,6 +27,22 @@ backward instead of saving its intermediates, as the JAX encoder's
 ``nn.remat`` does. :class:`BasicLayerDecoder` and :class:`PatchUpsampling`,
 the reference's upsampling stage, complete the module inventory; nothing
 builds them.
+
+Under a ``('data', 'model')`` mesh (``parallel/mesh.py``) a block runs on
+this rank's rows. The kernel modes (``"block"``, ``"block_fwd"``,
+``"attn"``) call their kernels inside ``data_shard_map`` with every weight
+gathered whole over ``'model'`` (K1/K2 and K3/K4 see plain local tensors,
+as without a mesh; in ``"attn"`` the MLP around K3 is gathered too, as the
+whole block is inside the map). The plain mode computes on the shards
+where the layer allows it: ``qkv`` is gathered (its 3C columns interleave
+q, k and v, so a contiguous shard holds no whole heads), the attention runs
+whole, ``proj`` is row-parallel on this rank's columns of the attention
+output, fc1 column-parallel and fc2 row-parallel, each row-parallel product
+summed in f32 by one all-reduce over ``'model'`` and rounded to the
+compute dtype once. ``spatial_shard`` hints the
+tokens of every block's output split over ``'model'``
+(``parallel/mesh.py::sharding_hint``), as ``strajnet_tpu/models/swin.py``
+does; the hint records the split and leaves the tokens whole.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ from strajnet_tpu_torch.ops.upconv import conv2d_nhwc
 from strajnet_tpu_torch.ops.window_attention import window_attention
 from strajnet_tpu_torch.ops.windows import (relative_position_index,
                                             shifted_window_mask)
+from strajnet_tpu_torch.parallel import mesh as tp
 
 
 class LayerNorm(nn.LayerNorm):
@@ -62,9 +79,30 @@ class LayerNorm(nn.LayerNorm):
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """A Flax ``nn.Dense`` with compute dtype: operands and bias in dtype."""
+    """A Flax ``nn.Dense`` with compute dtype: operands and bias in dtype.
+    A weight sharded over ``'model'`` is gathered whole first."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), tp.whole(layer.weight).to(dtype), bias)
+
+
+def parallel_ffn(fc1: nn.Linear, fc2: nn.Linear, x: torch.Tensor,
+                 act, dtype: torch.dtype) -> torch.Tensor:
+    """``dense(fc2, act(dense(fc1, x)))``. Where fc1 is column- and fc2
+    row-parallel over ``'model'`` (``parallel/mesh.py``), this rank computes
+    its columns of the hidden layer and its part of the output, summed over
+    ``'model'`` in f32 and rounded once (as one GEMM rounds its f32 sum)
+    before fc2's bias; otherwise the two layers whole. ``act``
+    takes the hidden layer and ``model_split``'s split of it (for dropout;
+    None where it is whole)."""
+    if not (tp.split_on(fc1.weight, 0) and tp.split_on(fc2.weight, 1)):
+        return dense(fc2, act(dense(fc1, x, dtype), None), dtype)
+    x = tp.copy_to_model(x.to(dtype))
+    b1 = tp.local_part(tp.copy_to_model(fc1.bias), 0)
+    y = act(F.linear(x, fc1.weight.to(dtype), b1.to(dtype)),
+            tp.model_split(-1))
+    y = tp.reduce_from_model(F.linear(y.float(),
+                                      fc2.weight.to(dtype).float()))
+    return y.to(dtype) + fc2.bias.to(dtype)
 
 
 class WindowAttention(nn.Module):
@@ -182,21 +220,46 @@ class SwinTransformerBlock(nn.Module):
                 else "kernel")
         else:
             block, kw = swin_block_reference, {}
-        y = block(
-            xb.contiguous(),
-            attn.qkv.weight.t().to(dt).contiguous(), qkv_b.to(dt),
-            attn.proj.weight.t().to(dt).contiguous(), attn.proj.bias.to(dt),
-            attn.rel_bias().float(),
-            self.norm1.weight, self.norm1.bias,
-            self.norm2.weight, self.norm2.bias,
-            mlp.fc1.weight.t().to(dt).contiguous(), mlp.fc1.bias,
-            mlp.fc2.weight.t().to(dt).contiguous(), mlp.fc2.bias,
-            self.attn_mask, dpm,
-            window_size=self.window_size, num_heads=self.num_heads, eps=1e-5,
-            **kw)
+
+        def operand(wt):
+            return None if wt is None else wt.t().to(dt).contiguous()
+
+        def run(xb, wqkv, wproj, w1, w2, **parts):
+            return block(
+                xb.contiguous(), operand(wqkv), qkv_b.to(dt),
+                operand(wproj), attn.proj.bias.to(dt),
+                attn.rel_bias().float(),
+                self.norm1.weight, self.norm1.bias,
+                self.norm2.weight, self.norm2.bias,
+                operand(w1), mlp.fc1.bias, operand(w2), mlp.fc2.bias,
+                self.attn_mask, dpm,
+                window_size=self.window_size, num_heads=self.num_heads,
+                eps=1e-5, **kw, **parts)
+
+        if not self.kernel_mode and tp.tp_active():
+            # the plain block with proj and the MLP on the weights' shards
+            y = run(xb, tp.whole(attn.qkv.weight), None, None, None,
+                    proj=self._proj_on_shards, ffn=lambda t: parallel_ffn(
+                        mlp.fc1, mlp.fc2, t, lambda u, _: F.gelu(
+                            u.float(), approximate="tanh").to(dt), dt))
+        else:
+            y = tp.data_shard_map(run, tp.active_mesh(), 1, 4)(
+                xb, attn.qkv.weight, attn.proj.weight, mlp.fc1.weight,
+                mlp.fc2.weight)
         if s > 0:
             y = torch.roll(y, shifts=(s, s), dims=(1, 2))
         return y.reshape(-1, h * w, c)
+
+    def _proj_on_shards(self, out: torch.Tensor) -> torch.Tensor:
+        """``out @ proj.weight.t()`` with the weight as it lies over
+        ``'model'``: row-parallel on this rank's columns of ``out``, summed
+        in f32 and rounded once, where it is split on its input dimension;
+        else gathered whole."""
+        wt, dt = self.attn.proj.weight, out.dtype
+        if tp.split_on(wt, 1):
+            part = tp.local_part(tp.copy_to_model(out), -1).float()
+            return tp.reduce_from_model(part @ wt.t().to(dt).float()).to(dt)
+        return out @ tp.whole(wt).t().to(dt)
 
     def _forward_attn(self, x: torch.Tensor, qkv_b: torch.Tensor,
                       dpm: Optional[torch.Tensor]) -> torch.Tensor:
@@ -214,21 +277,27 @@ class SwinTransformerBlock(nn.Module):
         def drop_path(t, k):
             return t if dpm is None else t * dpm[:, k, None, None].to(dt)
 
-        shortcut = x.to(dt)
-        y = ln(x, self.norm1).reshape(-1, h, w, c)
-        if s > 0:
-            y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
-        y = window_attention(
-            y.contiguous(), attn.qkv.weight.t().to(dt).contiguous(),
-            qkv_b.to(dt), attn.proj.weight.t().to(dt).contiguous(),
-            attn.proj.bias.to(dt), attn.rel_bias().float(), self.attn_mask,
-            window_size=self.window_size, num_heads=self.num_heads)
-        if s > 0:
-            y = torch.roll(y, shifts=(s, s), dims=(1, 2))
-        x = shortcut + drop_path(y.reshape(-1, h * w, c), 0)
-        y = dense(mlp.fc1, ln(x, self.norm2), dt)
-        y = dense(mlp.fc2, F.gelu(y, approximate="tanh"), dt)
-        return x + drop_path(y, 1)
+        def run(x, wqkv, wproj, w1, w2):
+            shortcut = x.to(dt)
+            y = ln(x, self.norm1).reshape(-1, h, w, c)
+            if s > 0:
+                y = torch.roll(y, shifts=(-s, -s), dims=(1, 2))
+            y = window_attention(
+                y.contiguous(), wqkv.t().to(dt).contiguous(), qkv_b.to(dt),
+                wproj.t().to(dt).contiguous(), attn.proj.bias.to(dt),
+                attn.rel_bias().float(), self.attn_mask,
+                window_size=self.window_size, num_heads=self.num_heads)
+            if s > 0:
+                y = torch.roll(y, shifts=(s, s), dims=(1, 2))
+            x = shortcut + drop_path(y.reshape(-1, h * w, c), 0)
+            y = F.linear(ln(x, self.norm2), w1.to(dt), mlp.fc1.bias.to(dt))
+            y = F.linear(F.gelu(y, approximate="tanh"), w2.to(dt),
+                         mlp.fc2.bias.to(dt))
+            return x + drop_path(y, 1)
+
+        return tp.data_shard_map(run, tp.active_mesh(), 1, 4)(
+            x, attn.qkv.weight, attn.proj.weight, mlp.fc1.weight,
+            mlp.fc2.weight)
 
 
 class PatchMerging(nn.Module):
@@ -260,9 +329,10 @@ class BasicLayer(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  downsample: bool = False, kernel_mode="block",
                  dtype: torch.dtype = torch.float32,
-                 drop_path: Sequence[float] = (), remat: bool = False):
+                 drop_path: Sequence[float] = (), remat: bool = False,
+                 spatial_shard: bool = False):
         super().__init__()
-        self.depth = depth
+        self.depth, self.spatial_shard = depth, spatial_shard
         for i in range(depth):
             self.add_module(f"blocks{i}", SwinTransformerBlock(
                 dim, input_resolution, num_heads, window_size,
@@ -276,6 +346,9 @@ class BasicLayer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
             x = getattr(self, f"blocks{i}")(x, generator)
+            if self.spatial_shard:
+                # tokens over 'model' (row-major L = H*W: an H split)
+                x = tp.sharding_hint(x, tp.DATA, tp.MODEL, None)
         res = x
         if self.downsample is not None:
             x = self.downsample(x)
@@ -394,7 +467,7 @@ class SwinTransformerEncoder(nn.Module):
                  ape: bool = False, sep_encode: bool = True,
                  no_map: bool = False, flow_sep: bool = True,
                  use_flow: bool = True, large_input: bool = True,
-                 ogm_classes: int = 2):
+                 ogm_classes: int = 2, spatial_shard: bool = False):
         super().__init__()
         if drop_rate or attn_drop_rate:
             raise NotImplementedError(
@@ -417,7 +490,8 @@ class SwinTransformerEncoder(nn.Module):
                 (self.pr[0] // 2 ** i, self.pr[1] // 2 ** i), depths[i],
                 num_heads[i], window_size, mlp_ratio, qkv_bias, downsample,
                 kernel_mode, dtype,
-                tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]), remat)
+                tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]), remat,
+                spatial_shard)
 
         def embed(in_chans: int) -> PatchEmbed:
             return PatchEmbed(patch_size, in_chans, embed_dim, patch_norm,

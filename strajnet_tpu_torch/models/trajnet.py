@@ -13,6 +13,13 @@ over stacked parameters in Flax) are an ``nn.ModuleList`` here; with
 training mode the attention weights of every MHA and the FFN activations of
 each cross-attention block pass through ``Dropout(0.1)``, with noise from the
 generator handed to ``forward``.
+
+Under a ``'model'`` axis (``parallel/mesh.py``) JAX's rules split the MHA
+heads where they divide the axis (at 2, the 6-head ``traj_net``
+cross-attention and the 4-head node attention of the track and centerline
+encoders; the 3-head per-waypoint blocks stay whole) and ``traj_net``'s FFN
+pair, FFN1 column- and FFN2 row-parallel; the per-waypoint blocks' FFNs are
+stacked leaves in Flax, which the rules do not take, so they stay whole.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from strajnet_tpu_torch.models.swin import LayerNorm, dense
+from strajnet_tpu_torch.models.swin import LayerNorm, dense, parallel_ffn
 from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
 from strajnet_tpu_torch.ops.dropout import dropout
 
@@ -176,9 +183,11 @@ class CrossAttentionT(nn.Module):
             k = dropout(dense(self.aFFN2, k, dt), _DROPOUT, train, generator)
             key = self.actor_norm2(k + key)
         v = self.norm1(self.mha(query, key, mask=mask, generator=generator))
-        v = dropout(F.elu(dense(self.FFN1, v, dt)), _DROPOUT, train,
-                    generator)
-        v = dropout(dense(self.FFN2, v, dt), _DROPOUT, train, generator)
+        v = parallel_ffn(
+            self.FFN1, self.FFN2, v,
+            lambda t, split: dropout(F.elu(t), _DROPOUT, train, generator,
+                                     split), dt)
+        v = dropout(v, _DROPOUT, train, generator)
         return self.norm2(v)
 
 

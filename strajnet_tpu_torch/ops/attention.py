@@ -5,6 +5,11 @@ parameters ``[heads, in, head_size]`` with no q/k/v bias, the query scaled by
 ``head_size ** -0.5``, a multiplicative {0, 1} mask applied as
 ``logits += -1e10 * (1 - mask)``, softmax in f32, and a bias on the output
 projection only.
+
+Under a ``'model'`` axis whose size divides the heads, the four kernels are
+split on their head axis (``parallel/mesh.py``): each rank computes its
+heads, draws their dropout as its part of the whole draw, and the output
+projection's partial sums are summed over ``'model'`` before the bias.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 from torch import nn
 
 from strajnet_tpu_torch.ops.dropout import dropout
+from strajnet_tpu_torch.parallel import mesh as tp
 
 
 class TfaMultiHeadAttention(nn.Module):
@@ -47,6 +53,11 @@ class TfaMultiHeadAttention(nn.Module):
         if value is None:
             value = key
         dt = self.dtype
+        heads_split = tp.split_on(self.query_kernel, 0)
+        if heads_split:
+            same_kv = value is key
+            query, key = tp.copy_to_model(query), tp.copy_to_model(key)
+            value = key if same_kv else tp.copy_to_model(value)
         q = torch.einsum("...ni,hio->...nho", query.to(dt),
                          self.query_kernel.to(dt))
         k = torch.einsum("...mi,hio->...mho", key.to(dt),
@@ -61,8 +72,17 @@ class TfaMultiHeadAttention(nn.Module):
                 mask = mask.unsqueeze(-3)
             logits = logits + (-1e10) * (1.0 - mask)
         attn = torch.softmax(logits.float(), dim=-1).to(dt)
-        attn = dropout(attn, self.dropout, self.training, generator)
+        attn = dropout(attn, self.dropout, self.training, generator,
+                       tp.model_split(attn.dim() - 3) if heads_split
+                       else None)
         out = torch.einsum("...hnm,...mho->...nho", attn, v)
-        out = torch.einsum("...nho,hoi->...ni", out,
-                           self.projection_kernel.to(dt))
+        if heads_split:
+            # this rank's heads' share in f32, summed over 'model' and
+            # rounded once, as one GEMM over all heads rounds its sum
+            out = tp.reduce_from_model(torch.einsum(
+                "...nho,hoi->...ni", out.float(),
+                self.projection_kernel.to(dt).float())).to(dt)
+        else:
+            out = torch.einsum("...nho,hoi->...ni", out,
+                               self.projection_kernel.to(dt))
         return out + self.projection_bias.to(dt)

@@ -12,15 +12,21 @@ batch). So ``world_size`` ranks draw the noise of one process on the
 concatenated batch, as the JAX step draws every mask of the global batch
 from one key. Every tensor drawn for is batch-major (batch, or batch times
 heads or actors, outermost) and the ranks' batches are equal.
+
+Under a ``('data', 'model')`` mesh (``parallel/mesh.py``) the rows are
+those of the rank's ``'data'`` coordinate, so peers along ``'model'`` draw
+the same noise; where a tensor is itself split over ``'model'`` (the heads
+of a head-parallel attention, the columns of a column-parallel FFN) the
+mask is drawn at its whole width and the rank keeps its part (``split``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from strajnet_tpu_torch.parallel.ddp import rank, world_size
+from strajnet_tpu_torch.parallel.ddp import data_rank, data_size
 
 
 def _require(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -30,26 +36,37 @@ def _require(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator
 
 
-def _uniform(shape, device, generator: torch.Generator) -> torch.Tensor:
+def _uniform(shape, device, generator: torch.Generator,
+             split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """U[0, 1) of ``shape``: this rank's rows of one draw at the global
-    batch's shape (the draw itself at world size 1)."""
-    ranks = world_size()
-    if ranks == 1:
+    batch's shape (the draw itself at data-axis size 1); with ``split``,
+    ``(dim, part, parts)``, the draw is ``parts`` times as wide on ``dim``
+    and this rank keeps its ``part``."""
+    ranks = data_size()
+    if ranks == 1 and split is None:
         return torch.rand(shape, device=device, generator=generator)
-    rows = shape[0]
-    u = torch.rand((ranks * rows,) + tuple(shape[1:]), device=device,
-                   generator=generator)
-    return u[rank() * rows:(rank() + 1) * rows]
+    full = [ranks * shape[0]] + list(shape[1:])
+    if split is not None:
+        full[split[0]] *= split[2]
+    u = torch.rand(full, device=device, generator=generator)
+    u = u.narrow(0, data_rank() * shape[0], shape[0])
+    if split is not None:
+        dim, part, _ = split
+        u = u.narrow(dim, part * shape[dim], shape[dim])
+    return u
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keeps each element with probability ``1 - rate``
-    and divides the kept ones by it; the identity when not training."""
+    and divides the kept ones by it; the identity when not training.
+    ``split`` (``parallel/mesh.py::model_split``): ``x`` is this rank's part
+    of a tensor split over ``'model'``."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = _uniform(x.shape, x.device, _require(generator)) < keep
+    mask = _uniform(x.shape, x.device, _require(generator), split) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -49,11 +49,17 @@ def _ln_f32(x, scale, bias, eps):
 def swin_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                          ln2s, ln2b, w1, b1, w2, b2, mask=None,
                          drop_path=None, *, window_size: int, num_heads: int,
-                         eps: float = 1e-5) -> torch.Tensor:
+                         eps: float = 1e-5, proj=None,
+                         ffn=None) -> torch.Tensor:
     """Plain PyTorch Swin block; ``_xla_block_reference`` semantics.
 
     Matrix products run in ``x.dtype`` (bf16 operands with bf16 results on
-    the bf16 path); logits, LayerNorm and softmax in f32.
+    the bf16 path); logits, LayerNorm and softmax in f32. ``proj`` (the
+    attention output ``[windows, n, C]`` to its product with ``wproj``,
+    before ``bproj``) and ``ffn`` (the normalised residual to the MLP's
+    output, biases included), where given, take the place of those products
+    (a caller that computes them on weight shards, ``models/swin.py``);
+    ``wproj`` or ``w1``, ``b1``, ``w2``, ``b2`` then go unused.
     """
     b_, h, w, c = x.shape
     ws = window_size
@@ -77,13 +83,17 @@ def swin_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                 + mask.float()[None, :, None]).reshape(-1, num_heads, n, n)
     attn = torch.softmax(attn, dim=-1).to(dt)
     out = (attn @ v).transpose(1, 2).reshape(-1, n, c)
-    out = out @ wproj.to(dt) + bproj.to(dt)
+    out = (out @ wproj.to(dt) if proj is None else proj(out)) + bproj.to(dt)
     out = out.reshape(b_, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     out = out.reshape(b_, h, w, c)
     r1 = (x.float() + dp[:, 0, None, None, None] * out.float()).to(dt)
     y = _ln_f32(r1, ln2s, ln2b, eps).to(dt)
-    y = F.gelu((y @ w1.to(dt) + b1.to(dt)).float(), approximate="tanh").to(dt)
-    y = y @ w2.to(dt) + b2.to(dt)
+    if ffn is None:
+        y = F.gelu((y @ w1.to(dt) + b1.to(dt)).float(),
+                   approximate="tanh").to(dt)
+        y = y @ w2.to(dt) + b2.to(dt)
+    else:
+        y = ffn(y)
     return (r1.float() + dp[:, 1, None, None, None] * y.float()).to(dt)
 
 

@@ -23,9 +23,15 @@ batch, and these pieces keep the global batch's numbers:
   log and the checkpoints (``train/checkpoints.py``).
 
 Without a process group, :func:`rank` is 0, :func:`world_size` is 1 and
-every helper here does nothing, so one process runs as before. Tensor
-parallelism (the mesh's ``'model'`` axis) is not ported, so ``spatial_shard``
-is the identity, as in JAX without a mesh.
+every helper here does nothing, so one process runs as before.
+
+Under a ``('data', 'model')`` mesh (``parallel/mesh.py``, tensor
+parallelism) the peers along ``'model'`` hold the same rows, so what is
+per-row here goes by the ``'data'`` coordinate and group
+(:func:`data_rank`, :func:`data_size`, :func:`data_group`): the rows a
+rank's noise keeps, the loss and metric sums, the record shard a rank
+reads, and DDP, which runs over the ``'data'`` group (and not at all on a
+data axis of one). Without a mesh they are the world's.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from strajnet_tpu_torch.device import resolve_device
+from strajnet_tpu_torch.parallel import mesh as tp
 
 # gloo group of every rank for host-side agreement (steps, barriers) when
 # the default group runs NCCL, which takes device tensors only
@@ -105,11 +112,31 @@ def world_size() -> int:
     return dist.get_world_size() if _grouped() else 1
 
 
+def data_rank() -> int:
+    """This rank's ``'data'`` coordinate under an active mesh, else
+    :func:`rank`."""
+    return tp.axis_rank(tp.DATA) if tp.active_mesh() else rank()
+
+
+def data_size() -> int:
+    """The size of the ``'data'`` axis under an active mesh, else
+    :func:`world_size`."""
+    return tp.axis_size(tp.DATA) if tp.active_mesh() else world_size()
+
+
+def data_group() -> Optional[dist.ProcessGroup]:
+    """The ``'data'`` group under an active mesh, else None (the world)."""
+    return tp.axis_group(tp.DATA) if tp.active_mesh() else None
+
+
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """Sums ``t`` over the ranks in place (on the backend's device) and
-    returns it; at world size 1 no collective runs."""
-    if world_size() > 1:
-        dist.all_reduce(t)
+    """Sums ``t`` over the ranks of the ``'data'`` axis (the world without
+    a mesh) in place, on the backend's device, and returns it; on a data
+    axis of one no collective runs."""
+    if data_size() > 1:
+        dist.all_reduce(t, group=data_group())
+        if tp.active_mesh():
+            tp.collective_bytes[tp.DATA] += t.numel() * t.element_size()
     return t
 
 
@@ -149,13 +176,14 @@ def common_steps(items: Iterable) -> Iterator:
 
 def allreduce_sum_hook(state, bucket):
     """DDP comm hook: the ``dist.GradBucket``'s gradients summed over the
-    ranks (the default hook averages them). Counts the bytes it reduces in
+    ranks of ``state``, a process group (None: the world; the default hook
+    averages them). Counts the bytes it reduces in
     ``allreduce_sum_hook.bytes``. (DDP checks a hook's annotations against
     the classes themselves, so ``bucket`` has none: this module's are
     strings.)"""
     buf = bucket.buffer()
     allreduce_sum_hook.bytes += buf.numel() * buf.element_size()
-    fut = dist.all_reduce(buf, async_op=True).get_future()
+    fut = dist.all_reduce(buf, group=state, async_op=True).get_future()
     return fut.then(lambda f: f.value()[0])
 
 
@@ -165,11 +193,13 @@ allreduce_sum_hook.bytes = 0
 def wrap_model(model: nn.Module, device: torch.device,
                find_unused_parameters: bool = False) -> nn.Module:
     """``model`` in ``DistributedDataParallel`` with the summing comm hook;
-    ``model`` itself without a process group. ``find_unused_parameters``
-    is for configurations that leave parameters without a gradient
-    (``stp_grad``). The model's buffers are constants, so they are not
-    broadcast at each forward."""
-    if not _grouped():
+    ``model`` itself without a process group. Under an active mesh DDP runs
+    over the ``'data'`` group, and not at all where that axis is one rank
+    (the peers along ``'model'`` compute the same rows: their gradients are
+    not summed). ``find_unused_parameters`` is for configurations that leave
+    parameters without a gradient (``stp_grad``). The model's buffers are
+    constants, so they are not broadcast at each forward."""
+    if not _grouped() or (tp.active_mesh() and data_size() == 1):
         return model
     device_ids = None
     if device.type == "cuda":
@@ -177,8 +207,9 @@ def wrap_model(model: nn.Module, device: torch.device,
                       else torch.cuda.current_device()]
     ddp = DistributedDataParallel(
         model, device_ids=device_ids, broadcast_buffers=False,
+        process_group=data_group(),
         find_unused_parameters=find_unused_parameters)
-    ddp.register_comm_hook(None, allreduce_sum_hook)
+    ddp.register_comm_hook(data_group(), allreduce_sum_hook)
     return ddp
 
 

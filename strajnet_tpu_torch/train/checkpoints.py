@@ -15,6 +15,12 @@ Under data parallelism (``parallel/ddp.py``) rank 0 writes, from the module
 inside the DDP wrapper (no ``module.`` keys: a checkpoint of a DDP run loads
 into one process and the other way round), and every rank waits at a
 barrier until it has; every rank restores after a barrier.
+
+Under a ``('data', 'model')`` mesh (``parallel/mesh.py``) a checkpoint still
+holds whole parameters and whole moments: every rank gathers its
+parameters' and moments' shards over ``'model'`` before rank 0 writes, and
+a restore cuts the whole tensors to this rank's shards. So a checkpoint of
+one process, of DDP and of any mesh restores into any of them.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from strajnet_tpu_torch.parallel import mesh as tp
 from strajnet_tpu_torch.parallel.ddp import barrier, rank, unwrap
 
 _STATE_FILE = "state.pt"
@@ -57,15 +64,24 @@ class CheckpointManager:
         """Writes ``state`` (a ``TrainState``) as checkpoint ``step``;
         ``metrics`` (e.g. val_loss, epoch) also land in the JSON sidecar.
         Keeps the newest ``max_to_keep`` checkpoints. Under data parallelism
-        rank 0 writes and every rank returns once it has."""
+        rank 0 writes and every rank returns once it has; under a mesh every
+        rank first gathers its shards (a collective over ``'model'``)."""
+        payload = self._payload(state) if tp.tp_active() else None
         if rank() == 0:
-            self._write(step, state, metrics)
+            self._write(step, state, metrics, payload)
         barrier()
 
-    def _write(self, step: int, state: Any, metrics: Optional[dict]):
-        payload = {"model": unwrap(state.model).state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step)}
+    @staticmethod
+    def _payload(state: Any) -> Dict[str, Any]:
+        """What a checkpoint holds, sharded tensors gathered whole."""
+        return {"model": tp.whole_state_dict(unwrap(state.model)),
+                "optimizer": tp.whole_optimizer_state(state.optimizer),
+                "step": int(state.step)}
+
+    def _write(self, step: int, state: Any, metrics: Optional[dict],
+               payload: Optional[Dict[str, Any]] = None):
+        if payload is None:
+            payload = self._payload(state)
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -115,15 +131,18 @@ class CheckpointManager:
         """Loads checkpoint ``step`` (default: the newest) into ``state``'s
         model, optimizer and step in place; returns ``(state, step)``, or
         ``(None, None)`` when there is no checkpoint. Under data parallelism
-        every rank waits for the others first, then reads the same one."""
+        every rank waits for the others first, then reads the same one;
+        under a mesh it keeps its shards of the whole tensors."""
         barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
             return None, None
         payload = self._load(step)
-        unwrap(state.model).load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        model = unwrap(state.model)
+        model.load_state_dict(tp.local_state_dict(model, payload["model"]))
+        state.optimizer.load_state_dict(tp.local_optimizer_state(
+            state.optimizer, payload["optimizer"]))
         state.step = int(payload["step"])
         return state, step
 

@@ -40,7 +40,20 @@ shard ``rank`` of ``world_size`` of each split, and computes the loss and
 metrics of the global batch; the loss sums are summed over the ranks only
 when the host reads them. An epoch ends on every rank at the first step
 where one has no batch left. Rank 0 prints, writes ``train_log.csv`` and the
-checkpoints. ``--model_axis`` other than 1 (tensor parallelism) raises.
+checkpoints.
+
+Tensor parallelism (``parallel/mesh.py``), as the JAX loop's ``'model'``
+axis: with ``--model_axis`` M above 1 the world's ranks form a
+``('data', 'model')`` mesh of ``world // M`` by M (a world size M does not
+divide raises), the parameters are cut to each rank's shards by JAX's
+rules, and everything per-row above goes by the ``'data'`` coordinate: a
+rank trains on ``batch_size // (world // M)`` samples, reads record shard
+``data rank`` of ``world // M`` (the peers along ``'model'`` read the same
+one), and the checkpoints hold whole parameters, so a run resumes onto any
+mesh, DDP or one process. On the CPU:
+
+    torchrun --nproc_per_node 4 -m strajnet_tpu_torch.train.loop \
+        --device cpu --model_axis 2 ...
 """
 
 from __future__ import annotations
@@ -65,7 +78,9 @@ from strajnet_tpu_torch.device import resolve_device
 from strajnet_tpu_torch.models.strajnet import PALLAS_MODES
 from strajnet_tpu_torch.objective.metrics import (MetricsAccumulator,
                                                   print_metrics)
-from strajnet_tpu_torch.parallel.ddp import (common_steps, destroy,
+from strajnet_tpu_torch.parallel import mesh as tp
+from strajnet_tpu_torch.parallel.ddp import (common_steps, data_rank,
+                                             data_size, destroy,
                                              init_distributed, rank,
                                              sum_over_ranks, world_size)
 from strajnet_tpu_torch.train.checkpoints import CheckpointManager
@@ -160,28 +175,36 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     ``"train"`` or ``"val"`` for an epoch; by default they are read from
     ``train_cfg.file_dir`` (:func:`tfrecord_batches`, this rank's shard).
     ``train_cfg.batch_size`` is the global batch. ``device`` is this rank's
-    device. ``profile_dir`` gets a ``torch.profiler`` trace of steps 10 to
-    20 of the first epoch run (rank 0's).
+    device. ``model_axis`` above 1 trains on a ``('data', 'model')`` mesh
+    of the process group's ranks (``parallel/mesh.py``); ``batches`` then
+    gives this rank's ``'data'`` shard. ``profile_dir`` gets a
+    ``torch.profiler`` trace of steps 10 to 20 of the first epoch run (rank
+    0's).
     """
-    if model_axis != 1:
-        raise ValueError(
-            f"model_axis={model_axis}: the port trains data-parallel only; "
-            f"tensor parallelism and spatial_shard over a 'model' axis are "
-            f"still to be ported (ROADMAP.md §1, tensor parallelism)")
     device = resolve_device(device)
-    ranks, me = world_size(), rank()
+    mesh = tp.create_mesh(model_axis, device) if model_axis > 1 else None
+    with tp.use_mesh(mesh):
+        return _train(model_cfg, task_cfg, train_cfg, loss_cfg, log_every,
+                      profile_dir, device, batches, mesh)
+
+
+def _train(model_cfg, task_cfg, train_cfg, loss_cfg, log_every, profile_dir,
+           device, batches, mesh):
+    ranks, me = data_size(), rank()
     if train_cfg.batch_size % ranks != 0:
         raise ValueError(f"global batch {train_cfg.batch_size} not divisible "
-                         f"by the world size {ranks}")
+                         f"by the data axis of {ranks} ranks")
     local_bs = train_cfg.batch_size // ranks
     say = print if me == 0 else (lambda *a, **kw: None)
     say(f"device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else "")
-        + (f", rank {me} of {ranks}, {local_bs} samples a rank"
-           if ranks > 1 else ""))
+        + (f", rank {me} of {world_size()}, {local_bs} samples a rank"
+           if world_size() > 1 else "")
+        + (f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+           if mesh is not None else ""))
     if batches is None:
-        batches = tfrecord_batches(train_cfg, local_bs, me, ranks)
+        batches = tfrecord_batches(train_cfg, local_bs, data_rank(), ranks)
 
     state = create_train_state(model_cfg, train_cfg, device=device)
     ckpt = CheckpointManager(train_cfg.save_dir)
@@ -297,7 +320,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--no_fg_msa", action="store_true",
                    help="train.py-parity variant without FG-MSA")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="only 1: the port trains data-parallel only")
+                   help="ranks of the mesh's 'model' axis (tensor "
+                        "parallelism); it must divide the world size")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--pallas", type=str, default="auto",

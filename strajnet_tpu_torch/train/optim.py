@@ -26,16 +26,29 @@ from typing import Callable, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from strajnet_tpu_torch.parallel import mesh as tp
+
 Schedule = Callable[[int], Union[float, torch.Tensor]]
 
 
 def clip_by_global_norm(grads: Iterable[torch.Tensor],
-                        max_norm: float) -> None:
+                        max_norm: float,
+                        split: Optional[Iterable[bool]] = None) -> None:
     """In place ``optax.clip_by_global_norm``: gradients whose joint norm
     reaches ``max_norm`` become ``(g / norm) * max_norm``, in that order of
-    operations; smaller ones stay as they are. Reads no value on the host."""
+    operations; smaller ones stay as they are. Reads no value on the host.
+    ``split`` marks the gradients of parameters sharded over ``'model'``
+    (``parallel/mesh.py``): their squares are summed over that axis, so the
+    norm is the whole gradient's."""
     grads = list(grads)
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    split = [False] * len(grads) if split is None else list(split)
+    if any(split):
+        sq = sum((g.float() ** 2).sum() for g, s in zip(grads, split) if s)
+        sq = tp.all_reduce(sq, tp.MODEL)
+        norm = torch.sqrt(sq + sum((g.float() ** 2).sum()
+                                   for g, s in zip(grads, split) if not s))
+    else:
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -68,8 +81,10 @@ class KerasNadam(torch.optim.Optimizer):
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if group["grad_clip_norm"]:
-                clip_by_global_norm((p.grad for p in params),
-                                    group["grad_clip_norm"])
+                clip_by_global_norm([p.grad for p in params],
+                                    group["grad_clip_norm"],
+                                    [tp.placement(p) is not None
+                                     for p in params])
             b1, b2 = f(group["b1"]), f(group["b2"])
             decay, eps = f(group["decay"]), float(group["eps"])
             count = int(group["count"])

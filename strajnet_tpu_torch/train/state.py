@@ -8,7 +8,9 @@ package, ``TrainConfig.use_schedule`` wires it by default.
 
 Under a process group (``parallel/ddp.py``) the state holds the model
 wrapped in ``DistributedDataParallel``; every rank runs the same optimizer
-on the same summed gradients.
+on the same summed gradients. Under an active ``('data', 'model')`` mesh
+(``parallel/mesh.py``) the model's parameters are cut to this rank's shards
+first, and the optimizer's moments live beside the shards.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from strajnet_tpu_torch.config import ModelConfig, TrainConfig
 from strajnet_tpu_torch.device import resolve_device
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params
 from strajnet_tpu_torch.objective.schedule import cosine_decay_restarts
+from strajnet_tpu_torch.parallel import mesh as tp
 from strajnet_tpu_torch.parallel.ddp import wrap_model
 from strajnet_tpu_torch.train.optim import KerasNadam
 
@@ -56,8 +59,10 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
     """A freshly initialised model in training mode on ``device`` and its
     optimizer. The initial weights are drawn from ``generator`` (a CPU
     generator; default: one seeded with ``train_cfg.seed``), alike on every
-    rank. A device that is not there raises. Under a process group the
-    model is wrapped for data parallelism (``parallel/ddp.py::wrap_model``);
+    rank. A device that is not there raises. Under an active mesh the
+    parameters are sharded over ``'model'`` (``parallel/mesh.py::
+    shard_params``). Under a process group the model is wrapped for data
+    parallelism (``parallel/ddp.py::wrap_model``);
     ``stp_grad`` leaves the encoder, FG-MSA and TrajNet without gradients,
     so DDP looks for unused parameters in that configuration only."""
     device = resolve_device(device)
@@ -66,6 +71,9 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
     model = STrajNet(model_cfg)
     model.load_state_dict(init_params(model_cfg, generator))
     model = model.to(device).train()
+    mesh = tp.active_mesh()
+    if mesh is not None:
+        tp.shard_params(model, mesh)
     optimizer = make_optimizer(train_cfg, model.parameters())
     model = wrap_model(model, device,
                        find_unused_parameters=model_cfg.stp_grad)

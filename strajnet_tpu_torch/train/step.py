@@ -9,7 +9,15 @@ step is made) the loss and the metrics are those of the global batch: each
 rank's loss terms are its shares of the global batch's (they sum to it over
 the ranks), the model's DDP wrapper sums the shares' gradients, and the
 metrics come back alike on every rank. At world size 1 nothing changes and
-no collective runs.
+no collective runs. Under a ``('data', 'model')`` mesh (``parallel/mesh.py``)
+the shares and the sums are over the ``'data'`` axis: the peers along
+``'model'`` hold the same rows and compute the same losses. There each step
+first checks once that the ranks along ``'data'`` hold alike many rows
+(``parallel/mesh.py::check_rows``: the kernels run on this rank's rows and
+refuse uneven ones), and the train step gives the replicated parameters'
+gradients model-rank 0's values before the update
+(``parallel/mesh.py::align_replicated_grads``), so that the peers' copies
+stay bit-equal.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from strajnet_tpu_torch.objective.loss import (OGMFlowLoss, WaypointGrids,
                                                true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (
     apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics)
-from strajnet_tpu_torch.parallel.ddp import sum_over_ranks, world_size
+from strajnet_tpu_torch.parallel import mesh as tp
+from strajnet_tpu_torch.parallel.ddp import data_size, sum_over_ranks
 
 # The model casts its input rasters to its compute dtype itself, so compact
 # uint8 / f16 feeds of these pass through unwidened.
@@ -57,8 +66,8 @@ def _total(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _ranks_reduce_sum():
     """The loss's and metrics' ``reduce_sum`` of this process: a sum over
-    the ranks under data parallelism, else None."""
-    return sum_over_ranks if world_size() > 1 else None
+    the ranks of the ``'data'`` axis where it has several, else None."""
+    return sum_over_ranks if data_size() > 1 else None
 
 
 def zero_loss_sums(device=None) -> Dict[str, torch.Tensor]:
@@ -86,6 +95,7 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
     loss_fn = OGMFlowLoss(task_cfg, loss_cfg, reduce_sum=_ranks_reduce_sum())
 
     def _step_math(state, batch, generator):
+        tp.check_rows(len(batch["ogm"]))
         batch = ensure_f32(batch)
         true_waypoints = true_waypoints_from_batch(batch)
         state.optimizer.zero_grad(set_to_none=True)
@@ -94,6 +104,7 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
         loss_dict = loss_fn(true_waypoints, logits)
         total = _total(loss_dict)
         total.backward()
+        tp.align_replicated_grads(state.model)
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach()
@@ -130,6 +141,7 @@ def make_eval_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
     def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
         if model.training:
             raise ValueError("eval_step needs the model in eval() mode")
+        tp.check_rows(len(batch["ogm"]))
         with torch.inference_mode():
             batch = ensure_f32(batch)
             true_waypoints = true_waypoints_from_batch(batch)

@@ -96,7 +96,8 @@ def test_package_imports_without_triton_or_nvcc():
                    "objective.schedule", "data.pipeline", "infer.submission",
                    "ops.window_attention", "ops.decoder_tail",
                    "objective.pr_auc", "infer.evaluate", "train.loop",
-                   "train.checkpoints", "parallel.ddp", "core.grid",
+                   "train.checkpoints", "parallel.ddp", "parallel.mesh",
+                   "core.grid",
                    "core.libm", "data.raster", "data.preprocess",
                    "data.womd", "data.vectorize", "data.map_raster",
                    "core.sampling", "tools.timing", "tools.bench",
@@ -374,6 +375,15 @@ def test_tools_and_keras_import_load_no_jax_or_tensorflow(module):
         module, ("jax", "flax", "tensorflow", "tf_keras")) == []
 
 
+@pytest.mark.parametrize("module", ["strajnet_tpu_torch.parallel.mesh",
+                                    "strajnet_tpu_torch.tools.graft_entry"])
+def test_mesh_and_dry_run_load_no_jax(module):
+    """In a fresh interpreter: tensor parallelism and the multi-rank dry run
+    load neither JAX, Flax, Optax nor the JAX package."""
+    assert _modules_loaded_by_import(
+        module, ("jax", "flax", "optax", "strajnet_tpu")) == []
+
+
 def test_tools_default_to_the_card_and_raise_without_one():
     from strajnet_tpu_torch.tools import (bench, graft_entry,
                                           probe_forward_modes, profile_parts)
@@ -384,3 +394,5 @@ def test_tools_default_to_the_card_and_raise_without_one():
             main([])
     with pytest.raises(RuntimeError, match="--device cpu"):
         graft_entry.entry()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        graft_entry.dryrun_multichip(4)

@@ -339,7 +339,7 @@ def test_cli_flags_pick_the_configuration(monkeypatch):
 
 
 def test_one_device_only_and_the_default_device_is_the_card(tmp_path):
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="not divisible by model_axis=2"):
         loop.train(CFG, model_axis=2, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
