@@ -12,14 +12,21 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
   geometries, K3 ``window_attention`` and K4 ``window_attention_bwd`` at the
   same four; all four also at a ragged window count (``[3, 40, 40, C]``:
   75 windows for blocks that take two at a time) and twice on the same
-  inputs (the forwards and dx bit-identical); K3 and K4 refusing C = 64
-  before a launch; the split-K pass that sums K2's and K4's weight
-  gradients alone against ``A.float().T @ B.float()``;
+  inputs (the forwards and dx bit-identical); K3 and K4 refusing 32x32
+  windows, which neither route takes, before a launch; the split-K pass
+  that sums K2's and K4's weight gradients alone against
+  ``A.float().T @ B.float()``;
 - K5 ``warp_gather_fwd`` and K6 ``warp_gather_bwd`` at ``[128, 256, 256, 1]``,
   K6 also on a smooth flow (neighbouring queries share corners), on queries
   at the rows where its bands meet, and at several band counts;
 - K7 ``decoder_tail`` at ``[128, 128, 128, 96] -> [128, 256, 256, 2]``, at
-  image sides one under, at and one over what its tiles own, and twice.
+  image sides one under, at and one over what its tiles own, and twice;
+- the general route of K1-K4 (``csrc/window_any.cu``) at ULTRA_TINY's,
+  TINY's, the Swin-B and the flagship's widths in f32 and bf16 and at
+  windows of 256 tokens (``ANY_GEOMETRIES``), and of K7
+  (``csrc/decoder_tail_any.cu``) at the model's tail widths in f32 and at
+  64 -> 32 channels in bf16, each once against its plain version and timed
+  beside it; the flagship shapes launching none of them.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -93,9 +100,19 @@ per step, peak memory and the bytes moved over each axis beside one
 process's; then
 ``tools/graft_entry.py::dryrun_multichip`` over four ranks on a 2 x 2 mesh.
 
+Phase ``widths``: whole models whose widths or element type the wgmma
+kernels are not built for, kernels on against the plain path
+(``use_pallas_attention=False``, the naive tail) on the same weights: the
+flagship in f32 (forward at batch 2, 8 general K1), the Swin-B width in bf16
+(``SWIN_B_CONFIG``; forward and one training step at batch 4, 8 general K1
+and K2), TINY in the ``"block"`` and ``"attn"`` modes with the tail kernel
+(forward and a step each at batch 4: general K1/K2 or K3/K4, 2 general K7 a
+forward). The kernels line also lists the general route of each kernel with
+its launches on these paths.
+
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
-variants, ddp, tp, preprocess, tools) while developing; with no arguments
-every phase runs.
+variants, ddp, tp, preprocess, tools, widths) while developing; with no
+arguments every phase runs.
 """
 
 from __future__ import annotations
@@ -125,8 +142,9 @@ from strajnet_tpu_torch.core.sampling import (  # noqa: E402
     BorderType, PixelType, ResamplingType, dense_image_warp, flow_warp_origin,
     ref_points, rpe_bias, sample)
 from strajnet_tpu_torch.config import (  # noqa: E402
-    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, WAYMO_OGM_TASK_CONFIG,
-    WAYMO_TASK_CONFIG, LossConfig, TrainConfig)
+    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, TINY_MODEL_CONFIG,
+    WAYMO_OGM_TASK_CONFIG, WAYMO_TASK_CONFIG, LossConfig, ModelConfig,
+    TaskConfig, TrainConfig)
 from strajnet_tpu_torch.core.libm import cosf, fmaf, sinf  # noqa: E402
 from strajnet_tpu_torch.data.pipeline import prefetch_to_device  # noqa: E402
 from strajnet_tpu_torch.data.preprocess import Processor  # noqa: E402
@@ -143,7 +161,8 @@ from strajnet_tpu_torch.infer.runner import run_shard  # noqa: E402
 from strajnet_tpu_torch.infer.submission import (  # noqa: E402
     SCENARIO_ID, SCENARIO_WAYPOINTS, SUBMISSION_SCENARIO_PREDICTIONS)
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params  # noqa: E402
-from strajnet_tpu_torch.models.swin import BasicLayerDecoder  # noqa: E402
+from strajnet_tpu_torch.models.swin import (  # noqa: E402
+    BasicLayerDecoder, SwinTransformerBlock)
 from strajnet_tpu_torch.objective.loss import (  # noqa: E402
     OGMFlowLoss, split_pred_waypoints, true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (  # noqa: E402
@@ -154,7 +173,7 @@ from strajnet_tpu_torch.ops import decoder_tail as dtl  # noqa: E402
 from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
     decoder_tail, decoder_tail_phase, decoder_tail_reference)
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
-    GRAD_NAMES, atb_accum, kernel_smem_bytes, swin_block,
+    GRAD_NAMES, atb_accum, kernel_route, kernel_smem_bytes, swin_block,
     swin_block_backward_reference, swin_block_bwd, swin_block_reference,
     token_blocked)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
@@ -176,12 +195,15 @@ from strajnet_tpu_torch.tools import (  # noqa: E402
     bench, graft_entry, probe_forward_modes, profile_parts)
 # K1 .. K7 in COUNTERS' order, the order of the kernels line
 from strajnet_tpu_torch.tools.timing import (  # noqa: E402
-    COUNTERS, bound, cuda_ms, gpu_identity, kernel_ms, read_counters,
+    COUNTERS, GENERAL_COUNTERS, PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
+    PEAK_HBM_BYTES, bound,
+    cuda_ms, gpu_identity, kernel_ms, read_counters, read_general_counters,
     reset_counters)
 
 BATCH = 16
 KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather",
-                  "window_attention", "decoder_tail")
+                  "window_attention", "decoder_tail", "window_any",
+                  "decoder_tail_any")
 # K1 vs its plain version, both bf16 with f32 accumulation but rounding at
 # different points: at most 4 bf16 ulps of the largest output, and 1 - cos
 # at bf16 noise level.
@@ -259,7 +281,42 @@ GEOMETRIES = ((128, 96, 3, 0, 2), (128, 96, 3, 4, 2), (64, 192, 6, 4, 2),
 MODEL_KEYS = ("ogm", "map_image", "actors", "occl_actors", "centerlines",
               "vec_flow")
 PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
-          "ddp", "tp", "preprocess", "tools")
+          "ddp", "tp", "preprocess", "tools", "widths")
+# The general route of K1-K4 (csrc/window_any.cu) and K7
+# (csrc/decoder_tail_any.cu) against the plain versions. In f32, with TF32
+# off, the same f32 arithmetic summed in another order (and, for K4, bf16
+# operands that can round the other way): forward within 1e-4 and gradients
+# within 1e-3 of the largest entry of the plain result. In bf16 the limits of
+# the wgmma route: K1_*, K2_*, K3_*, K4_*, K7_*.
+ANY_F32_FWD_MAX_ABS_REL = 1e-4
+ANY_F32_GRAD_MAX_ABS_REL = 1e-3
+# (B, H = W, C, heads, window, MLP width, shift, dtype): ULTRA_TINY's stage
+# 0 without and with the shift, TINY's widest stage at its C, the Swin-B
+# width, the flagship's last width in f32, windows of 256 tokens.
+ANY_GEOMETRIES = (
+    (4, 32, 8, 1, 4, 16, 0, "float32"),
+    (4, 32, 8, 1, 4, 16, 2, "float32"),
+    (2, 64, 64, 4, 4, 256, 0, "float32"),
+    (2, 128, 128, 4, 8, 512, 4, "bfloat16"),
+    (2, 32, 384, 12, 8, 1536, 4, "float32"),
+    (1, 32, 64, 2, 16, 256, 8, "bfloat16"),
+)
+# (N, H = W, Cin, Cmid, dtype) of the general K7: the model's tail widths in
+# f32, narrower ones in bf16.
+ANY_TAILS = ((16, 64, 96, 48, "float32"), (16, 32, 64, 32, "bfloat16"))
+# Phase "widths": whole models through the general route against the plain
+# path. f32: the largest entry's relative error of the forward; bf16 and the
+# steps: the limits of the flagship's checks (forward 1-cos, loss within 1%
+# of the plain path's, whole gradient 1-cos).
+WIDTHS_F32_MAX_ABS_REL = 1e-3
+WIDTHS_ONE_MINUS_COS = 1e-3
+WIDTHS_LOSS_RTOL = 1e-2
+WIDTHS_GRAD_ONE_MINUS_COS = 1e-4
+# The Swin-B width at the flagship's geometry; FG-MSA's eight heads span the
+# 512-channel bottleneck with 64 channels each (it takes heads x channels
+# equal to its input width).
+SWIN_B_CONFIG = ModelConfig(embed_dim=128, num_heads=(4, 8, 16),
+                            fgmsa_head_channels=64)
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -494,28 +551,32 @@ def check_attention_ragged_and_repeat(g: torch.Generator) -> None:
               f"worst max_abs_err/max|ref|={worst:.2e}, dx bit-identical, "
               f"gradients of two runs within {drift:.1e}")
 
-    # C = 64 (head_dim 32) is no width of the wgmma window kernels: both
-    # raise before a launch, with or without gradients
-    args, mask, _ = block_inputs(16, 64, 2, 4, g, batch=1)
+    # 32x32 windows (1024 tokens) are beyond both routes (the general one
+    # takes 256 tokens): K3 and K4 raise before a launch, with or without
+    # gradients
+    args, _, _ = general_inputs(1, 32, 64, 2, 32, 64, 0, torch.bfloat16, g)
     args = args[:6]
     dy = torch.zeros_like(args[0])
-    kw = dict(window_size=8, num_heads=2)
-    before = wa.window_attention.launches, wa.window_attention_bwd.launches
+    kw = dict(window_size=32, num_heads=2)
+    before = (wa.window_attention.launches, wa.window_attention_bwd.launches,
+              wa.window_attention.launches_any,
+              wa.window_attention_bwd.launches_any)
     ins = [a.clone().requires_grad_(True) for a in args]
     for what, call in (
-            ("K3", lambda: wa.window_attention(*args, mask, **kw)),
-            ("K3 with gradients", lambda: wa.window_attention(*ins, mask,
+            ("K3", lambda: wa.window_attention(*args, None, **kw)),
+            ("K3 with gradients", lambda: wa.window_attention(*ins, None,
                                                               **kw)),
             ("K4", lambda: wa.window_attention_bwd(
-                *args[:4], args[5], mask, dy, **kw))):
+                *args[:4], args[5], None, dy, **kw))):
         try:
             call()
         except ValueError as e:
-            print(f"{what} at C=64 raises ValueError: {e}")
+            print(f"{what} at 32x32 windows raises ValueError: {e}")
         else:
-            check(False, f"{what} at C=64 must raise")
-    check((wa.window_attention.launches,
-           wa.window_attention_bwd.launches) == before,
+            check(False, f"{what} at 32x32 windows must raise")
+    check((wa.window_attention.launches, wa.window_attention_bwd.launches,
+           wa.window_attention.launches_any,
+           wa.window_attention_bwd.launches_any) == before,
           "the refused K3 / K4 calls launched nothing")
 
 
@@ -774,21 +835,22 @@ def check_decoder_tail(g: torch.Generator) -> dict:
               f"K7 vs f32: {err32} <= {K7_MAX_ABS_REL} * {scale32}")
         check(omc32 <= K7_ONE_MINUS_COS, f"K7 vs f32 1-cos {omc32}")
 
-        # On the card the wrapper launches or raises: what the kernel does
-        # not cover never takes the naive composition. The flagship launch
+        # On the card the wrapper launches or raises: what neither route
+        # takes never takes the naive composition. The flagship launch
         # below also shows that a refused launch leaves no error behind.
-        before = decoder_tail.launches
+        before = decoder_tail.launches, decoder_tail.launches_any
+        w4 = torch.zeros(3, 3, 48, 4, device="cuda")
         for what, bad in (
-                ("an f32 input", (x.float(),) + small[1:]),
-                ("Cin=24", inputs(1, 8, 8, 24, 48)),
-                ("Cin=1024", inputs(1, 8, 8, 1024, 48))):
+                ("four output channels", (x, w_up, b_up, w4, b_out)),
+                ("an f16 input", (x.half(),) + small[1:]),
+                ("a 3-D input", (x[0],) + small[1:])):
             try:
                 decoder_tail(*bad)
             except (ValueError, RuntimeError) as e:
                 print(f"K7 on {what} raises {type(e).__name__}: {e}")
             else:
                 check(False, f"K7 on {what} must raise")
-        check(decoder_tail.launches == before,
+        check((decoder_tail.launches, decoder_tail.launches_any) == before,
               "the refused K7 calls launched nothing")
 
         # a tile owns 15 x 7 input pixels: one under, at and one over two
@@ -942,6 +1004,227 @@ def check_warp_gather(g: torch.Generator):
                  smem_bytes=4 * rows * wp))
 
 
+def general_work(kernel: str, b: int, h: int, c: int, heads: int, ws: int,
+                 hidden: int, shift: int, es: int):
+    """FLOPs and bytes of one call of the general route's K1-K4 at this
+    geometry. Forward, per token: 8 C^2 for qkv and proj, 4 C hidden for the
+    MLP (K1 only), 4 n C for the two attention products; a backward
+    recomputes the forward and runs two products for each of its (3x).
+    Bytes: the activations in and out (dy too) in the element type of ``es``
+    bytes, the weights, rel-pos bias and mask once, the gradients in f32."""
+    tokens, n = b * h * h, ws * ws
+    mlp = 4 * c * hidden if kernel in ("k1", "k2") else 0
+    flops = tokens * (8 * c * c + mlp + 4 * n * c)
+    backward = kernel in ("k2", "k4")
+    weights = 4 * c * c + (2 * c * hidden if kernel in ("k1", "k2") else 0)
+    nbytes = (tokens * c * es * (3 if backward else 2) + weights * es
+              + heads * n * n * 4
+              + ((h // ws) ** 2 * n * n * 4 if shift else 0))
+    if backward:
+        flops *= 3
+        nbytes += (weights + 8 * c + hidden + heads * n * n) * 4
+    return flops, nbytes
+
+
+def general_inputs(b, h, c, heads, ws, hidden, shift, dt, g):
+    """Swin-block arguments at a general geometry: x and the matrix weights
+    (and qkv's and proj's biases) in ``dt``, the rest f32."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    args = (r(b, h, h, c).to(dt),
+            r(c, 3 * c, scale=c ** -0.5).to(dt), r(3 * c, scale=0.1).to(dt),
+            r(c, c, scale=c ** -0.5).to(dt), r(c, scale=0.1).to(dt),
+            r(heads, ws * ws, ws * ws, scale=0.3),
+            1 + r(c, scale=0.1), r(c, scale=0.1),
+            1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(c, hidden, scale=c ** -0.5).to(dt), r(hidden, scale=0.1),
+            r(hidden, c, scale=hidden ** -0.5).to(dt), r(c, scale=0.1))
+    mask = (torch.from_numpy(shifted_window_mask(h, h, ws, shift)).cuda()
+            if shift else None)
+    dp = torch.rand(b, 2, generator=g, device="cuda") * 1.2
+    return args, mask, dp
+
+
+def held_against(what: str, got, want, max_abs_rel: float,
+                 omc_limit=None) -> float:
+    """Checks ``got`` against the plain ``want``: max |got - want| within
+    ``max_abs_rel`` of max |want| and, where given, 1 - cos within
+    ``omc_limit``. Returns the error relative to max |want|."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    check(err <= max_abs_rel * scale,
+          f"{what}: max_abs_err {err} <= {max_abs_rel} * {scale}")
+    if omc_limit is not None:
+        omc = one_minus_cos(got, want)
+        check(omc <= omc_limit, f"{what}: 1-cos {omc} <= {omc_limit}")
+    return err / scale if scale > 0 else err
+
+
+def check_general_kernels(g: torch.Generator) -> dict:
+    """The general route of K1-K4 at ANY_GEOMETRIES, each kernel once
+    against its plain version (K4's with operands rounded to bf16, as it
+    rounds them) and timed beside it. Returns per kernel the worst error
+    and the times and bounds summed over the geometries."""
+    names = ("k1", "k2", "k3", "k4")
+    out = {k: dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
+                   flops=0.0, bytes=0.0, bound_ms=0.0) for k in names}
+    for b, h, c, heads, ws, hidden, shift, dtn in ANY_GEOMETRIES:
+        dt = getattr(torch, dtn)
+        f32 = dt == torch.float32
+        check(kernel_route(dt, c, heads, ws, hidden) == "any",
+              f"[{b},{h},{h},{c}] heads {heads} ws {ws} {dtn} takes the "
+              f"general route")
+        args, mask, dp = general_inputs(b, h, c, heads, ws, hidden, shift,
+                                        dt, g)
+        dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dt)
+        kw = dict(window_size=ws, num_heads=heads)
+        attn = args[:6]
+        attn_bwd = (*attn[:4], attn[5], mask, dy)
+        calls = {
+            "k1": (lambda: swin_block(*args, mask, dp, **kw),
+                   lambda: swin_block_reference(*args, mask, dp, **kw)),
+            "k2": (lambda: swin_block_bwd(*args, mask, dp, dy, **kw),
+                   lambda: swin_block_backward_reference(*args, mask, dp, dy,
+                                                         **kw)),
+            "k3": (lambda: wa.window_attention(*attn, mask, **kw),
+                   lambda: wa.window_attention_reference(*attn, mask, **kw)),
+            "k4": (lambda: wa.window_attention_bwd(*attn_bwd, **kw),
+                   lambda: wa.window_attention_backward_reference(
+                       *attn_bwd, operand_dtype=torch.bfloat16, **kw)),
+        }
+        with torch.inference_mode():
+            reset_counters()
+            got = {k: calls[k][0]() for k in names}
+            torch.cuda.synchronize()
+            check(read_general_counters() == counts(
+                      GENERAL_COUNTERS, k1=1, k2=1, k3=1, k4=1)
+                  and read_counters() == counts(),
+                  f"one general launch of each of K1-K4 and no other: "
+                  f"{read_general_counters()}, {read_counters()}")
+            want = {k: calls[k][1]() for k in names}
+            line = []
+            for k in names:
+                fwd = k in ("k1", "k3")
+                if f32:
+                    limit = (ANY_F32_FWD_MAX_ABS_REL if fwd
+                             else ANY_F32_GRAD_MAX_ABS_REL)
+                    omc_limit = None
+                else:
+                    limit, omc_limit = {
+                        "k1": (K1_MAX_ABS_REL, K1_ONE_MINUS_COS),
+                        "k2": (K2_MAX_ABS_REL, K2_ONE_MINUS_COS),
+                        "k3": (K3_MAX_ABS_REL, K3_ONE_MINUS_COS),
+                        "k4": (K4_MAX_ABS_REL, K4_ONE_MINUS_COS)}[k]
+                if fwd:
+                    pairs = [("y", got[k], want[k])]
+                else:
+                    grad_names = GRAD_NAMES if k == "k2" else wa.GRAD_NAMES
+                    pairs = list(zip(("dx",) + grad_names,
+                                     (got[k][0],) + tuple(got[k][1]),
+                                     (want[k][0],) + tuple(want[k][1])))
+                worst, worst_abs = 0.0, 0.0
+                for name, a, w in pairs:
+                    rel = held_against(
+                        f"{k} any [{b},{h},{h},{c}] ws {ws} {dtn} {name}", a,
+                        w, limit, omc_limit)
+                    worst = max(worst, rel)
+                    worst_abs = max(worst_abs,
+                                    float((a.float() - w.float()).abs().max()))
+                t = [kernel_ms(fn, iters=3) for fn in (
+                    calls[k][1], calls[k][0], calls[k][0], calls[k][1])]
+                ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                fl, by = general_work(k, b, h, c, heads, ws, hidden, shift,
+                                      2 if dt == torch.bfloat16 else 4)
+                peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+                bms, bby = bound(fl, by, peak)
+                o = out[k]
+                o["max_abs_err"] = max(o["max_abs_err"], worst_abs)
+                o["max_abs_rel"] = max(o["max_abs_rel"], worst)
+                o["ms"] += ms
+                o["plain_ms"] += plain_ms
+                o["bound_ms"] += bms
+                o["flops"] += fl / peak     # seconds at the peak rates
+                o["bytes"] += by / PEAK_HBM_BYTES
+                line.append(f"{k} err/max|ref|={worst:.2e} (limit {limit:.2e}"
+                            + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
+                            + f") ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                            f"bound_ms={bms:.4f} ({bby})")
+            print(f"general route [{b},{h},{h},{c}] heads={heads} ws={ws} "
+                  f"hidden={hidden} shift={shift} {dtn}, 1 launch each: "
+                  + "; ".join(line))
+        del args, mask, dp, dy, got, want, calls
+        torch.cuda.empty_cache()
+    for k in names:
+        o = out[k]
+        # the rate that sets the summed bound: the larger of the two sums
+        o["bound_by"] = ("operations" if o.pop("flops") > o.pop("bytes")
+                         else "bytes")
+        o["library_ms"] = None
+    return out
+
+
+def check_general_tail(g: torch.Generator) -> dict:
+    """The general K7 at ANY_TAILS against the naive composition in the same
+    element type (f32 with TF32 off), timed beside it."""
+    res = dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, bound_by="operations", library_ms=None)
+    for n, h, cin, cmid, dtn in ANY_TAILS:
+        dt = getattr(torch, dtn)
+        check(dtl.kernel_route(dt, cin, cmid, 2) == "any",
+              f"K7 {cin} -> {cmid} {dtn} takes the general route")
+
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device="cuda") * scale
+
+        args = (r(n, h, h, cin).to(dt), r(3, 3, cin, cmid,
+                                          scale=(9 * cin) ** -0.5),
+                r(cmid, scale=0.1), r(3, 3, cmid, 2,
+                                      scale=(9 * cmid) ** -0.5),
+                r(2, scale=0.1))
+        with torch.inference_mode():
+            reset_counters()
+            y = decoder_tail(*args)
+            torch.cuda.synchronize()
+            check(read_general_counters() == counts(GENERAL_COUNTERS, k7=1)
+                  and read_counters() == counts(),
+                  f"one general K7 launch and no other: "
+                  f"{read_general_counters()}, {read_counters()}")
+            ref = decoder_tail_reference(*args)
+            check(tuple(y.shape) == (n, 2 * h, 2 * h, 2) and y.dtype == dt,
+                  f"K7 any shape {tuple(y.shape)} {y.dtype}")
+            f32 = dt == torch.float32
+            limit = ANY_F32_FWD_MAX_ABS_REL if f32 else K7_MAX_ABS_REL
+            omc_limit = None if f32 else K7_ONE_MINUS_COS
+            rel = held_against(f"K7 any [{n},{h},{h},{cin}] -> {cmid} {dtn}",
+                               y, ref, limit, omc_limit)
+            err = float((y.float() - ref.float()).abs().max())
+            t = [kernel_ms(fn, iters=3) for fn in (
+                lambda: decoder_tail_reference(*args),
+                lambda: decoder_tail(*args), lambda: decoder_tail(*args),
+                lambda: decoder_tail_reference(*args))]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        px, es = n * 4 * h * h, 4 if f32 else 2
+        flops = 2.0 * px * 9 * cin * cmid + 2.0 * px * 9 * cmid * 2
+        nbytes = (n * h * h * cin + px * 2) * es + (9 * cin * cmid
+                                                    + 9 * cmid * 2) * 4
+        bms, bby = bound(flops, nbytes,
+                         PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        print(f"general K7 [{n},{h},{h},{cin}] -> {cmid} -> 2 {dtn}, 1 "
+              f"launch: err/max|ref|={rel:.2e} (limit {limit:.2e}"
+              + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
+              + f") ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
+              f"({bby})")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_abs_rel"] = max(res["max_abs_rel"], rel)
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["bound_ms"] += bms
+        del args, y, ref
+    return res
+
+
 def to_device(batch, keys=MODEL_KEYS):
     return {k: torch.from_numpy(batch[k]).cuda() for k in keys}
 
@@ -952,12 +1235,13 @@ def forward(model, b):
                  flow=b["vec_flow"])
 
 
-def counts(**launches):
-    """A counter reading with the named kernels' launches and 0 elsewhere."""
-    unknown = set(launches) - set(COUNTERS)
+def counts(counters=COUNTERS, **launches):
+    """A reading of ``counters`` (the wgmma route's K1-K7 by default, or
+    GENERAL_COUNTERS) with the named kernels' launches and 0 elsewhere."""
+    unknown = set(launches) - set(counters)
     if unknown:
         raise KeyError(f"no such counters: {unknown}")
-    return tuple(launches.get(k, 0) for k in COUNTERS)
+    return tuple(launches.get(k, 0) for k in counters)
 
 
 def check_forward(state):
@@ -979,6 +1263,9 @@ def check_forward(state):
         y_plain = forward(plain, batch)
         check(per_forward == counts(k1=8), f"8 K1 launches per forward and "
                                            f"no other, got {per_forward}")
+        check(read_general_counters() == counts(GENERAL_COUNTERS),
+              f"the flagship forward takes the wgmma route only, got "
+              f"{read_general_counters()} general launches")
         check(tuple(y.shape) == (BATCH, oh, ow, 4 * cfg.num_waypoints),
               f"forward shape {tuple(y.shape)}")
         check(bool(torch.isfinite(y).all()), "forward output finite")
@@ -1196,6 +1483,9 @@ def train_steps():
     check(launches == counts(k1=24, k2=24, k5=3),
           f"launches of K1/K2/K5 over three steps are 24/24/3 and no other, "
           f"got {launches}")
+    check(read_general_counters() == counts(GENERAL_COUNTERS),
+          f"the flagship steps take the wgmma route only, got "
+          f"{read_general_counters()} general launches")
     check(state.step == 3, f"step count 3, got {state.step}")
     for i, loss_dict in enumerate(history):
         vals = {k: float(v) for k, v in loss_dict.items()}
@@ -2811,6 +3101,146 @@ def tools_phase():
     return launches
 
 
+def swin_block_count(model) -> int:
+    return sum(isinstance(m, SwinTransformerBlock) for m in model.modules())
+
+
+def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel):
+    """One eval-mode forward of ``cfg`` through the kernels against
+    ``plain_cfg`` on the same seed-0 weights and batch; times both in turns.
+    Returns the general route's launches of the kernel forward."""
+    state = init_params(cfg, torch.Generator().manual_seed(0))
+    model, plain = (bench.load_model(c, state, "cuda")
+                    for c in (cfg, plain_cfg))
+    inputs = bench.model_inputs(cfg, batch_size, "cuda")
+    with torch.inference_mode():
+        reset_counters()
+        y = model(**inputs)
+        torch.cuda.synchronize()
+        got_any, got = read_general_counters(), read_counters()
+        y_plain = plain(**inputs)
+        check(got_any == expect_any and got == counts(),
+              f"{name} forward: general launches {got_any} (want "
+              f"{expect_any}), wgmma {got}")
+        check(bool(torch.isfinite(y).all()), f"{name} forward finite")
+        err = float((y.float() - y_plain.float()).abs().max())
+        scale = float(y_plain.float().abs().max())
+        omc = one_minus_cos(y, y_plain)
+        if f32_rel:
+            check(err <= WIDTHS_F32_MAX_ABS_REL * scale,
+                  f"{name} forward: max_abs_err {err} <= "
+                  f"{WIDTHS_F32_MAX_ABS_REL} * {scale}")
+        else:
+            check(omc <= WIDTHS_ONE_MINUS_COS,
+                  f"{name} forward: 1-cos {omc} <= {WIDTHS_ONE_MINUS_COS}")
+        t = [cuda_ms(lambda: m(**inputs), iters=2)
+             for m in (plain, model, model, plain)]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    print(f"widths {name} forward [{batch_size}, ...] {cfg.dtype}: "
+          f"max_abs_err/max|plain|={err / scale:.3e}"
+          + (f" (limit {WIDTHS_F32_MAX_ABS_REL})" if f32_rel else "")
+          + f" 1-cos={omc:.3e}"
+          + ("" if f32_rel else f" (limit {WIDTHS_ONE_MINUS_COS})")
+          + f"; launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; "
+          f"kernel path {ms:.3f} ms ({t[1]:.3f}, {t[2]:.3f}), plain path "
+          f"{plain_ms:.3f} ms ({t[0]:.3f}, {t[3]:.3f})")
+    return got_any
+
+
+def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
+    """The first training step of ``cfg`` through the kernels against the
+    plain path's from the same weights, batch and noise: loss and whole
+    gradient; then a second step of each, timed. Returns the general
+    route's launches of the kernel step."""
+    task = TaskConfig(grid_height_cells=cfg.output_size[0],
+                      grid_width_cells=cfg.output_size[1],
+                      num_waypoints=cfg.num_waypoints)
+    batch = bench.train_batch(cfg, batch_size, "cuda")
+    res = {}
+    for which, c in (("kernel", cfg), ("plain", plain_cfg)):
+        state = bench.train_state(c, batch_size, "cuda")
+        step = make_train_step(task, LossConfig(), c.num_waypoints)
+        noise = torch.Generator(device="cuda").manual_seed(0)
+        reset_counters()
+        state, losses = step(state, batch, noise)
+        torch.cuda.synchronize()
+        launches = read_general_counters(), read_counters()
+        grads = torch.cat([p.grad.flatten().float()
+                           for p in state.model.parameters()])
+        t0 = time.perf_counter()
+        step(state, batch, noise)
+        torch.cuda.synchronize()
+        res[which] = (float(losses["total"]), grads, launches,
+                      (time.perf_counter() - t0) * 1e3)
+        del state, step
+    (loss, grads, (got_any, got), ms), (ref_loss, ref_grads, _, plain_ms) = (
+        res["kernel"], res["plain"])
+    check(got_any == expect_any and got == expect,
+          f"{name} step: general launches {got_any} (want {expect_any}), "
+          f"wgmma {got} (want {expect})")
+    check(bool(np.isfinite(loss)) and bool(torch.isfinite(grads).all()),
+          f"{name} step: loss and gradients finite")
+    omc = one_minus_cos(grads, ref_grads)
+    print(f"widths {name} step [{batch_size}, ...]: total loss {loss:.6f} "
+          f"vs plain {ref_loss:.6f} (limit {WIDTHS_LOSS_RTOL} relative); "
+          f"gradient 1-cos={omc:.3e} (limit {WIDTHS_GRAD_ONE_MINUS_COS}); "
+          f"launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; second "
+          f"step {ms:.1f} ms, plain {plain_ms:.1f} ms")
+    check(abs(loss - ref_loss) <= WIDTHS_LOSS_RTOL * abs(ref_loss),
+          f"{name} step: loss {loss} within {WIDTHS_LOSS_RTOL} of {ref_loss}")
+    check(omc <= WIDTHS_GRAD_ONE_MINUS_COS,
+          f"{name} step: gradient 1-cos {omc} <= {WIDTHS_GRAD_ONE_MINUS_COS}")
+    return got_any
+
+
+def widths_phase() -> tuple:
+    """Whole models whose Swin blocks or tails the wgmma kernels are not
+    built for, with the kernels on against the plain path
+    (``use_pallas_attention=False``, the naive tail): the flagship in f32
+    (forward, batch 2), the Swin-B width in bf16 (forward and a step, batch
+    4), TINY in the ``"block"`` and ``"attn"`` modes with the tail kernel
+    (forward and a step each, batch 4). Returns the general route's launches
+    of K1-K4 and K7 over these runs."""
+    t0 = time.perf_counter()
+    total = [0] * len(GENERAL_COUNTERS)
+
+    def add(launches):
+        for i, n in enumerate(launches):
+            total[i] += n
+
+    general = functools.partial(counts, GENERAL_COUNTERS)
+    plain = dict(use_pallas_attention=False, use_pallas_decoder_tail=False)
+    f32 = dataclasses.replace(STRAJNET_CONFIG, dtype="float32")
+    blocks = swin_block_count(STrajNet(f32))
+    add(widths_forward("flagship f32", f32,
+                       dataclasses.replace(f32, **plain), 2,
+                       general(k1=blocks), True))
+    torch.cuda.empty_cache()
+    blocks = swin_block_count(STrajNet(SWIN_B_CONFIG))
+    swin_b_plain = dataclasses.replace(SWIN_B_CONFIG, **plain)
+    add(widths_forward("Swin-B width", SWIN_B_CONFIG, swin_b_plain, 4,
+                       general(k1=blocks), False))
+    add(widths_step("Swin-B width", SWIN_B_CONFIG, swin_b_plain, 4,
+                    general(k1=blocks, k2=blocks), counts(k5=1)))
+    torch.cuda.empty_cache()
+    blocks = swin_block_count(STrajNet(TINY_MODEL_CONFIG))
+    tiny_plain = dataclasses.replace(TINY_MODEL_CONFIG, **plain)
+    for mode, fwd, bwd in (("block", "k1", "k2"), ("attn", "k3", "k4")):
+        cfg = dataclasses.replace(TINY_MODEL_CONFIG,
+                                  use_pallas_attention=mode,
+                                  use_pallas_decoder_tail=True)
+        name = f"TINY {mode!r} + tail kernel"
+        add(widths_forward(name, cfg, tiny_plain, 4,
+                           general(**{fwd: blocks}, k7=2), False))
+        add(widths_step(name, cfg, tiny_plain, 4,
+                        general(**{fwd: blocks, bwd: blocks}, k7=2),
+                        counts(k5=1)))
+    torch.cuda.empty_cache()
+    print(f"widths phase: {time.perf_counter() - t0:.1f} s; general "
+          f"launches K1-K4,K7 {tuple(total)}")
+    return tuple(total)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2879,14 +3309,33 @@ def main(argv=None) -> int:
             source=csrc + "decoder_tail.cu",
             replaces=jax_ops + "pallas_decoder_tail.py:127"),
     }
-    launches = dict.fromkeys(kernels, 0)
+    # the general route of K1-K4 and K7, in the order of GENERAL_COUNTERS
+    general = {
+        "swin_block_any": dict(
+            source=csrc + "window_any.cu",
+            replaces=jax_ops + "pallas_swin_block.py:82"),
+        "swin_block_bwd_any": dict(
+            source=csrc + "window_any.cu",
+            replaces=jax_ops + "pallas_swin_block.py:143"),
+        "window_attention_any": dict(
+            source=csrc + "window_any.cu",
+            replaces=jax_ops + "pallas_window_attention.py:91"),
+        "window_attention_bwd_any": dict(
+            source=csrc + "window_any.cu",
+            replaces=jax_ops + "pallas_window_attention.py:131"),
+        "decoder_tail_any": dict(
+            source=csrc + "decoder_tail_any.cu",
+            replaces=jax_ops + "pallas_decoder_tail.py:127"),
+    }
+    launches = dict.fromkeys(list(kernels) + list(general), 0)
 
-    def add_launches(counters):
-        for name, count in zip(kernels, counters):
+    def add_launches(counters, names=tuple(kernels)):
+        for name, count in zip(names, counters):
             launches[name] += count
 
     g = torch.Generator(device="cuda").manual_seed(0)
     if "kernels" in phases:
+        reset_counters()
         kernels["swin_block"].update(check_swin_block(g))
         kernels["swin_block_bwd"].update(check_swin_block_bwd(g))
         kernels["swin_block_bwd"]["split_k"] = check_split_k(g)
@@ -2928,6 +3377,21 @@ def main(argv=None) -> int:
         kernels["decoder_tail"].update(
             regs=regs, spill_bytes=spill,
             smem_bytes=dtl.kernel_smem_bytes())
+        check(read_general_counters() == counts(GENERAL_COUNTERS),
+              f"the wgmma route's checks launched no general kernel, got "
+              f"{read_general_counters()}")
+        torch.cuda.empty_cache()
+        for name, res in zip(general, tuple(check_general_kernels(g).values())
+                             + (check_general_tail(g),)):
+            general[name].update(res)
+        for name, source, kernel in (
+                ("swin_block_any", "window_any", "gemm_kernel"),
+                ("decoder_tail_any", "decoder_tail_any",
+                 "decoder_tail_any_kernel")):
+            res = kernel_resources(builds[source].log, kernel)
+            general[name].update(
+                regs={str(c): r for c, (r, _) in res.items()},
+                spill_bytes={str(c): sp for c, (_, sp) in res.items()})
         torch.cuda.empty_cache()
     if set(phases) & {"forward", "serve", "eval"}:
         state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))
@@ -2956,11 +3420,13 @@ def main(argv=None) -> int:
         preprocess_phase()
     if "tools" in phases:
         add_launches(tools_phase())
+    if "widths" in phases:
+        add_launches(widths_phase(), tuple(general))
 
     print(smi)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **info)
-        for name, info in kernels.items()]}))
+        for name, info in list(kernels.items()) + list(general.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -19,15 +19,20 @@ zero outside the ``2H x 2W`` image. Kernels keep the JAX layout, HWIO:
   that stand for pixels outside the image, a 2x2 VALID conv with the
   re-bucketed output kernel (:func:`build_ky`), one depth-to-space at two
   channels. Plain PyTorch, no kernel.
-- :func:`decoder_tail`: on a CUDA tensor the kernel of
-  ``csrc/decoder_tail.cu``, which runs the phase form's two products on
-  ``wgmma`` and keeps the intermediate in shared memory; on a CPU tensor the
-  naive composition. The kernel is built for the model's tails, ``Cin = 96``
-  and ``Cmid = 48``; a small kernel of the same source folds both kernels
-  and packs them into the products' operand layout per launch. Its backward
-  is autograd of the naive composition, as the JAX custom VJP is: there is
-  no backward kernel. What the kernel does not cover, or a failed build or
-  launch, raises. ``decoder_tail.launches`` counts launches.
+- :func:`decoder_tail`: on a CUDA tensor a kernel of the route
+  :func:`kernel_route` picks from the element type and the widths, before
+  any launch; on a CPU tensor the naive composition. Route ``"wgmma"``,
+  ``csrc/decoder_tail.cu``, runs the phase form's two products on ``wgmma``
+  and keeps the intermediate in shared memory; it is built for the model's
+  tails in bf16, ``Cin = 96`` and ``Cmid = 48``, and a small kernel of the
+  same source folds both kernels and packs them into the products' operand
+  layout per launch. Route ``"any"``, ``csrc/decoder_tail_any.cu``, is a
+  direct SIMT convolution for every other width, f32 or bf16, that keeps
+  the intermediate in shared memory too. The backward is autograd of the
+  naive composition, as the JAX custom VJP is: there is no backward kernel.
+  What neither route takes (two output channels only), or a failed build
+  or launch, raises. ``decoder_tail.launches`` counts the wgmma route's
+  launches, ``decoder_tail.launches_any`` the general route's.
 """
 
 from __future__ import annotations
@@ -147,7 +152,7 @@ KERNEL_WIDTHS = (96, 48)   # (Cin, Cmid) of the model's tails
 
 
 def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
-    """Whether the kernel covers this geometry.
+    """Whether the wgmma kernel covers this geometry.
 
     It is built for the tails of the model: ``Cin = 96``, ``Cmid = 48``, two
     output channels. The gate of the JAX package also asks for a square image
@@ -155,6 +160,37 @@ def supports(h: int, w: int, cin: int, cmid: int, cout: int) -> bool:
     chunks; this kernel masks ragged edges itself and takes any image.
     """
     return cout == 2 and h > 0 and w > 0 and (cin, cmid) == KERNEL_WIDTHS
+
+
+def kernel_route(dtype: torch.dtype, cin: int, cmid: int, cout: int) -> str:
+    """The tail kernel's route for this element type and these widths:
+    ``"wgmma"`` where ``csrc/decoder_tail.cu`` is built for them (bf16,
+    ``(Cin, Cmid) == (96, 48)``), else ``"any"``, which takes every width in
+    f32 or bf16 (a superset of the JAX gate's, ``pallas_decoder_tail.py::
+    supports``, at any image size). Raises ValueError on what neither takes:
+    an output other than two channels, another element type. Pure."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the decoder-tail kernels compute in float32 or "
+                         f"bfloat16, got {dtype}")
+    if cout != 2 or cin < 1 or cmid < 1:
+        raise ValueError(f"the decoder-tail kernels take Cin, Cmid >= 1 and "
+                         f"two output channels, got cin={cin}, cmid={cmid}, "
+                         f"cout={cout}")
+    if dtype == torch.bfloat16 and (cin, cmid) == KERNEL_WIDTHS:
+        return "wgmma"
+    return "any"
+
+
+def _lib_any():
+    from strajnet_tpu_torch._build import load_library
+
+    lib = load_library("decoder_tail_any")
+    if not getattr(lib, "_bound", False):
+        lib.decoder_tail_any_fwd.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.decoder_tail_any_fwd.restype = ctypes.c_int
+        lib._bound = True
+    return lib
 
 
 def _lib():
@@ -179,14 +215,18 @@ def kernel_smem_bytes() -> int:
     return int(_lib().decoder_tail_smem_bytes())
 
 
-def check_launch_args(x, w_up, w_out) -> None:
-    """Raises ValueError unless the kernel takes these arguments: bf16
-    ``x [N, H, W, 96]``, ``w_up [3, 3, 96, 48]``, ``w_out [3, 3, 48, 2]``.
-    Touches no kernel."""
+def _check_4d(x, w_up, w_out) -> None:
     if x.dim() != 4 or w_up.dim() != 4 or w_out.dim() != 4:
         raise ValueError(f"x, w_up and w_out must be 4-D, got "
                          f"{tuple(x.shape)}, {tuple(w_up.shape)}, "
                          f"{tuple(w_out.shape)}")
+
+
+def check_launch_args(x, w_up, w_out) -> None:
+    """Raises ValueError unless the wgmma kernel takes these arguments: bf16
+    ``x [N, H, W, 96]``, ``w_up [3, 3, 96, 48]``, ``w_out [3, 3, 48, 2]``.
+    Touches no kernel."""
+    _check_4d(x, w_up, w_out)
     n, h, w, cin = x.shape
     cmid = w_up.shape[3]
     if x.dtype != torch.bfloat16:
@@ -203,7 +243,57 @@ def check_launch_args(x, w_up, w_out) -> None:
                          f"supports)")
 
 
+def check_general_args(x, w_up, w_out) -> None:
+    """Raises ValueError unless the general kernel takes these arguments:
+    ``x [N, H, W, Cin]`` in f32 or bf16 with N, H, W >= 1, ``w_up [3, 3,
+    Cin, Cmid]``, ``w_out [3, 3, Cmid, 2]``. Touches no kernel."""
+    _check_4d(x, w_up, w_out)
+    n, h, w, cin = x.shape
+    cmid = w_up.shape[3]
+    kernel_route(x.dtype, cin, cmid, w_out.shape[3])
+    if (tuple(w_up.shape) != (3, 3, cin, cmid)
+            or tuple(w_out.shape) != (3, 3, cmid, 2)):
+        raise ValueError(f"w_up {tuple(w_up.shape)} / w_out "
+                         f"{tuple(w_out.shape)}: expected (3, 3, {cin}, "
+                         f"Cmid) and (3, 3, Cmid, 2)")
+    if min(n, h, w) < 1:
+        raise ValueError(f"the decoder-tail kernel takes a non-empty image, "
+                         f"got {tuple(x.shape)}")
+
+
 def _launch(x, w_up, b_up, w_out, b_out):
+    _check_4d(x, w_up, w_out)
+    route = kernel_route(x.dtype, x.shape[3], w_up.shape[3], w_out.shape[3])
+    launch = _launch_wgmma if route == "wgmma" else _launch_any
+    return launch(x, w_up, b_up, w_out, b_out)
+
+
+def _launch_any(x, w_up, b_up, w_out, b_out):
+    check_general_args(x, w_up, w_out)
+    n, h, w, cin = x.shape
+    cmid = w_up.shape[3]
+    f32 = torch.float32
+    wu, bu, wo, bo = (t.to(f32).contiguous()
+                      for t in (w_up, b_up, w_out, b_out))
+    out = torch.empty(n, 2 * h, 2 * w, 2, dtype=x.dtype, device=x.device)
+    check_tensors({"x": (x, x.dtype, (n, h, w, cin)),
+                   "w_up": (wu, f32, (3, 3, cin, cmid)),
+                   "b_up": (bu, f32, (cmid,)),
+                   "w_out": (wo, f32, (3, 3, cmid, 2)),
+                   "b_out": (bo, f32, (2,))}, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib_any().decoder_tail_any_fwd(
+        ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo), ptr(out),
+        int(x.dtype == torch.bfloat16), n, h, w, cin, cmid,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"decoder_tail general kernel launch failed with "
+                           f"CUDA error {err}")
+    decoder_tail.launches_any += 1
+    return out
+
+
+def _launch_wgmma(x, w_up, b_up, w_out, b_out):
     check_launch_args(x, w_up, w_out)
     n, h, w, cin = x.shape
     cmid = w_up.shape[3]
@@ -253,13 +343,13 @@ def decoder_tail(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     """Fused tail: conv3x3(elu(upconv2x(x, w_up) + b_up), w_out) + b_out.
 
     Args:
-      x: [N, H, W, Cin] activations (bf16 on the card).
+      x: [N, H, W, Cin] activations, f32 or bf16.
       w_up: [3, 3, Cin, Cmid] upconv kernel; b_up: [Cmid].
       w_out: [3, 3, Cmid, 2] output conv kernel; b_out: [2].
 
     Returns:
-      [N, 2H, 2W, 2] in ``x.dtype``. The kernel accumulates both
-      convolutions in f32, adds ``b_out`` in f32 and rounds the intermediate
+      [N, 2H, 2W, 2] in ``x.dtype``. Both kernels accumulate both
+      convolutions in f32, add ``b_out`` in f32 and round the intermediate
       and the output once.
     """
     if x.device.type == "cpu":
@@ -271,3 +361,4 @@ def decoder_tail(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 
 
 decoder_tail.launches = 0
+decoder_tail.launches_any = 0

@@ -13,18 +13,31 @@ version with the semantics of ``_xla_block_reference``, under autograd. A CUDA
 tensor goes through a ``torch.autograd.Function``: the forward launches
 ``csrc/swin_block.cu`` and saves only its inputs; the backward launches
 ``csrc/swin_block_bwd.cu`` (:func:`swin_block_bwd`), which recomputes the
-forward and returns dx and the 13 parameter gradients. Both are ``wgmma``
-kernels built for the model's widths (C of 96, 192 or 384, head_dim 32); the
-wrappers hand them their scratch (the weights packed into tiles, parking
-space, the operands of the weight gradients). With ``backward="plain"`` the
-backward is autograd of the plain version instead (the ``"block_fwd"`` mode
-of the model). A failed build or launch, or a shape the kernels do not
-cover, raises; there is no fallback.
+forward and returns dx and the 13 parameter gradients.
+
+Each of the two has two routes, picked by :func:`kernel_route` from the
+element type and the widths alone, before any launch:
+
+- ``"wgmma"``: ``csrc/swin_block.cu`` and ``csrc/swin_block_bwd.cu``, fused
+  ``wgmma`` kernels built for the flagship blocks: bf16, 8x8 windows, C of
+  96, 192 or 384 with head_dim 32, MLP widths in 64-column chunks;
+- ``"any"``: ``csrc/window_any.cu``, a chain of SIMT kernels with the
+  intermediates in device memory, for every other shape the TPU kernels
+  take, in f32 or bf16, up to 256 tokens a window, head_dim 64, C 1024 and
+  an MLP width of 4096.
+
+The wrappers hand the kernels their scratch (the weights packed into tiles,
+parking space, the intermediates). With ``backward="plain"`` the backward
+is autograd of the plain version instead (the ``"block_fwd"`` mode of the
+model). A failed build or launch, or a shape neither route covers, raises;
+there is no fallback.
 :func:`swin_block_backward_reference` is the backward written out step by
 step with the kernel's rounding points; CPU tensors and the checks on the
 card use it. :func:`atb_accum` is the backward's split-K pass
 ``dW += A^T B`` alone. ``swin_block.launches`` and
-``swin_block_bwd.launches`` count kernel launches.
+``swin_block_bwd.launches`` count the wgmma route's launches,
+``swin_block.launches_any`` and ``swin_block_bwd.launches_any`` the general
+route's.
 """
 
 from __future__ import annotations
@@ -39,6 +52,12 @@ import torch.nn.functional as F
 _KERNEL_WINDOW = 8   # ws * ws == 64 tokens: one wgmma M tile per window
 _BLOCK_CHANNELS = (96, 192, 384)   # widths the wgmma window kernels are built for
 _HEAD_DIM = 32
+# What the general route (csrc/window_any.cu) takes: tokens a window, head
+# size, channels, MLP width.
+ANY_MAX_TOKENS = 256
+ANY_MAX_HEAD_DIM = 64
+ANY_MAX_CHANNELS = 1024
+ANY_MAX_HIDDEN = 4096
 
 
 def _ln_f32(x, scale, bias, eps):
@@ -254,7 +273,7 @@ def check_tensors(expect, device) -> None:
 def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
                          window_size: int, num_heads: int,
                          what: str = "the window kernels") -> None:
-    """Raises ValueError unless the windowed-attention part of the CUDA
+    """Raises ValueError unless the windowed-attention part of the wgmma
     kernels (``what``, for the message) takes these arguments: bf16
     activations, matrix weights, ``bqkv`` and ``bproj``; f32 ``rel_bias``
     and mask; 8x8 windows; a channel width the wgmma window kernels are built
@@ -262,28 +281,16 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
     the attention does not read it)."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
-    b, h, w, c = x.shape
+    _, h, w, c = x.shape
     if window_size != _KERNEL_WINDOW:
         raise ValueError(f"the kernel runs 8x8 windows (64 tokens), got "
                          f"window_size={window_size}")
     if h % window_size or w % window_size:
         raise ValueError(f"H={h}, W={w} must be multiples of {window_size}")
     check_wgmma_widths(c, num_heads, what)
-    n = window_size * window_size
-    bf = torch.bfloat16
-    expect = {
-        "x": (x, bf, (b, h, w, c)),
-        "wqkv": (wqkv, bf, (c, 3 * c)),
-        "bqkv": (bqkv, bf, (3 * c,)),
-        "wproj": (wproj, bf, (c, c)),
-        "rel_bias": (rel_bias, torch.float32, (num_heads, n, n)),
-    }
-    if bproj is not None:
-        expect["bproj"] = (bproj, bf, (c,))
-    if mask is not None:
-        expect["mask"] = (mask, torch.float32,
-                          ((h // window_size) * (w // window_size), n, n))
-    check_tensors(expect, x.device)
+    check_tensors(_attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                     mask, window_size, num_heads,
+                                     torch.bfloat16), x.device)
 
 
 def check_wgmma_widths(c: int, num_heads: int, what: str) -> None:
@@ -299,7 +306,7 @@ def check_wgmma_widths(c: int, num_heads: int, what: str) -> None:
 def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
                       ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
                       window_size: int, num_heads: int) -> None:
-    """Raises ValueError unless the CUDA kernels take these arguments.
+    """Raises ValueError unless the wgmma kernels take these arguments.
 
     What :func:`check_attention_args` asks (among it a channel width the
     kernels are built for: 96, 192, 384 with head_dim 32), and f32 LayerNorm
@@ -309,20 +316,125 @@ def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                          window_size=window_size, num_heads=num_heads,
                          what="the Swin-block kernels")
-    b, c = x.shape[0], x.shape[-1]
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
     if hidden <= 0 or hidden % 64:
         raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
                          f"64")
+    check_tensors(_mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                               drop_path, torch.bfloat16), x.device)
+
+
+def _mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, drop_path, dt):
+    """``check_tensors``' table of the block's other arguments: ``w1`` and
+    ``w2`` in ``dt``, the LayerNorm parameters, ``b1``, ``b2`` and the
+    drop-path multipliers (which may be None) in f32."""
+    b, c = x.shape[0], x.shape[-1]
+    hidden = w1.shape[-1] if w1.dim() == 2 else -1
     f32 = torch.float32
     expect = {
         "ln1s": (ln1s, f32, (c,)), "ln1b": (ln1b, f32, (c,)),
         "ln2s": (ln2s, f32, (c,)), "ln2b": (ln2b, f32, (c,)),
-        "w1": (w1, torch.bfloat16, (c, hidden)), "b1": (b1, f32, (hidden,)),
-        "w2": (w2, torch.bfloat16, (hidden, c)), "b2": (b2, f32, (c,)),
+        "w1": (w1, dt, (c, hidden)), "b1": (b1, f32, (hidden,)),
+        "w2": (w2, dt, (hidden, c)), "b2": (b2, f32, (c,)),
     }
     if drop_path is not None:
         expect["drop_path"] = (drop_path, f32, (b, 2))
+    return expect
+
+
+def kernel_route(dtype: torch.dtype, c: int, heads: int, window_size: int,
+                 hidden: Optional[int] = None) -> str:
+    """The route of the window kernels for this element type and these
+    widths: ``"wgmma"`` where the fused kernels are built for them (bf16, 8x8
+    windows, C of 96, 192 or 384 with head_dim 32 and, for the block, an MLP
+    width in 64-column chunks), else ``"any"``. ``hidden`` is the block's
+    MLP width (None for the window attention, K3/K4). Raises ValueError on
+    what neither route takes. Pure: it reads no tensor and builds nothing."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the window kernels compute in float32 or bfloat16, "
+                         f"got {dtype}")
+    if heads < 1 or c < 1 or c % heads:
+        raise ValueError(f"C={c} must be heads * head_dim, got heads={heads}")
+    hd, n = c // heads, window_size * window_size
+    if window_size < 1 or n > ANY_MAX_TOKENS:
+        raise ValueError(f"the window kernels take windows of at most "
+                         f"{ANY_MAX_TOKENS} tokens, got window_size="
+                         f"{window_size} ({n} tokens)")
+    if hd > ANY_MAX_HEAD_DIM:
+        raise ValueError(f"the window kernels take head_dim up to "
+                         f"{ANY_MAX_HEAD_DIM}, got {hd} (C={c}, "
+                         f"heads={heads})")
+    if c > ANY_MAX_CHANNELS:
+        raise ValueError(f"the window kernels take C up to "
+                         f"{ANY_MAX_CHANNELS}, got C={c}")
+    if hidden is not None and not 1 <= hidden <= ANY_MAX_HIDDEN:
+        raise ValueError(f"the Swin-block kernels take an MLP width from 1 "
+                         f"to {ANY_MAX_HIDDEN}, got {hidden}")
+    if (dtype == torch.bfloat16 and window_size == _KERNEL_WINDOW
+            and c in _BLOCK_CHANNELS and hd == _HEAD_DIM
+            and (hidden is None or hidden % 64 == 0)):
+        return "wgmma"
+    return "any"
+
+
+def _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                       window_size, num_heads, dt):
+    """``check_tensors``' table of the attention arguments in element type
+    ``dt`` (f32 rel_bias and mask)."""
+    b, h, w, c = x.shape
+    n = window_size * window_size
+    expect = {
+        "x": (x, dt, (b, h, w, c)),
+        "wqkv": (wqkv, dt, (c, 3 * c)),
+        "bqkv": (bqkv, dt, (3 * c,)),
+        "wproj": (wproj, dt, (c, c)),
+        "rel_bias": (rel_bias, torch.float32, (num_heads, n, n)),
+    }
+    if bproj is not None:
+        expect["bproj"] = (bproj, dt, (c,))
+    if mask is not None:
+        expect["mask"] = (mask, torch.float32,
+                          ((h // window_size) * (w // window_size), n, n))
+    return expect
+
+
+def _grid_check(x, window_size: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    _, h, w, _ = x.shape
+    if window_size < 1 or h % window_size or w % window_size:
+        raise ValueError(f"H={h}, W={w} must be multiples of window_size="
+                         f"{window_size}")
+
+
+def check_general_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                 *, window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the general route's window attention
+    (``csrc/window_any.cu``) takes these arguments: x, the matrix weights,
+    ``bqkv`` and ``bproj`` (which may be None) in one element type, f32 or
+    bf16; f32 ``rel_bias [heads, n, n]`` and mask; the limits of
+    :func:`kernel_route`. Touches no kernel."""
+    _grid_check(x, window_size)
+    kernel_route(x.dtype, x.shape[-1], num_heads, window_size)
+    check_tensors(_attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                     mask, window_size, num_heads, x.dtype),
+                  x.device)
+
+
+def check_general_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
+                       ln2s, ln2b, w1, b1, w2, b2, mask, drop_path, *,
+                       window_size: int, num_heads: int) -> None:
+    """Raises ValueError unless the general route's Swin block takes these
+    arguments: what :func:`check_general_attention_args` asks, ``w1`` and
+    ``w2`` in x's element type, f32 LayerNorm parameters, ``b1``, ``b2``
+    and drop-path multipliers. Touches no kernel."""
+    _grid_check(x, window_size)
+    hidden = w1.shape[-1] if w1.dim() == 2 else -1
+    kernel_route(x.dtype, x.shape[-1], num_heads, window_size, hidden)
+    expect = _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                window_size, num_heads, x.dtype)
+    expect.update(_mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                               drop_path, x.dtype))
     check_tensors(expect, x.device)
 
 
@@ -335,7 +447,25 @@ def _lib(name: str):
 
     lib = load_library(name)
     if not getattr(lib, "_bound", False):
-        if name == "swin_block":
+        if name == "window_any":
+            lib.window_any_scratch_bytes.argtypes = [ctypes.c_int] * 9
+            lib.window_any_scratch_bytes.restype = ctypes.c_longlong
+            lib.swin_any_fwd.argtypes = (
+                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.swin_any_fwd.restype = ctypes.c_int
+            lib.swin_any_bwd.argtypes = (
+                [ctypes.c_void_p] * 32 + [ctypes.c_int] * 9
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.swin_any_bwd.restype = ctypes.c_int
+            lib.attn_any_fwd.argtypes = (
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            lib.attn_any_fwd.restype = ctypes.c_int
+            lib.attn_any_bwd.argtypes = (
+                [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
+            lib.attn_any_bwd.restype = ctypes.c_int
+        elif name == "swin_block":
             lib.swin_block_fwd.argtypes = (
                 [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -363,7 +493,56 @@ def _lib(name: str):
     return lib
 
 
+def window_any_lib():
+    """The general route's library, ``csrc/window_any.cu``, built and
+    bound (needs nvcc)."""
+    return _lib("window_any")
+
+
+def any_scratch(kind: int, x: torch.Tensor, num_heads: int,
+                window_size: int, hidden: int = 1) -> torch.Tensor:
+    """The general route's scratch for a launch of ``kind`` (0 block
+    forward, 1 block backward, 2 attention forward, 3 attention
+    backward)."""
+    b, h, w, c = x.shape
+    nbytes = window_any_lib().window_any_scratch_bytes(
+        kind, int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
+        window_size, hidden)
+    if nbytes < 0:
+        raise ValueError(f"window_any takes no launch of kind {kind} at "
+                         f"{tuple(x.shape)}, heads={num_heads}, "
+                         f"window_size={window_size}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
 def _launch_fwd(args, mask, drop_path, window_size, num_heads, eps):
+    x, w1 = args[0], args[10]
+    route = kernel_route(x.dtype, x.shape[-1], num_heads, window_size,
+                         w1.shape[-1])
+    launch = _launch_wgmma_fwd if route == "wgmma" else _launch_any_fwd
+    return launch(args, mask, drop_path, window_size, num_heads, eps)
+
+
+def _launch_any_fwd(args, mask, drop_path, window_size, num_heads, eps):
+    x, w1 = args[0], args[10]
+    check_general_args(*args, mask, drop_path, window_size=window_size,
+                       num_heads=num_heads)
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    scratch = any_scratch(0, x, num_heads, window_size, w1.shape[1])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = window_any_lib().swin_any_fwd(
+        *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
+        ptr(scratch), int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
+        window_size, w1.shape[1], eps, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"swin_block general kernels failed with CUDA "
+                           f"error {err}")
+    swin_block.launches_any += 1
+    return out
+
+
+def _launch_wgmma_fwd(args, mask, drop_path, window_size, num_heads, eps):
     x, w1 = args[0], args[10]
     check_kernel_args(*args, mask, drop_path, window_size=window_size,
                       num_heads=num_heads)
@@ -393,8 +572,10 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Backward of :func:`swin_block`: ``(dx, 13 f32 parameter gradients)``.
 
-    The kernel on CUDA tensors, :func:`swin_block_backward_reference` on CPU
-    tensors.
+    The kernel of :func:`kernel_route`'s route on CUDA tensors,
+    :func:`swin_block_backward_reference` on CPU tensors. The general route
+    rounds the backward products' operands to x's element type, as the
+    plain version does.
     """
     args = (x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s, ln2b,
             w1, b1, w2, b2)
@@ -408,11 +589,15 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
     b, h, w, c = x.shape
     if drop_path is None:
         drop_path = torch.ones(b, 2, dtype=torch.float32, device=x.device)
-    check_kernel_args(*args, mask, drop_path, window_size=window_size,
-                      num_heads=num_heads)
+    route = kernel_route(x.dtype, c, num_heads, window_size, w1.shape[-1])
+    if route == "wgmma":
+        check_kernel_args(*args, mask, drop_path, window_size=window_size,
+                          num_heads=num_heads)
+    else:
+        check_general_args(*args, mask, drop_path, window_size=window_size,
+                           num_heads=num_heads)
     check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
     hidden = w1.shape[1]
-    lib = _lib("swin_block_bwd")
     dev = x.device
     dx = torch.empty_like(x)
     shapes = ((c, 3 * c), (3 * c,), (c, c), (c,), tuple(rel_bias.shape),
@@ -422,11 +607,25 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
     sizes = [math.prod(sh) for sh in shapes]
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     grads = tuple(v.view(sh) for v, sh in zip(flat.split(sizes), shapes))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "any":
+        bf = int(x.dtype == torch.bfloat16)
+        scratch = any_scratch(1, x, num_heads, window_size, hidden)
+        err = window_any_lib().swin_any_bwd(
+            ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
+            ptr(drop_path), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
+            bf, bf, b, h, w, c, num_heads, window_size, hidden, eps,
+            ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"swin_block_bwd general kernels failed with "
+                               f"CUDA error {err}")
+        swin_block_bwd.launches_any += 1
+        return dx, grads
+    lib = _lib("swin_block_bwd")
     scratch16 = torch.empty(lib.swin_block_bwd_scratch_bf16(b, h, w, c, hidden),
                             dtype=torch.bfloat16, device=dev)
     scratch32 = torch.empty(lib.swin_block_bwd_scratch_f32(b, h, w, c),
                             dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.swin_block_bwd(
         ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
         ptr(drop_path), ptr(dx), *(ptr(g) for g in grads),
@@ -559,3 +758,5 @@ def swin_block(x: torch.Tensor, wqkv, bqkv, wproj, bproj, rel_bias,
 
 swin_block.launches = 0
 swin_block_bwd.launches = 0
+swin_block.launches_any = 0
+swin_block_bwd.launches_any = 0

@@ -17,17 +17,24 @@ A CUDA tensor goes through a ``torch.autograd.Function``: the forward launches
 ``window_attention_fwd`` of ``csrc/window_attention.cu`` and saves only its
 inputs; the backward launches ``window_attention_bwd``
 (:func:`window_attention_bwd`), which recomputes qkv and the softmax and
-returns dx and the five parameter gradients. Both are ``wgmma`` kernels on
-the fused Swin block's device code, built as the Swin-block kernels are for C
-of 96, 192 or 384 with head_dim 32; any other width raises before a launch
-(the plain version serves every width on the CPU only). With
-``backward="plain"`` the backward is autograd of the plain version instead,
-which tells a fault of the backward kernel from one elsewhere. A failed build
-or launch raises; there is no fallback.
+returns dx and the five parameter gradients. The route of both is the Swin
+block's, picked by ``ops/swin_block.py::kernel_route`` from the element type
+and the widths before any launch: ``"wgmma"`` kernels on the fused Swin
+block's device code for bf16 8x8 windows of C 96, 192 or 384 with head_dim
+32, and the SIMT chain of ``csrc/window_any.cu`` (``attn_any_fwd``,
+``attn_any_bwd``) for every other shape up to that module's limits, in f32
+or bf16. The general backward rounds its products' operands to bf16 whatever
+the input type, as the JAX kernel does (``pallas_window_attention.py:142``):
+its plain counterpart is :func:`window_attention_backward_reference` with
+``operand_dtype=torch.bfloat16``. With ``backward="plain"`` the backward is
+autograd of the plain version instead, which tells a fault of the backward
+kernel from one elsewhere. A failed build or launch, or a shape neither
+route takes, raises; there is no fallback.
 :func:`window_attention_backward_reference` is the backward written out step
 by step with the kernel's rounding points.
 ``window_attention.launches`` and ``window_attention_bwd.launches`` count
-kernel launches.
+the wgmma route's launches, ``launches_any`` beside them the general
+route's.
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from strajnet_tpu_torch.ops.swin_block import (check_attention_args,
-                                               check_tensors, ptr)
+from strajnet_tpu_torch.ops.swin_block import (
+    any_scratch, check_attention_args, check_general_attention_args,
+    check_tensors, kernel_route, ptr, window_any_lib)
 from strajnet_tpu_torch.ops.windows import window_partition, window_reverse
 
 GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
@@ -184,9 +192,9 @@ def bwd_kernel_smem_bytes(c: int) -> int:
 
 def check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
                    window_size: int, num_heads: int) -> None:
-    """Raises ValueError unless the forward kernel takes these arguments
-    (:func:`check_attention_args`: among it C of 96, 192 or 384 with
-    head_dim 32). Touches no kernel."""
+    """Raises ValueError unless the wgmma forward kernel takes these
+    arguments (:func:`check_attention_args`: among it C of 96, 192 or 384
+    with head_dim 32). Touches no kernel."""
     check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                          window_size=window_size, num_heads=num_heads,
                          what=_FWD_KERNEL)
@@ -194,6 +202,33 @@ def check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
 
 def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
                 num_heads):
+    route = kernel_route(x.dtype, x.shape[-1], num_heads, window_size)
+    launch = _launch_wgmma_fwd if route == "wgmma" else _launch_any_fwd
+    return launch(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
+                  num_heads)
+
+
+def _launch_any_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
+                    num_heads):
+    check_general_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                 window_size=window_size, num_heads=num_heads)
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    scratch = any_scratch(2, x, num_heads, window_size)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = window_any_lib().attn_any_fwd(
+        ptr(x), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj), ptr(rel_bias),
+        ptr(mask), ptr(out), ptr(scratch), int(x.dtype == torch.bfloat16),
+        b, h, w, c, num_heads, window_size, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"window_attention general kernels failed with "
+                           f"CUDA error {err}")
+    window_attention.launches_any += 1
+    return out
+
+
+def _launch_wgmma_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                      window_size, num_heads):
     check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                    window_size=window_size, num_heads=num_heads)
     b, h, w, c = x.shape
@@ -215,10 +250,10 @@ def _launch_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
 
 def check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
                    window_size: int, num_heads: int) -> None:
-    """Raises ValueError unless the backward kernel takes these arguments:
-    what :func:`check_attention_args` asks (among it a channel width the
-    wgmma window kernels are built for: 96, 192, 384 with head_dim 32) and
-    ``dy`` like ``x``. Touches no kernel."""
+    """Raises ValueError unless the wgmma backward kernel takes these
+    arguments: what :func:`check_attention_args` asks (among it a channel
+    width the wgmma window kernels are built for: 96, 192, 384 with head_dim
+    32) and ``dy`` like ``x``. Touches no kernel."""
     check_attention_args(x, wqkv, bqkv, wproj, None, rel_bias, mask,
                          window_size=window_size, num_heads=num_heads,
                          what=_BWD_KERNEL)
@@ -230,8 +265,8 @@ def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
                          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Backward of :func:`window_attention`: ``(dx, 5 f32 gradients)``.
 
-    The kernel on CUDA tensors, :func:`window_attention_backward_reference`
-    on CPU tensors.
+    The kernel of ``kernel_route``'s route on CUDA tensors,
+    :func:`window_attention_backward_reference` on CPU tensors.
     """
     if x.device.type == "cpu":
         return window_attention_backward_reference(
@@ -240,18 +275,37 @@ def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
     if x.device.type != "cuda":
         raise ValueError(f"window_attention_bwd runs on CPU or CUDA tensors, "
                          f"got {x.device}")
-    check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy,
-                   window_size=window_size, num_heads=num_heads)
+    route = kernel_route(x.dtype, x.shape[-1], num_heads, window_size)
+    if route == "wgmma":
+        check_bwd_args(x, wqkv, bqkv, wproj, rel_bias, mask, dy,
+                       window_size=window_size, num_heads=num_heads)
+    else:
+        check_general_attention_args(x, wqkv, bqkv, wproj, None, rel_bias,
+                                     mask, window_size=window_size,
+                                     num_heads=num_heads)
+        check_tensors({"dy": (dy, x.dtype, x.shape)}, x.device)
     b, h, w, c = x.shape
-    lib = _lib()
     dev = x.device
     dx = torch.empty_like(x)
     shapes = ((c, 3 * c), (3 * c,), (c, c), (c,), tuple(rel_bias.shape))
     grads = tuple(torch.zeros(sh, dtype=torch.float32, device=dev)
                   for sh in shapes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "any":
+        scratch = any_scratch(3, x, num_heads, window_size)
+        err = window_any_lib().attn_any_bwd(
+            ptr(x), ptr(dy), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(rel_bias),
+            ptr(mask), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
+            int(x.dtype == torch.bfloat16), 1, b, h, w, c, num_heads,
+            window_size, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"window_attention_bwd general kernels failed "
+                               f"with CUDA error {err}")
+        window_attention_bwd.launches_any += 1
+        return dx, grads
+    lib = _lib()
     scratch = torch.empty(lib.window_attention_bwd_scratch_bf16(b, h, w, c),
                           dtype=torch.bfloat16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.window_attention_bwd(
         ptr(x), ptr(dy), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(rel_bias),
         ptr(mask), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
@@ -330,3 +384,5 @@ def window_attention(x: torch.Tensor, wqkv, bqkv, wproj, bproj, rel_bias,
 
 window_attention.launches = 0
 window_attention_bwd.launches = 0
+window_attention.launches_any = 0
+window_attention_bwd.launches_any = 0

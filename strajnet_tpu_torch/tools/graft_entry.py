@@ -21,14 +21,15 @@ the one card (or on card ``r`` of several) or on the CPU, and prints JAX's
 three lines: a step of ``ULTRA_TINY_MODEL_CONFIG``, the same with the Swin
 kernels forced on (``use_pallas_attention="block"``), and with
 ``flagship``, ``STRAJNET_CONFIG`` at depths (1, 1, 1) with
-``spatial_shard`` in f32 on the same mesh. On the CPU these are JAX's
-steps, the kernels' plain versions standing in. On the card the Swin
-kernels cover bf16 8x8-window blocks of 96/192/384 channels only and raise
-elsewhere, so the ULTRA_TINY step runs the plain Swin blocks (K5 in the
-loss on the card), the kernels-on step takes the flagship widths at depths
-(1, 1, 1) in bf16, and the flagship step, in f32 as JAX's, runs the plain
-Swin blocks: their proj and MLP computed on the weights' shards, where the
-kernels-on step gathers the weights whole.
+``spatial_shard`` in f32 on the same mesh. These are JAX's steps on the
+CPU and on the card alike. On the CPU the kernels' plain versions stand in.
+On the card the kernels-on step runs the Swin blocks of ULTRA_TINY (f32,
+windows of 4x4 and smaller, head_dim 8) through K1 and K2 on their general
+route (``csrc/window_any.cu``) under the mesh, its weights gathered whole;
+the other two steps run the plain Swin blocks, as JAX's default
+``use_pallas_attention=None`` does (the port reads None as ``"block"``, so
+they ask for ``False``), with proj and the MLP computed on the weights'
+shards, and K5 in the loss.
 """
 
 from __future__ import annotations
@@ -84,25 +85,17 @@ def dryrun_steps(n_devices: int, flagship: bool, device_type: str):
     from strajnet_tpu_torch.config import ULTRA_TINY_MODEL_CONFIG as tiny
 
     data_axis, model_axis = mesh_axes(n_devices)
-    small = (STRAJNET_CONFIG, "bfloat16") if device_type == "cuda" else None
-    steps = []
-    if small is None:
-        steps.append(("ok", tiny, max(2, data_axis)))
-        steps.append(("kernels-on ok", dataclasses.replace(
-            tiny, use_pallas_attention="block"), max(2, data_axis)))
-    else:
-        steps.append(("ok", dataclasses.replace(
-            tiny, use_pallas_attention=False), max(2, data_axis)))
-        steps.append(("kernels-on ok", dataclasses.replace(
-            STRAJNET_CONFIG, depths=(1, 1, 1),
-            use_pallas_attention="block"), data_axis))
+    # JAX's default, None, is the plain Swin block; on the card the port's
+    # None launches the kernels, so the plain steps say False there
+    plain = dict(use_pallas_attention=False) if device_type == "cuda" else {}
+    steps = [("ok", dataclasses.replace(tiny, **plain), max(2, data_axis)),
+             ("kernels-on ok", dataclasses.replace(
+                 tiny, use_pallas_attention="block"), max(2, data_axis))]
     if flagship:
         sp = "+sp" if model_axis > 1 else ""
         steps.append((f"flagship{sp} ok", dataclasses.replace(
             STRAJNET_CONFIG, depths=(1, 1, 1), dtype="float32",
-            use_pallas_attention=(STRAJNET_CONFIG.use_pallas_attention
-                                  if small is None else False),
-            spatial_shard=model_axis > 1), data_axis))
+            spatial_shard=model_axis > 1, **plain), data_axis))
     return steps
 
 

@@ -22,19 +22,27 @@ from strajnet_tpu_torch.ops import swin_block as _block
 from strajnet_tpu_torch.ops import warp_gather as _gather
 from strajnet_tpu_torch.ops import window_attention as _attn
 
-# Published peaks of one H100 SXM: bf16 dense tensor-core rate and HBM rate.
+# Published peaks of one H100 SXM: bf16 dense tensor-core rate, f32 rate
+# outside the tensor cores, HBM rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Clock cycles the card idles per timed launch while the host enqueues
 # (about 1 ms at the H100's clock): see cuda_ms.
 AHEAD_CYCLES = 2_000_000
 
-# K1 .. K7: the wrappers whose ``launches`` count their kernel's launches.
+# K1 .. K7: the wrappers whose ``launches`` count their kernel's launches
+# (the wgmma route of K1-K4 and K7).
 COUNTERS = dict(k1=_block.swin_block, k2=_block.swin_block_bwd,
                 k3=_attn.window_attention, k4=_attn.window_attention_bwd,
                 k5=_gather.warp_gather_fwd, k6=_gather.warp_gather_bwd,
                 k7=_tail.decoder_tail)
+# The general route of K1-K4 and K7 (``csrc/window_any.cu``,
+# ``csrc/decoder_tail_any.cu``): the same wrappers' ``launches_any``.
+GENERAL_COUNTERS = dict(k1=_block.swin_block, k2=_block.swin_block_bwd,
+                        k3=_attn.window_attention,
+                        k4=_attn.window_attention_bwd, k7=_tail.decoder_tail)
 
 
 def gpu_identity() -> str:
@@ -89,9 +97,11 @@ def device_busy_ms(fn: Callable, iters: int = 20) -> float:
     return busy_us / 1e3 / iters
 
 
-def bound(flops: float, nbytes: float) -> Tuple[float, str]:
-    """(least ms on the card, which of the two rates sets it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> Tuple[float, str]:
+    """(least ms on the card, which of the two rates sets it), the
+    operations at ``peak_flops`` (the bf16 tensor-core rate by default)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -107,8 +117,17 @@ def count_flops(fn: Callable) -> int:
 
 
 def reset_counters() -> None:
+    """Sets the launches of both routes to 0."""
     for fn in COUNTERS.values():
         fn.launches = 0
+    for fn in GENERAL_COUNTERS.values():
+        fn.launches_any = 0
+
+
+def read_general_counters() -> Tuple[int, ...]:
+    """The general route's launches of K1, K2, K3, K4 and K7 since
+    :func:`reset_counters`."""
+    return tuple(fn.launches_any for fn in GENERAL_COUNTERS.values())
 
 
 def read_counters() -> Tuple[int, ...]:

@@ -316,28 +316,138 @@ def test_window_attention_bwd_at_a_ragged_window_count_and_twice(card, c,
 
 
 def test_window_attention_refuses_widths_its_backward_does_not_cover(card):
-    """C = 64 with head_dim 32 is no width of the wgmma window kernels: the
-    forward raises as the backward does, with or without gradients, before
-    any launch; only the CPU takes it (the plain version)."""
-    args, mask, _, dy = _block_case(card, 1, 16, 64, 2, 4)
-    args = args[:6]
-    kw = dict(window_size=8, num_heads=2)
-    before = wa.window_attention.launches, wa.window_attention_bwd.launches
-    with torch.no_grad(), pytest.raises(ValueError, match="built for C in"):
+    """Head_dim 128 (C = 256, two heads) is beyond both routes (the general
+    one takes head_dim up to 64): the forward raises as the backward does,
+    with or without gradients, before any launch of either route; only the
+    CPU takes it (the plain version)."""
+    g = torch.Generator().manual_seed(0)
+    c, heads = 256, 2
+    args = [torch.randn(*s, generator=g).to(dt).to(card) for s, dt in (
+        ((1, 16, 16, c), torch.bfloat16), ((c, 3 * c), torch.bfloat16),
+        ((3 * c,), torch.bfloat16), ((c, c), torch.bfloat16),
+        ((c,), torch.bfloat16), ((heads, 64, 64), torch.float32))]
+    mask = torch.from_numpy(shifted_window_mask(16, 16, 8, 4)).to(card)
+    dy = torch.zeros_like(args[0])
+    kw = dict(window_size=8, num_heads=heads)
+    counters = (wa.window_attention, wa.window_attention_bwd)
+
+    def launches():
+        return [(f.launches, f.launches_any) for f in counters]
+
+    before = launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim up to"):
         wa.window_attention(*args, mask, **kw)
     ins = [a.clone().requires_grad_(True) for a in args]
     for backward in ("kernel", "plain"):
-        with pytest.raises(ValueError, match="built for C in"):
+        with pytest.raises(ValueError, match="head_dim up to"):
             wa.window_attention(*ins, mask, backward=backward, **kw)
-    with pytest.raises(ValueError, match="built for C in"):
+    with pytest.raises(ValueError, match="head_dim up to"):
         wa.window_attention_bwd(args[0], args[1], args[2], args[3], args[5],
                                 mask, dy, **kw)
-    assert (wa.window_attention.launches,
-            wa.window_attention_bwd.launches) == before
+    assert launches() == before
     cpu = [a.cpu() for a in args]
-    y = wa.window_attention(*cpu, None if mask is None else mask.cpu(), **kw)
+    y = wa.window_attention(*cpu, mask.cpu(), **kw)
     assert y.shape == args[0].shape
-    assert wa.window_attention.launches == before[0]
+    assert launches() == before
+
+
+def _general_case(card, b, h, c, heads, ws, hidden, shift, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g) * k  # noqa: E731
+    args = [r(b, h, h, c).to(dtype), r(c, 3 * c, k=c ** -0.5).to(dtype),
+            r(3 * c, k=0.1).to(dtype), r(c, c, k=c ** -0.5).to(dtype),
+            r(c, k=0.1).to(dtype), r(heads, ws * ws, ws * ws, k=0.3),
+            1 + r(c, k=0.1), r(c, k=0.1), 1 + r(c, k=0.1), r(c, k=0.1),
+            r(c, hidden, k=c ** -0.5).to(dtype), r(hidden, k=0.1),
+            r(hidden, c, k=hidden ** -0.5).to(dtype), r(c, k=0.1)]
+    args = [a.to(card) for a in args]
+    mask = (torch.from_numpy(shifted_window_mask(h, h, ws, shift)).to(card)
+            if shift else None)
+    dp = (torch.rand(b, 2, generator=g) * 1.2).to(card)
+    dy = r(b, h, h, c).to(dtype).to(card)
+    return args, mask, dp, dy
+
+
+@pytest.mark.parametrize("b,h,c,heads,ws,hidden,shift,dtype", [
+    (4, 32, 8, 1, 4, 16, 2, torch.float32),      # ULTRA_TINY's stage 0
+    (2, 16, 32, 4, 2, 64, 0, torch.float32),     # windows of 4 tokens
+    (2, 14, 24, 3, 7, 48, 3, torch.float32),     # 7x7 windows
+    (2, 32, 128, 4, 8, 512, 4, torch.bfloat16),  # the Swin-B width
+    (1, 32, 64, 2, 16, 256, 8, torch.bfloat16),  # 256 tokens a window
+])
+def test_general_route_matches_plain(card, b, h, c, heads, ws, hidden, shift,
+                                     dtype):
+    """K1-K4 on the general route (``csrc/window_any.cu``) against their
+    plain versions, K4's with operands rounded to bf16 as it rounds them.
+    f32 with TF32 off: the forwards within 1e-4, the gradients within 1e-3
+    of each result's largest entry (sums in another order; K4's bf16
+    operands can round the other way); bf16: the wgmma route's limits.
+    Twice on the same inputs: bit-identical (no atomics)."""
+    args, mask, dp, dy = _general_case(card, b, h, c, heads, ws, hidden,
+                                       shift, dtype)
+    assert sb.kernel_route(dtype, c, heads, ws, hidden) == "any"
+    kw = dict(window_size=ws, num_heads=heads)
+    attn, f32 = args[:6], dtype == torch.float32
+    fwd_tol, bwd_tol = (1e-4, 1e-3) if f32 else (2.0 ** -5, 2.0 ** -6)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = sb.swin_block.launches_any, sb.swin_block.launches
+            got = {"k1": sb.swin_block(*args, mask, dp, **kw),
+                   "k2": sb.swin_block_bwd(*args, mask, dp, dy, **kw),
+                   "k3": wa.window_attention(*attn, mask, **kw),
+                   "k4": wa.window_attention_bwd(*attn[:4], attn[5], mask,
+                                                 dy, **kw)}
+            again = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
+            assert (sb.swin_block.launches_any,
+                    sb.swin_block.launches) == (before[0] + 1, before[1])
+            want = {"k1": sb.swin_block_reference(*args, mask, dp, **kw),
+                    "k2": sb.swin_block_backward_reference(*args, mask, dp,
+                                                           dy, **kw),
+                    "k3": wa.window_attention_reference(*attn, mask, **kw),
+                    "k4": wa.window_attention_backward_reference(
+                        *attn[:4], attn[5], mask, dy,
+                        operand_dtype=torch.bfloat16, **kw)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k in ("k1", "k3"):
+        scale = float(want[k].float().abs().max())
+        assert float((got[k].float() - want[k].float()).abs().max()) <= \
+            fwd_tol * scale, k
+    for k in ("k2", "k4"):
+        for i, (a, w) in enumerate(zip((got[k][0],) + tuple(got[k][1]),
+                                       (want[k][0],) + tuple(want[k][1]))):
+            scale = float(w.float().abs().max())
+            assert float((a.float() - w.float()).abs().max()) <= \
+                bwd_tol * scale, (k, i)
+    assert torch.equal(got["k2"][0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(got["k2"][1], again[1]))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid,dtype", [
+    (2, 16, 16, 96, 48, torch.float32), (1, 9, 20, 64, 32, torch.bfloat16),
+    (3, 5, 7, 12, 20, torch.float32)])
+def test_general_tail_matches_plain(card, n, h, w, cin, cmid, dtype):
+    """K7 on the general route (``csrc/decoder_tail_any.cu``) against the
+    naive composition in the same type (cuDNN TF32 off): f32 within 1e-4
+    of the largest entry, bf16 within 2^-6."""
+    args = list(_tail_case(card, n, h, w, cin, cmid))
+    args[0] = args[0].to(dtype)
+    assert dtl.kernel_route(dtype, cin, cmid, 2) == "any"
+    before = dtl.decoder_tail.launches_any
+    got = dtl.decoder_tail(*args)
+    assert dtl.decoder_tail.launches_any == before + 1
+    assert got.shape == (n, 2 * h, 2 * w, 2) and got.dtype == dtype
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = dtl.decoder_tail_reference(*args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= tol * scale
 
 
 @pytest.mark.parametrize("h,c,heads,shift", [
@@ -462,21 +572,30 @@ def test_decoder_tail_kernel_matches_plain(card, n, h, w, cin, cmid):
 
 
 @pytest.mark.parametrize("dtype,cin,match", [
-    (torch.float32, 96, "bfloat16"),        # the kernel is bf16 only
-    (torch.bfloat16, 24, "does not cover"),    # the kernel is built for
-    (torch.bfloat16, 1024, "does not cover"),  # Cin = 96, Cmid = 48
+    (torch.float32, 96, None),      # the wgmma kernel is bf16 only
+    (torch.bfloat16, 24, None),     # the wgmma kernel is built for
+    (torch.bfloat16, 1024, None),   # Cin = 96, Cmid = 48
+    (torch.float16, 96, "float32 or bfloat16"),   # no route
 ])
 def test_tail_kernel_mode_raises_where_the_kernel_does_not_apply(
         card, dtype, cin, match):
     """A decoder asked for the tail kernel never takes the naive composition
-    on the card: what the kernel does not cover raises."""
+    on the card: what the wgmma kernel is not built for launches the general
+    one, and what no route covers raises before a launch."""
     from strajnet_tpu_torch.models.decoder import (FusedUpConv,
                                                    Pyramid3DDecoder)
     dec = Pyramid3DDecoder(32, (16, 32, 64), 16, dtype=dtype,
                            use_tail_kernel="kernel").to(card)
     up = FusedUpConv(cin, 48, dtype).to(card)
     x = torch.zeros(1, 2, 8, 8, cin, dtype=dtype, device=card)
-    before = dtl.decoder_tail.launches
-    with pytest.raises((ValueError, RuntimeError), match=match):
+    before = dtl.decoder_tail.launches, dtl.decoder_tail.launches_any
+    if match is None:
+        y = dec._tail(up, dec.outconv, x)
+        assert y.shape == (1, 2, 16, 16, 2) and y.dtype == dtype
+        assert (dtl.decoder_tail.launches,
+                dtl.decoder_tail.launches_any) == (before[0], before[1] + 1)
+        return
+    with pytest.raises(ValueError, match=match):
         dec._tail(up, dec.outconv, x)
-    assert dtl.decoder_tail.launches == before
+    assert (dtl.decoder_tail.launches,
+            dtl.decoder_tail.launches_any) == before

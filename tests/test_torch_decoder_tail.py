@@ -49,6 +49,17 @@ def test_plain_forms_match_xla_and_the_interpreted_pallas_kernel(h, form):
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
+def test_plain_forms_match_xla_at_64_to_32_channels(form):
+    """``Cin = 64``, ``Cmid = 32`` in f32: widths new to the card with the
+    general K7, whose oracle is the naive composition; f32 both sides."""
+    args = _inputs(2, 16, 16, 64, 32, seed=9)
+    xla = np.asarray(jtail.decoder_tail_xla(*[jnp.asarray(a) for a in args]))
+    ours = FORMS[form](*_t(args)).numpy()
+    assert ours.shape == (2, 32, 32, 2)
+    np.testing.assert_allclose(ours, xla, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
 def test_zero_border_handling(form):
     """Against a brute-force upsample + conv: outside the image the elu'd
     intermediate counts as 0, not as elu(b_up)."""

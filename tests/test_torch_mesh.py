@@ -29,7 +29,8 @@ from strajnet_tpu_torch.config import STRAJNET_CONFIG, ULTRA_TINY_MODEL_CONFIG
 from strajnet_tpu_torch.interop.from_flax import convert_leaf
 from strajnet_tpu_torch.models.strajnet import STrajNet
 from strajnet_tpu_torch.parallel import mesh as tp
-from strajnet_tpu_torch.tools.graft_entry import dryrun_multichip
+from strajnet_tpu_torch.tools.graft_entry import (dryrun_multichip,
+                                                  dryrun_steps)
 from strajnet_tpu_torch.train.checkpoints import CheckpointManager
 
 torch.set_num_threads(2)
@@ -286,6 +287,41 @@ def test_the_cli_trains_on_a_2x2_mesh_under_torchrun(tmp_path):
              for r in range(RANKS)]
     assert [f[0][1:] for f in feeds] == [[0, 2], [0, 2], [1, 2], [1, 2]]
     assert all(f[0][0] == 2 for f in feeds)
+
+
+def test_dryrun_steps_are_jaxs_on_the_card_and_on_the_cpu():
+    """``dryrun_steps`` needs no card: on the card and on the CPU it gives
+    JAX's three configurations (``__graft_entry__.py::dryrun_multichip``),
+    the kernels-on step ULTRA_TINY with ``"block"`` in f32. JAX reads
+    ``use_pallas_attention=None`` as the plain block and the port as
+    ``"block"``, so the card's plain steps ask for False; the CPU's are
+    unchanged (the plain versions run there in any mode)."""
+    from strajnet_tpu.config import ULTRA_TINY_MODEL_CONFIG as JTINY
+
+    def fields(cfg, **change):
+        return dataclasses.asdict(dataclasses.replace(cfg, **change))
+
+    jax_steps = [
+        ("ok", fields(JTINY), 2),
+        ("kernels-on ok", fields(JTINY, use_pallas_attention="block"), 2),
+        ("flagship+sp ok", fields(JFLAG, dtype="float32", depths=(1, 1, 1),
+                                  spatial_shard=True), 2)]
+    for device, plain in (("cuda", False), ("cpu", None)):
+        steps = dryrun_steps(4, True, device)
+        assert [(label, batch) for label, _, batch in steps] == [
+            (label, batch) for label, _, batch in jax_steps]
+        for (label, cfg, _), (_, want, _) in zip(steps, jax_steps):
+            got = dataclasses.asdict(cfg)
+            if label != "kernels-on ok":
+                assert got["use_pallas_attention"] is plain, (device, label)
+                got["use_pallas_attention"] = want["use_pallas_attention"]
+            assert got == want, (device, label)
+        kernels_on = steps[1][1]
+        assert kernels_on.dtype == "float32"
+        assert kernels_on.use_pallas_attention == "block"
+        assert kernels_on.embed_dim == ULTRA_TINY_MODEL_CONFIG.embed_dim
+    assert [label for label, _, _ in dryrun_steps(4, False, "cpu")] == [
+        "ok", "kernels-on ok"]
 
 
 def test_dryrun_multichip_on_the_cpu(capsys):

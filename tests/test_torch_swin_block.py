@@ -96,6 +96,25 @@ def test_reference_matches_jax_block_at_a_ragged_window_count():
     np.testing.assert_allclose(ours, kernel, rtol=3e-4, atol=3e-4)
 
 
+def test_reference_matches_jax_block_at_windows_of_256_tokens():
+    """16x16 windows (256 tokens, the most the general route on the card
+    takes), shifted by 8, two heads of 8: new to the card with the general
+    route; the plain version is its oracle there."""
+    b, h, w, c, ws, heads, shift = 2, 32, 32, 16, 16, 2, 8
+    a = _inputs(b, h, w, c, ws, heads, seed=7)
+    mask = jax_mask(h, w, ws, shift)
+    dp = _drop_path(b)
+    ja = [jnp.asarray(a[k]) for k in NAMES]
+    kernel = np.asarray(fused_swin_block(*ja, jnp.asarray(mask),
+                                         jnp.asarray(dp), window_size=ws,
+                                         num_heads=heads, interpret=True))
+    ours = swin_block_reference(
+        *(torch.from_numpy(a[k]) for k in NAMES), torch.from_numpy(mask),
+        torch.from_numpy(dp), window_size=ws, num_heads=heads).numpy()
+    # f32 both sides, sums in another order: the tolerance above
+    np.testing.assert_allclose(ours, kernel, rtol=3e-4, atol=3e-4)
+
+
 def test_wrapper_on_cpu_takes_plain_path():
     b, h, w, c, ws, heads = 2, 8, 8, 8, 4, 2
     a = {k: torch.from_numpy(v) for k, v in

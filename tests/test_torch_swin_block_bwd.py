@@ -203,6 +203,46 @@ def test_backward_reference_matches_jax_kernel_at_a_ragged_window_count():
         assert err <= 2e-3 * scale, (name, err, scale)
 
 
+def test_backward_reference_matches_jax_kernel_at_windows_of_256_tokens():
+    """16x16 windows (256 tokens, the most the general route on the card
+    takes), shifted by 8, two heads of 8, f32: the plain backward, the
+    general K2's oracle, against ``jax.grad`` of the interpreted kernel,
+    operands rounded to bf16 as that kernel rounds them."""
+    b, h, c, ws, heads, shift = 2, 32, 16, 16, 2, 8
+    rng = np.random.default_rng(8)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    a = dict(
+        x=f(b, h, h, c) * 0.5,
+        wqkv=f(c, 3 * c) * 0.2, bqkv=f(3 * c) * 0.1,
+        wproj=f(c, c) * 0.2, bproj=f(c) * 0.1,
+        rel_bias=f(heads, ws * ws, ws * ws) * 0.3,
+        ln1s=1.0 + 0.1 * f(c), ln1b=0.1 * f(c),
+        ln2s=1.0 + 0.1 * f(c), ln2b=0.1 * f(c),
+        w1=f(c, 2 * c) * 0.2, b1=f(2 * c) * 0.1,
+        w2=f(2 * c, c) * 0.2, b2=f(c) * 0.1)
+    dy = f(b, h, h, c)
+    dp = np.array([[1.0 / 0.9, 1.25], [1.0, 0.0]], np.float32)
+    mask = jax_mask(h, h, ws, shift)
+    kw = dict(window_size=ws, num_heads=heads)
+    vals = [jnp.asarray(a[k]) for k in NAMES]
+
+    def loss(vals):
+        y = fused_swin_block(*vals, jnp.asarray(mask), jnp.asarray(dp),
+                             interpret=True, **kw)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    ref = [np.asarray(g, np.float32) for g in jax.grad(loss)(vals)]
+    dx, grads = swin_block_backward_reference(
+        *(torch.from_numpy(a[k]) for k in NAMES), torch.from_numpy(mask),
+        torch.from_numpy(dp), torch.from_numpy(dy),
+        operand_dtype=torch.bfloat16, **kw)
+    for name, got, want in zip(OUT_NAMES, (dx,) + grads, ref):
+        scale = max(np.abs(want).max(), 1e-6)
+        err = np.abs(got.numpy() - want).max()
+        # the same rounding points, f32 sums in another order
+        assert err <= 2e-3 * scale, (name, err, scale)
+
+
 def test_atb_accum_on_cpu_and_the_token_blocked_layout():
     """The split-K pass's CPU path is the plain product, accumulated into
     ``out``, from token-blocked operands; ``token_blocked`` is the

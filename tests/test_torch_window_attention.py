@@ -92,6 +92,31 @@ def test_plain_backward_matches_the_pallas_custom_vjp(shape, shift):
 
 
 @pytest.mark.parametrize("shift", [0, 2])
+def test_plain_versions_match_jax_at_head_dim_8(shift):
+    """Two heads of 8 in 4x4 windows, f32 (ULTRA_TINY's stage-1 width, an
+    MLP of 2C around it): new to the card with the general route, whose K3
+    and K4 take these plain versions as their oracles, the backward with
+    operands rounded to bf16 as the JAX kernel and the general K4 round
+    them. Tolerances as above."""
+    shape = (2, 16, 16, 16, 4, 2)
+    ws, heads = shape[4], shape[5]
+    args, mask, dy = _inputs(shape, shift, seed=11)
+    ref_y, ref = _jax_fwd_and_vjp(args, mask, dy, ws, heads)
+    x, wqkv, bqkv, wproj, bproj, rel = _t(args)
+    y = wa.window_attention_reference(x, wqkv, bqkv, wproj, bproj, rel,
+                                      _tmask(mask), window_size=ws,
+                                      num_heads=heads)
+    np.testing.assert_allclose(y.numpy(), ref_y, rtol=3e-4, atol=3e-4)
+    dx, grads = wa.window_attention_backward_reference(
+        x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
+        window_size=ws, num_heads=heads, operand_dtype=torch.bfloat16)
+    for name, got, want in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads, ref):
+        np.testing.assert_allclose(
+            got.numpy(), want, rtol=1e-3,
+            atol=1e-3 * max(1.0, float(np.abs(want).max())), err_msg=name)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
 def test_plain_backward_is_the_gradient_of_the_plain_forward(shift):
     shape = GEOMETRIES[0]
     ws, heads = shape[4], shape[5]
