@@ -23,10 +23,13 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
   image sides one under, at and one over what its tiles own, and twice;
 - the general route of K1-K4 (``csrc/window_any.cu``) at ULTRA_TINY's,
   TINY's, the Swin-B and the flagship's widths in f32 and bf16 and at
-  windows of 256 tokens (``ANY_GEOMETRIES``), and of K7
-  (``csrc/decoder_tail_any.cu``) at the model's tail widths in f32 and at
-  64 -> 32 channels in bf16, each once against its plain version and timed
-  beside it; the flagship shapes launching none of them.
+  windows of 49, 144 and 256 tokens (``ANY_GEOMETRIES``), each twice
+  against its plain version (the two runs bit-identical), with the
+  library's kernels a call counted (K1 at most 5, K2 at most 16) and timed
+  beside it, the general K1 and K2 broken down by kernel at two widths;
+  and of K7 (``csrc/decoder_tail_any.cu``) at the model's tail widths in
+  f32 and at 64 -> 32 channels in bf16; the flagship shapes launching none
+  of them.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -175,7 +178,7 @@ from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
     GRAD_NAMES, atb_accum, kernel_route, kernel_smem_bytes, swin_block,
     swin_block_backward_reference, swin_block_bwd, swin_block_reference,
-    token_blocked)
+    token_blocked, window_any_launches)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
     warp_gather_bwd, warp_gather_fwd)
@@ -196,9 +199,9 @@ from strajnet_tpu_torch.tools import (  # noqa: E402
 # K1 .. K7 in COUNTERS' order, the order of the kernels line
 from strajnet_tpu_torch.tools.timing import (  # noqa: E402
     COUNTERS, GENERAL_COUNTERS, PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
-    PEAK_HBM_BYTES, bound,
+    PEAK_HBM_BYTES, PEAK_TF32X3_FLOPS, bound,
     cuda_ms, gpu_identity, kernel_ms, read_counters, read_general_counters,
-    reset_counters)
+    reset_counters, spread)
 
 BATCH = 16
 KERNEL_SOURCES = ("swin_block", "swin_block_bwd", "warp_gather",
@@ -292,7 +295,9 @@ ANY_F32_FWD_MAX_ABS_REL = 1e-4
 ANY_F32_GRAD_MAX_ABS_REL = 1e-3
 # (B, H = W, C, heads, window, MLP width, shift, dtype): ULTRA_TINY's stage
 # 0 without and with the shift, TINY's widest stage at its C, the Swin-B
-# width, the flagship's last width in f32, windows of 256 tokens.
+# width, the flagship's last width in f32, windows of 256 tokens, and two
+# windows of SWIN_VARIANTS: the first stage of Swin-T/224 (7 x 7, 49 tokens)
+# and of Swin-B/384 (12 x 12, 144 tokens).
 ANY_GEOMETRIES = (
     (4, 32, 8, 1, 4, 16, 0, "float32"),
     (4, 32, 8, 1, 4, 16, 2, "float32"),
@@ -300,7 +305,17 @@ ANY_GEOMETRIES = (
     (2, 128, 128, 4, 8, 512, 4, "bfloat16"),
     (2, 32, 384, 12, 8, 1536, 4, "float32"),
     (1, 32, 64, 2, 16, 256, 8, "bfloat16"),
+    (2, 56, 96, 3, 7, 384, 3, "float32"),
+    (1, 96, 128, 4, 12, 512, 6, "bfloat16"),
 )
+# Kernels a call of the general K1 and K2 may launch (csrc/window_any.cu:
+# 5 and 14).
+ANY_K1_MAX_KERNELS = 5
+ANY_K2_MAX_KERNELS = 16
+# Rounds of plain / kernel / kernel / plain behind each time of the general
+# route (phase kernels) and of phase widths, printed as min / median / max
+# over the rounds; the kernels line takes the medians.
+TIMING_ROUNDS = 5
 # (N, H = W, Cin, Cmid, dtype) of the general K7: the model's tail widths in
 # f32, narrower ones in bf16.
 ANY_TAILS = ((16, 64, 96, 48, "float32"), (16, 32, 64, 32, "bfloat16"))
@@ -394,30 +409,39 @@ def block_inputs(h: int, c: int, heads: int, shift: int,
     return args, mask, dp
 
 
-def kernel_resources(log: str, kernel: str) -> dict:
-    """{C: (registers, spill bytes)} of a kernel templated on the channel
-    width (C = 0 for one that is not), from nvcc's ``-Xptxas -v`` output: the
-    entry's own two lines (the functions it calls without inlining follow
-    with lines of their own)."""
-    found, width = {}, None
+def build_resources(log: str) -> dict:
+    """{entry name: (registers, static shared bytes, spill bytes)} of every
+    kernel of a build, from nvcc's ``-Xptxas -v`` output: the entry's own
+    lines (the functions it calls without inlining follow with lines of
+    their own)."""
+    found, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            width = None
-            if kernel + "ILi" in line:
-                width = int(line.split(kernel + "ILi")[1].split("E")[0])
-            elif kernel + "E" in line:
-                width = 0
-            if width is not None:
-                found[width] = [None, None]
-        elif width is not None and "spill stores" in line:
-            if found[width][1] is None:
-                found[width][1] = int(
+            name = line.split("'")[1]
+            found[name] = [None, 0, None]
+        elif name is not None and "spill stores" in line:
+            if found[name][2] is None:
+                found[name][2] = int(
                     line.split("bytes spill stores")[0].split(",")[-1])
-        elif width is not None and "Used" in line and "registers" in line:
-            if found[width][0] is None:
-                found[width][0] = int(
-                    line.split("Used")[1].split("registers")[0])
-    return {c: tuple(v) for c, v in sorted(found.items())}
+        elif name is not None and "Used" in line and "registers" in line:
+            found[name][0] = int(line.split("Used")[1].split("registers")[0])
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[name][1] = int(smem.group(1)) if smem else 0
+            name = None
+    return {n: tuple(v) for n, v in found.items()}
+
+
+def kernel_resources(log: str, kernel: str) -> dict:
+    """{C: (registers, spill bytes)} of a kernel templated on the channel
+    width (C = 0 for one that is not), from ``build_resources``."""
+    found = {}
+    for name, (regs, _, spill) in build_resources(log).items():
+        if kernel + "ILi" in name:
+            found[int(name.split(kernel + "ILi")[1].split("E")[0])] = (
+                regs, spill)
+        elif kernel + "E" in name:
+            found[0] = (regs, spill)
+    return dict(sorted(found.items()))
 
 
 def check_split_k(g: torch.Generator) -> dict:
@@ -1062,14 +1086,36 @@ def held_against(what: str, got, want, max_abs_rel: float,
     return err / scale if scale > 0 else err
 
 
+def in_turns(plain_fn, kernel_fn, timer, rounds: int = TIMING_ROUNDS):
+    """``(kernel, plain)``: ``spread`` of ``timer(fn)`` over ``rounds``
+    rounds of plain / kernel / kernel / plain."""
+    ks, ps = [], []
+    for _ in range(rounds):
+        ps.append(timer(plain_fn))
+        ks += [timer(kernel_fn), timer(kernel_fn)]
+        ps.append(timer(plain_fn))
+    return spread(ks), spread(ps)
+
+
+def fmt_spread(s: dict, digits: int = 4) -> str:
+    return " / ".join(f"{s[k]:.{digits}f}" for k in ("min", "median", "max"))
+
+
 def check_general_kernels(g: torch.Generator) -> dict:
-    """The general route of K1-K4 at ANY_GEOMETRIES, each kernel once
+    """The general route of K1-K4 at ANY_GEOMETRIES, each kernel twice
     against its plain version (K4's with operands rounded to bf16, as it
-    rounds them) and timed beside it. Returns per kernel the worst error
-    and the times and bounds summed over the geometries."""
+    rounds them): the two runs bit-identical (output, dx and every
+    gradient), the kernels of a call counted (K1 at most
+    ANY_K1_MAX_KERNELS, K2 at most ANY_K2_MAX_KERNELS), each timed beside
+    its plain version in TIMING_ROUNDS rounds (min / median / max printed
+    per geometry, with f32's bound at the f32 SIMT rate beside the 3xTF32
+    one). Returns per kernel the worst error, the kernels a call, and the
+    median times and the bounds (f32 at the 3xTF32 rate) summed over the
+    geometries."""
     names = ("k1", "k2", "k3", "k4")
     out = {k: dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
-                   flops=0.0, bytes=0.0, bound_ms=0.0) for k in names}
+                   flops=0.0, bytes=0.0, bound_ms=0.0,
+                   kernels_per_call=0) for k in names}
     for b, h, c, heads, ws, hidden, shift, dtn in ANY_GEOMETRIES:
         dt = getattr(torch, dtn)
         f32 = dt == torch.float32
@@ -1096,13 +1142,23 @@ def check_general_kernels(g: torch.Generator) -> dict:
         }
         with torch.inference_mode():
             reset_counters()
-            got = {k: calls[k][0]() for k in names}
+            got, again, per_call = {}, {}, {}
+            for k in names:
+                before = window_any_launches()
+                got[k] = calls[k][0]()
+                per_call[k] = window_any_launches() - before
+                again[k] = calls[k][0]()
             torch.cuda.synchronize()
             check(read_general_counters() == counts(
-                      GENERAL_COUNTERS, k1=1, k2=1, k3=1, k4=1)
+                      GENERAL_COUNTERS, k1=2, k2=2, k3=2, k4=2)
                   and read_counters() == counts(),
-                  f"one general launch of each of K1-K4 and no other: "
+                  f"two general launches of each of K1-K4 and no other: "
                   f"{read_general_counters()}, {read_counters()}")
+            check(per_call["k1"] <= ANY_K1_MAX_KERNELS
+                  and per_call["k2"] <= ANY_K2_MAX_KERNELS,
+                  f"kernels a call: K1 {per_call['k1']} (at most "
+                  f"{ANY_K1_MAX_KERNELS}), K2 {per_call['k2']} (at most "
+                  f"{ANY_K2_MAX_KERNELS})")
             want = {k: calls[k][1]() for k in names}
             line = []
             for k in names:
@@ -1118,30 +1174,35 @@ def check_general_kernels(g: torch.Generator) -> dict:
                         "k3": (K3_MAX_ABS_REL, K3_ONE_MINUS_COS),
                         "k4": (K4_MAX_ABS_REL, K4_ONE_MINUS_COS)}[k]
                 if fwd:
-                    pairs = [("y", got[k], want[k])]
+                    pairs = [("y", got[k], want[k], again[k])]
                 else:
                     grad_names = GRAD_NAMES if k == "k2" else wa.GRAD_NAMES
                     pairs = list(zip(("dx",) + grad_names,
                                      (got[k][0],) + tuple(got[k][1]),
-                                     (want[k][0],) + tuple(want[k][1])))
+                                     (want[k][0],) + tuple(want[k][1]),
+                                     (again[k][0],) + tuple(again[k][1])))
                 worst, worst_abs = 0.0, 0.0
-                for name, a, w in pairs:
-                    rel = held_against(
-                        f"{k} any [{b},{h},{h},{c}] ws {ws} {dtn} {name}", a,
-                        w, limit, omc_limit)
+                for name, a, w, a2 in pairs:
+                    what = f"{k} any [{b},{h},{h},{c}] ws {ws} {dtn} {name}"
+                    rel = held_against(what, a, w, limit, omc_limit)
+                    check(torch.equal(a, a2),
+                          f"{what}: two runs bit-identical")
                     worst = max(worst, rel)
                     worst_abs = max(worst_abs,
                                     float((a.float() - w.float()).abs().max()))
-                t = [kernel_ms(fn, iters=3) for fn in (
-                    calls[k][1], calls[k][0], calls[k][0], calls[k][1])]
-                ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                ks, ps = in_turns(calls[k][1], calls[k][0],
+                                  lambda fn: kernel_ms(fn, iters=3))
+                ms, plain_ms = ks["median"], ps["median"]
                 fl, by = general_work(k, b, h, c, heads, ws, hidden, shift,
                                       2 if dt == torch.bfloat16 else 4)
-                peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+                peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
                 bms, bby = bound(fl, by, peak)
+                bms_simt = bound(fl, by, PEAK_F32_FLOPS)[0] if f32 else bms
                 o = out[k]
                 o["max_abs_err"] = max(o["max_abs_err"], worst_abs)
                 o["max_abs_rel"] = max(o["max_abs_rel"], worst)
+                o["kernels_per_call"] = max(o["kernels_per_call"],
+                                            per_call[k])
                 o["ms"] += ms
                 o["plain_ms"] += plain_ms
                 o["bound_ms"] += bms
@@ -1149,13 +1210,19 @@ def check_general_kernels(g: torch.Generator) -> dict:
                 o["bytes"] += by / PEAK_HBM_BYTES
                 line.append(f"{k} err/max|ref|={worst:.2e} (limit {limit:.2e}"
                             + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
-                            + f") ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                            f"bound_ms={bms:.4f} ({bby})")
+                            + f") ms={fmt_spread(ks)} plain_ms="
+                            f"{fmt_spread(ps)} (min / median / max of "
+                            f"{2 * TIMING_ROUNDS}) bound_ms={bms:.4f} ({bby}"
+                            + (f"; f32 SIMT {bms_simt:.4f}" if f32 else "")
+                            + f") kernels a call {per_call[k]}")
             print(f"general route [{b},{h},{h},{c}] heads={heads} ws={ws} "
-                  f"hidden={hidden} shift={shift} {dtn}, 1 launch each: "
-                  + "; ".join(line))
-        del args, mask, dp, dy, got, want, calls
+                  f"hidden={hidden} shift={shift} {dtn}, 2 launches each, "
+                  f"bit-identical: " + "; ".join(line))
+        del args, mask, dp, dy, got, again, want, calls
         torch.cuda.empty_cache()
+    print("general route, kernels a call: "
+          + ", ".join(f"{k.upper()} {out[k]['kernels_per_call']}"
+                      for k in names))
     for k in names:
         o = out[k]
         # the rate that sets the summed bound: the larger of the two sums
@@ -1163,6 +1230,62 @@ def check_general_kernels(g: torch.Generator) -> dict:
                          else "bytes")
         o["library_ms"] = None
     return out
+
+
+# (B, H = W, C, heads, window, MLP width, shift, dtype) where the general K1
+# and K2 are broken down by kernel: the flagship's last width in f32, the
+# Swin-B width in bf16.
+ANY_BREAKDOWN = ((2, 32, 384, 12, 8, 1536, 4, "float32"),
+                 (2, 128, 128, 4, 8, 512, 4, "bfloat16"))
+
+
+def general_breakdown(g: torch.Generator) -> None:
+    """Device time of the general K1 and K2 by kernel (``torch.profiler``
+    over three calls) at ANY_BREAKDOWN: where a call's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    for b, h, c, heads, ws, hidden, shift, dtn in ANY_BREAKDOWN:
+        dt = getattr(torch, dtn)
+        args, mask, dp = general_inputs(b, h, c, heads, ws, hidden, shift,
+                                        dt, g)
+        dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dt)
+        kw = dict(window_size=ws, num_heads=heads)
+        for k, fn in (("K1", lambda: swin_block(*args, mask, dp, **kw)),
+                      ("K2", lambda: swin_block_bwd(*args, mask, dp, dy,
+                                                    **kw))):
+            with torch.inference_mode():
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+            us = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    name = next((n for n in WINDOW_ANY_KERNELS
+                                 if n in e.name), "other")
+                    us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / 3
+            print(f"general {k} [{b},{h},{h},{c}] {dtn}, device us a call by "
+                  f"kernel: " + ", ".join(
+                      f"{n} {t:.1f}" for n, t in sorted(
+                          us.items(), key=lambda kv: -kv[1])))
+        del args, mask, dp, dy
+
+
+WINDOW_ANY_KERNELS = ("gemm_kernel", "atb_kernel", "attn_fwd_kernel",
+                      "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "ln_bwd_kernel",
+                      "reduce_kernel")
+
+
+def window_any_label(name: str) -> str:
+    """A ``csrc/window_any.cu`` kernel's mangled name, shortened to the
+    kernel, its element type and its template flags."""
+    base = next((k for k in WINDOW_ANY_KERNELS if k in name), name)
+    rest = name.split(base, 1)[1]
+    kind = ("bf16" if "nv_bfloat16" in rest
+            else "f32" if rest.startswith("If") else "")
+    flags = ",".join(re.findall(r"L[bi](\d+)E", rest))
+    return base + (f"<{kind}{',' + flags if flags else ''}>" if kind else "")
 
 
 def check_general_tail(g: torch.Generator) -> dict:
@@ -3107,8 +3230,8 @@ def swin_block_count(model) -> int:
 
 def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel):
     """One eval-mode forward of ``cfg`` through the kernels against
-    ``plain_cfg`` on the same seed-0 weights and batch; times both in turns.
-    Returns the general route's launches of the kernel forward."""
+    ``plain_cfg`` on the same seed-0 weights and batch; times both in
+    TIMING_ROUNDS rounds of turns. Returns the general route's launches of the kernel forward."""
     state = init_params(cfg, torch.Generator().manual_seed(0))
     model, plain = (bench.load_model(c, state, "cuda")
                     for c in (cfg, plain_cfg))
@@ -3133,30 +3256,31 @@ def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel):
         else:
             check(omc <= WIDTHS_ONE_MINUS_COS,
                   f"{name} forward: 1-cos {omc} <= {WIDTHS_ONE_MINUS_COS}")
-        t = [cuda_ms(lambda: m(**inputs), iters=2)
-             for m in (plain, model, model, plain)]
-    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ks, ps = in_turns(plain, model,
+                          lambda m: cuda_ms(lambda: m(**inputs), iters=2))
     print(f"widths {name} forward [{batch_size}, ...] {cfg.dtype}: "
           f"max_abs_err/max|plain|={err / scale:.3e}"
           + (f" (limit {WIDTHS_F32_MAX_ABS_REL})" if f32_rel else "")
           + f" 1-cos={omc:.3e}"
           + ("" if f32_rel else f" (limit {WIDTHS_ONE_MINUS_COS})")
           + f"; launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; "
-          f"kernel path {ms:.3f} ms ({t[1]:.3f}, {t[2]:.3f}), plain path "
-          f"{plain_ms:.3f} ms ({t[0]:.3f}, {t[3]:.3f})")
+          f"kernel path {fmt_spread(ks, 3)} ms, plain path "
+          f"{fmt_spread(ps, 3)} ms (min / median / max of "
+          f"{2 * TIMING_ROUNDS})")
     return got_any
 
 
 def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
     """The first training step of ``cfg`` through the kernels against the
     plain path's from the same weights, batch and noise: loss and whole
-    gradient; then a second step of each, timed. Returns the general
-    route's launches of the kernel step."""
+    gradient; then the later steps of each, timed on the host's clock in
+    TIMING_ROUNDS rounds of turns. Returns the general route's launches of
+    the kernel step."""
     task = TaskConfig(grid_height_cells=cfg.output_size[0],
                       grid_width_cells=cfg.output_size[1],
                       num_waypoints=cfg.num_waypoints)
     batch = bench.train_batch(cfg, batch_size, "cuda")
-    res = {}
+    res, runs = {}, {}
     for which, c in (("kernel", cfg), ("plain", plain_cfg)):
         state = bench.train_state(c, batch_size, "cuda")
         step = make_train_step(task, LossConfig(), c.num_waypoints)
@@ -3167,13 +3291,20 @@ def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
         launches = read_general_counters(), read_counters()
         grads = torch.cat([p.grad.flatten().float()
                            for p in state.model.parameters()])
-        t0 = time.perf_counter()
-        step(state, batch, noise)
+        res[which] = (float(losses["total"]), grads, launches)
+        runs[which] = [step, state, noise]
+
+    def step_ms(which):
+        step, state, noise = runs[which]
         torch.cuda.synchronize()
-        res[which] = (float(losses["total"]), grads, launches,
-                      (time.perf_counter() - t0) * 1e3)
-        del state, step
-    (loss, grads, (got_any, got), ms), (ref_loss, ref_grads, _, plain_ms) = (
+        t0 = time.perf_counter()
+        runs[which][1] = step(state, batch, noise)[0]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    ks, ps = in_turns("plain", "kernel", step_ms)
+    del runs
+    (loss, grads, (got_any, got)), (ref_loss, ref_grads, _) = (
         res["kernel"], res["plain"])
     check(got_any == expect_any and got == expect,
           f"{name} step: general launches {got_any} (want {expect_any}), "
@@ -3184,8 +3315,9 @@ def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
     print(f"widths {name} step [{batch_size}, ...]: total loss {loss:.6f} "
           f"vs plain {ref_loss:.6f} (limit {WIDTHS_LOSS_RTOL} relative); "
           f"gradient 1-cos={omc:.3e} (limit {WIDTHS_GRAD_ONE_MINUS_COS}); "
-          f"launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; second "
-          f"step {ms:.1f} ms, plain {plain_ms:.1f} ms")
+          f"launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; later "
+          f"steps {fmt_spread(ks, 1)} ms, plain {fmt_spread(ps, 1)} ms (min "
+          f"/ median / max of {2 * TIMING_ROUNDS}, host clock)")
     check(abs(loss - ref_loss) <= WIDTHS_LOSS_RTOL * abs(ref_loss),
           f"{name} step: loss {loss} within {WIDTHS_LOSS_RTOL} of {ref_loss}")
     check(omc <= WIDTHS_GRAD_ONE_MINUS_COS,
@@ -3384,14 +3516,17 @@ def main(argv=None) -> int:
         for name, res in zip(general, tuple(check_general_kernels(g).values())
                              + (check_general_tail(g),)):
             general[name].update(res)
-        for name, source, kernel in (
-                ("swin_block_any", "window_any", "gemm_kernel"),
-                ("decoder_tail_any", "decoder_tail_any",
-                 "decoder_tail_any_kernel")):
-            res = kernel_resources(builds[source].log, kernel)
-            general[name].update(
-                regs={str(c): r for c, (r, _) in res.items()},
-                spill_bytes={str(c): sp for c, (_, sp) in res.items()})
+        general_breakdown(g)
+        general["swin_block_any"]["resources"] = {
+            window_any_label(n): list(r)
+            for n, r in build_resources(builds["window_any"].log).items()}
+        print(f"window_any.cu kernels [registers, static shared bytes, "
+              f"spill bytes]: {general['swin_block_any']['resources']}")
+        res = kernel_resources(builds["decoder_tail_any"].log,
+                               "decoder_tail_any_kernel")
+        general["decoder_tail_any"].update(
+            regs={str(c): r for c, (r, _) in res.items()},
+            spill_bytes={str(c): sp for c, (_, sp) in res.items()})
         torch.cuda.empty_cache()
     if set(phases) & {"forward", "serve", "eval"}:
         state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))

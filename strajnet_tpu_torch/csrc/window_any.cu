@@ -1,50 +1,84 @@
 // Swin-window kernels for every shape and type the TPU kernels take (sm_90a):
-// the general route of K1-K4.
+// the general route of K1-K4, on the tensor cores.
 //
 // Replaces, for the shapes the wgmma kernels of swin_block.cu,
 // swin_block_bwd.cu and window_attention.cu are not built for,
 //   strajnet_tpu/ops/pallas_swin_block.py::_fwd_kernel (K1) and _bwd_kernel (K2),
 //   strajnet_tpu/ops/pallas_window_attention.py::_kernel (K3) and _bwd_kernel (K4).
 // Those take any window, head count, head size and MLP width, in f32 or bf16;
-// so does this file, up to n = ws * ws <= 256 tokens a window, head_dim <= 64
-// and C <= 1024 (the wrapper checks; ops/swin_block.py::kernel_route).
-//
-// It is a chain of simple SIMT kernels with the intermediates in device
-// memory, not a fused kernel:
-//
-// - gemm_kernel: C = epilogue(alpha * A @ B) over a batch of strided
-//   matrices (the batch is a window and a head), f32 accumulators, operands
-//   in f32 or bf16, optionally rounded to bf16 as they are loaded. Epilogues:
-//   bias; bias and tanh-gelu (keeping the pre-activation); residual
-//   `res + dp[sample] * (acc + bias)`; the attention logits
-//   `acc * scale + rel_bias + mask`; the gelu gradient. Split over the
-//   product's depth into per-split partial sums, which reduce_splits_kernel
-//   adds in a fixed order: the weight gradients `sum over tokens a^T b` are
-//   deterministic, with no float atomics.
-// - ln_rows_kernel / ln_bwd_rows_kernel: LayerNorm and its backward, one warp
-//   a row, statistics in f32.
-// - softmax_rows_kernel / softmax_bwd_rows_kernel: one warp a row of logits.
-// - rows_copy_kernel: the grid order of [B, H, W, C] to the window order
-//   (window after window, token after token) and back, with a drop-path
-//   multiplier and a rounding.
-// - colsum_kernel: sums over tokens (biases, LayerNorm parameters) and over
-//   windows (the rel-pos bias), split like the products.
-//
-// Every token-wise step works in window order, so a head's q, k and v in a
-// window are a strided [n, head_dim] block of qkv and the attention is three
-// batched products and a softmax. Rounding follows the plain versions
-// (ops/swin_block.py::swin_block_reference and swin_block_backward_reference,
-// ops/window_attention.py's two references), which is where the JAX kernels
-// round: to the element type T after qkv's bias, p before p @ v, the merged
-// heads, r1, both LayerNorm outputs and gelu; the backward products take
-// operands rounded to `rd` (T for K2, bf16 for K4 whatever T is, as
-// pallas_window_attention.py:142) and accumulate in f32.
+// so does this file, up to n = ws * ws <= 256 tokens a window, head_dim <= 64,
+// C <= 1024 and an MLP width of 4096 (the wrapper checks;
+// ops/swin_block.py::kernel_route).
 //
 // Bound: operations. A Swin block is 24 C^2 + 4 n C multiply-adds a token
-// forward (three times that backward), in f32 on the SIMT units (67 TFLOP/s
-// on an H100 SXM) where T is f32. The 16 x 16-thread product tiles of up to
-// 64 x 64 outputs reach a fraction of that; the intermediates cost device
-// memory traffic a fused kernel would not have. Speed is later work.
+// forward (three times that backward): 989 TFLOP/s in bf16 and, in f32, the
+// rate of three TF32 passes (495 / 3 = 165 TFLOP/s). At narrow widths the
+// intermediates between the launches (x, qkv, merged, r1, g1, out: ~22 M C
+// elements) set a traffic floor above the roofline bound, and at small
+// depths (K = C = 128) each product tile's prologue and epilogue weigh as
+// much as its main loop.
+//
+// The kernels, every product on the tensor cores with mma.sync:
+//
+// - gemm_kernel: C = epilogue(A @ B) over the tokens, 64 x 64 block tiles,
+//   four warps of 32 x 32, the operands staged by cp.async (16-byte copies
+//   where the rows allow, element copies else, zero-filled edges) into a
+//   ring of three shared-memory stages; bf16 fragments by ldmatrix, f32
+//   ones split into TF32 halves as they are read. A LayerNorm prologue (the
+//   block computes its rows' mean and 1/std, two threads a row, under the
+//   first stages' loads; each stage of A
+//   is normalised and rounded to T in shared memory once it lands, by the
+//   threads that copied it; the statistics and, for the backward, the
+//   normalised rows are saved) or a drop-path row scale on A; epilogues
+//   bias, bias + tanh-gelu (keeping the pre-activation), the gelu gradient
+//   (with the column sums of its result), `res + dp[sample] * (acc + bias)`;
+//   the window-order <-> grid-order row map (Geom::grid_row) on any operand.
+// - atb_kernel: the weight gradients, sum over tokens of a^T b, up to four
+//   in one launch, split over the tokens into per-split f32 partials; a row
+//   of ones under a^T gives the column sums of b (a bias gradient).
+// - attn_fwd_kernel: a block per (window, head, 64 queries): k and v of the
+//   window whole in shared memory, a warp per 16 queries, logits and p in
+//   registers (all of a strip's keys for windows over 64 tokens; passes
+//   for the row max, the row sum and p @ v), p rounded to T in a per-warp
+//   staging tile. p never reaches device memory; the row max and sum do (8
+//   bytes a row) for the backward. k and v are held whole, not streamed:
+//   174 KB of shared memory at n = 256, hd = 64 in f32.
+// - attn_bwd_q_kernel / attn_bwd_kv_kernel: a block per (head, group of
+//   windows, 64 rows). The first holds k and v and walks query strips (dp,
+//   the row sums of dp * p, ds, dq and the rel-pos gradient), the second
+//   holds q and dO and walks key strips (dk, dv); each recomputes p from the
+//   saved row statistics. The rel-pos gradient sums the group's windows in a
+//   partial private to the block, the bias gradient of qkv the stores of dq,
+//   dk and dv.
+// - ln_bwd_kernel (the LayerNorm backward of a block of rows, with the
+//   column sums of the LayerNorm parameters' and biases' gradients) and
+//   reduce_kernel (every per-split partial added in a fixed order, one
+//   launch).
+//
+// Why mma.sync and not wgmma: every operand passes through a per-element
+// step between shared memory and the tensor cores (the rounding to bf16 of
+// K4's f32 operands, the split of f32 into two TF32 halves), any M, N, K
+// and stride is taken, and the attention's tiles are 16 rows of one warp;
+// register fragments serve all of these, wgmma's descriptors none of them.
+//
+// f32 runs as 3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi)
+// (round to nearest even), acc += lo_a hi_b + hi_a lo_b + hi_a hi_b; one
+// TF32 pass would miss the f32 limits (tests/test_torch_tf32x3.py). The
+// tensor cores round their sums toward zero, so each stage's sum starts
+// from zero and is added to the running f32 sum to nearest. K4 in f32 rounds
+// its products' results to bf16 (as the JAX kernel does), where a sum that
+// differs in its last bit rounds the other way; its products whose results
+// are rounded (qkv, the logits, p @ v, dmerged, dp, dq, dk, dv) run as one
+// chain of FMAs in k order an output on the SIMT units, and its softmax sums
+// in the plain version's order.
+//
+// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 14, K3 3, K4 8
+// (window_any_launches counts them). Rounding follows the plain versions
+// (ops/swin_block.py::swin_block_reference and swin_block_backward_reference,
+// ops/window_attention.py's two references): to T after qkv's bias, p before
+// p @ v, the merged heads, r1, both LayerNorm outputs and gelu; the backward
+// products take operands rounded to `rd` (T for K2, bf16 for K4 whatever T
+// is) and accumulate in f32. No float atomics: two runs are bit-identical.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,23 +89,48 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowWarps = kThreads / 32;
-constexpr int kMaxN = 256;   // tokens a window
-constexpr long long kTargetBlocks = 264;   // two blocks an SM
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMaxN = 256;         // tokens a window
+constexpr int kMaxHeadDim = 64;
+constexpr int kMaxC = 1024;
+constexpr int kMaxHidden = 4096;
+constexpr int kThreads = 128;      // products and attention: four warps
+constexpr int kRowThreads = 256;   // LayerNorm backward
+constexpr int kRowsPerBlock = 32;   // the LayerNorm backward's rows a block, at most
+constexpr int kChunk = 64;         // keys (or queries) a step of the attention
+constexpr long long kTargetBlocks = 528;   // four blocks an SM
+
+long long g_launches = 0;   // kernels launched by this library
+
+// ------------------------------------------------------------ elements
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// v rounded to T
+template <typename T>
+__device__ __forceinline__ float rnd_t(float v) { return to_f(from_f<T>(v)); }
+
 __device__ __forceinline__ float load(const void* p, long long i, int bf) {
-  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+  return bf ? __bfloat162float(static_cast<const bf16*>(p)[i])
             : static_cast<const float*>(p)[i];
 }
 
 __device__ __forceinline__ void store(void* p, long long i, float v, int bf) {
   if (bf)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+    static_cast<bf16*>(p)[i] = __float2bfloat16(v);
   else
     static_cast<float*>(p)[i] = v;
 }
@@ -81,9 +140,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+// the sum over the eight lanes of a column of an mma accumulator (same lane % 4)
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
   return v;
+}
+
+// the max over the four lanes of a row of an mma accumulator
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ float gelu_tanh(float z) {
@@ -100,343 +168,1344 @@ __device__ __forceinline__ float gelu_tanh_grad(float z) {
 
 // Window geometry of [B, H, W, C] tokens: row m of the window order (batch,
 // window, token within the window) is row grid_row(m) of the grid order.
+// Row indices fit 32 bits (the wrapper checks B * H * W < 2^31).
 struct Geom {
   int H, W, ws;
-  __device__ long long grid_row(long long m) const {
-    const long long hw = (long long)H * W;
-    const long long b = m / hw;
-    const int r = (int)(m - b * hw);
+  __device__ int grid_row(long long m64) const {
+    const int m = (int)m64, hw = H * W;
+    const int b = m / hw, r = m - b * hw;
     const int n = ws * ws, nww = W / ws;
     const int w = r / n, t = r - w * n;
     const int wh = w / nww, ww = w - wh * nww;
-    return b * hw + (long long)(wh * ws + t / ws) * W + ww * ws + t % ws;
+    const int ty = t / ws;
+    return b * hw + (wh * ws + ty) * W + ww * ws + (t - ty * ws);
   }
 };
 
-// A strided matrix of a batch: element (i, j) of batch entry z lies at
-// p[(z / zdiv) * sw + (z % zdiv) * sh + i * s0 + j * s1].
-struct Mat {
-  void* p;
-  long long s0, s1, sw, sh;
-  int bf;    // bf16 storage, else f32
-  int rnd;   // round to bf16 on load (an operand) or before the store (a result)
-  int map;   // rows are window-order rows stored at their grid rows
+// ------------------------------------------------------------ tensor cores
+
+// f32 to TF32, round to nearest even
+__device__ __forceinline__ uint32_t tf32_rne(float x) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A tile in shared memory: element (i, j) at p[i * ld + j] where JC (j
+// contiguous), else at p[j * ld + i]; rnd: round to bf16 as it is read (f32
+// operands of K4). Fragments read A as (row, k) and B as (col, k).
+template <typename T, bool JC>
+struct View {
+  const T* p;
+  int ld, rnd;
+  __device__ __forceinline__ float at(int i, int j) const {
+    const float v = to_f(JC ? p[i * ld + j] : p[j * ld + i]);
+    return (sizeof(T) == 4 && rnd) ? round_bf16(v) : v;
+  }
+  // bf16: elements (i, j) and (i, j + 1), packed low to high
+  __device__ __forceinline__ uint32_t pair(int i, int j) const {
+    if (JC) return *reinterpret_cast<const uint32_t*>(p + i * ld + j);
+    const uint32_t lo = __bfloat16_as_ushort(reinterpret_cast<const bf16*>(p)[j * ld + i]);
+    const uint32_t hi = __bfloat16_as_ushort(reinterpret_cast<const bf16*>(p)[(j + 1) * ld + i]);
+    return lo | (hi << 16);
+  }
 };
 
-enum Epi { kStore = 0, kGelu = 1, kResid = 2, kScores = 3, kDGelu = 4 };
+// mma.sync fragments of element type T, read from views (the attention's
+// tiles and f32's; bf16 products use ldmatrix); lane = g * 4 + t. The
+// accumulator of an m16n8 tile: c[0], c[1] at (g, 2t), (g, 2t + 1); c[2],
+// c[3] at (g + 8, 2t), (g + 8, 2t + 1).
+template <typename T>
+struct Tc;
+
+template <>
+struct Tc<bf16> {
+  static constexpr int kK = 16;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+  template <bool JC>
+  static __device__ __forceinline__ void load_a(A& f, const View<bf16, JC>& v, int r0, int k0,
+                                                int lane) {
+    const int r = r0 + (lane >> 2), k = k0 + 2 * (lane & 3);
+    f.r[0] = v.pair(r, k);
+    f.r[1] = v.pair(r + 8, k);
+    f.r[2] = v.pair(r, k + 8);
+    f.r[3] = v.pair(r + 8, k + 8);
+  }
+  template <bool JC>
+  static __device__ __forceinline__ void load_b(B& f, const View<bf16, JC>& v, int k0, int n0,
+                                                int lane) {
+    const int n = n0 + (lane >> 2), k = k0 + 2 * (lane & 3);
+    f.r[0] = v.pair(n, k);
+    f.r[1] = v.pair(n, k + 8);
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
+          "r"(b.r[1]));
+  }
+};
+
+template <>
+struct Tc<float> {
+  static constexpr int kK = 8;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  static __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rne(v);
+    lo = tf32_rne(v - __uint_as_float(hi));
+  }
+  template <bool JC>
+  static __device__ __forceinline__ void load_a(A& f, const View<float, JC>& v, int r0, int k0,
+                                                int lane) {
+    const int r = r0 + (lane >> 2), k = k0 + (lane & 3);
+    split(v.at(r, k), f.hi[0], f.lo[0]);
+    split(v.at(r + 8, k), f.hi[1], f.lo[1]);
+    split(v.at(r, k + 4), f.hi[2], f.lo[2]);
+    split(v.at(r + 8, k + 4), f.hi[3], f.lo[3]);
+  }
+  template <bool JC>
+  static __device__ __forceinline__ void load_b(B& f, const View<float, JC>& v, int k0, int n0,
+                                                int lane) {
+    const int n = n0 + (lane >> 2), k = k0 + (lane & 3);
+    split(v.at(n, k), f.hi[0], f.lo[0]);
+    split(v.at(n, k + 4), f.hi[1], f.lo[1]);
+  }
+  // 3xTF32 into c as it is (a sum the caller keeps short)
+  static __device__ __forceinline__ void mma3(float* c, const A& a, const B& b) {
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  // 3xTF32. The tensor cores round their sums toward zero, so the three
+  // passes go to a zero accumulator, which is then added to c to nearest:
+  // a long sum kept in their accumulator would drift by an ulp a step. The
+  // two cross terms are summed apart and added first, so that A @ B and
+  // (B^T @ A^T)^T give the same bits (the attention's logits, computed as
+  // q k^T and as k q^T).
+  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_tf32(t, a.lo, b.hi);
+    mma_tf32(u, a.hi, b.lo);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[i] += u[i];
+    mma_tf32(t, a.hi, b.hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  }
+};
+
+// ------------------------------------------------------------ staging
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 b16 matrices from shared memory, lane i giving the address of
+// row i % 8 of matrix i / 8; thread (g, t) receives (row g, columns 2t,
+// 2t + 1) of each, or with TRANS (rows 2t, 2t + 1, column g).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+}
+
+// A matrix in device memory: element (i, j) at p[row(i) * ld + j], row(i) =
+// grid_row(i) where map, else i. vec: p and ld allow 16-byte copies. rnd:
+// round to bf16 as the fragments are read (f32 operands of K4).
+struct Src {
+  const void* p;
+  long long ld;
+  int map, vec, rnd;
+};
+
+// Copies rows [r0, r0 + rows) x columns [c0, c0 + cols) of s into dst (row
+// stride dld elements; cols a multiple of 16 bytes), zeros outside rows <
+// r_end and columns < c_end, except a 1 in column ones_col (-1: none) of
+// every valid row. Stored row of row r0 + r: rowidx[r] where given, else as
+// s says. Threads tid of nthreads share the work; what goes by cp.async is
+// complete after cp_async_wait.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int dld, int rows, int cols, const Src& s,
+                                           long long r0, long long c0, long long r_end,
+                                           long long c_end, long long ones_col,
+                                           const Geom& geo, int tid, int nthreads,
+                                           const int* rowidx = nullptr) {
+  constexpr int CE = 16 / sizeof(T);
+  const int cpr = cols / CE;
+  const T* src = static_cast<const T*>(s.p);
+  for (int i = tid; i < rows * cpr; i += nthreads) {
+    const int r = i / cpr, c = (i - r * cpr) * CE;
+    T* d = dst + r * dld + c;
+    const long long gr = r0 + r, gc = c0 + c;
+    if (gr < r_end) {
+      const long long row = rowidx ? rowidx[r] : s.map ? geo.grid_row(gr) : gr;
+      const T* p = src + row * s.ld + gc;
+      if (s.vec && gc + CE <= c_end) {
+        cp_async16(d, p);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < CE; ++e) {
+        const long long col = gc + e;
+        d[e] = col < c_end ? p[e] : from_f<T>(col == ones_col ? 1.0f : 0.0f);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// ------------------------------------------------------------ token products
+
+template <typename T>
+struct Tile {
+  static constexpr int kBM = 64, kBN = 64;
+  static constexpr int kBK = 64 / (int)sizeof(T);   // 64 bytes of depth a stage
+  static constexpr int kCE = 16 / (int)sizeof(T);   // elements a 16-byte chunk
+  static constexpr int kLdK = kBK + kCE;            // rows along the depth
+  static constexpr int kLdM = 64 + 8;               // rows along M or N
+  static constexpr int kStage =
+      kBM * kLdK > kBK * kLdM ? kBM * kLdK : kBK * kLdM;    // elements an operand
+  static constexpr int kStages = 3;
+  static constexpr int kSmemBytes = 2 * kStages * kStage * (int)sizeof(T);   // the ring
+};
+
+// acc (a 32 x 32 warp tile of the 64 x 64 block tile at (m0, n0)) = A @ B
+// over depth [k_begin, k_end). A is [M, K] (AT: stored as [K, M], the
+// tokens along K), B is [K, N] (BT: stored as [N, K]). Stored rows and
+// columns beyond m_end / n_end / k_end read as 0; column ones_col of a
+// stored [K, M] A as 1. arows: the stored rows of A's 64 rows (not AT), or
+// null. With XA, xs(chunk, row in tile, k) transforms a 16-byte chunk of A
+// in shared memory once it has landed, before any warp reads it; each
+// thread transforms the chunks it copied itself. pre() runs (and ends with
+// a barrier) once the first stages are in flight. f32 runs as 3xTF32, each
+// stage's sum added to acc to nearest (the tensor cores round their sums
+// toward zero), or, with simt, as one chain of FMAs in k order an output.
+template <typename T, bool AT, bool BT, bool XA, typename F, typename P>
+__device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const Src& a,
+                                         const Src& b, const Geom& geo, const int* arows,
+                                         long long m0, long long m_end, long long ones_col,
+                                         long long n0, long long n_end, long long k_begin,
+                                         long long k_end, int simt, F&& xs, P&& pre) {
+  using TL = Tile<T>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int CE = TL::kCE;
+  constexpr int kARows = AT ? TL::kBK : TL::kBM, kACols = AT ? TL::kBM : TL::kBK;
+  constexpr int kBRows = BT ? TL::kBN : TL::kBK, kBCols = BT ? TL::kBK : TL::kBN;
+  constexpr int kLdA = AT ? TL::kLdM : TL::kLdK, kLdB = BT ? TL::kLdK : TL::kLdM;
+  T* sa = smem;
+  T* sb = smem + TL::kStages * TL::kStage;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int ktiles = (int)((k_end - k_begin + TL::kBK - 1) / TL::kBK);
+  auto issue = [&](int kt) {
+    const int slot = kt % TL::kStages;
+    const long long k0 = k_begin + (long long)kt * TL::kBK;
+    T* da = sa + slot * TL::kStage;
+    T* db = sb + slot * TL::kStage;
+    if (AT)
+      stage_tile<T>(da, kLdA, kARows, kACols, a, k0, m0, k_end, m_end, ones_col, geo, tid,
+                    kThreads);
+    else
+      stage_tile<T>(da, kLdA, kARows, kACols, a, m0, k0, m_end, k_end, -1, geo, tid, kThreads,
+                    arows);
+    if (BT)
+      stage_tile<T>(db, kLdB, kBRows, kBCols, b, n0, k0, n_end, k_end, -1, geo, tid,
+                    kThreads);
+    else
+      stage_tile<T>(db, kLdB, kBRows, kBCols, b, k0, n0, k_end, n_end, -1, geo, tid,
+                    kThreads);
+  };
+  for (int s = 0; s < TL::kStages - 1; ++s) {
+    if (s < ktiles) issue(s);
+    cp_async_commit();
+  }
+  pre();   // work that needs no stage (the LayerNorm statistics), under the loads
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<TL::kStages - 2>();
+    const int slot = kt % TL::kStages;
+    T* ta = sa + slot * TL::kStage;
+    T* tb = sb + slot * TL::kStage;
+    const long long k0 = k_begin + (long long)kt * TL::kBK;
+    if constexpr (XA) {
+      for (int i = tid; i < kARows * (kACols / CE); i += kThreads) {
+        const int r = i / (kACols / CE), c = (i - r * (kACols / CE)) * CE;
+        xs(ta + r * kLdA + c, r, k0 + c);
+      }
+    }
+    __syncthreads();
+    if (kt + TL::kStages - 1 < ktiles) issue(kt + TL::kStages - 1);
+    cp_async_commit();
+    const View<T, !AT> va = {ta, kLdA, a.rnd};
+    const View<T, BT> vb = {tb, kLdB, b.rnd};
+    if (kF32 && simt) {
+      for (int k = 0; k < TL::kBK; ++k) {
+        float av[2][2], bv[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) av[i][h] = va.at(wm * 32 + i * 16 + gq + h * 8, k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) bv[j][h] = vb.at(wn * 32 + j * 8 + 2 * tq + h, k);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][j][e] = fmaf(av[i][e >> 1], bv[j][e & 1], acc[i][j][e]);
+      }
+      continue;
+    }
+    if constexpr (!kF32) {
+      // bf16: fragments by ldmatrix. Lane i addresses row i % 8 of matrix
+      // i / 8; A's four matrices are (rows 0-7, 8-15) x (k 0-7, 8-15), k
+      // slowest; B's (k 0-7, 8-15) x (columns 0-7, 8-15), k fastest: two n8
+      // tiles' b0, b1 an instruction.
+      const int li = lane & 7, mi = lane >> 3;
+#pragma unroll
+      for (int kk = 0; kk < TL::kBK; kk += 16) {
+        typename Tc<T>::A fa[2];
+        uint32_t fb[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = wm * 32 + i * 16 + (mi & 1) * 8, k = kk + (mi >> 1) * 8;
+          if (AT)   // stored [k][m]: lane li addresses k row li
+            ldsm_x4<true>(fa[i].r, ta + (k + li) * kLdA + m);
+          else
+            ldsm_x4<false>(fa[i].r, ta + (m + li) * kLdA + k);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = wn * 32 + j * 16 + (mi >> 1) * 8, k = kk + (mi & 1) * 8;
+          if (BT)
+            ldsm_x4<false>(fb[j], tb + (n + li) * kLdB + k);
+          else
+            ldsm_x4<true>(fb[j], tb + (k + li) * kLdB + n);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const typename Tc<T>::B b = {{fb[j >> 1][(j & 1) * 2], fb[j >> 1][(j & 1) * 2 + 1]}};
+            Tc<T>::mma(acc[i][j], fa[i], b);
+          }
+      }
+      continue;
+    }
+    float tacc[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tacc[i][j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < TL::kBK; kk += Tc<T>::kK) {
+      typename Tc<T>::A fa[2];
+      typename Tc<T>::B fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) Tc<T>::load_a(fa[i], va, wm * 32 + i * 16, kk, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Tc<T>::load_b(fb[j], vb, kk, wn * 32 + j * 8, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kF32)
+            Tc<T>::mma3(tacc[i][j], fa[i], fb[j]);
+          else
+            Tc<T>::mma(acc[i][j], fa[i], fb[j]);
+        }
+    }
+    if constexpr (kF32) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += tacc[i][j][e];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A result: element (i, j) stored at p[row(i) * ld + j] (row as in Src), in
+// bf16 where bf, else f32, rounded to bf16 first where rnd.
+struct Out {
+  void* p;
+  long long ld;
+  int bf, map, rnd;
+};
+
+enum Epi { kStore = 0, kGelu = 1, kDGelu = 2, kResid = 3 };
+enum Xf { kNone = 0, kLayerNorm = 1, kRowScale = 2 };
 
 struct GemmArgs {
-  int M, N, K, Z, zdiv, splits;
-  long long kchunk;    // depth of one split
-  Mat a, b, c;         // A [M, K], B [K, N], C [M, N]
-  float* partial;      // or null: f32 [splits, M, N] sums, no epilogue
-  int epi;
-  float alpha;
-  const void* bias;    // [N] or null
-  int bias_bf;
-  Mat res;             // kResid: the residual, [M, N] like C
-  const float* dp;     // kResid: [B, 2] drop-path multipliers, or null
+  int M, N, K;
+  Src a, b;
+  int xf;                     // transform of A (XF kernels)
+  const float* ln_s;          // kLayerNorm: scale and shift [K]
+  const float* ln_b;
+  float eps;
+  float* stats;               // kLayerNorm: (mean, 1/std) of each row, or null
+  void* side;                 // the transformed A [M, K] in T, or null
+  const float* dp;            // drop-path multipliers [B, 2]: kRowScale, kResid
   int dp_col;
-  long long rows_per_sample;
-  float* aux;          // kGelu: pre-activation out; kDGelu: in; [M, N] f32
-  const float* rel;    // kScores: [zdiv, M, N]
-  const float* mask;   // kScores: [n_mask, M, N] or null
-  int n_mask;
+  int epi;
+  Out c;
+  const void* bias;           // [N] or null
+  int bias_bf;
+  Src res;                    // kResid: the residual [M, N], in T
+  float* aux;                 // kGelu: the pre-activation out; kDGelu: in; f32 [M, N]
+  float* colsum;              // kDGelu: column sums of the result, [tiles_m, N], or null
+  int simt;                   // f32: FMA chains in k order (see mainloop)
   Geom g;
 };
 
-template <int BM, int BN>
+template <typename T, bool BT, bool XF>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
-  constexpr int BK = 16, TM = BM / 16, TN = BN / 16;
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long tiles_m = (g.M + BM - 1) / BM, tiles_n = (g.N + BN - 1) / BN;
-  long long blk = blockIdx.x;
-  const int bn = (int)(blk % tiles_n);
-  blk /= tiles_n;
-  const int bm = (int)(blk % tiles_m);
-  blk /= tiles_m;
-  const int s = (int)(blk % g.splits);
-  const int z = (int)(blk / g.splits);
-  const int m0 = bm * BM, n0 = bn * BN;
-  const long long k_begin = (long long)s * g.kchunk;
-  const long long k_end = min((long long)g.K, k_begin + g.kchunk);
-  const long long za = (z / g.zdiv) * g.a.sw + (z % g.zdiv) * g.a.sh;
-  const long long zb = (z / g.zdiv) * g.b.sw + (z % g.zdiv) * g.b.sh;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (long long k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      int mi, ki;   // neighbouring threads on neighbouring addresses
-      if (g.a.s1 == 1) {
-        mi = e / BK;
-        ki = e % BK;
-      } else {
-        ki = e / BM;
-        mi = e % BM;
-      }
-      const long long m = m0 + mi, k = k0 + ki;
-      float v = 0.0f;
-      if (m < g.M && k < k_end) {
-        v = load(g.a.p, za + m * g.a.s0 + k * g.a.s1, g.a.bf);
-        if (g.a.rnd) v = round_bf16(v);
-      }
-      As[ki][mi] = v;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      int ki, ni;
-      if (g.b.s1 == 1) {
-        ki = e / BN;
-        ni = e % BN;
-      } else {
-        ni = e / BK;
-        ki = e % BK;
-      }
-      const long long k = k0 + ki, n = n0 + ni;
-      float v = 0.0f;
-      if (n < g.N && k < k_end) {
-        v = load(g.b.p, zb + k * g.b.s0 + n * g.b.s1, g.b.bf);
-        if (g.b.rnd) v = round_bf16(v);
-      }
-      Bs[ki][ni] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  using TL = Tile<T>;
+  constexpr int CE = TL::kCE;
+  static_assert(kThreads == 2 * TL::kBM, "the LayerNorm prologue takes two threads a row");
+  __shared__ __align__(16) unsigned char smem[TL::kSmemBytes];
+  __shared__ int grid_rows[TL::kBM];   // the grid row of each window-order row
+  __shared__ float row_dp[TL::kBM], row_a[TL::kBM], row_b[TL::kBM];
+  // LayerNorm: its scale and shift, zero beyond K
+  __shared__ __align__(16) float col_s[XF ? kMaxC + 64 : 4], col_b[XF ? kMaxC + 64 : 4];
+  const int tiles_n = (g.N + TL::kBN - 1) / TL::kBN;
+  const int bn = blockIdx.x % tiles_n, bm = blockIdx.x / tiles_n;
+  const long long m0 = (long long)bm * TL::kBM, n0 = (long long)bn * TL::kBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int hw = g.g.H * g.g.W;
+  for (int r = tid; r < TL::kBM; r += kThreads) {
+    const long long m = m0 + r;
+    grid_rows[r] = m < g.M ? g.g.grid_row(m) : 0;
+    row_dp[r] = (g.dp && m < g.M) ? g.dp[((int)m / hw) * 2 + g.dp_col] : 1.0f;
   }
-
-  const long long zc = (z / g.zdiv) * g.c.sw + (z % g.zdiv) * g.c.sh;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long n = n0 + tx + 16 * j;
-      if (n >= g.N) continue;
-      float v = acc[i][j];
-      if (g.partial) {
-        g.partial[((long long)s * g.M + m) * g.N + n] = v;
-        continue;
-      }
-      v *= g.alpha;
-      if (g.bias) v += load(g.bias, n, g.bias_bf);
-      switch (g.epi) {
-        case kGelu:
-          if (g.aux) g.aux[m * g.N + n] = v;
-          v = gelu_tanh(v);
-          break;
-        case kDGelu:
-          v *= gelu_tanh_grad(g.aux[m * g.N + n]);
-          break;
-        case kResid: {
-          const long long r = g.res.map ? g.g.grid_row(m) : m;
-          const float d = g.dp ? g.dp[(m / g.rows_per_sample) * 2 + g.dp_col] : 1.0f;
-          v = load(g.res.p, r * g.res.s0 + n * g.res.s1, g.res.bf) + d * v;
-          break;
+  __syncthreads();
+  // the rows' LayerNorm statistics or drop-path scales
+  auto pre = [&] {
+    if constexpr (XF) {
+      if (g.xf == kLayerNorm) {
+        for (int i = tid; i < g.K + TL::kBK; i += kThreads) {
+          col_s[i] = i < g.K ? g.ln_s[i] : 0.0f;
+          col_b[i] = i < g.K ? g.ln_b[i] : 0.0f;
         }
-        case kScores: {
-          const int w = z / g.zdiv, h = z % g.zdiv;
-          v += g.rel[((long long)h * g.M + m) * g.N + n];
-          if (g.mask) v += g.mask[((long long)(w % g.n_mask) * g.M + m) * g.N + n];
-          break;
+        // two threads a row, each summing half of it: 16-byte loads where the
+        // rows allow, all in flight at once
+        const int r = tid >> 1, half = tid & 1;
+        const long long m = m0 + r;
+        const T* row = m < g.M ? static_cast<const T*>(g.a.p) +
+                                     (g.a.map ? (long long)grid_rows[r] : m) * g.a.ld
+                               : nullptr;
+        const bool vec = g.a.vec && g.K % (2 * CE) == 0;
+        const int hk = g.K / 2;
+        float mean = 0.0f, inv = 0.0f;
+        auto row_sum = [&](float mu, bool sq) {
+          float acc_ = 0.0f;
+          if (!row) return 0.0f;
+          if (vec) {
+            const uint4* p = reinterpret_cast<const uint4*>(row + half * hk);
+#pragma unroll 8
+            for (int i = 0; i < hk / CE; ++i) {
+              const uint4 u = p[i];
+              const T* e = reinterpret_cast<const T*>(&u);
+  #pragma unroll
+              for (int j = 0; j < CE; ++j) {
+                const float v = to_f(e[j]) - mu;
+                acc_ += sq ? v * v : v;
+              }
+            }
+          } else {
+#pragma unroll 8
+            for (int k = half; k < g.K; k += 2) {
+              const float v = to_f(row[k]) - mu;
+              acc_ += sq ? v * v : v;
+            }
+          }
+          return acc_;
+        };
+        float s1 = row_sum(0.0f, false);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+        mean = s1 / g.K;
+        float s2 = row_sum(mean, true);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+        inv = row ? rsqrtf(s2 / g.K + g.eps) : 0.0f;
+        if (half == 0) {
+          row_a[r] = row ? mean : 0.0f;
+          row_b[r] = inv;
+          if (g.stats && bn == 0 && row) {
+            g.stats[2 * m] = mean;
+            g.stats[2 * m + 1] = inv;
+          }
         }
-        default:
-          break;
+      } else {
+        for (int r = tid; r < TL::kBM; r += kThreads) {
+          row_a[r] = 0.0f;
+          row_b[r] = m0 + r < g.M ? row_dp[r] : 0.0f;
+        }
       }
-      if (g.c.rnd) v = round_bf16(v);
-      const long long r = g.c.map ? g.g.grid_row(m) : m;
-      store(g.c.p, zc + r * g.c.s0 + n * g.c.s1, v, g.c.bf);
+      __syncthreads();
+    }
+  };
+  T* const side = (XF && g.side && bn == 0) ? static_cast<T*>(g.side) : nullptr;
+  const bool side_vec = g.K % CE == 0 && (uintptr_t)g.side % 16 == 0;
+  // LayerNorm (v - mean) / std * s + b or the row scale, rounded to T, of
+  // a chunk of A in place; the chunk to the side output too
+  auto xs = [&](T* d, int r, long long k) {
+    if constexpr (XF) {
+      const bool ln = g.xf == kLayerNorm;
+      const float ra = row_a[r], rb = row_b[r];
+#pragma unroll
+      for (int e = 0; e < CE; ++e) {
+        float v = (to_f(d[e]) - ra) * rb;
+        if (ln) v = v * col_s[k + e] + col_b[k + e];
+        d[e] = from_f<T>(v);
+      }
+      const long long m = m0 + r;
+      if (side && m < g.M && k < g.K) {
+        T* o = side + m * g.K + k;
+        if (side_vec && k + CE <= g.K) {
+          *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(d);
+        } else {
+          for (int e = 0; e < CE && k + e < g.K; ++e) o[e] = d[e];
+        }
+      }
+    }
+  };
+  float acc[2][4][4];
+  mainloop<T, false, BT, XF>(acc, reinterpret_cast<T*>(smem), g.a, g.b, g.g,
+                             g.a.map ? grid_rows : nullptr, m0, g.M, -1, n0, g.N, 0, g.K,
+                             g.simt, xs, pre);
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool pairs = g.c.ld % 2 == 0 && (uintptr_t)g.c.p % 8 == 0;
+  float cs[4][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int rl = wm * 32 + i * 16 + gq + e2 * 8;
+      const long long m = m0 + rl;
+      if (m >= g.M) continue;
+      const long long orow = (g.c.map ? (long long)grid_rows[rl] : m) * g.c.ld;
+      const long long rrow = (g.res.map ? (long long)grid_rows[rl] : m) * g.res.ld;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long n = n0 + wn * 32 + j * 8 + 2 * tq;
+        if (n >= g.N) continue;
+        const int cnt = n + 1 < g.N ? 2 : 1;
+        float v[2];
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          if (e1 >= cnt) break;
+          float x = acc[i][j][e2 * 2 + e1];
+          if (g.bias) x += load(g.bias, n + e1, g.bias_bf);
+          if (g.epi == kGelu) {
+            if (g.aux) g.aux[m * g.N + n + e1] = x;
+            x = gelu_tanh(x);
+          } else if (g.epi == kDGelu) {
+            x *= gelu_tanh_grad(g.aux[m * g.N + n + e1]);
+            cs[j][e1] += x;
+          } else if (g.epi == kResid) {
+            x = load(g.res.p, rrow + n + e1, sizeof(T) == 2) + row_dp[rl] * x;
+          }
+          v[e1] = g.c.rnd ? round_bf16(x) : x;
+        }
+        if (cnt == 2 && pairs) {
+          if (g.c.bf)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(g.c.p) + orow + n) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(g.c.p) + orow + n) =
+                make_float2(v[0], v[1]);
+        } else {
+          for (int e1 = 0; e1 < cnt; ++e1) store(g.c.p, orow + n + e1, v[e1], g.c.bf);
+        }
+      }
+    }
+  if (g.colsum) {   // per block: the column sums over its 64 rows, warps in order
+    float* red = reinterpret_cast<float*>(smem);   // [2][kBN]
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = column_sum(cs[j][h]);
+        if (lane < 4) red[wm * TL::kBN + wn * 32 + j * 8 + 2 * lane + h] = v;
+      }
+    __syncthreads();
+    for (int c = tid; c < TL::kBN; c += kThreads) {
+      const long long n = n0 + c;
+      if (n < g.N) g.colsum[(long long)bm * g.N + n] = red[c] + red[TL::kBN + c];
     }
   }
 }
 
-// out[i] += sum over s of partial[s * len + i], s in order.
-__global__ void reduce_splits_kernel(const float* partial, int splits, long long len,
-                                     float* out) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= len) return;
-  float v = 0.0f;
-  for (int s = 0; s < splits; ++s) v += partial[s * len + i];
-  out[i] += v;
-}
+// The weight gradients: out_p = sum over the tokens of a_p^T b_p, per split
+// of the tokens, for up to four problems at once.
+struct AtbProblem {
+  Src a, b;          // a [R, Ka], b [R, N], tokens along the rows
+  int Ka, N, ones;   // ones: row Ka of the result sums b's columns
+  float* partial;    // [splits, Ka + ones, N]
+  int tiles_n, blocks;
+};
 
-// partial[s * L + l] = sum of a[r * L + l] over the rows r of split s.
-__global__ void colsum_kernel(const float* a, long long R, long long L, long long rows,
-                              float* partial) {
-  const long long col_blocks = (L + kThreads - 1) / kThreads;
-  const long long s = blockIdx.x / col_blocks;
-  const long long l = (blockIdx.x % col_blocks) * kThreads + threadIdx.x;
-  if (l >= L) return;
-  const long long r1 = min(R, (s + 1) * rows);
-  float v = 0.0f;
-  for (long long r = s * rows; r < r1; ++r) v += a[r * L + l];
-  partial[s * L + l] = v;
-}
+constexpr int kMaxProblems = 4;
 
-// dst[m, :] = rnd(scale * src[row(m), :]), scale the sample's drop-path
-// multiplier dp[b, col] where dp is given; one thread an element.
-__global__ void rows_copy_kernel(const void* src, int src_bf, int src_map, void* dst,
-                                 int dst_bf, int dst_map, int rnd, const float* dp,
-                                 int dp_col, Geom g, long long M, int C) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= M * C) return;
-  const long long m = e / C;
-  const int c = (int)(e - m * C);
-  const long long rs = src_map ? g.grid_row(m) : m;
-  const long long rd = dst_map ? g.grid_row(m) : m;
-  float v = load(src, rs * C + c, src_bf);
-  if (dp) v *= dp[(m / ((long long)g.H * g.W)) * 2 + dp_col];
-  if (rnd) v = round_bf16(v);
-  store(dst, rd * C + c, v, dst_bf);
-}
+struct AtbArgs {
+  AtbProblem p[kMaxProblems];
+  int count, splits;
+  long long R, chunk;
+  Geom g;
+};
 
-// out[m, :] = LayerNorm(x[row(m), :]) * s + b, rounded to out's type;
-// stats[m] = (mean, 1 / std). One warp a row.
-__global__ void ln_rows_kernel(const void* x, int x_bf, int x_map, Geom g, long long M,
-                               int C, const float* s, const float* b, float eps,
-                               void* out, int out_bf, float* stats) {
-  const long long m = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const long long base = (x_map ? g.grid_row(m) : m) * C;
-  float sum = 0.0f;
-  for (int c = lane; c < C; c += 32) sum += load(x, base + c, x_bf);
-  const float mean = warp_sum(sum) / C;
-  float sq = 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = load(x, base + c, x_bf) - mean;
-    sq += d * d;
+template <typename T>
+__global__ void __launch_bounds__(kThreads) atb_kernel(AtbArgs g) {
+  using TL = Tile<T>;
+  __shared__ __align__(16) unsigned char smem[TL::kSmemBytes];
+  int blk = blockIdx.x, pi = 0;
+  while (pi < g.count - 1 && blk >= g.p[pi].blocks) {
+    blk -= g.p[pi].blocks;
+    ++pi;
   }
-  const float inv = rsqrtf(warp_sum(sq) / C + eps);
-  for (int c = lane; c < C; c += 32) {
-    const float xhat = (load(x, base + c, x_bf) - mean) * inv;
-    store(out, m * C + c, xhat * s[c] + b[c], out_bf);
-  }
-  if (lane == 0) {
-    stats[2 * m] = mean;
-    stats[2 * m + 1] = inv;
-  }
-}
-
-// The backward of ln_rows_kernel for one row, with d = dL/d(LN output) f32:
-//   r = add[m] + inv * (d*s - mean(d*s) - xhat * mean(d*s*xhat))
-// out[row(m)] = r (rounded to out's type); prod[m] = d * xhat (for the
-// scale's gradient); out2[m] = dp[sample, col] * r where out2 is given.
-__global__ void ln_bwd_rows_kernel(const float* d, const void* x, int x_bf, int x_map,
-                                   Geom g, long long M, int C, const float* stats,
-                                   const float* s, const float* add, float* prod,
-                                   void* out, int out_bf, int out_map, float* out2,
-                                   const float* dp, int dp_col) {
-  const long long m = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const long long xb = (x_map ? g.grid_row(m) : m) * C;
-  const float mean = stats[2 * m], inv = stats[2 * m + 1];
-  float m1 = 0.0f, m2 = 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float xhat = (load(x, xb + c, x_bf) - mean) * inv;
-    const float dv = d[m * C + c];
-    const float dxhat = dv * s[c];
-    m1 += dxhat;
-    m2 += dxhat * xhat;
-    prod[m * C + c] = dv * xhat;
-  }
-  m1 = warp_sum(m1) / C;
-  m2 = warp_sum(m2) / C;
-  const long long ob = (out_map ? g.grid_row(m) : m) * C;
-  const float scale = out2 ? dp[(m / ((long long)g.H * g.W)) * 2 + dp_col] : 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float xhat = (load(x, xb + c, x_bf) - mean) * inv;
-    const float dxhat = d[m * C + c] * s[c];
-    const float r = add[m * C + c] + inv * (dxhat - m1 - xhat * m2);
-    store(out, ob + c, r, out_bf);
-    if (out2) out2[m * C + c] = scale * r;
-  }
-}
-
-// In place, each row of n logits to its softmax. One warp a row.
-__global__ void softmax_rows_kernel(float* s, long long rows, int n) {
-  const long long r = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  float* row = s + r * n;
-  float v[kMaxN / 32];
-  float mx = -INFINITY;
+  const AtbProblem p = g.p[pi];
+  const int tiles = p.blocks / g.splits;
+  const int s = blk / tiles, t = blk - s * tiles;
+  const int bn = t % p.tiles_n, bm = t / p.tiles_n;
+  const long long m0 = (long long)bm * TL::kBM, n0 = (long long)bn * TL::kBN;
+  const long long k_begin = (long long)s * g.chunk;
+  const long long k_end = k_begin + g.chunk < g.R ? k_begin + g.chunk : g.R;
+  const int Ma = p.Ka + p.ones;
+  float acc[2][4][4];
+  mainloop<T, true, false, false>(acc, reinterpret_cast<T*>(smem), p.a, p.b, g.g, nullptr, m0,
+                                  p.Ka, p.ones ? p.Ka : -1, n0, p.N, k_begin, k_end, 0,
+                                  [](T*, int, long long) {}, [] {});
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1, gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kMaxN / 32; ++i) {
-    const int j = lane + 32 * i;
-    v[i] = j < n ? row[j] : -INFINITY;
-    mx = fmaxf(mx, v[i]);
-  }
-  mx = warp_max(mx);
-  float sum = 0.0f;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int i = 0; i < kMaxN / 32; ++i) {
-    const int j = lane + 32 * i;
-    v[i] = j < n ? expf(v[i] - mx) : 0.0f;
-    sum += v[i];
-  }
-  sum = warp_sum(sum);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-  for (int i = 0; i < kMaxN / 32; ++i) {
-    const int j = lane + 32 * i;
-    if (j < n) row[j] = v[i] / sum;
-  }
+      for (int e = 0; e < 4; ++e) {
+        const long long m = m0 + wm * 32 + i * 16 + gq + (e >> 1) * 8;
+        const long long n = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+        if (m < Ma && n < p.N) p.partial[((long long)s * Ma + m) * p.N + n] = acc[i][j][e];
+      }
 }
 
-// In place, dp (dL/dp, f32) to ds = q * (dp - sum_j dp * q) with q the
-// softmax p, or p rounded to bf16 when use_pb (and rnd); one warp a row.
-__global__ void softmax_bwd_rows_kernel(const float* p, float* dp, long long rows, int n,
-                                        int rnd, int use_pb) {
-  const long long r = (long long)blockIdx.x * kRowWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  const float* prow = p + r * n;
-  float* drow = dp + r * n;
-  float q[kMaxN / 32], d[kMaxN / 32];
-  float dot = 0.0f;
+// ------------------------------------------------------------ attention
+
+struct AttnArgs {
+  const void* qkv;      // T [M, 3C], window order
+  const float* rel;     // [heads, n, n]
+  const float* mask;    // [n_mask, n, n] or null
+  int n_mask;
+  const void* dout;     // backward: dL/d(merged heads), T [M, C], rounded to rd
+  void* out;            // forward: the merged heads T [M, C]; backward: dqkv T [M, 3C]
+  float* stats;         // [BW * heads, n, 2]: row max and sum of the softmax
+  float* dsum;          // [BW * heads, n]: sum over the keys of dp * p
+  float* drel;          // backward: [groups, heads, n, n], sums over a group's windows
+  float* dbias;         // backward: [groups * strip_groups, 3C], column sums of dqkv
+  long long BW;
+  int groups;           // backward: window w is in group w % groups
+  int sgroups;          // blocks a window and head: 64 rows (four strips of 16) each
+  int n, np, hd, hdp, heads, C;
+  float scale;
+  int vec, rnd, use_pb; // rnd: round the backward's operands to bf16 (f32, K4);
+                        // use_pb: ds from p rounded to rd (K2), else from p (K4)
+  int simt;             // f32: FMA chains in k order (see mma_strip)
+};
+
+template <typename T>
+struct Att {
+  static constexpr int kPad = 16 / (int)sizeof(T);
+  static __host__ __device__ int ldh(int hdp) { return hdp + kPad; }
+  static __host__ __device__ int ldp() { return kChunk + kPad; }
+};
+
+// s (16 x ncols, ncols <= 64 a multiple of 8) += A [16, kdim] @ B [kdim,
+// ncols]; a over (row, k), b over (col, k). simt (f32): each output one
+// chain of FMAs in k order, as the plain versions' f32 products sum on the
+// card, for K4's f32 operands that are rounded to bf16 after the product:
+// a sum that differs in its last bit rounds the other way.
+template <typename T, bool JA, bool JB>
+__device__ __forceinline__ void mma_strip(float (&s)[8][4], int kdim, int ncols, int lane,
+                                          const View<T, JA>& a, const View<T, JB>& b,
+                                          int simt) {
+  if (sizeof(T) == 4 && simt) {
+    const int gq = lane >> 2, tq = lane & 3;
+    for (int k = 0; k < kdim; ++k) {
+      const float a0 = a.at(gq, k), a1 = a.at(gq + 8, k);
 #pragma unroll
-  for (int i = 0; i < kMaxN / 32; ++i) {
-    const int j = lane + 32 * i;
-    q[i] = 0.0f;
-    d[i] = 0.0f;
-    if (j < n) {
-      const float pv = prow[j];
-      q[i] = (use_pb && rnd) ? round_bf16(pv) : pv;
-      d[i] = drow[j];
-      dot += d[i] * q[i];
+      for (int j = 0; j < 8; ++j) {
+        if (j * 8 < ncols) {
+          const float b0 = b.at(j * 8 + 2 * tq, k), b1 = b.at(j * 8 + 2 * tq + 1, k);
+          s[j][0] = fmaf(a0, b0, s[j][0]);
+          s[j][1] = fmaf(a0, b1, s[j][1]);
+          s[j][2] = fmaf(a1, b0, s[j][2]);
+          s[j][3] = fmaf(a1, b1, s[j][3]);
+        }
+      }
+    }
+    return;
+  }
+  for (int k0 = 0; k0 < kdim; k0 += Tc<T>::kK) {
+    typename Tc<T>::A fa;
+    Tc<T>::load_a(fa, a, 0, k0, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j * 8 < ncols) {
+        typename Tc<T>::B fb;
+        Tc<T>::load_b(fb, b, k0, j * 8, lane);
+        Tc<T>::mma(s[j], fa, fb);
+      }
     }
   }
-  dot = warp_sum(dot);
+}
+
+__device__ __forceinline__ void zero_strip(float (&s)[8][4]) {
 #pragma unroll
-  for (int i = 0; i < kMaxN / 32; ++i) {
-    const int j = lane + 32 * i;
-    if (j < n) drow[j] = q[i] * (d[i] - dot);
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+}
+
+// The rel-pos bias of a head and the mask of a window, [n, n] each (mask
+// null without a shift)
+struct Bias {
+  const float *rel, *mask;
+  int n;
+  __device__ Bias(const AttnArgs& a, long long w, int h)
+      : rel(a.rel + (long long)h * a.n * a.n),
+        mask(a.mask ? a.mask + (long long)(w % a.n_mask) * a.n * a.n : nullptr),
+        n(a.n) {}
+  // the logit of query qi and key kj from acc = q . k: each step rounded
+  // as the plain version rounds it (no fused multiply-add)
+  __device__ __forceinline__ float logit(float acc, float scale, int qi, int kj) const {
+    float v = __fadd_rn(__fmul_rn(acc, scale), rel[qi * n + kj]);
+    if (mask) v = __fadd_rn(v, mask[qi * n + kj]);
+    return v;
+  }
+};
+
+// The row sums of a warp's 16-row strip in the order of the plain version's
+// softmax on the card (PyTorch's warp softmax): column j is summed by lane
+// j % 32 in order of j / 32, then the 32 lanes by a butterfly from xor 16
+// down. part[r][tile][e] holds lane 8 tile + 2t + e's partial sum of row g +
+// 8r (tile < 4: its chunk columns 8 tile + 2t + e and 32 + 8 tile + 2t + e).
+__device__ __forceinline__ void canonical_row_sums(const float (&part)[2][4][2],
+                                                   float (&out)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x16[4][2], x8[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) x16[j][e] = part[r][j][e] + part[r][j ^ 2][e];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x8[e] = x16[0][e] + x16[1][e];
+      x8[e] += __shfl_xor_sync(0xffffffffu, x8[e], 2);
+      x8[e] += __shfl_xor_sync(0xffffffffu, x8[e], 1);
+    }
+    out[r] = x8[0] + x8[1];
   }
 }
 
-// ---------------------------------------------------------------- host side
+// One block per (window, head, 64 query rows): k and v of the window whole
+// in shared memory, a warp per strip of 16 queries.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const long long z = blockIdx.x / a.sgroups, w = z / a.heads;
+  const int h = (int)(z - w * a.heads), sg = blockIdx.x % a.sgroups;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + a.np * LDH;
+  T* Qw = Vs + a.np * LDH + warp * 16 * (LDH + LDP);
+  T* Pw = Qw + 16 * LDH;
+  const Geom none = {1, 1, 1};
+  const Src src = {a.qkv, 3LL * a.C, 0, a.vec, 0};
+  const long long row0 = w * a.n, rend = row0 + a.n;
+  const Bias bias(a, w, h);
+  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
+  const int nch = (a.np + kChunk - 1) / kChunk;
+  const int q0 = (sg * (kThreads / 32) + warp) * 16;
+  // k and v whole and this warp's queries, in flight together
+  stage_tile<T>(Ks, LDH, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid, kThreads);
+  stage_tile<T>(Vs, LDH, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid, kThreads);
+  if (q0 < a.np)
+    stage_tile<T>(Qw, LDH, 16, a.hdp, src, row0 + q0, cq, rend, cq + a.hd, -1, none, lane, 32);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (q0 >= a.np) return;
+  const View<T, true> vq = {Qw, LDH, 0}, vp = {Pw, LDP, 0};
+  float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.0f, 0.0f};
+  // the logits of the strip, all chunks (kChunks at most) in registers:
+  // -inf beyond the window's keys
+  float s[kChunks][8][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c >= nch) break;
+    const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+    zero_strip(s[c]);
+    mma_strip<T>(s[c], a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH, 0}, a.simt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + gq + (e >> 1) * 8, kj = j0 + j * 8 + 2 * tq + (e & 1);
+        s[c][j][e] = (j * 8 >= ncols || kj >= a.n) ? -INFINITY
+                     : qi >= a.n                   ? 0.0f
+                                                   : bias.logit(s[c][j][e], a.scale, qi, kj);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float cm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cm = fmaxf(cm, fmaxf(s[c][j][2 * r], s[c][j][2 * r + 1]));
+      mx[r] = fmaxf(mx[r], quad_max(cm));
+    }
+  }
+  // the row sum of exp(logit - max) in the order of the plain version's
+  // softmax, so that p rounds where the plain version's does
+  float part[2][4][2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[r][j][0] = part[r][j][1] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c >= nch) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          part[r][j][e] += expf(s[c][j][2 * r + e] - mx[r]);
+          part[r][j][e] += expf(s[c][j + 4][2 * r + e] - mx[r]);
+        }
+  }
+  canonical_row_sums(part, sm);
+  float o[8][4];
+  zero_strip(o);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c >= nch) break;
+    const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
+        if (j * 8 < ncols) {
+          const float p = q0 + rl < a.n ? expf(s[c][j][e] - mx[e >> 1]) / sm[e >> 1] : 0.0f;
+          Pw[rl * LDP + cl] = from_f<T>(p);
+        }
+      }
+    __syncwarp();
+    mma_strip<T>(o, ncols, a.hdp, lane, vp, View<T, false>{Vs + j0 * LDH, LDH, 0}, a.simt);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
+      if (qi < a.n && d < a.hd)
+        static_cast<T*>(a.out)[(row0 + qi) * a.C + cq + d] = from_f<T>(o[j][e]);
+    }
+  if (a.stats && tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + gq + r * 8;
+      if (qi < a.n) {
+        a.stats[(z * a.n + qi) * 2] = mx[r];
+        a.stats[(z * a.n + qi) * 2 + 1] = sm[r];
+      }
+    }
+  }
+}
+
+// the column sums cs of four warps (each the sum over its lanes' rows) into
+// out[0 .. hd): warps in order
+__device__ __forceinline__ void block_column_sums(float (&cs)[8][2], float* red, int hdp,
+                                                  int hd, float* out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = column_sum(cs[j][e]);
+      if (lane < 4 && j * 8 < hdp) red[warp * hdp + j * 8 + 2 * lane + e] = v;
+    }
+  __syncthreads();
+  for (int d = tid; d < hd; d += kThreads)
+    out[d] = red[d] + red[hdp + d] + red[2 * hdp + d] + red[3 * hdp + d];
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ float rd_of(const AttnArgs& a, float v) {
+  return a.rnd ? round_bf16(v) : rnd_t<T>(v);
+}
+
+// dq, the row sums of dp * p, the rel-pos gradient and dq's column sums. One
+// block per (head, group of windows, 64 query rows): k and v whole in
+// shared memory, a warp per strip of 16 queries.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int sg = blockIdx.x % a.sgroups, h = (blockIdx.x / a.sgroups) % a.heads;
+  const int gi = blockIdx.x / a.sgroups / a.heads;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + a.np * LDH;
+  T* Qw = Vs + a.np * LDH + warp * 16 * (2 * LDH + LDP);
+  T* Ow = Qw + 16 * LDH;
+  T* Sw = Ow + 16 * LDH;
+  const Geom none = {1, 1, 1};
+  const long long C3 = 3LL * a.C;
+  const Src src = {a.qkv, C3, 0, a.vec, 0};
+  const Src dsrc = {a.dout, a.C, 0, a.vec, 0};
+  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
+  const long long nn = (long long)a.n * a.n;
+  float* part = a.drel + ((long long)gi * a.heads + h) * nn;
+  const int nch = (a.np + kChunk - 1) / kChunk;
+  const int q0 = (sg * (kThreads / 32) + warp) * 16;
+  const View<T, true> vq = {Qw, LDH, 0}, vo = {Ow, LDH, 0}, vs = {Sw, LDP, 0};
+  float cs[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cs[j][0] = cs[j][1] = 0.0f;
+  for (long long w = gi; w < a.BW; w += a.groups) {
+    const bool first = w == gi;
+    const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
+    const Bias bias(a, w, h);
+    __syncthreads();
+    // k and v whole and this warp's queries and dO, in flight together
+    stage_tile<T>(Ks, LDH, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid, kThreads);
+    stage_tile<T>(Vs, LDH, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid, kThreads);
+    if (q0 < a.np) {
+      stage_tile<T>(Qw, LDH, 16, a.hdp, src, row0 + q0, cq, rend, cq + a.hd, -1, none, lane, 32);
+      stage_tile<T>(Ow, LDH, 16, a.hdp, dsrc, row0 + q0, cq, rend, cq + a.hd, -1, none, lane,
+                    32);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (q0 >= a.np) continue;
+    float mx[2], sm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + gq + r * 8;
+      mx[r] = qi < a.n ? a.stats[(z * a.n + qi) * 2] : 0.0f;
+      sm[r] = qi < a.n ? a.stats[(z * a.n + qi) * 2 + 1] : 1.0f;
+    }
+    float p[8][4], dp[8][4];
+    // p (0 beyond the window) and dp = dO V^T of chunk c
+    auto chunk = [&](int c) {
+      const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+      zero_strip(p);
+      mma_strip<T>(p, a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH, 0}, a.simt);
+      zero_strip(dp);
+      mma_strip<T>(dp, a.hdp, ncols, lane, vo, View<T, true>{Vs + j0 * LDH, LDH, a.rnd}, a.simt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + gq + (e >> 1) * 8, kj = j0 + j * 8 + 2 * tq + (e & 1);
+          p[j][e] = (j * 8 < ncols && qi < a.n && kj < a.n)
+                        ? expf(bias.logit(p[j][e], a.scale, qi, kj) - mx[e >> 1]) / sm[e >> 1]
+                        : 0.0f;
+        }
+    };
+    // D = sum over the keys of dp * p, in the order of the softmax's sums
+    float dpart[2][4][2], D[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dpart[r][j][0] = dpart[r][j][1] = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      chunk(c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int h = 0; h < 8; h += 4) {
+              const float pv = p[j + h][2 * r + e];
+              const float pq = a.use_pb ? rd_of<T>(a, pv) : pv;
+              dpart[r][j][e] = fmaf(dp[j + h][2 * r + e], pq, dpart[r][j][e]);
+            }
+          }
+    }
+    canonical_row_sums(dpart, D);
+    if (tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + gq + r * 8;
+        if (qi < a.n) a.dsum[z * a.n + qi] = D[r];
+      }
+    }
+    float dq[8][4];
+    zero_strip(dq);
+    for (int c = 0; c < nch; ++c) {
+      const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+      if (nch > 1) chunk(c);
+      // the rel-pos partial of these rows and keys: all loads before any
+      // store, so that they are in flight together
+      float prev[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + gq + (e >> 1) * 8, kj = j0 + j * 8 + 2 * tq + (e & 1);
+          prev[j][e] = (!first && j * 8 < ncols && qi < a.n && kj < a.n)
+                           ? part[(long long)qi * a.n + kj]
+                           : 0.0f;
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j * 8 >= ncols) continue;
+          const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
+          const int qi = q0 + rl, kj = j0 + cl;
+          const float pq = a.use_pb ? rd_of<T>(a, p[j][e]) : p[j][e];
+          const float ds = pq * (dp[j][e] - D[e >> 1]);
+          if (qi < a.n && kj < a.n) part[(long long)qi * a.n + kj] = first ? ds : prev[j][e] + ds;
+          Sw[rl * LDP + cl] = from_f<T>(rd_of<T>(a, ds));
+        }
+      __syncwarp();
+      mma_strip<T>(dq, ncols, a.hdp, lane, vs, View<T, false>{Ks + j0 * LDH, LDH, a.rnd}, a.simt);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
+        if (qi < a.n && d < a.hd) {
+          const T v = from_f<T>(rd_of<T>(a, dq[j][e] * a.scale));
+          static_cast<T*>(a.out)[(row0 + qi) * C3 + cq + d] = v;
+          cs[j][e & 1] += to_f(v);
+        }
+      }
+  }
+  __syncthreads();
+  block_column_sums(cs, reinterpret_cast<float*>(smem_raw), a.hdp, a.hd,
+                    a.dbias + ((long long)gi * a.sgroups + sg) * C3 + cq);
+}
+
+// dk, dv and their column sums. One block per (head, group of windows, 64
+// keys): q and dO whole in shared memory, a warp per strip of 16 keys.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int sg = blockIdx.x % a.sgroups, h = (blockIdx.x / a.sgroups) % a.heads;
+  const int gi = blockIdx.x / a.sgroups / a.heads;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Os = Qs + a.np * LDH;
+  T* Kw = Os + a.np * LDH + warp * 16 * (2 * LDH + 2 * LDP);
+  T* Vw = Kw + 16 * LDH;
+  T* Pw = Vw + 16 * LDH;
+  T* Sw = Pw + 16 * LDP;
+  float* mxs = reinterpret_cast<float*>(Os + a.np * LDH + 4 * 16 * (2 * LDH + 2 * LDP));
+  float* sms = mxs + a.np;
+  float* Ds = sms + a.np;
+  const Geom none = {1, 1, 1};
+  const long long C3 = 3LL * a.C;
+  const Src src = {a.qkv, C3, 0, a.vec, 0};
+  const Src dsrc = {a.dout, a.C, 0, a.vec, 0};
+  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
+  const int nch = (a.np + kChunk - 1) / kChunk;
+  const int k0r = (sg * (kThreads / 32) + warp) * 16;
+  const View<T, true> vk = {Kw, LDH, 0}, vv = {Vw, LDH, a.rnd}, vp = {Pw, LDP, 0},
+                      vs = {Sw, LDP, 0};
+  float csk[8][2], csv[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) csk[j][0] = csk[j][1] = csv[j][0] = csv[j][1] = 0.0f;
+  for (long long w = gi; w < a.BW; w += a.groups) {
+    const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
+    const Bias bias(a, w, h);
+    __syncthreads();
+    stage_tile<T>(Qs, LDH, a.np, a.hdp, src, row0, cq, rend, cq + a.hd, -1, none, tid, kThreads);
+    stage_tile<T>(Os, LDH, a.np, a.hdp, dsrc, row0, cq, rend, cq + a.hd, -1, none, tid,
+                  kThreads);
+    // with this warp's keys and values, in flight together
+    if (k0r < a.np) {
+      stage_tile<T>(Kw, LDH, 16, a.hdp, src, row0 + k0r, ck, rend, ck + a.hd, -1, none, lane,
+                    32);
+      stage_tile<T>(Vw, LDH, 16, a.hdp, src, row0 + k0r, cv, rend, cv + a.hd, -1, none, lane,
+                    32);
+    }
+    for (int i = tid; i < a.np; i += kThreads) {
+      const bool ok = i < a.n;
+      mxs[i] = ok ? a.stats[(z * a.n + i) * 2] : 0.0f;
+      sms[i] = ok ? a.stats[(z * a.n + i) * 2 + 1] : 1.0f;
+      Ds[i] = ok ? a.dsum[z * a.n + i] : 0.0f;
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (k0r >= a.np) continue;
+    float dk[8][4], dv[8][4];
+    zero_strip(dk);
+    zero_strip(dv);
+    for (int c = 0; c < nch; ++c) {
+      const int i0 = c * kChunk, ncols = min(kChunk, a.np - i0);
+      float s[8][4], dpt[8][4];   // S^T and dp^T: 16 keys x ncols queries
+      zero_strip(s);
+      mma_strip<T>(s, a.hdp, ncols, lane, vk, View<T, true>{Qs + i0 * LDH, LDH, 0}, a.simt);
+      zero_strip(dpt);
+      mma_strip<T>(dpt, a.hdp, ncols, lane, vv, View<T, true>{Os + i0 * LDH, LDH, 0}, a.simt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j * 8 >= ncols) continue;
+          const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
+          const int kj = k0r + rl, qi = i0 + cl;
+          float pb = 0.0f, ds = 0.0f;
+          if (kj < a.n && qi < a.n) {
+            const float p = expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi];
+            pb = rd_of<T>(a, p);
+            ds = (a.use_pb ? pb : p) * (dpt[j][e] - Ds[qi]);
+          }
+          Pw[rl * LDP + cl] = from_f<T>(pb);
+          Sw[rl * LDP + cl] = from_f<T>(rd_of<T>(a, ds));
+        }
+      __syncwarp();
+      mma_strip<T>(dv, ncols, a.hdp, lane, vp, View<T, false>{Os + i0 * LDH, LDH, 0}, a.simt);
+      mma_strip<T>(dk, ncols, a.hdp, lane, vs, View<T, false>{Qs + i0 * LDH, LDH, a.rnd}, a.simt);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0r + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
+        if (kj < a.n && d < a.hd) {
+          T* o = static_cast<T*>(a.out) + (row0 + kj) * C3;
+          const T vk_ = from_f<T>(rd_of<T>(a, dk[j][e] * a.scale));
+          const T vv_ = from_f<T>(rd_of<T>(a, dv[j][e]));
+          o[ck + d] = vk_;
+          o[cv + d] = vv_;
+          csk[j][e & 1] += to_f(vk_);
+          csv[j][e & 1] += to_f(vv_);
+        }
+      }
+  }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);
+  float* out = a.dbias + ((long long)gi * a.sgroups + sg) * C3;
+  block_column_sums(csk, red, a.hdp, a.hd, out + ck);
+  block_column_sums(csv, red, a.hdp, a.hd, out + cv);
+}
+
+// ------------------------------------------------------------ rows
+
+// The LayerNorm backward of `rows` rows a block, with d = dL/d(LN output):
+//   r = add[row(m)] + inv * (d*s - mean(d*s) - xhat * mean(d*s*xhat))
+// out[row(m)] = r; out2[m] = dp[sample, 0] * r (rounded to T, and to bf16
+// first where out2_rnd) where out2 is given. Per block, the column sums of
+// d * xhat and d (the LayerNorm parameters' gradients) and, where given, of
+// dp[sample, 0] * r and dp[sample, 1] * add (biases').
+struct LnBwdArgs {
+  const float* d;           // f32 [M, C]
+  const void* x;            // the LayerNorm's input, T [M, C]
+  int x_map;
+  const float* stats;       // (mean, 1/std) of each row
+  const float* s;           // the LayerNorm's scale
+  const void* add;          // [M, C], bf16 where add_bf else f32
+  int add_bf, add_map;
+  Out out;
+  void* out2;               // T [M, C] or null
+  int out2_rnd;
+  const float* dp;          // [B, 2]
+  float *ps, *pb, *p_res, *p_add;   // [blocks, C] partial sums (the last two may be null)
+  long long M;
+  int C, rows;                      // rows a block, at most kRowsPerBlock
+  Geom g;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) ln_bwd_kernel(LnBwdArgs a) {
+  __shared__ float m1s[kRowsPerBlock], m2s[kRowsPerBlock], means[kRowsPerBlock],
+      invs[kRowsPerBlock], dp0[kRowsPerBlock], dp1[kRowsPerBlock];
+  __shared__ long long xrow[kRowsPerBlock], arow[kRowsPerBlock], orow[kRowsPerBlock];
+  const long long r0 = (long long)blockIdx.x * a.rows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, C = a.C;
+  const T* x = static_cast<const T*>(a.x);
+  const long long hw = (long long)a.g.H * a.g.W;
+  for (int r = warp; r < a.rows; r += kRowThreads / 32) {
+    const long long m = r0 + r;
+    float mean = 0.0f, inv = 0.0f, s1 = 0.0f, s2 = 0.0f;
+    long long gr = 0;
+    if (m < a.M) {
+      gr = a.g.grid_row(m);
+      mean = a.stats[2 * m];
+      inv = a.stats[2 * m + 1];
+      const T* xr = x + (a.x_map ? gr : m) * C;
+      const float* dr = a.d + m * C;
+      for (int c = lane; c < C; c += 32) {
+        const float xhat = (to_f(xr[c]) - mean) * inv;
+        const float dx = dr[c] * a.s[c];
+        s1 += dx;
+        s2 += dx * xhat;
+      }
+      s1 = warp_sum(s1) / C;
+      s2 = warp_sum(s2) / C;
+    }
+    if (lane == 0) {
+      m1s[r] = s1;
+      m2s[r] = s2;
+      means[r] = mean;
+      invs[r] = inv;
+      xrow[r] = a.x_map ? gr : m;
+      arow[r] = a.add_map ? gr : m;
+      orow[r] = a.out.map ? gr : m;
+      dp0[r] = m < a.M ? a.dp[(m / hw) * 2] : 0.0f;
+      dp1[r] = m < a.M ? a.dp[(m / hw) * 2 + 1] : 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += kRowThreads) {
+    float ss = 0.0f, sb = 0.0f, sr = 0.0f, sa = 0.0f;
+    const float sc = a.s[c];
+    for (int r = 0; r < a.rows; ++r) {
+      const long long m = r0 + r;
+      if (m >= a.M) break;
+      const float xhat = (to_f(x[xrow[r] * C + c]) - means[r]) * invs[r];
+      const float dv = a.d[m * C + c];
+      const float ad = load(a.add, arow[r] * C + c, a.add_bf);
+      const float res = ad + invs[r] * (dv * sc - m1s[r] - xhat * m2s[r]);
+      store(a.out.p, orow[r] * C + c, a.out.rnd ? round_bf16(res) : res, a.out.bf);
+      if (a.out2) {
+        const float v = dp0[r] * res;
+        sr += v;
+        static_cast<T*>(a.out2)[m * C + c] = from_f<T>(a.out2_rnd ? round_bf16(v) : v);
+      }
+      sa += dp1[r] * ad;
+      ss += dv * xhat;
+      sb += dv;
+    }
+    const long long o = (long long)blockIdx.x * C + c;
+    a.ps[o] = ss;
+    a.pb[o] = sb;
+    if (a.p_res) a.p_res[o] = sr;
+    if (a.p_add) a.p_add[o] = sa;
+  }
+}
+
+// dst[i] += sum over s < count of src[s * stride + i], s in order; one
+// launch for every entry.
+struct ReduceEntry {
+  const float* src;
+  long long stride, len;
+  float* dst;
+  int count, ways;   // ways: threads an entry's element, each summing every ways-th split
+};
+
+constexpr int kMaxEntries = 16;
+
+struct ReduceArgs {
+  ReduceEntry e[kMaxEntries];
+  int blocks[kMaxEntries];
+  int count;
+};
+
+// A block: 256 / ways elements of one ReduceEntry, `ways` threads each
+// summing every ways-th split in order, then the ways' sums in order.
+constexpr int kReduceThreads = 256, kReduceMaxWays = 8;
+
+__global__ void __launch_bounds__(kReduceThreads) reduce_kernel(ReduceArgs a) {
+  __shared__ float red[kReduceThreads];
+  int blk = blockIdx.x, i = 0;
+  while (i < a.count - 1 && blk >= a.blocks[i]) {
+    blk -= a.blocks[i];
+    ++i;
+  }
+  const ReduceEntry e = a.e[i];
+  const int cols = kReduceThreads / e.ways;
+  const int c = threadIdx.x % cols, way = threadIdx.x / cols;
+  const long long j = (long long)blk * cols + c;
+  float v = 0.0f;
+  if (j < e.len) {
+#pragma unroll 4
+    for (int s = way; s < e.count; s += e.ways) v += e.src[s * e.stride + j];
+  }
+  red[threadIdx.x] = v;
+  __syncthreads();
+  if (way == 0 && j < e.len) {
+    float t = 0.0f;
+    for (int w = 0; w < e.ways; ++w) t += red[w * cols + c];
+    e.dst[j] += t;
+  }
+}
+
+// ------------------------------------------------------------ host side
 
 struct Dims {
-  int B, H, W, C, heads, ws, hidden, n, hd, nW;
+  int B, H, W, C, heads, ws, hidden, n, hd, nW, np, hdp;
   long long M, BW, Z;
 };
 
@@ -452,10 +1521,22 @@ Dims make_dims(int B, int H, int W, int C, int heads, int ws, int hidden) {
   d.n = ws * ws;
   d.hd = C / heads;
   d.nW = (H / ws) * (W / ws);
+  d.np = (d.n + 15) / 16 * 16;
+  d.hdp = (d.hd + 15) / 16 * 16;
   d.M = (long long)B * H * W;
   d.BW = (long long)B * d.nW;
   d.Z = d.BW * heads;
   return d;
+}
+
+Geom geom(const Dims& d) { return {d.H, d.W, d.ws}; }
+
+int valid(int B, int H, int W, int C, int heads, int ws, int hidden) {
+  if (B < 1 || ws < 1 || heads < 1 || C < 1 || hidden < 1) return 0;
+  if (H % ws || W % ws || C % heads || ws * ws > kMaxN) return 0;
+  if (C / heads > kMaxHeadDim || C > kMaxC || hidden > kMaxHidden) return 0;
+  if ((long long)B * H * W * std::max(3 * C, hidden) >= (1LL << 31)) return 0;
+  return 1;
 }
 
 // Carves one scratch buffer into aligned pieces; with a null base it only
@@ -468,339 +1549,550 @@ struct Carver {
     used = off + (size_t)bytes;
     return base ? base + off : nullptr;
   }
-};
-
-void* at(const void* p, long long elems, int bf) {
-  return static_cast<char*>(const_cast<void*>(p)) + elems * (bf ? 2 : 4);
-}
-
-Mat mat(const void* p, long long s0, long long s1, int bf, int rnd = 0, long long sw = 0,
-        long long sh = 0, int map = 0) {
-  Mat m;
-  m.p = const_cast<void*>(p);
-  m.s0 = s0;
-  m.s1 = s1;
-  m.sw = sw;
-  m.sh = sh;
-  m.bf = bf;
-  m.rnd = rnd;
-  m.map = map;
-  return m;
-}
-
-GemmArgs gemm_args(int M, int N, int K, Mat a, Mat b, Mat c, const Dims& d) {
-  GemmArgs g = {};
-  g.M = M;
-  g.N = N;
-  g.K = K;
-  g.Z = 1;
-  g.zdiv = 1;
-  g.splits = 1;
-  g.kchunk = K;
-  g.a = a;
-  g.b = b;
-  g.c = c;
-  g.epi = kStore;
-  g.alpha = 1.0f;
-  g.rows_per_sample = (long long)d.H * d.W;
-  g.g = {d.H, d.W, d.ws};
-  return g;
-}
-
-int blocks_1d(long long work, long long per_block) {
-  return (int)((work + per_block - 1) / per_block);
-}
-
-template <int BM, int BN>
-cudaError_t launch_gemm_tile(const GemmArgs& g, cudaStream_t st) {
-  const long long blocks = (long long)((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) *
-                           g.Z * g.splits;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gemm_kernel<BM, BN><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t st) {
-  const int small = g.M < g.N ? g.M : g.N;
-  if (small >= 48) return launch_gemm_tile<64, 64>(g, st);
-  if (small >= 24) return launch_gemm_tile<32, 32>(g, st);
-  return launch_gemm_tile<16, 16>(g, st);
-}
-
-cudaError_t reduce_splits(const float* partial, int splits, long long len, float* out,
-                          cudaStream_t st) {
-  reduce_splits_kernel<<<blocks_1d(len, kThreads), kThreads, 0, st>>>(partial, splits,
-                                                                     len, out);
-  return cudaGetLastError();
-}
-
-// out [K, N] f32 += sum over the R rows of a^T b, a [R, K] and b [R, N]
-// row-major (strides lda, ldb), in per-split partial sums added in order.
-cudaError_t atb(Mat a, Mat b, int R, int K, int N, float* out, float* partial,
-                long long cap, const Dims& d, cudaStream_t st) {
-  const long long lda = a.s0, ldb = b.s0;
-  a.s0 = 1;     // row k of a^T: column k of a
-  a.s1 = lda;
-  b.s1 = 1;
-  b.s0 = ldb;
-  GemmArgs g = gemm_args(K, N, R, a, b, mat(out, N, 1, 0), d);
-  const long long tiles = (long long)((K + 63) / 64) * ((N + 63) / 64);
-  long long s = (kTargetBlocks + tiles - 1) / tiles;
-  s = std::min(s, std::max(1LL, (long long)R / 256));
-  s = std::min(s, std::max(1LL, cap / ((long long)K * N)));
-  s = std::min(s, 128LL);
-  const long long chunk = (((R + s - 1) / s) + 15) / 16 * 16;
-  g.splits = (int)((R + chunk - 1) / chunk);
-  g.kchunk = chunk;
-  g.partial = partial;
-  cudaError_t err = launch_gemm(g, st);
-  if (err != cudaSuccess) return err;
-  return reduce_splits(partial, g.splits, (long long)K * N, out, st);
-}
-
-// out [L] f32 += column sums of a [R, L] f32.
-cudaError_t colsum(const float* a, long long R, long long L, float* out, float* partial,
-                   long long cap, cudaStream_t st) {
-  const long long col_blocks = (L + kThreads - 1) / kThreads;
-  long long s = (kTargetBlocks + col_blocks - 1) / col_blocks;
-  s = std::min(s, std::max(1LL, R / 64));
-  s = std::min(s, std::max(1LL, cap / L));
-  const long long rows = (R + s - 1) / s;
-  s = (R + rows - 1) / rows;
-  colsum_kernel<<<(unsigned)(col_blocks * s), kThreads, 0, st>>>(a, R, L, rows, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(partial, (int)s, L, out, st);
-}
-
-cudaError_t rows_copy(const void* src, int src_bf, int src_map, void* dst, int dst_bf,
-                      int dst_map, int rnd, const float* dp, int dp_col, const Dims& d,
-                      cudaStream_t st) {
-  rows_copy_kernel<<<blocks_1d(d.M * d.C, kThreads), kThreads, 0, st>>>(
-      src, src_bf, src_map, dst, dst_bf, dst_map, rnd, dp, dp_col, {d.H, d.W, d.ws}, d.M,
-      d.C);
-  return cudaGetLastError();
-}
-
-cudaError_t ln_rows(const void* x, int x_bf, int x_map, const float* s, const float* b,
-                    float eps, void* out, int out_bf, float* stats, const Dims& d,
-                    cudaStream_t st) {
-  ln_rows_kernel<<<blocks_1d(d.M, kRowWarps), kThreads, 0, st>>>(
-      x, x_bf, x_map, {d.H, d.W, d.ws}, d.M, d.C, s, b, eps, out, out_bf, stats);
-  return cudaGetLastError();
-}
-
-cudaError_t ln_bwd_rows(const float* dd, const void* x, int x_bf, int x_map,
-                        const float* stats, const float* s, const float* add, float* prod,
-                        void* out, int out_bf, int out_map, float* out2, const float* dp,
-                        int dp_col, const Dims& d, cudaStream_t st) {
-  ln_bwd_rows_kernel<<<blocks_1d(d.M, kRowWarps), kThreads, 0, st>>>(
-      dd, x, x_bf, x_map, {d.H, d.W, d.ws}, d.M, d.C, stats, s, add, prod, out, out_bf,
-      out_map, out2, dp, dp_col);
-  return cudaGetLastError();
-}
-
-#define TRY(call)                              \
-  do {                                         \
-    cudaError_t err_ = (call);                 \
-    if (err_ != cudaSuccess) return err_;      \
-  } while (0)
-
-// qkv [M, 3C] (T, window order) -> p [Z, n, n] f32 in `probs` and the merged
-// heads [M, C] (T): logits, softmax, p @ v.
-cudaError_t attention_fwd(const Dims& d, int bf, const void* qkv, const float* rel,
-                          const float* mask, float* probs, void* merged,
-                          cudaStream_t st) {
-  const long long C3 = 3LL * d.C, nn = (long long)d.n * d.n;
-  // logits: q [n, hd] @ k^T [hd, n] * scale + rel_bias + mask
-  GemmArgs g = gemm_args(
-      d.n, d.n, d.hd, mat(qkv, C3, 1, bf, 0, d.n * C3, d.hd),
-      mat(at(qkv, d.C, bf), 1, C3, bf, 0, d.n * C3, d.hd),
-      mat(probs, d.n, 1, 0, 0, d.heads * nn, nn), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  g.epi = kScores;
-  g.alpha = 1.0f / sqrtf((float)d.hd);
-  g.rel = rel;
-  g.mask = mask;
-  g.n_mask = d.nW;
-  TRY(launch_gemm(g, st));
-  softmax_rows_kernel<<<blocks_1d(d.Z * d.n, kRowWarps), kThreads, 0, st>>>(
-      probs, d.Z * d.n, d.n);
-  TRY(cudaGetLastError());
-  // p (rounded to T) @ v -> the head's columns of merged
-  g = gemm_args(d.n, d.hd, d.n, mat(probs, d.n, 1, 0, bf, d.heads * nn, nn),
-                mat(at(qkv, 2LL * d.C, bf), C3, 1, bf, 0, d.n * C3, d.hd),
-                mat(merged, d.C, 1, bf, 0, (long long)d.n * d.C, d.hd), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  return launch_gemm(g, st);
-}
-
-// The attention's backward from do [M, C] (f32, rounded to rd): dqkv [M, 3C]
-// (f32, rounded to rd) and drel [heads, n, n] += sum over windows of ds.
-// probs holds p; dprobs is scratch of its size. use_pb: ds from p rounded
-// to rd (K2), else from p (K4).
-cudaError_t attention_bwd(const Dims& d, int bf, int rd, int use_pb, const void* qkv,
-                          const float* probs, const float* dout, float* dprobs,
-                          float* dqkv, float* drel, float* partial, long long cap,
-                          cudaStream_t st) {
-  const long long C3 = 3LL * d.C, nn = (long long)d.n * d.n;
-  const long long wq = d.n * C3, wo = (long long)d.n * d.C, zp = d.heads * nn;
-  // dp = do @ v^T
-  GemmArgs g = gemm_args(d.n, d.n, d.hd, mat(dout, d.C, 1, 0, 0, wo, d.hd),
-                         mat(at(qkv, 2LL * d.C, bf), 1, C3, bf, rd, wq, d.hd),
-                         mat(dprobs, d.n, 1, 0, 0, zp, nn), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  TRY(launch_gemm(g, st));
-  // dv = pb^T @ do
-  g = gemm_args(d.n, d.hd, d.n, mat(probs, 1, d.n, 0, rd, zp, nn),
-                mat(dout, d.C, 1, 0, 0, wo, d.hd),
-                mat(dqkv + 2LL * d.C, C3, 1, 0, rd, wq, d.hd), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  TRY(launch_gemm(g, st));
-  softmax_bwd_rows_kernel<<<blocks_1d(d.Z * d.n, kRowWarps), kThreads, 0, st>>>(
-      probs, dprobs, d.Z * d.n, d.n, rd, use_pb);
-  TRY(cudaGetLastError());
-  TRY(colsum(dprobs, d.BW, d.heads * nn, drel, partial, cap, st));
-  const float scale = 1.0f / sqrtf((float)d.hd);
-  // dq = ds @ k * scale
-  g = gemm_args(d.n, d.hd, d.n, mat(dprobs, d.n, 1, 0, rd, zp, nn),
-                mat(at(qkv, d.C, bf), C3, 1, bf, rd, wq, d.hd),
-                mat(dqkv, C3, 1, 0, rd, wq, d.hd), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  g.alpha = scale;
-  TRY(launch_gemm(g, st));
-  // dk = ds^T @ q * scale
-  g = gemm_args(d.n, d.hd, d.n, mat(dprobs, 1, d.n, 0, rd, zp, nn),
-                mat(qkv, C3, 1, bf, rd, wq, d.hd),
-                mat(dqkv + (long long)d.C, C3, 1, 0, rd, wq, d.hd), d);
-  g.Z = (int)d.Z;
-  g.zdiv = d.heads;
-  g.alpha = scale;
-  return launch_gemm(g, st);
-}
-
-// The intermediates of one launch, carved from its scratch.
-struct Buffers {
-  void *h1, *qkv, *merged, *r1, *h2, *g1;               // T, [M, *]
-  float *stats1, *stats2, *probs, *dprobs, *z1, *dyw, *dz2, *dz1, *dh, *prod, *dr1,
-      *datt, *dmerged, *dqkv, *partial;
-  long long cap;   // floats of partial
+  float* f32(long long n) { return static_cast<float*>(take(n * 4)); }
 };
 
 enum Kind { kBlockFwd = 0, kBlockBwd = 1, kAttnFwd = 2, kAttnBwd = 3 };
 
+// blocks of a window and head in the attention (64 rows each)
+int strip_groups(const Dims& d) { return (d.np + kChunk - 1) / kChunk; }
+
+// groups of windows a head in the attention's backward: about two blocks
+// an SM in all
+int attn_groups(const Dims& d) {
+  const long long per = (long long)d.heads * strip_groups(d);
+  const long long g = std::max(1LL, (2 * 132 + per - 1) / per);
+  return (int)std::min(d.BW, g);
+}
+
+// rows a block of the LayerNorm backward: 8 to 32, about four blocks an SM
+int ln_rows(const Dims& d) {
+  return (int)std::min<long long>(kRowsPerBlock, std::max<long long>(8, d.M / kTargetBlocks));
+}
+
+int row_blocks(const Dims& d) { return (int)((d.M + ln_rows(d) - 1) / ln_rows(d)); }
+
+int tiles(long long n) { return (int)((n + 63) / 64); }
+
+// The weight gradients of a backward (Ka, N, ones of each) and the split of
+// the tokens: splits, chunk and the partials' floats.
+struct AtbPlan {
+  int count, Ka[kMaxProblems], N[kMaxProblems], ones[kMaxProblems];
+  int splits;
+  long long chunk, floats;
+};
+
+AtbPlan atb_plan(int kind, const Dims& d) {
+  AtbPlan p = {};
+  const int C = d.C, hid = d.hidden;
+  auto add = [&](int ka, int n, int ones) {
+    p.Ka[p.count] = ka;
+    p.N[p.count] = n;
+    p.ones[p.count] = ones;
+    ++p.count;
+  };
+  if (kind == kBlockBwd) {
+    add(hid, C, 0);      // dw2 = g1^T dz2
+    add(C, hid, 0);      // dw1 = h2^T dz1
+    add(C, C, 0);        // dwproj = merged^T datt
+    add(C, 3 * C, 0);    // dwqkv = h1^T dqkv
+  } else {
+    add(C, C, 1);        // dwproj = merged^T dy, and dbproj
+    add(C, 3 * C, 0);    // dwqkv = x^T dqkv
+  }
+  long long t = 0, per_split = 0;
+  for (int i = 0; i < p.count; ++i) {
+    t += (long long)tiles(p.Ka[i] + p.ones[i]) * tiles(p.N[i]);
+    per_split += (long long)(p.Ka[i] + p.ones[i]) * p.N[i];
+  }
+  long long s = (kTargetBlocks + t - 1) / t;
+  s = std::min(s, std::max(1LL, d.M / 256));
+  s = std::min(s, 128LL);
+  const long long chunk = ((d.M + s - 1) / s + 31) / 32 * 32;
+  p.chunk = chunk;
+  p.splits = (int)((d.M + chunk - 1) / chunk);
+  p.floats = p.splits * per_split;
+  return p;
+}
+
+// The intermediates of one launch, carved from its scratch.
+struct Buffers {
+  void *qkv, *merged, *r1, *g1, *h1, *h2, *dz2, *dz1, *datt, *dmerged, *dqkv;   // T
+  float *stats1, *stats2, *astats, *dsum, *z1, *dh, *dr1;
+  float *p_atb, *p_db1, *p_ln2, *p_ln1, *p_drel, *p_dbqkv;
+};
+
 void layout(int kind, const Dims& d, int bf, Carver& cv, Buffers& b) {
   b = Buffers();
   const long long es = bf ? 2 : 4, M = d.M, C = d.C, hid = d.hidden;
-  const long long zz = d.Z * d.n * d.n;
   const bool block = kind == kBlockFwd || kind == kBlockBwd;
   const bool bwd = kind == kBlockBwd || kind == kAttnBwd;
-  b.h1 = cv.take(M * C * es);   // K3/K4: the input in window order
   b.qkv = cv.take(3 * M * C * es);
-  b.probs = static_cast<float*>(cv.take(zz * 4));
   b.merged = cv.take(M * C * es);
   if (block) {
     b.r1 = cv.take(M * C * es);
-    b.h2 = cv.take(M * C * es);
     b.g1 = cv.take(M * hid * es);
-    b.stats1 = static_cast<float*>(cv.take(2 * M * 4));
-    b.stats2 = static_cast<float*>(cv.take(2 * M * 4));
   }
   if (!bwd) return;
-  b.dprobs = static_cast<float*>(cv.take(zz * 4));
-  b.dyw = static_cast<float*>(cv.take(M * C * 4));
-  b.dmerged = static_cast<float*>(cv.take(M * C * 4));
-  b.dqkv = static_cast<float*>(cv.take(3 * M * C * 4));
-  if (block) {
-    b.z1 = static_cast<float*>(cv.take(M * hid * 4));
-    b.dz2 = static_cast<float*>(cv.take(M * C * 4));
-    b.dz1 = static_cast<float*>(cv.take(M * hid * 4));
-    b.dh = static_cast<float*>(cv.take(M * C * 4));
-    b.prod = static_cast<float*>(cv.take(M * C * 4));
-    b.dr1 = static_cast<float*>(cv.take(M * C * 4));
-    b.datt = static_cast<float*>(cv.take(M * C * 4));
+  const int G = attn_groups(d);
+  b.astats = cv.f32(2 * d.Z * d.n);
+  b.dsum = cv.f32(d.Z * d.n);
+  b.dmerged = cv.take(M * C * es);
+  b.dqkv = cv.take(3 * M * C * es);
+  b.p_atb = cv.f32(atb_plan(kind, d).floats);
+  b.p_drel = cv.f32((long long)G * d.heads * d.n * d.n);
+  b.p_dbqkv = cv.f32((long long)G * strip_groups(d) * 3 * C);
+  if (kind != kBlockBwd) return;
+  const long long nrb = row_blocks(d);
+  b.h1 = cv.take(M * C * es);
+  b.h2 = cv.take(M * C * es);
+  b.dz2 = cv.take(M * C * es);
+  b.dz1 = cv.take(M * hid * es);
+  b.datt = cv.take(M * C * es);
+  b.stats1 = cv.f32(2 * M);
+  b.stats2 = cv.f32(2 * M);
+  b.z1 = cv.f32(M * hid);
+  b.dh = cv.f32(M * C);
+  b.dr1 = cv.f32(M * C);
+  b.p_db1 = cv.f32((long long)tiles(M) * hid);
+  b.p_ln2 = cv.f32(4 * nrb * C);
+  b.p_ln1 = cv.f32(2 * nrb * C);
+}
+
+#define TRY(call)                         \
+  do {                                    \
+    cudaError_t err_ = (call);            \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
+
+int vec_ok(const void* p, long long ld, int es) {
+  return ((uintptr_t)p % 16 == 0) && ((ld * es) % 16 == 0);
+}
+
+template <typename T>
+Src src_of(const void* p, long long ld, int map = 0, int rnd = 0) {
+  return {p, ld, map, vec_ok(p, ld, (int)sizeof(T)), rnd};
+}
+
+GemmArgs gemm_args(const Dims& d, int M, int N, int K) {
+  GemmArgs g = {};
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.eps = 1e-5f;
+  g.g = geom(d);
+  return g;
+}
+
+template <typename T, bool BT, bool XF>
+cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t st) {
+  const long long blocks = (long long)tiles(g.M) * tiles(g.N);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gemm_kernel<T, BT, XF><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, float* partial,
+                       cudaStream_t st, AtbPlan* plan_out) {
+  const AtbPlan plan = atb_plan(kind, d);
+  AtbArgs g = {};
+  g.count = plan.count;
+  g.splits = plan.splits;
+  g.R = d.M;
+  g.chunk = plan.chunk;
+  g.g = geom(d);
+  long long blocks = 0;
+  float* at = partial;
+  for (int i = 0; i < plan.count; ++i) {
+    AtbProblem& p = g.p[i];
+    p.a = a[i];
+    p.b = b[i];
+    p.Ka = plan.Ka[i];
+    p.N = plan.N[i];
+    p.ones = plan.ones[i];
+    p.partial = at;
+    p.tiles_n = tiles(p.N);
+    p.blocks = tiles(p.Ka + p.ones) * p.tiles_n * plan.splits;
+    blocks += p.blocks;
+    at += (long long)plan.splits * (p.Ka + p.ones) * p.N;
   }
-  long long most = 3 * C * C;
-  if (block && C * hid > most) most = C * hid;
-  if ((long long)d.heads * d.n * d.n > most) most = (long long)d.heads * d.n * d.n;
-  b.cap = 2 * most > (1LL << 22) ? 2 * most : (1LL << 22);
-  b.partial = static_cast<float*>(cv.take(b.cap * 4));
+  *plan_out = plan;
+  atb_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  ++g_launches;
+  return cudaGetLastError();
 }
 
-// The forward of a whole block, saving what the backward needs (z1 where
-// b.z1 is carved); without `out` it stops before the last product.
-cudaError_t block_forward(const Dims& d, int bf, const void* x, const void* wqkv,
-                          const void* bqkv, const void* wproj, const void* bproj,
-                          const float* rel, const float* ln1s, const float* ln1b,
-                          const float* ln2s, const float* ln2b, const void* w1,
-                          const float* b1, const void* w2, const float* b2,
-                          const float* mask, const float* dp, void* out, float eps,
+cudaError_t launch_reduce(ReduceArgs& r, cudaStream_t st) {
+  long long blocks = 0;
+  for (int i = 0; i < r.count; ++i) {
+    const int cols = kReduceThreads / r.e[i].ways;
+    r.blocks[i] = (int)((r.e[i].len + cols - 1) / cols);
+    blocks += r.blocks[i];
+  }
+  reduce_kernel<<<(unsigned)blocks, kReduceThreads, 0, st>>>(r);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+void add_entry(ReduceArgs& r, const float* src, long long stride, int count, long long len,
+               float* dst) {
+  ReduceEntry& e = r.e[r.count++];
+  e.src = src;
+  e.stride = stride;
+  e.count = count;
+  e.len = len;
+  e.dst = dst;
+  // one thread an element for a few splits, up to eight for many
+  e.ways = 1;
+  while (e.ways < kReduceMaxWays && count >= 16 * e.ways) e.ways *= 2;
+}
+
+// The entries of the weight gradients' partials (plan order), their bias
+// rows where `ones`.
+void add_atb_entries(ReduceArgs& r, const AtbPlan& plan, const float* partial, float* const* dw,
+                     float* const* db) {
+  const float* at = partial;
+  for (int i = 0; i < plan.count; ++i) {
+    const long long rows = plan.Ka[i] + plan.ones[i], len = (long long)plan.Ka[i] * plan.N[i];
+    add_entry(r, at, rows * plan.N[i], plan.splits, len, dw[i]);
+    if (plan.ones[i]) add_entry(r, at + len, rows * plan.N[i], plan.splits, plan.N[i], db[i]);
+    at += plan.splits * rows * plan.N[i];
+  }
+}
+
+template <typename T>
+size_t attn_smem(int which, const Dims& d) {
+  const size_t ldh = Att<T>::ldh(d.hdp), ldp = Att<T>::ldp(), es = sizeof(T);
+  const size_t whole = 2 * (size_t)d.np * ldh;
+  if (which == 0) return (whole + 4 * 16 * (ldh + ldp)) * es;
+  if (which == 1) return (whole + 4 * 16 * (2 * ldh + ldp)) * es;
+  return (whole + 4 * 16 * (2 * ldh + 2 * ldp)) * es + 3 * (size_t)d.np * 4;
+}
+
+template <typename T>
+AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float* mask) {
+  AttnArgs a = {};
+  a.qkv = qkv;
+  a.rel = rel;
+  a.mask = mask;
+  a.n_mask = d.nW;
+  a.BW = d.BW;
+  a.groups = attn_groups(d);
+  a.sgroups = strip_groups(d);
+  a.n = d.n;
+  a.np = d.np;
+  a.hd = d.hd;
+  a.hdp = d.hdp;
+  a.heads = d.heads;
+  a.C = d.C;
+  a.scale = 1.0f / sqrtf((float)d.hd);
+  a.vec = (d.hd * (int)sizeof(T)) % 16 == 0;
+  return a;
+}
+
+template <typename T, typename K>
+cudaError_t launch_attn(K kernel, long long blocks, size_t smem, const AttnArgs& a,
+                        cudaStream_t st) {
+  if (smem > 48 * 1024)
+    TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kernel<<<(unsigned)blocks, kThreads, smem, st>>>(a);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+// merged = attention(qkv); the softmax's row statistics into stats where given
+template <typename T>
+cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
+                          void* merged, float* stats, cudaStream_t st, int simt = 0) {
+  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+  a.out = merged;
+  a.stats = stats;
+  a.simt = simt;
+  const long long blocks = d.Z * a.sgroups;
+  if (d.np <= kChunk)   // one chunk: the logits of 64 keys in registers
+    return launch_attn<T>(attn_fwd_kernel<T, 1>, blocks, attn_smem<T>(0, d), a, st);
+  return launch_attn<T>(attn_fwd_kernel<T, kMaxN / kChunk>, blocks, attn_smem<T>(0, d), a, st);
+}
+
+// dqkv (rounded to rd) from dout, with the rel-pos and qkv-bias partials
+template <typename T>
+cudaError_t attention_bwd(const Dims& d, int rnd, int use_pb, const void* qkv, const float* rel,
+                          const float* mask, const Buffers& b, cudaStream_t st) {
+  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+  a.dout = b.dmerged;
+  a.out = b.dqkv;
+  a.stats = b.astats;
+  a.dsum = b.dsum;
+  a.drel = b.p_drel;
+  a.dbias = b.p_dbqkv;
+  a.rnd = rnd;
+  a.simt = rnd;
+  a.use_pb = use_pb;
+  const long long blocks = (long long)a.groups * d.heads * a.sgroups;
+  TRY(launch_attn<T>(attn_bwd_q_kernel<T>, blocks, attn_smem<T>(1, d), a, st));
+  return launch_attn<T>(attn_bwd_kv_kernel<T>, blocks, attn_smem<T>(2, d), a, st);
+}
+
+struct BlockParams {
+  const void *x, *wqkv, *bqkv, *wproj, *bproj, *w1, *w2;
+  const float *rel, *ln1s, *ln1b, *ln2s, *ln2b, *b1, *b2, *mask, *dp;
+  float eps;
+};
+
+// The forward of a whole block; `save` keeps what the backward needs (the
+// LayerNorm statistics and outputs, the softmax's statistics, z1), and
+// without `out` it stops before the last product.
+template <typename T>
+cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* out,
                           const Buffers& b, cudaStream_t st) {
-  const int M = (int)d.M, C = d.C, hid = d.hidden;
-  TRY(ln_rows(x, bf, 1, ln1s, ln1b, eps, b.h1, bf, b.stats1, d, st));
-  GemmArgs g = gemm_args(M, 3 * C, C, mat(b.h1, C, 1, bf), mat(wqkv, 3 * C, 1, bf),
-                         mat(b.qkv, 3 * C, 1, bf), d);
-  g.bias = bqkv;
+  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
+  // qkv = LN1(x) @ wqkv + bqkv
+  GemmArgs g = gemm_args(d, M, 3 * C, C);
+  g.a = src_of<T>(w.x, C, 1);
+  g.b = src_of<T>(w.wqkv, 3 * C);
+  g.xf = kLayerNorm;
+  g.ln_s = w.ln1s;
+  g.ln_b = w.ln1b;
+  g.eps = w.eps;
+  g.stats = save ? b.stats1 : nullptr;
+  g.side = save ? b.h1 : nullptr;
+  g.c = {b.qkv, 3LL * C, bf, 0, 0};
+  g.bias = w.bqkv;
   g.bias_bf = bf;
-  TRY(launch_gemm(g, st));
-  TRY(attention_fwd(d, bf, b.qkv, rel, mask, b.probs, b.merged, st));
+  TRY((launch_gemm<T, false, true>(g, st)));
+  TRY(attention_fwd<T>(d, b.qkv, w.rel, w.mask, b.merged, save ? b.astats : nullptr, st));
   // r1 = x + dp1 * (merged @ wproj + bproj)
-  g = gemm_args(M, C, C, mat(b.merged, C, 1, bf), mat(wproj, C, 1, bf),
-                mat(b.r1, C, 1, bf), d);
-  g.bias = bproj;
-  g.bias_bf = bf;
+  g = gemm_args(d, M, C, C);
+  g.a = src_of<T>(b.merged, C);
+  g.b = src_of<T>(w.wproj, C);
   g.epi = kResid;
-  g.res = mat(x, C, 1, bf, 0, 0, 0, 1);
-  g.dp = dp;
+  g.res = src_of<T>(w.x, C, 1);
+  g.dp = w.dp;
   g.dp_col = 0;
-  TRY(launch_gemm(g, st));
-  TRY(ln_rows(b.r1, bf, 0, ln2s, ln2b, eps, b.h2, bf, b.stats2, d, st));
-  g = gemm_args(M, hid, C, mat(b.h2, C, 1, bf), mat(w1, hid, 1, bf),
-                mat(b.g1, hid, 1, bf), d);
-  g.bias = b1;
-  g.epi = kGelu;
-  g.aux = b.z1;
-  TRY(launch_gemm(g, st));
-  if (!out) return cudaSuccess;   // the backward's recompute stops here
-  // out = r1 + dp2 * (g1 @ w2 + b2), at the grid rows
-  g = gemm_args(M, C, hid, mat(b.g1, hid, 1, bf), mat(w2, C, 1, bf),
-                mat(out, C, 1, bf, 0, 0, 0, 1), d);
-  g.bias = b2;
-  g.epi = kResid;
-  g.res = mat(b.r1, C, 1, bf);
-  g.dp = dp;
-  g.dp_col = 1;
-  return launch_gemm(g, st);
-}
-
-// K3's or K4's forward up to the merged heads: x to window order, qkv, p.
-cudaError_t attn_prologue(const Dims& d, int bf, const void* x, const void* wqkv,
-                          const void* bqkv, const float* rel, const float* mask,
-                          const Buffers& b, cudaStream_t st) {
-  const int M = (int)d.M, C = d.C;
-  TRY(rows_copy(x, bf, 1, b.h1, bf, 0, 0, nullptr, 0, d, st));
-  GemmArgs g = gemm_args(M, 3 * C, C, mat(b.h1, C, 1, bf), mat(wqkv, 3 * C, 1, bf),
-                         mat(b.qkv, 3 * C, 1, bf), d);
-  g.bias = bqkv;
+  g.c = {b.r1, C, bf, 0, 0};
+  g.bias = w.bproj;
   g.bias_bf = bf;
-  TRY(launch_gemm(g, st));
-  return attention_fwd(d, bf, b.qkv, rel, mask, b.probs, b.merged, st);
+  TRY((launch_gemm<T, false, false>(g, st)));
+  // g1 = gelu(LN2(r1) @ w1 + b1)
+  g = gemm_args(d, M, hid, C);
+  g.a = src_of<T>(b.r1, C);
+  g.b = src_of<T>(w.w1, hid);
+  g.xf = kLayerNorm;
+  g.ln_s = w.ln2s;
+  g.ln_b = w.ln2b;
+  g.eps = w.eps;
+  g.stats = save ? b.stats2 : nullptr;
+  g.side = save ? b.h2 : nullptr;
+  g.epi = kGelu;
+  g.aux = save ? b.z1 : nullptr;
+  g.c = {b.g1, hid, bf, 0, 0};
+  g.bias = w.b1;
+  TRY((launch_gemm<T, false, true>(g, st)));
+  if (!out) return cudaSuccess;
+  // out = r1 + dp2 * (g1 @ w2 + b2), at the grid rows
+  g = gemm_args(d, M, C, hid);
+  g.a = src_of<T>(b.g1, hid);
+  g.b = src_of<T>(w.w2, C);
+  g.epi = kResid;
+  g.res = src_of<T>(b.r1, C);
+  g.dp = w.dp;
+  g.dp_col = 1;
+  g.c = {out, C, bf, 1, 0};
+  g.bias = w.b2;
+  return launch_gemm<T, false, false>(g, st);
 }
 
-int valid(int B, int H, int W, int C, int heads, int ws, int hidden) {
-  if (B < 1 || ws < 1 || heads < 1 || C < 1 || hidden < 1) return 0;
-  if (H % ws || W % ws || C % heads || ws * ws > kMaxN) return 0;
-  return 1;
+struct BlockGrads {
+  float *dwqkv, *dbqkv, *dwproj, *dbproj, *drel, *dln1s, *dln1b, *dln2s, *dln2b, *dw1, *db1,
+      *dw2, *db2;
+};
+
+template <typename T>
+cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, void* dx,
+                           const BlockGrads& gr, const Buffers& b, cudaStream_t st) {
+  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
+  const int nrb = row_blocks(d);
+  const Geom geo = geom(d);
+  TRY(block_forward<T>(d, w, true, nullptr, b, st));
+  // out = r1 + dp2 * (g1 @ w2 + b2): dz1 = (rd(dp2 * dy) @ w2^T) * gelu'(z1)
+  GemmArgs g = gemm_args(d, M, hid, C);
+  g.a = src_of<T>(dy, C, 1);
+  g.b = src_of<T>(w.w2, C);
+  g.xf = kRowScale;
+  g.dp = w.dp;
+  g.dp_col = 1;
+  g.side = b.dz2;
+  g.epi = kDGelu;
+  g.aux = b.z1;
+  g.colsum = b.p_db1;
+  g.c = {b.dz1, hid, bf, 0, 0};
+  TRY((launch_gemm<T, true, true>(g, st)));
+  // dh2 = dz1 @ w1^T
+  g = gemm_args(d, M, C, hid);
+  g.a = src_of<T>(b.dz1, hid);
+  g.b = src_of<T>(w.w1, hid);
+  g.c = {b.dh, C, 0, 0, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  // dr1 = dy + LN2's backward; datt = dp1 * dr1
+  LnBwdArgs l = {};
+  l.d = b.dh;
+  l.x = b.r1;
+  l.x_map = 0;
+  l.stats = b.stats2;
+  l.s = w.ln2s;
+  l.add = dy;
+  l.add_bf = bf;
+  l.add_map = 1;
+  l.out = {b.dr1, C, 0, 0, 0};
+  l.out2 = b.datt;
+  l.dp = w.dp;
+  l.ps = b.p_ln2;
+  l.pb = b.p_ln2 + (long long)nrb * C;
+  l.p_res = b.p_ln2 + 2LL * nrb * C;
+  l.p_add = b.p_ln2 + 3LL * nrb * C;
+  l.M = d.M;
+  l.C = C;
+  l.rows = ln_rows(d);
+  l.g = geo;
+  ln_bwd_kernel<T><<<nrb, kRowThreads, 0, st>>>(l);
+  ++g_launches;
+  TRY(cudaGetLastError());
+  // dmerged = datt @ wproj^T
+  g = gemm_args(d, M, C, C);
+  g.a = src_of<T>(b.datt, C);
+  g.b = src_of<T>(w.wproj, C);
+  g.c = {b.dmerged, C, bf, 0, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  TRY(attention_bwd<T>(d, 0, 1, b.qkv, w.rel, w.mask, b, st));
+  // dh1 = dqkv @ wqkv^T; dx = dr1 + LN1's backward
+  g = gemm_args(d, M, C, 3 * C);
+  g.a = src_of<T>(b.dqkv, 3 * C);
+  g.b = src_of<T>(w.wqkv, 3 * C);
+  g.c = {b.dh, C, 0, 0, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  l = LnBwdArgs();
+  l.d = b.dh;
+  l.x = w.x;
+  l.x_map = 1;
+  l.stats = b.stats1;
+  l.s = w.ln1s;
+  l.add = b.dr1;
+  l.add_bf = 0;
+  l.add_map = 0;
+  l.out = {dx, C, bf, 1, 0};
+  l.dp = w.dp;
+  l.ps = b.p_ln1;
+  l.pb = b.p_ln1 + (long long)nrb * C;
+  l.M = d.M;
+  l.C = C;
+  l.rows = ln_rows(d);
+  l.g = geo;
+  ln_bwd_kernel<T><<<nrb, kRowThreads, 0, st>>>(l);
+  ++g_launches;
+  TRY(cudaGetLastError());
+  // the weight gradients
+  const Src a[4] = {src_of<T>(b.g1, hid), src_of<T>(b.h2, C), src_of<T>(b.merged, C),
+                    src_of<T>(b.h1, C)};
+  const Src bb[4] = {src_of<T>(b.dz2, C), src_of<T>(b.dz1, hid), src_of<T>(b.datt, C),
+                     src_of<T>(b.dqkv, 3 * C)};
+  AtbPlan plan;
+  TRY(launch_atb<T>(d, kBlockBwd, a, bb, b.p_atb, st, &plan));
+  ReduceArgs r = {};
+  float* const dw[4] = {gr.dw2, gr.dw1, gr.dwproj, gr.dwqkv};
+  add_atb_entries(r, plan, b.p_atb, dw, dw);
+  add_entry(r, b.p_db1, hid, tiles(M), hid, gr.db1);
+  const long long nc = (long long)nrb * C;
+  add_entry(r, b.p_ln2, C, nrb, C, gr.dln2s);
+  add_entry(r, b.p_ln2 + nc, C, nrb, C, gr.dln2b);
+  add_entry(r, b.p_ln2 + 2 * nc, C, nrb, C, gr.dbproj);
+  add_entry(r, b.p_ln2 + 3 * nc, C, nrb, C, gr.db2);
+  add_entry(r, b.p_ln1, C, nrb, C, gr.dln1s);
+  add_entry(r, b.p_ln1 + nc, C, nrb, C, gr.dln1b);
+  const long long hnn = (long long)d.heads * d.n * d.n;
+  add_entry(r, b.p_drel, hnn, attn_groups(d), hnn, gr.drel);
+  add_entry(r, b.p_dbqkv, 3LL * C, attn_groups(d) * strip_groups(d), 3LL * C, gr.dbqkv);
+  return launch_reduce(r, st);
+}
+
+// K3's or K4's qkv: x (grid order) @ wqkv + bqkv, in window order
+template <typename T>
+cudaError_t attn_qkv(const Dims& d, const void* x, const void* wqkv, const void* bqkv,
+                     const Buffers& b, cudaStream_t st, int simt = 0) {
+  GemmArgs g = gemm_args(d, (int)d.M, 3 * d.C, d.C);
+  g.simt = simt;
+  g.a = src_of<T>(x, d.C, 1);
+  g.b = src_of<T>(wqkv, 3 * d.C);
+  g.c = {b.qkv, 3LL * d.C, sizeof(T) == 2, 0, 0};
+  g.bias = bqkv;
+  g.bias_bf = sizeof(T) == 2;
+  return launch_gemm<T, false, false>(g, st);
+}
+
+template <typename T>
+cudaError_t attn_forward(const Dims& d, const void* x, const void* wqkv, const void* bqkv,
+                         const void* wproj, const void* bproj, const float* rel,
+                         const float* mask, void* out, const Buffers& b, cudaStream_t st) {
+  TRY(attn_qkv<T>(d, x, wqkv, bqkv, b, st));
+  TRY(attention_fwd<T>(d, b.qkv, rel, mask, b.merged, nullptr, st));
+  GemmArgs g = gemm_args(d, (int)d.M, d.C, d.C);
+  g.a = src_of<T>(b.merged, d.C);
+  g.b = src_of<T>(wproj, d.C);
+  g.c = {out, d.C, sizeof(T) == 2, 1, 0};
+  g.bias = bproj;
+  g.bias_bf = sizeof(T) == 2;
+  return launch_gemm<T, false, false>(g, st);
+}
+
+template <typename T>
+cudaError_t attn_backward(const Dims& d, int rd, const void* x, const void* dy,
+                          const void* wqkv, const void* bqkv, const void* wproj,
+                          const float* rel, const float* mask, void* dx, float* dwqkv,
+                          float* dbqkv, float* dwproj, float* dbproj, float* drel,
+                          const Buffers& b, cudaStream_t st) {
+  const int M = (int)d.M, C = d.C, bf = sizeof(T) == 2;
+  // f32 operands rounded to bf16 as they are read; the f32 products whose
+  // results are rounded to bf16 later (q, k, v, p, dp, dmerged, dqkv) as
+  // FMA chains, so that they round where the plain version's do
+  const int rnd = rd && !bf;
+  TRY(attn_qkv<T>(d, x, wqkv, bqkv, b, st, rnd));
+  TRY(attention_fwd<T>(d, b.qkv, rel, mask, b.merged, b.astats, st, rnd));
+  // dmerged = rd(dy) @ rd(wproj)^T, rounded to rd
+  GemmArgs g = gemm_args(d, M, C, C);
+  g.simt = rnd;
+  g.a = src_of<T>(dy, C, 1, rnd);
+  g.b = src_of<T>(wproj, C, 0, rnd);
+  g.c = {b.dmerged, C, bf, 0, rnd};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  TRY(attention_bwd<T>(d, rnd, 0, b.qkv, rel, mask, b, st));
+  // dx = dqkv @ rd(wqkv)^T, at the grid rows
+  g = gemm_args(d, M, C, 3 * C);
+  g.a = src_of<T>(b.dqkv, 3 * C);
+  g.b = src_of<T>(wqkv, 3 * C, 0, rnd);
+  g.c = {dx, C, bf, 1, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  const Src a[2] = {src_of<T>(b.merged, C, 0, rnd), src_of<T>(x, C, 1, rnd)};
+  const Src bb[2] = {src_of<T>(dy, C, 1, rnd), src_of<T>(b.dqkv, 3 * C)};
+  AtbPlan plan;
+  TRY(launch_atb<T>(d, kAttnBwd, a, bb, b.p_atb, st, &plan));
+  ReduceArgs r = {};
+  float* const dw[2] = {dwproj, dwqkv};
+  float* const db[2] = {dbproj, nullptr};
+  add_atb_entries(r, plan, b.p_atb, dw, db);
+  const long long hnn = (long long)d.heads * d.n * d.n;
+  add_entry(r, b.p_drel, hnn, attn_groups(d), hnn, drel);
+  add_entry(r, b.p_dbqkv, 3LL * C, attn_groups(d) * strip_groups(d), 3LL * C, dbqkv);
+  return launch_reduce(r, st);
 }
 
 }  // namespace
 
 extern "C" {
+
+// Kernels this library has launched since it was loaded (K1 5 a call, K2 14,
+// K3 3, K4 8).
+long long window_any_launches(void) { return g_launches; }
 
 // Bytes of scratch a launch of `kind` (0 block forward, 1 block backward,
 // 2 attention forward, 3 attention backward) needs.
@@ -830,18 +2122,20 @@ int swin_any_fwd(const void* x, const void* wqkv, const void* bqkv, const void* 
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;
   layout(kBlockFwd, d, bf, cv, b);
-  return (int)block_forward(
-      d, bf, x, wqkv, bqkv, wproj, bproj, static_cast<const float*>(rel),
-      static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
-      static_cast<const float*>(ln2s), static_cast<const float*>(ln2b), w1,
-      static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
-      static_cast<const float*>(mask), static_cast<const float*>(dp), out, eps, b,
-      static_cast<cudaStream_t>(stream));
+  const BlockParams w = {x, wqkv, bqkv, wproj, bproj, w1, w2,
+                         static_cast<const float*>(rel), static_cast<const float*>(ln1s),
+                         static_cast<const float*>(ln1b), static_cast<const float*>(ln2s),
+                         static_cast<const float*>(ln2b), static_cast<const float*>(b1),
+                         static_cast<const float*>(b2), static_cast<const float*>(mask),
+                         static_cast<const float*>(dp), eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf ? block_forward<bf16>(d, w, false, out, b, st)
+                  : block_forward<float>(d, w, false, out, b, st));
 }
 
 // K2: dx (T, [B, H, W, C]) and the 13 parameter gradients (f32, zeroed by
 // the caller, summed into) of the block from dy (T). The backward products
-// take operands rounded to bf16 where rd, else as they are (f32 or bf16).
+// take operands rounded to rd = T (`rd` must equal `bf`).
 int swin_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bqkv,
                  const void* wproj, const void* bproj, const void* rel, const void* ln1s,
                  const void* ln1b, const void* ln2s, const void* ln2b, const void* w1,
@@ -851,64 +2145,22 @@ int swin_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
                  float* dln2b, float* dw1, float* db1, float* dw2, float* db2,
                  void* scratch, int bf, int rd, int B, int H, int W, int C, int heads,
                  int ws, int hidden, float eps, void* stream) {
-  if (!valid(B, H, W, C, heads, ws, hidden)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, W, C, heads, ws, hidden) || rd != bf) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(B, H, W, C, heads, ws, hidden);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;
   layout(kBlockBwd, d, bf, cv, b);
-  const float* fdp = static_cast<const float*>(dp);
-  const float* fln1s = static_cast<const float*>(ln1s);
-  const float* fln2s = static_cast<const float*>(ln2s);
-  TRY(block_forward(d, bf, x, wqkv, bqkv, wproj, bproj, static_cast<const float*>(rel),
-                    fln1s, static_cast<const float*>(ln1b), fln2s,
-                    static_cast<const float*>(ln2b), w1, static_cast<const float*>(b1),
-                    w2, static_cast<const float*>(b2), static_cast<const float*>(mask),
-                    fdp, nullptr, eps, b, st));
-  const int M = (int)d.M, hid = d.hidden;
-  const long long cap = b.cap;
-  // out = r1 + dp2 * (g1 @ w2 + b2)
-  TRY(rows_copy(dy, bf, 1, b.dyw, 0, 0, 0, nullptr, 0, d, st));
-  TRY(rows_copy(dy, bf, 1, b.dz2, 0, 0, 0, fdp, 1, d, st));
-  TRY(atb(mat(b.g1, hid, 1, bf, rd), mat(b.dz2, C, 1, 0, rd), M, hid, C, dw2, b.partial,
-          cap, d, st));
-  TRY(colsum(b.dz2, M, C, db2, b.partial, cap, st));
-  GemmArgs g = gemm_args(M, hid, C, mat(b.dz2, C, 1, 0, rd), mat(w2, 1, C, bf, rd),
-                         mat(b.dz1, hid, 1, 0), d);
-  g.epi = kDGelu;
-  g.aux = b.z1;
-  TRY(launch_gemm(g, st));
-  TRY(colsum(b.dz1, M, hid, db1, b.partial, cap, st));
-  TRY(atb(mat(b.h2, C, 1, bf, rd), mat(b.dz1, hid, 1, 0, rd), M, C, hid, dw1, b.partial,
-          cap, d, st));
-  g = gemm_args(M, C, hid, mat(b.dz1, hid, 1, 0, rd), mat(w1, 1, hid, bf, rd),
-                mat(b.dh, C, 1, 0), d);
-  TRY(launch_gemm(g, st));
-  // dr1 = dy + LN2's backward; datt = dp1 * dr1
-  TRY(ln_bwd_rows(b.dh, b.r1, bf, 0, b.stats2, fln2s, b.dyw, b.prod, b.dr1, 0, 0, b.datt,
-                  fdp, 0, d, st));
-  TRY(colsum(b.prod, M, C, dln2s, b.partial, cap, st));
-  TRY(colsum(b.dh, M, C, dln2b, b.partial, cap, st));
-  // r1 = x + dp1 * (merged @ wproj + bproj)
-  TRY(colsum(b.datt, M, C, dbproj, b.partial, cap, st));
-  TRY(atb(mat(b.merged, C, 1, bf, rd), mat(b.datt, C, 1, 0, rd), M, C, C, dwproj,
-          b.partial, cap, d, st));
-  g = gemm_args(M, C, C, mat(b.datt, C, 1, 0, rd), mat(wproj, 1, C, bf, rd),
-                mat(b.dmerged, C, 1, 0, rd), d);
-  TRY(launch_gemm(g, st));
-  TRY(attention_bwd(d, bf, rd, 1, b.qkv, b.probs, b.dmerged, b.dprobs, b.dqkv, drel,
-                    b.partial, cap, st));
-  // qkv = LN1(x) @ wqkv + bqkv
-  TRY(atb(mat(b.h1, C, 1, bf, rd), mat(b.dqkv, 3 * C, 1, 0), M, C, 3 * C, dwqkv,
-          b.partial, cap, d, st));
-  TRY(colsum(b.dqkv, M, 3 * C, dbqkv, b.partial, cap, st));
-  g = gemm_args(M, C, 3 * C, mat(b.dqkv, 3 * C, 1, 0), mat(wqkv, 1, 3 * C, bf, rd),
-                mat(b.dh, C, 1, 0), d);
-  TRY(launch_gemm(g, st));
-  TRY(ln_bwd_rows(b.dh, x, bf, 1, b.stats1, fln1s, b.dr1, b.prod, dx, bf, 1, nullptr,
-                  nullptr, 0, d, st));
-  TRY(colsum(b.prod, M, C, dln1s, b.partial, cap, st));
-  return (int)colsum(b.dh, M, C, dln1b, b.partial, cap, st);
+  const BlockParams w = {x, wqkv, bqkv, wproj, bproj, w1, w2,
+                         static_cast<const float*>(rel), static_cast<const float*>(ln1s),
+                         static_cast<const float*>(ln1b), static_cast<const float*>(ln2s),
+                         static_cast<const float*>(ln2b), static_cast<const float*>(b1),
+                         static_cast<const float*>(b2), static_cast<const float*>(mask),
+                         static_cast<const float*>(dp), eps};
+  const BlockGrads gr = {dwqkv, dbqkv, dwproj, dbproj, drel, dln1s, dln1b,
+                         dln2s, dln2b, dw1,   db1,    dw2,    db2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf ? block_backward<bf16>(d, w, dy, dx, gr, b, st)
+                  : block_backward<float>(d, w, dy, dx, gr, b, st));
 }
 
 // K3: proj(attention(windows of x)), arguments in the order of
@@ -920,17 +2172,15 @@ int attn_any_fwd(const void* x, const void* wqkv, const void* bqkv, const void* 
                  void* stream) {
   if (!valid(B, H, W, C, heads, ws, 1)) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(B, H, W, C, heads, ws, 1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;
   layout(kAttnFwd, d, bf, cv, b);
-  TRY(attn_prologue(d, bf, x, wqkv, bqkv, static_cast<const float*>(rel),
-                    static_cast<const float*>(mask), b, st));
-  GemmArgs g = gemm_args((int)d.M, C, C, mat(b.merged, C, 1, bf), mat(wproj, C, 1, bf),
-                         mat(out, C, 1, bf, 0, 0, 0, 1), d);
-  g.bias = bproj;
-  g.bias_bf = bf;
-  return (int)launch_gemm(g, st);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* frel = static_cast<const float*>(rel);
+  const float* fmask = static_cast<const float*>(mask);
+  return (int)(bf ? attn_forward<bf16>(d, x, wqkv, bqkv, wproj, bproj, frel, fmask, out, b, st)
+                  : attn_forward<float>(d, x, wqkv, bqkv, wproj, bproj, frel, fmask, out, b,
+                                        st));
 }
 
 // K4: dx (T) and the five parameter gradients (f32, zeroed by the caller)
@@ -943,29 +2193,16 @@ int attn_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
                  int ws, void* stream) {
   if (!valid(B, H, W, C, heads, ws, 1)) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(B, H, W, C, heads, ws, 1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;
   layout(kAttnBwd, d, bf, cv, b);
-  const int M = (int)d.M;
-  const long long cap = b.cap;
-  TRY(attn_prologue(d, bf, x, wqkv, bqkv, static_cast<const float*>(rel),
-                    static_cast<const float*>(mask), b, st));
-  TRY(rows_copy(dy, bf, 1, b.dyw, 0, 0, rd, nullptr, 0, d, st));
-  TRY(colsum(b.dyw, M, C, dbproj, b.partial, cap, st));
-  TRY(atb(mat(b.merged, C, 1, bf, rd), mat(b.dyw, C, 1, 0), M, C, C, dwproj, b.partial,
-          cap, d, st));
-  GemmArgs g = gemm_args(M, C, C, mat(b.dyw, C, 1, 0), mat(wproj, 1, C, bf, rd),
-                         mat(b.dmerged, C, 1, 0, rd), d);
-  TRY(launch_gemm(g, st));
-  TRY(attention_bwd(d, bf, rd, 0, b.qkv, b.probs, b.dmerged, b.dprobs, b.dqkv, drel,
-                    b.partial, cap, st));
-  TRY(atb(mat(b.h1, C, 1, bf, rd), mat(b.dqkv, 3 * C, 1, 0), M, C, 3 * C, dwqkv,
-          b.partial, cap, d, st));
-  TRY(colsum(b.dqkv, M, 3 * C, dbqkv, b.partial, cap, st));
-  g = gemm_args(M, C, 3 * C, mat(b.dqkv, 3 * C, 1, 0), mat(wqkv, 1, 3 * C, bf, rd),
-                mat(dx, C, 1, bf, 0, 0, 0, 1), d);
-  return (int)launch_gemm(g, st);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* frel = static_cast<const float*>(rel);
+  const float* fmask = static_cast<const float*>(mask);
+  return (int)(bf ? attn_backward<bf16>(d, rd, x, dy, wqkv, bqkv, wproj, frel, fmask, dx,
+                                        dwqkv, dbqkv, dwproj, dbproj, drel, b, st)
+                  : attn_backward<float>(d, rd, x, dy, wqkv, bqkv, wproj, frel, fmask, dx,
+                                         dwqkv, dbqkv, dwproj, dbproj, drel, b, st));
 }
 
 }  // extern "C"

@@ -21,10 +21,12 @@ element type and the widths alone, before any launch:
 - ``"wgmma"``: ``csrc/swin_block.cu`` and ``csrc/swin_block_bwd.cu``, fused
   ``wgmma`` kernels built for the flagship blocks: bf16, 8x8 windows, C of
   96, 192 or 384 with head_dim 32, MLP widths in 64-column chunks;
-- ``"any"``: ``csrc/window_any.cu``, a chain of SIMT kernels with the
-  intermediates in device memory, for every other shape the TPU kernels
+- ``"any"``: ``csrc/window_any.cu``, tensor-core kernels (``mma.sync``:
+  bf16, and f32 as three TF32 passes) for every other shape the TPU kernels
   take, in f32 or bf16, up to 256 tokens a window, head_dim 64, C 1024 and
-  an MLP width of 4096.
+  an MLP width of 4096: five launches a forward (the products with their
+  LayerNorm prologues and epilogues, a fused window attention), 14 a
+  backward (:func:`window_any_launches` counts them).
 
 The wrappers hand the kernels their scratch (the weights packed into tiles,
 parking space, the intermediates). With ``backward="plain"`` the backward
@@ -450,6 +452,8 @@ def _lib(name: str):
         if name == "window_any":
             lib.window_any_scratch_bytes.argtypes = [ctypes.c_int] * 9
             lib.window_any_scratch_bytes.restype = ctypes.c_longlong
+            lib.window_any_launches.argtypes = []
+            lib.window_any_launches.restype = ctypes.c_longlong
             lib.swin_any_fwd.argtypes = (
                 [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -497,6 +501,12 @@ def window_any_lib():
     """The general route's library, ``csrc/window_any.cu``, built and
     bound (needs nvcc)."""
     return _lib("window_any")
+
+
+def window_any_launches() -> int:
+    """Kernels the general route's library has launched since it was
+    loaded: 5 a K1 call, 14 a K2 call, 3 a K3 call, 8 a K4 call."""
+    return int(window_any_lib().window_any_launches())
 
 
 def any_scratch(kind: int, x: torch.Tensor, num_heads: int,

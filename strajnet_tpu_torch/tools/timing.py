@@ -23,9 +23,12 @@ from strajnet_tpu_torch.ops import warp_gather as _gather
 from strajnet_tpu_torch.ops import window_attention as _attn
 
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate, f32 rate
-# outside the tensor cores, HBM rate.
+# outside the tensor cores, HBM rate. f32 products on the tensor cores as
+# three TF32 passes (the general window kernels) run at a third of the TF32
+# rate, 495 / 3 TFLOP/s.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
 # Clock cycles the card idles per timed launch while the host enqueues

@@ -3,8 +3,8 @@
 ``ops/swin_block.py::kernel_route`` (K1-K4) and
 ``ops/decoder_tail.py::kernel_route`` (K7) pick, from the element type and
 the widths alone, the ``wgmma`` kernels built for the flagship shapes or the
-general SIMT kernels (``csrc/window_any.cu``, ``csrc/decoder_tail_any.cu``)
-for every other shape the TPU kernels take, and raise on what neither takes.
+general kernels (``csrc/window_any.cu``, ``csrc/decoder_tail_any.cu``) for
+every other shape the TPU kernels take, and raise on what neither takes.
 Here: the route of each shape, the argument check of each route, and that
 the CUDA path's autograd functions launch the route's kernel and nothing
 else: a failed general launch reaches the caller. The kernels themselves run
@@ -124,6 +124,36 @@ def test_attention_route_and_its_argument_check(case, dtype):
         wa.check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel, mask, **kw)
     with pytest.raises(ValueError):
         wa.check_bwd_args(x, wqkv, bqkv, wproj, rel, mask, x, **kw)
+
+
+# (C, heads, window, H = W): windows of 49 and 144 tokens (SWIN_VARIANTS'
+# 7 and 12) and head sizes of 8, 16 and 64, alone and together, which the
+# general route takes whatever its kernels' tiles are.
+GENERAL_SHAPES = {
+    "window_7": (96, 3, 7, 14),
+    "window_12": (128, 4, 12, 24),
+    "head_dim_8": (64, 8, 8, 16),
+    "head_dim_16": (64, 4, 8, 16),
+    "head_dim_64": (128, 2, 8, 16),
+    "window_7_head_dim_8": (24, 3, 7, 14),
+    "window_12_head_dim_64": (256, 4, 12, 24),
+}
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("case", sorted(GENERAL_SHAPES))
+def test_general_route_takes_windows_7_and_12_and_head_dims_8_to_64(case,
+                                                                    dtype):
+    c, heads, ws, h = GENERAL_SHAPES[case]
+    args, mask, dp = _block_args(c=c, heads=heads, ws=ws, h=h, dtype=dtype)
+    assert _route(args, ws, heads) == "any"
+    sb.check_general_args(*args, mask, dp, window_size=ws, num_heads=heads)
+    x, wqkv, bqkv, wproj, bproj, rel = args[:6]
+    assert sb.kernel_route(dtype, c, heads, ws) == "any"
+    sb.check_general_attention_args(x, wqkv, bqkv, wproj, bproj, rel, mask,
+                                    window_size=ws, num_heads=heads)
+    sb.check_general_attention_args(x, wqkv, bqkv, wproj, None, rel, None,
+                                    window_size=ws, num_heads=heads)
 
 
 @pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12)])
