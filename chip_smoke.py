@@ -24,12 +24,15 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
 - the general route of K1-K4 (``csrc/window_any.cu``) at ULTRA_TINY's,
   TINY's, the Swin-B and the flagship's widths in f32 and bf16 and at
   windows of 49, 144 and 256 tokens (``ANY_GEOMETRIES``), each twice
-  against its plain version (the two runs bit-identical), with the
-  library's kernels a call counted (K1 at most 5, K2 at most 16) and timed
-  beside it, the general K1 and K2 broken down by kernel at two widths;
-  and of K7 (``csrc/decoder_tail_any.cu``) at the model's tail widths in
-  f32 and at 64 -> 32 channels in bf16; the flagship shapes launching none
-  of them.
+  against its plain version (the two runs bit-identical; K4 in f32 within
+  the limits of its bf16 operands, ``ANY_K4_F32_*``), with the library's
+  kernels a call counted (K1 at most 5, K2 at most 16, K4 at most 7) and
+  timed beside it, the general K1, K2 and K4 broken down by kernel; and of
+  K7 (``csrc/decoder_tail_any.cu``) at the model's tail widths in f32, at
+  64 -> 32 channels in bf16, at the f32 flagship tail and at a ragged
+  geometry (``ANY_TAILS``), twice, timed in rounds and broken down by
+  kernel at the f32 flagship tail; the flagship shapes launching none of
+  them.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -287,12 +290,22 @@ PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
           "ddp", "tp", "preprocess", "tools", "widths")
 # The general route of K1-K4 (csrc/window_any.cu) and K7
 # (csrc/decoder_tail_any.cu) against the plain versions. In f32, with TF32
-# off, the same f32 arithmetic summed in another order (and, for K4, bf16
-# operands that can round the other way): forward within 1e-4 and gradients
-# within 1e-3 of the largest entry of the plain result. In bf16 the limits of
-# the wgmma route: K1_*, K2_*, K3_*, K4_*, K7_*.
+# off, the same f32 arithmetic summed in another order: forward within 1e-4
+# and gradients within 1e-3 of the largest entry of the plain result (K1, K2,
+# K3, K7). In bf16 the limits of the wgmma route: K1_*, K2_*, K3_*, K4_*, K7_*.
 ANY_F32_FWD_MAX_ABS_REL = 1e-4
 ANY_F32_GRAD_MAX_ABS_REL = 1e-3
+# K4 in f32 rounds every backward product's operands and results to bf16
+# (q, k, v, p, dO, ds, dqkv), as the JAX kernel and its plain oracle
+# (window_attention_backward_reference(operand_dtype=bf16)) do: an f32 sum
+# that differs in its last bit rounds to the neighbouring bf16 value, so the
+# oracle's own answer moves by bf16 steps when its f32 sums change order
+# (tests/test_torch_k4_f32_check.py: 1.8e-3 of max|ref| in dx at the
+# flagship's last width). Its limits are then those of bf16 operands, the
+# bf16 K4's: 2^-6 of the largest entry (8.9x that spread), and 1 - cos
+# within 1e-6 (49x the spread's 2.05e-8, 100x under the bf16 K4's).
+ANY_K4_F32_MAX_ABS_REL = 2.0 ** -6
+ANY_K4_F32_ONE_MINUS_COS = 1e-6
 # (B, H = W, C, heads, window, MLP width, shift, dtype): ULTRA_TINY's stage
 # 0 without and with the shift, TINY's widest stage at its C, the Swin-B
 # width, the flagship's last width in f32, windows of 256 tokens, and two
@@ -308,17 +321,23 @@ ANY_GEOMETRIES = (
     (2, 56, 96, 3, 7, 384, 3, "float32"),
     (1, 96, 128, 4, 12, 512, 6, "bfloat16"),
 )
-# Kernels a call of the general K1 and K2 may launch (csrc/window_any.cu:
-# 5 and 14).
+# Kernels a call of the general K1, K2 and K4 may launch
+# (csrc/window_any.cu: 5, 14 and 7).
 ANY_K1_MAX_KERNELS = 5
 ANY_K2_MAX_KERNELS = 16
+ANY_K4_MAX_KERNELS = 7
 # Rounds of plain / kernel / kernel / plain behind each time of the general
 # route (phase kernels) and of phase widths, printed as min / median / max
 # over the rounds; the kernels line takes the medians.
 TIMING_ROUNDS = 5
 # (N, H = W, Cin, Cmid, dtype) of the general K7: the model's tail widths in
-# f32, narrower ones in bf16.
-ANY_TAILS = ((16, 64, 96, 48, "float32"), (16, 32, 64, 32, "bfloat16"))
+# f32, narrower ones in bf16, the tail of ModelConfig(dtype="float32") at
+# batch 16 (the model at full width) and a ragged geometry (Cin 24, Cmid
+# 20, a side of 37). The sum over the first ANY_TAILS_BEFORE is printed
+# apart, to compare with earlier readings over those tails alone.
+ANY_TAILS = ((16, 64, 96, 48, "float32"), (16, 32, 64, 32, "bfloat16"),
+             (16, 128, 96, 48, "float32"), (3, 37, 24, 20, "bfloat16"))
+ANY_TAILS_BEFORE = 2
 # Phase "widths": whole models through the general route against the plain
 # path. f32: the largest entry's relative error of the forward; bf16 and the
 # steps: the limits of the flagship's checks (forward 1-cos, loss within 1%
@@ -1104,9 +1123,10 @@ def fmt_spread(s: dict, digits: int = 4) -> str:
 def check_general_kernels(g: torch.Generator) -> dict:
     """The general route of K1-K4 at ANY_GEOMETRIES, each kernel twice
     against its plain version (K4's with operands rounded to bf16, as it
-    rounds them): the two runs bit-identical (output, dx and every
-    gradient), the kernels of a call counted (K1 at most
-    ANY_K1_MAX_KERNELS, K2 at most ANY_K2_MAX_KERNELS), each timed beside
+    rounds them; in f32 within ANY_K4_F32_*): the two runs bit-identical
+    (output, dx and every gradient), the kernels of a call counted (K1, K2
+    and K4 at most ANY_K1_MAX_KERNELS, ANY_K2_MAX_KERNELS,
+    ANY_K4_MAX_KERNELS), each timed beside
     its plain version in TIMING_ROUNDS rounds (min / median / max printed
     per geometry, with f32's bound at the f32 SIMT rate beside the 3xTF32
     one). Returns per kernel the worst error, the kernels a call, and the
@@ -1155,15 +1175,20 @@ def check_general_kernels(g: torch.Generator) -> dict:
                   f"two general launches of each of K1-K4 and no other: "
                   f"{read_general_counters()}, {read_counters()}")
             check(per_call["k1"] <= ANY_K1_MAX_KERNELS
-                  and per_call["k2"] <= ANY_K2_MAX_KERNELS,
+                  and per_call["k2"] <= ANY_K2_MAX_KERNELS
+                  and per_call["k4"] <= ANY_K4_MAX_KERNELS,
                   f"kernels a call: K1 {per_call['k1']} (at most "
                   f"{ANY_K1_MAX_KERNELS}), K2 {per_call['k2']} (at most "
-                  f"{ANY_K2_MAX_KERNELS})")
+                  f"{ANY_K2_MAX_KERNELS}), K4 {per_call['k4']} (at most "
+                  f"{ANY_K4_MAX_KERNELS})")
             want = {k: calls[k][1]() for k in names}
             line = []
             for k in names:
                 fwd = k in ("k1", "k3")
-                if f32:
+                if f32 and k == "k4":
+                    limit = ANY_K4_F32_MAX_ABS_REL
+                    omc_limit = ANY_K4_F32_ONE_MINUS_COS
+                elif f32:
                     limit = (ANY_F32_FWD_MAX_ABS_REL if fwd
                              else ANY_F32_GRAD_MAX_ABS_REL)
                     omc_limit = None
@@ -1232,55 +1257,80 @@ def check_general_kernels(g: torch.Generator) -> dict:
     return out
 
 
-# (B, H = W, C, heads, window, MLP width, shift, dtype) where the general K1
-# and K2 are broken down by kernel: the flagship's last width in f32, the
-# Swin-B width in bf16.
+# (B, H = W, C, heads, window, MLP width, shift, dtype) where the general K1,
+# K2 and K4 are broken down by kernel: the flagship's last width in f32, the
+# Swin-B width in bf16; K4 also at windows of 256 tokens in bf16. K7 at the
+# f32 flagship tail (ANY_TAILS[2]).
 ANY_BREAKDOWN = ((2, 32, 384, 12, 8, 1536, 4, "float32"),
                  (2, 128, 128, 4, 8, 512, 4, "bfloat16"))
+ANY_BREAKDOWN_K4 = ANY_BREAKDOWN + ((1, 32, 64, 2, 16, 256, 8, "bfloat16"),)
+
+
+def device_us_by_kernel(fn, names, calls: int = 3) -> str:
+    """Device time of one call of ``fn`` by kernel (``torch.profiler`` over
+    ``calls`` calls), the kernels named by the first of ``names`` their
+    names hold, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((n for n in names if n in e.name), "other")
+            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return ", ".join(f"{n} {t:.1f}" for n, t in sorted(
+        us.items(), key=lambda kv: -kv[1]))
 
 
 def general_breakdown(g: torch.Generator) -> None:
-    """Device time of the general K1 and K2 by kernel (``torch.profiler``
-    over three calls) at ANY_BREAKDOWN: where a call's time goes."""
-    from torch.profiler import ProfilerActivity, profile
-    for b, h, c, heads, ws, hidden, shift, dtn in ANY_BREAKDOWN:
+    """Device time of the general K1, K2 and K4 by kernel at ANY_BREAKDOWN
+    (K4 at ANY_BREAKDOWN_K4) and of the general K7 at the f32 flagship tail:
+    where a call's time goes."""
+    for geo in ANY_BREAKDOWN_K4:
+        b, h, c, heads, ws, hidden, shift, dtn = geo
         dt = getattr(torch, dtn)
         args, mask, dp = general_inputs(b, h, c, heads, ws, hidden, shift,
                                         dt, g)
         dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dt)
         kw = dict(window_size=ws, num_heads=heads)
-        for k, fn in (("K1", lambda: swin_block(*args, mask, dp, **kw)),
-                      ("K2", lambda: swin_block_bwd(*args, mask, dp, dy,
-                                                    **kw))):
-            with torch.inference_mode():
-                fn()
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(3):
-                        fn()
-                    torch.cuda.synchronize()
-            us = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    name = next((n for n in WINDOW_ANY_KERNELS
-                                 if n in e.name), "other")
-                    us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / 3
-            print(f"general {k} [{b},{h},{h},{c}] {dtn}, device us a call by "
-                  f"kernel: " + ", ".join(
-                      f"{n} {t:.1f}" for n, t in sorted(
-                          us.items(), key=lambda kv: -kv[1])))
+        attn_bwd = (*args[:4], args[5], mask, dy)
+        calls = (("K1", lambda: swin_block(*args, mask, dp, **kw)),
+                 ("K2", lambda: swin_block_bwd(*args, mask, dp, dy, **kw)),
+                 ("K4", lambda: wa.window_attention_bwd(*attn_bwd, **kw)))
+        for k, fn in calls:
+            if k != "K4" and geo not in ANY_BREAKDOWN:
+                continue
+            print(f"general {k} [{b},{h},{h},{c}] ws {ws} {dtn}, device us "
+                  f"a call by kernel: "
+                  + device_us_by_kernel(fn, WINDOW_ANY_KERNELS))
         del args, mask, dp, dy
+    n, h, cin, cmid, dtn = ANY_TAILS[2]
+    dt = getattr(torch, dtn)
+    args = tail_inputs(n, h, cin, cmid, dt, g)
+    print(f"general K7 [{n},{h},{h},{cin}] -> {cmid} {dtn}, device us a "
+          f"call by kernel: "
+          + device_us_by_kernel(lambda: decoder_tail(*args),
+                                DECODER_TAIL_ANY_KERNELS))
+    del args
 
 
 WINDOW_ANY_KERNELS = ("gemm_kernel", "atb_kernel", "attn_fwd_kernel",
-                      "attn_bwd_q_kernel", "attn_bwd_kv_kernel", "ln_bwd_kernel",
-                      "reduce_kernel")
+                      "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
+                      "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel")
+DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
+                            "decoder_tail_any_kernel")
 
 
-def window_any_label(name: str) -> str:
-    """A ``csrc/window_any.cu`` kernel's mangled name, shortened to the
-    kernel, its element type and its template flags."""
-    base = next((k for k in WINDOW_ANY_KERNELS if k in name), name)
+def window_any_label(name: str, kernels=WINDOW_ANY_KERNELS) -> str:
+    """A general-route kernel's mangled name (``csrc/window_any.cu`` or, with
+    ``kernels``, another source's), shortened to the kernel, its element type
+    and its template flags."""
+    base = next((k for k in kernels if k in name), name)
     rest = name.split(base, 1)[1]
     kind = ("bf16" if "nv_bfloat16" in rest
             else "f32" if rest.startswith("If") else "")
@@ -1288,31 +1338,41 @@ def window_any_label(name: str) -> str:
     return base + (f"<{kind}{',' + flags if flags else ''}>" if kind else "")
 
 
+def tail_inputs(n, h, cin, cmid, dt, g):
+    """The tail's arguments at [n, h, h, cin] -> cmid: x in ``dt``, the
+    weights f32."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    return (r(n, h, h, cin).to(dt), r(3, 3, cin, cmid,
+                                      scale=(9 * cin) ** -0.5),
+            r(cmid, scale=0.1), r(3, 3, cmid, 2, scale=(9 * cmid) ** -0.5),
+            r(2, scale=0.1))
+
+
 def check_general_tail(g: torch.Generator) -> dict:
     """The general K7 at ANY_TAILS against the naive composition in the same
-    element type (f32 with TF32 off), timed beside it."""
+    element type (f32 with TF32 off), twice (bit-identical), timed beside it
+    in TIMING_ROUNDS rounds (min / median / max); f32's bound at the 3xTF32
+    rate. Returns the worst error, the median times and bounds summed over
+    the tails, and the sums over the first ANY_TAILS_BEFORE tails."""
     res = dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
-               bound_ms=0.0, bound_by="operations", library_ms=None)
-    for n, h, cin, cmid, dtn in ANY_TAILS:
+               bound_ms=0.0, ms_tails_before=0.0, plain_ms_tails_before=0.0,
+               library_ms=None)
+    secs = dict(flops=0.0, bytes=0.0)
+    for i, (n, h, cin, cmid, dtn) in enumerate(ANY_TAILS):
         dt = getattr(torch, dtn)
         check(dtl.kernel_route(dt, cin, cmid, 2) == "any",
               f"K7 {cin} -> {cmid} {dtn} takes the general route")
-
-        def r(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device="cuda") * scale
-
-        args = (r(n, h, h, cin).to(dt), r(3, 3, cin, cmid,
-                                          scale=(9 * cin) ** -0.5),
-                r(cmid, scale=0.1), r(3, 3, cmid, 2,
-                                      scale=(9 * cmid) ** -0.5),
-                r(2, scale=0.1))
+        args = tail_inputs(n, h, cin, cmid, dt, g)
         with torch.inference_mode():
             reset_counters()
             y = decoder_tail(*args)
+            again = decoder_tail(*args)
             torch.cuda.synchronize()
-            check(read_general_counters() == counts(GENERAL_COUNTERS, k7=1)
+            check(read_general_counters() == counts(GENERAL_COUNTERS, k7=2)
                   and read_counters() == counts(),
-                  f"one general K7 launch and no other: "
+                  f"two general K7 launches and no other: "
                   f"{read_general_counters()}, {read_counters()}")
             ref = decoder_tail_reference(*args)
             check(tuple(y.shape) == (n, 2 * h, 2 * h, 2) and y.dtype == dt,
@@ -1320,31 +1380,49 @@ def check_general_tail(g: torch.Generator) -> dict:
             f32 = dt == torch.float32
             limit = ANY_F32_FWD_MAX_ABS_REL if f32 else K7_MAX_ABS_REL
             omc_limit = None if f32 else K7_ONE_MINUS_COS
-            rel = held_against(f"K7 any [{n},{h},{h},{cin}] -> {cmid} {dtn}",
-                               y, ref, limit, omc_limit)
+            what = f"K7 any [{n},{h},{h},{cin}] -> {cmid} {dtn}"
+            rel = held_against(what, y, ref, limit, omc_limit)
+            check(torch.equal(y, again), f"{what}: two runs bit-identical")
             err = float((y.float() - ref.float()).abs().max())
-            t = [kernel_ms(fn, iters=3) for fn in (
-                lambda: decoder_tail_reference(*args),
-                lambda: decoder_tail(*args), lambda: decoder_tail(*args),
-                lambda: decoder_tail_reference(*args))]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            ks, ps = in_turns(lambda: decoder_tail_reference(*args),
+                              lambda: decoder_tail(*args),
+                              lambda fn: kernel_ms(fn, iters=3))
+        ms, plain_ms = ks["median"], ps["median"]
         px, es = n * 4 * h * h, 4 if f32 else 2
-        flops = 2.0 * px * 9 * cin * cmid + 2.0 * px * 9 * cmid * 2
+        # the phase form's 4 taps an upsampled pixel for the
+        # up-convolution, the output convolution's 9 taps at the least
+        flops = 2.0 * px * 4 * cin * cmid + 2.0 * px * 9 * cmid * 2
         nbytes = (n * h * h * cin + px * 2) * es + (9 * cin * cmid
                                                     + 9 * cmid * 2) * 4
-        bms, bby = bound(flops, nbytes,
-                         PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
-        print(f"general K7 [{n},{h},{h},{cin}] -> {cmid} -> 2 {dtn}, 1 "
-              f"launch: err/max|ref|={rel:.2e} (limit {limit:.2e}"
-              + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
-              + f") ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
-              f"({bby})")
+        peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
+        bms, bby = bound(flops, nbytes, peak)
+        print(f"general K7 [{n},{h},{h},{cin}] -> {cmid} -> 2 {dtn}, 2 "
+              f"calls, bit-identical: err/max|ref|={rel:.2e} (limit "
+              f"{limit:.2e}" + (f", 1-cos {omc_limit:.0e}" if omc_limit
+                                else "")
+              + f") ms={fmt_spread(ks)} plain_ms={fmt_spread(ps)} (min / "
+              f"median / max of {2 * TIMING_ROUNDS}) bound_ms={bms:.4f} "
+              f"({bby}" + ("; f32 SIMT "
+                           f"{bound(flops, nbytes, PEAK_F32_FLOPS)[0]:.4f}"
+                           if f32 else "") + ")")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["max_abs_rel"] = max(res["max_abs_rel"], rel)
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         res["bound_ms"] += bms
-        del args, y, ref
+        secs["flops"] += flops / peak
+        secs["bytes"] += nbytes / PEAK_HBM_BYTES
+        if i < ANY_TAILS_BEFORE:
+            res["ms_tails_before"] += ms
+            res["plain_ms_tails_before"] += plain_ms
+        del args, y, again, ref
+    res["bound_by"] = ("operations" if secs["flops"] > secs["bytes"]
+                       else "bytes")
+    print(f"general K7, medians summed: the first {ANY_TAILS_BEFORE} tails "
+          f"{res['ms_tails_before']:.4f} ms (plain "
+          f"{res['plain_ms_tails_before']:.4f}), all {len(ANY_TAILS)} "
+          f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}), bound "
+          f"{res['bound_ms']:.4f} ms")
     return res
 
 
@@ -3522,11 +3600,13 @@ def main(argv=None) -> int:
             for n, r in build_resources(builds["window_any"].log).items()}
         print(f"window_any.cu kernels [registers, static shared bytes, "
               f"spill bytes]: {general['swin_block_any']['resources']}")
-        res = kernel_resources(builds["decoder_tail_any"].log,
-                               "decoder_tail_any_kernel")
-        general["decoder_tail_any"].update(
-            regs={str(c): r for c, (r, _) in res.items()},
-            spill_bytes={str(c): sp for c, (_, sp) in res.items()})
+        general["decoder_tail_any"]["resources"] = {
+            window_any_label(n, DECODER_TAIL_ANY_KERNELS): list(r)
+            for n, r in build_resources(
+                builds["decoder_tail_any"].log).items()}
+        print(f"decoder_tail_any.cu kernels [registers, static shared "
+              f"bytes, spill bytes]: "
+              f"{general['decoder_tail_any']['resources']}")
         torch.cuda.empty_cache()
     if set(phases) & {"forward", "serve", "eval"}:
         state = init_params(STRAJNET_CONFIG, torch.Generator().manual_seed(0))

@@ -43,36 +43,40 @@
 //   staging tile. p never reaches device memory; the row max and sum do (8
 //   bytes a row) for the backward. k and v are held whole, not streamed:
 //   174 KB of shared memory at n = 256, hd = 64 in f32.
-// - attn_bwd_q_kernel / attn_bwd_kv_kernel: a block per (head, group of
-//   windows, 64 rows). The first holds k and v and walks query strips (dp,
-//   the row sums of dp * p, ds, dq and the rel-pos gradient), the second
-//   holds q and dO and walks key strips (dk, dv); each recomputes p from the
-//   saved row statistics. The rel-pos gradient sums the group's windows in a
-//   partial private to the block, the bias gradient of qkv the stores of dq,
-//   dk and dv.
+// - attn_bwd_q_kernel / attn_bwd_kv_kernel (K2): a block per (head, group
+//   of windows, 64 rows). The first holds k and v and walks query strips
+//   (dp, the row sums of dp * p, ds, dq and the rel-pos gradient), the
+//   second holds q and dO and walks key strips (dk, dv); each recomputes p
+//   from the saved row statistics.
+// - attn_bwd_kernel (K4): a block per (head, group of windows), a warp per
+//   16 keys, the window's q, k, v and dO whole in shared memory: p and dp
+//   computed once per window and head, dk and dv in registers, dq summed
+//   over the key strips through shared memory in a fixed order.
+//   In both the rel-pos gradient sums the group's windows in a partial
+//   private to the block, the bias gradient of qkv the stores of dq, dk and
+//   dv.
 // - ln_bwd_kernel (the LayerNorm backward of a block of rows, with the
 //   column sums of the LayerNorm parameters' and biases' gradients) and
 //   reduce_kernel (every per-split partial added in a fixed order, one
 //   launch).
 //
-// Why mma.sync and not wgmma: every operand passes through a per-element
+// Why mma.sync and not wgmma: many operands pass through a per-element
 // step between shared memory and the tensor cores (the rounding to bf16 of
 // K4's f32 operands, the split of f32 into two TF32 halves), any M, N, K
 // and stride is taken, and the attention's tiles are 16 rows of one warp;
 // register fragments serve all of these, wgmma's descriptors none of them.
 //
-// f32 runs as 3xTF32: a = hi + lo with hi = tf32(a), lo = tf32(a - hi)
-// (round to nearest even), acc += lo_a hi_b + hi_a lo_b + hi_a hi_b; one
-// TF32 pass would miss the f32 limits (tests/test_torch_tf32x3.py). The
-// tensor cores round their sums toward zero, so each stage's sum starts
-// from zero and is added to the running f32 sum to nearest. K4 in f32 rounds
-// its products' results to bf16 (as the JAX kernel does), where a sum that
-// differs in its last bit rounds the other way; its products whose results
-// are rounded (qkv, the logits, p @ v, dmerged, dp, dq, dk, dv) run as one
-// chain of FMAs in k order an output on the SIMT units, and its softmax sums
-// in the plain version's order.
+// f32 runs as 3xTF32 (mma_sync.cuh), each stage of a sum (the product
+// loop's 16-deep stage, an attention strip's k step) summed from zero and
+// added to the f32 total to nearest (the tensor cores round their sums
+// toward zero). K4 rounds every backward product's operands to bf16
+// whatever T is (as the JAX kernel does): in f32 these run
+// as bf16 m16n8k16 products, their f32 operands rounded as the fragments
+// are read, and the deep ones (dmerged, dx, the weight gradients) add each
+// stage's product to the f32 sum to nearest; only its recomputed forward
+// (qkv, q k^T, p v) runs in f32.
 //
-// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 14, K3 3, K4 8
+// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 14, K3 3, K4 7
 // (window_any_launches counts them). Rounding follows the plain versions
 // (ops/swin_block.py::swin_block_reference and swin_block_backward_reference,
 // ops/window_attention.py's two references): to T after qkv's bias, p before
@@ -80,16 +84,16 @@
 // products take operands rounded to `rd` (T for K2, bf16 for K4 whatever T
 // is) and accumulate in f32. No float atomics: two runs are bit-identical.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "mma_sync.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace msync;
 
 constexpr int kMaxN = 256;         // tokens a window
 constexpr int kMaxHeadDim = 64;
@@ -104,24 +108,6 @@ constexpr long long kTargetBlocks = 528;   // four blocks an SM
 long long g_launches = 0;   // kernels launched by this library
 
 // ------------------------------------------------------------ elements
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// v rounded to T
-template <typename T>
-__device__ __forceinline__ float rnd_t(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float load(const void* p, long long i, int bf) {
   return bf ? __bfloat162float(static_cast<const bf16*>(p)[i])
@@ -154,6 +140,17 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
+// the sum of eight partial sums, as a tree
+__device__ __forceinline__ float sum8(const float (&v)[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+}
+
+// the sum over the four lanes of a row of an mma accumulator
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 __device__ __forceinline__ float gelu_tanh(float z) {
   const float k = 0.7978845608028654f, c = 0.044715f;
   return 0.5f * z * (1.0f + tanhf(k * (z + c * z * z * z)));
@@ -182,177 +179,14 @@ struct Geom {
   }
 };
 
-// ------------------------------------------------------------ tensor cores
-
-// f32 to TF32, round to nearest even
-__device__ __forceinline__ uint32_t tf32_rne(float x) {
-  uint32_t r;
-  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A tile in shared memory: element (i, j) at p[i * ld + j] where JC (j
-// contiguous), else at p[j * ld + i]; rnd: round to bf16 as it is read (f32
-// operands of K4). Fragments read A as (row, k) and B as (col, k).
-template <typename T, bool JC>
-struct View {
-  const T* p;
-  int ld, rnd;
-  __device__ __forceinline__ float at(int i, int j) const {
-    const float v = to_f(JC ? p[i * ld + j] : p[j * ld + i]);
-    return (sizeof(T) == 4 && rnd) ? round_bf16(v) : v;
-  }
-  // bf16: elements (i, j) and (i, j + 1), packed low to high
-  __device__ __forceinline__ uint32_t pair(int i, int j) const {
-    if (JC) return *reinterpret_cast<const uint32_t*>(p + i * ld + j);
-    const uint32_t lo = __bfloat16_as_ushort(reinterpret_cast<const bf16*>(p)[j * ld + i]);
-    const uint32_t hi = __bfloat16_as_ushort(reinterpret_cast<const bf16*>(p)[(j + 1) * ld + i]);
-    return lo | (hi << 16);
-  }
-};
-
-// mma.sync fragments of element type T, read from views (the attention's
-// tiles and f32's; bf16 products use ldmatrix); lane = g * 4 + t. The
-// accumulator of an m16n8 tile: c[0], c[1] at (g, 2t), (g, 2t + 1); c[2],
-// c[3] at (g + 8, 2t), (g + 8, 2t + 1).
-template <typename T>
-struct Tc;
-
-template <>
-struct Tc<bf16> {
-  static constexpr int kK = 16;
-  struct A {
-    uint32_t r[4];
-  };
-  struct B {
-    uint32_t r[2];
-  };
-  template <bool JC>
-  static __device__ __forceinline__ void load_a(A& f, const View<bf16, JC>& v, int r0, int k0,
-                                                int lane) {
-    const int r = r0 + (lane >> 2), k = k0 + 2 * (lane & 3);
-    f.r[0] = v.pair(r, k);
-    f.r[1] = v.pair(r + 8, k);
-    f.r[2] = v.pair(r, k + 8);
-    f.r[3] = v.pair(r + 8, k + 8);
-  }
-  template <bool JC>
-  static __device__ __forceinline__ void load_b(B& f, const View<bf16, JC>& v, int k0, int n0,
-                                                int lane) {
-    const int n = n0 + (lane >> 2), k = k0 + 2 * (lane & 3);
-    f.r[0] = v.pair(n, k);
-    f.r[1] = v.pair(n, k + 8);
-  }
-  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
-          "r"(b.r[1]));
-  }
-};
-
-template <>
-struct Tc<float> {
-  static constexpr int kK = 8;
-  struct A {
-    uint32_t hi[4], lo[4];
-  };
-  struct B {
-    uint32_t hi[2], lo[2];
-  };
-  static __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-    hi = tf32_rne(v);
-    lo = tf32_rne(v - __uint_as_float(hi));
-  }
-  template <bool JC>
-  static __device__ __forceinline__ void load_a(A& f, const View<float, JC>& v, int r0, int k0,
-                                                int lane) {
-    const int r = r0 + (lane >> 2), k = k0 + (lane & 3);
-    split(v.at(r, k), f.hi[0], f.lo[0]);
-    split(v.at(r + 8, k), f.hi[1], f.lo[1]);
-    split(v.at(r, k + 4), f.hi[2], f.lo[2]);
-    split(v.at(r + 8, k + 4), f.hi[3], f.lo[3]);
-  }
-  template <bool JC>
-  static __device__ __forceinline__ void load_b(B& f, const View<float, JC>& v, int k0, int n0,
-                                                int lane) {
-    const int n = n0 + (lane >> 2), k = k0 + (lane & 3);
-    split(v.at(n, k), f.hi[0], f.lo[0]);
-    split(v.at(n, k + 4), f.hi[1], f.lo[1]);
-  }
-  // 3xTF32 into c as it is (a sum the caller keeps short)
-  static __device__ __forceinline__ void mma3(float* c, const A& a, const B& b) {
-    mma_tf32(c, a.lo, b.hi);
-    mma_tf32(c, a.hi, b.lo);
-    mma_tf32(c, a.hi, b.hi);
-  }
-  // 3xTF32. The tensor cores round their sums toward zero, so the three
-  // passes go to a zero accumulator, which is then added to c to nearest:
-  // a long sum kept in their accumulator would drift by an ulp a step. The
-  // two cross terms are summed apart and added first, so that A @ B and
-  // (B^T @ A^T)^T give the same bits (the attention's logits, computed as
-  // q k^T and as k q^T).
-  static __device__ __forceinline__ void mma(float* c, const A& a, const B& b) {
-    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_tf32(t, a.lo, b.hi);
-    mma_tf32(u, a.hi, b.lo);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) t[i] += u[i];
-    mma_tf32(t, a.hi, b.hi);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] += t[i];
-  }
-};
-
 // ------------------------------------------------------------ staging
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 b16 matrices from shared memory, lane i giving the address of
-// row i % 8 of matrix i / 8; thread (g, t) receives (row g, columns 2t,
-// 2t + 1) of each, or with TRANS (rows 2t, 2t + 1, column g).
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-
 // A matrix in device memory: element (i, j) at p[row(i) * ld + j], row(i) =
-// grid_row(i) where map, else i. vec: p and ld allow 16-byte copies. rnd:
-// round to bf16 as the fragments are read (f32 operands of K4).
+// grid_row(i) where map, else i. vec: p and ld allow 16-byte copies.
 struct Src {
   const void* p;
   long long ld;
-  int map, vec, rnd;
+  int map, vec;
 };
 
 // Copies rows [r0, r0 + rows) x columns [c0, c0 + cols) of s into dst (row
@@ -415,24 +249,28 @@ struct Tile {
 // null. With XA, xs(chunk, row in tile, k) transforms a 16-byte chunk of A
 // in shared memory once it has landed, before any warp reads it; each
 // thread transforms the chunks it copied itself. pre() runs (and ends with
-// a barrier) once the first stages are in flight. f32 runs as 3xTF32, each
-// stage's sum added to acc to nearest (the tensor cores round their sums
-// toward zero), or, with simt, as one chain of FMAs in k order an output.
-template <typename T, bool AT, bool BT, bool XA, typename F, typename P>
+// a barrier) once the first stages are in flight. bf16 sums in the tensor
+// cores' accumulator; f32 runs as 3xTF32, each stage (two m16n8k8 steps)
+// summed from zero and added to acc to nearest; with RB (f32 only) both
+// operands are rounded to bf16 as the fragments are read and each stage's
+// m16n8k16 product is summed from zero and added to acc to nearest (the
+// tensor cores round their sums toward zero, and these sums run over every
+// token or over 3C).
+template <typename T, bool AT, bool BT, bool XA, bool RB, typename F, typename P>
 __device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const Src& a,
                                          const Src& b, const Geom& geo, const int* arows,
                                          long long m0, long long m_end, long long ones_col,
                                          long long n0, long long n_end, long long k_begin,
-                                         long long k_end, int simt, F&& xs, P&& pre) {
+                                         long long k_end, F&& xs, P&& pre) {
   using TL = Tile<T>;
   constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(kF32 || !RB, "bf16 operands need no rounding");
   constexpr int CE = TL::kCE;
   constexpr int kARows = AT ? TL::kBK : TL::kBM, kACols = AT ? TL::kBM : TL::kBK;
   constexpr int kBRows = BT ? TL::kBN : TL::kBK, kBCols = BT ? TL::kBK : TL::kBN;
   constexpr int kLdA = AT ? TL::kLdM : TL::kLdK, kLdB = BT ? TL::kLdK : TL::kLdM;
   T* sa = smem;
   T* sb = smem + TL::kStages * TL::kStage;
-  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
 #pragma unroll
@@ -480,30 +318,27 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const S
     __syncthreads();
     if (kt + TL::kStages - 1 < ktiles) issue(kt + TL::kStages - 1);
     cp_async_commit();
-    const View<T, !AT> va = {ta, kLdA, a.rnd};
-    const View<T, BT> vb = {tb, kLdB, b.rnd};
-    if (kF32 && simt) {
-      for (int k = 0; k < TL::kBK; ++k) {
-        float av[2][2], bv[4][2];
+    const View<T, !AT> va = {ta, kLdA};
+    const View<T, BT> vb = {tb, kLdB};
+    if constexpr (RB) {
+      // f32 stored, bf16 products: one m16n8k16 step a stage (kBK = 16)
+      static_assert(TL::kBK == Tc<bf16>::kK, "one bf16 step a stage");
+      Tc<bf16>::A fa[2];
+      Tc<bf16>::B fb[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i) Bf16Of::load_a(fa[i], va, wm * 32 + i * 16, 0, lane);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) av[i][h] = va.at(wm * 32 + i * 16 + gq + h * 8, k);
+      for (int j = 0; j < 4; ++j) Bf16Of::load_b(fb[j], vb, 0, wn * 32 + j * 8, lane);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) bv[j][h] = vb.at(wn * 32 + j * 8 + 2 * tq + h, k);
+        for (int j = 0; j < 4; ++j) {
+          float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          Tc<bf16>::mma(t, fa[i], fb[j]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][j][e] = fmaf(av[i][e >> 1], bv[j][e & 1], acc[i][j][e]);
-      }
-      continue;
-    }
-    if constexpr (!kF32) {
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
+    } else if constexpr (!kF32) {
       // bf16: fragments by ldmatrix. Lane i addresses row i % 8 of matrix
       // i / 8; A's four matrices are (rows 0-7, 8-15) x (k 0-7, 8-15), k
       // slowest; B's (k 0-7, 8-15) x (columns 0-7, 8-15), k fastest: two n8
@@ -537,34 +372,29 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const S
             Tc<T>::mma(acc[i][j], fa[i], b);
           }
       }
-      continue;
-    }
-    float tacc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tacc[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < TL::kBK; kk += Tc<T>::kK) {
-      typename Tc<T>::A fa[2];
-      typename Tc<T>::B fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) Tc<T>::load_a(fa[i], va, wm * 32 + i * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Tc<T>::load_b(fb[j], vb, kk, wn * 32 + j * 8, lane);
+    } else {
+      // f32: the stage's two m16n8k8 steps summed from zero, then added to
+      // acc to nearest
+      float tacc[2][4][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (kF32)
-            Tc<T>::mma3(tacc[i][j], fa[i], fb[j]);
-          else
-            Tc<T>::mma(acc[i][j], fa[i], fb[j]);
-        }
-    }
-    if constexpr (kF32) {
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tacc[i][j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < TL::kBK; kk += Tc<T>::kK) {
+        typename Tc<T>::A fa[2];
+        typename Tc<T>::B fb[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) Tc<T>::load_a(fa[i], va, wm * 32 + i * 16, kk, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Tc<T>::load_b(fb[j], vb, kk, wn * 32 + j * 8, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) Tc<T>::mma(tacc[i][j], fa[i], fb[j]);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -578,11 +408,11 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const S
 }
 
 // A result: element (i, j) stored at p[row(i) * ld + j] (row as in Src), in
-// bf16 where bf, else f32, rounded to bf16 first where rnd.
+// bf16 where bf, else f32.
 struct Out {
   void* p;
   long long ld;
-  int bf, map, rnd;
+  int bf, map;
 };
 
 enum Epi { kStore = 0, kGelu = 1, kDGelu = 2, kResid = 3 };
@@ -606,11 +436,11 @@ struct GemmArgs {
   Src res;                    // kResid: the residual [M, N], in T
   float* aux;                 // kGelu: the pre-activation out; kDGelu: in; f32 [M, N]
   float* colsum;              // kDGelu: column sums of the result, [tiles_m, N], or null
-  int simt;                   // f32: FMA chains in k order (see mainloop)
+  int rb;                     // f32: operands rounded to bf16, bf16 products (RB)
   Geom g;
 };
 
-template <typename T, bool BT, bool XF>
+template <typename T, bool BT, bool XF, bool RB>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
   using TL = Tile<T>;
   constexpr int CE = TL::kCE;
@@ -723,9 +553,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
     }
   };
   float acc[2][4][4];
-  mainloop<T, false, BT, XF>(acc, reinterpret_cast<T*>(smem), g.a, g.b, g.g,
-                             g.a.map ? grid_rows : nullptr, m0, g.M, -1, n0, g.N, 0, g.K,
-                             g.simt, xs, pre);
+  mainloop<T, false, BT, XF, RB>(acc, reinterpret_cast<T*>(smem), g.a, g.b, g.g,
+                                 g.a.map ? grid_rows : nullptr, m0, g.M, -1, n0, g.N, 0, g.K,
+                                 xs, pre);
 
   const int gq = lane >> 2, tq = lane & 3;
   const bool pairs = g.c.ld % 2 == 0 && (uintptr_t)g.c.p % 8 == 0;
@@ -759,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
           } else if (g.epi == kResid) {
             x = load(g.res.p, rrow + n + e1, sizeof(T) == 2) + row_dp[rl] * x;
           }
-          v[e1] = g.c.rnd ? round_bf16(x) : x;
+          v[e1] = x;
         }
         if (cnt == 2 && pairs) {
           if (g.c.bf)
@@ -808,7 +638,7 @@ struct AtbArgs {
   Geom g;
 };
 
-template <typename T>
+template <typename T, bool RB>
 __global__ void __launch_bounds__(kThreads) atb_kernel(AtbArgs g) {
   using TL = Tile<T>;
   __shared__ __align__(16) unsigned char smem[TL::kSmemBytes];
@@ -826,9 +656,9 @@ __global__ void __launch_bounds__(kThreads) atb_kernel(AtbArgs g) {
   const long long k_end = k_begin + g.chunk < g.R ? k_begin + g.chunk : g.R;
   const int Ma = p.Ka + p.ones;
   float acc[2][4][4];
-  mainloop<T, true, false, false>(acc, reinterpret_cast<T*>(smem), p.a, p.b, g.g, nullptr, m0,
-                                  p.Ka, p.ones ? p.Ka : -1, n0, p.N, k_begin, k_end, 0,
-                                  [](T*, int, long long) {}, [] {});
+  mainloop<T, true, false, false, RB>(acc, reinterpret_cast<T*>(smem), p.a, p.b, g.g, nullptr,
+                                      m0, p.Ka, p.ones ? p.Ka : -1, n0, p.N, k_begin, k_end,
+                                      [](T*, int, long long) {}, [] {});
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1, gq = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -850,20 +680,18 @@ struct AttnArgs {
   const float* rel;     // [heads, n, n]
   const float* mask;    // [n_mask, n, n] or null
   int n_mask;
-  const void* dout;     // backward: dL/d(merged heads), T [M, C], rounded to rd
+  const void* dout;     // backward: dL/d(merged heads) [M, C], T (K2) or bf16 (K4)
   void* out;            // forward: the merged heads T [M, C]; backward: dqkv T [M, 3C]
   float* stats;         // [BW * heads, n, 2]: row max and sum of the softmax
-  float* dsum;          // [BW * heads, n]: sum over the keys of dp * p
+  float* dsum;          // K2: [BW * heads, n]: sum over the keys of dp * p
   float* drel;          // backward: [groups, heads, n, n], sums over a group's windows
-  float* dbias;         // backward: [groups * strip_groups, 3C], column sums of dqkv
+  float* dbias;         // backward: [groups * sgroups, 3C], column sums of dqkv
   long long BW;
   int groups;           // backward: window w is in group w % groups
-  int sgroups;          // blocks a window and head: 64 rows (four strips of 16) each
+  int sgroups;          // blocks a window and head: 64 rows (four strips of 16) each; K4 1
   int n, np, hd, hdp, heads, C;
   float scale;
-  int vec, rnd, use_pb; // rnd: round the backward's operands to bf16 (f32, K4);
-                        // use_pb: ds from p rounded to rd (K2), else from p (K4)
-  int simt;             // f32: FMA chains in k order (see mma_strip)
+  int vec;
 };
 
 template <typename T>
@@ -874,31 +702,10 @@ struct Att {
 };
 
 // s (16 x ncols, ncols <= 64 a multiple of 8) += A [16, kdim] @ B [kdim,
-// ncols]; a over (row, k), b over (col, k). simt (f32): each output one
-// chain of FMAs in k order, as the plain versions' f32 products sum on the
-// card, for K4's f32 operands that are rounded to bf16 after the product:
-// a sum that differs in its last bit rounds the other way.
+// ncols]; a over (row, k), b over (col, k).
 template <typename T, bool JA, bool JB>
 __device__ __forceinline__ void mma_strip(float (&s)[8][4], int kdim, int ncols, int lane,
-                                          const View<T, JA>& a, const View<T, JB>& b,
-                                          int simt) {
-  if (sizeof(T) == 4 && simt) {
-    const int gq = lane >> 2, tq = lane & 3;
-    for (int k = 0; k < kdim; ++k) {
-      const float a0 = a.at(gq, k), a1 = a.at(gq + 8, k);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j * 8 < ncols) {
-          const float b0 = b.at(j * 8 + 2 * tq, k), b1 = b.at(j * 8 + 2 * tq + 1, k);
-          s[j][0] = fmaf(a0, b0, s[j][0]);
-          s[j][1] = fmaf(a0, b1, s[j][1]);
-          s[j][2] = fmaf(a1, b0, s[j][2]);
-          s[j][3] = fmaf(a1, b1, s[j][3]);
-        }
-      }
-    }
-    return;
-  }
+                                          const View<T, JA>& a, const View<T, JB>& b) {
   for (int k0 = 0; k0 < kdim; k0 += Tc<T>::kK) {
     typename Tc<T>::A fa;
     Tc<T>::load_a(fa, a, 0, k0, lane);
@@ -907,7 +714,7 @@ __device__ __forceinline__ void mma_strip(float (&s)[8][4], int kdim, int ncols,
       if (j * 8 < ncols) {
         typename Tc<T>::B fb;
         Tc<T>::load_b(fb, b, k0, j * 8, lane);
-        Tc<T>::mma(s[j], fa, fb);
+        Tc<T>::step(s[j], fa, fb);
       }
     }
   }
@@ -929,43 +736,20 @@ struct Bias {
       : rel(a.rel + (long long)h * a.n * a.n),
         mask(a.mask ? a.mask + (long long)(w % a.n_mask) * a.n * a.n : nullptr),
         n(a.n) {}
-  // the logit of query qi and key kj from acc = q . k: each step rounded
-  // as the plain version rounds it (no fused multiply-add)
+  // the logit of query qi and key kj from acc = q . k
   __device__ __forceinline__ float logit(float acc, float scale, int qi, int kj) const {
-    float v = __fadd_rn(__fmul_rn(acc, scale), rel[qi * n + kj]);
-    if (mask) v = __fadd_rn(v, mask[qi * n + kj]);
-    return v;
+    const float v = acc * scale + rel[qi * n + kj];
+    return mask ? v + mask[qi * n + kj] : v;
   }
 };
 
-// The row sums of a warp's 16-row strip in the order of the plain version's
-// softmax on the card (PyTorch's warp softmax): column j is summed by lane
-// j % 32 in order of j / 32, then the 32 lanes by a butterfly from xor 16
-// down. part[r][tile][e] holds lane 8 tile + 2t + e's partial sum of row g +
-// 8r (tile < 4: its chunk columns 8 tile + 2t + e and 32 + 8 tile + 2t + e).
-__device__ __forceinline__ void canonical_row_sums(const float (&part)[2][4][2],
-                                                   float (&out)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float x16[4][2], x8[2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) x16[j][e] = part[r][j][e] + part[r][j ^ 2][e];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      x8[e] = x16[0][e] + x16[1][e];
-      x8[e] += __shfl_xor_sync(0xffffffffu, x8[e], 2);
-      x8[e] += __shfl_xor_sync(0xffffffffu, x8[e], 1);
-    }
-    out[r] = x8[0] + x8[1];
-  }
-}
-
 // One block per (window, head, 64 query rows): k and v of the window whole
 // in shared memory, a warp per strip of 16 queries.
+// Blocks an SM the registers allow: eight for windows of 64 tokens (64
+// registers a thread), three in bf16 over 64 (170), two in f32 (256)
 template <typename T, int kChunks>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
+__global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 3 : 2)
+    attn_fwd_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
@@ -976,7 +760,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
   T* Qw = Vs + a.np * LDH + warp * 16 * (LDH + LDP);
   T* Pw = Qw + 16 * LDH;
   const Geom none = {1, 1, 1};
-  const Src src = {a.qkv, 3LL * a.C, 0, a.vec, 0};
+  const Src src = {a.qkv, 3LL * a.C, 0, a.vec};
   const long long row0 = w * a.n, rend = row0 + a.n;
   const Bias bias(a, w, h);
   const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
@@ -991,7 +775,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
   cp_async_wait<0>();
   __syncthreads();
   if (q0 >= a.np) return;
-  const View<T, true> vq = {Qw, LDH, 0}, vp = {Pw, LDP, 0};
+  const View<T, true> vq = {Qw, LDH}, vp = {Pw, LDP};
   float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.0f, 0.0f};
   // the logits of the strip, all chunks (kChunks at most) in registers:
   // -inf beyond the window's keys
@@ -1001,7 +785,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
     if (c >= nch) break;
     const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
     zero_strip(s[c]);
-    mma_strip<T>(s[c], a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH, 0}, a.simt);
+    mma_strip<T>(s[c], a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH});
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1019,27 +803,24 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
       mx[r] = fmaxf(mx[r], quad_max(cm));
     }
   }
-  // the row sum of exp(logit - max) in the order of the plain version's
-  // softmax, so that p rounds where the plain version's does
-  float part[2][4][2];
+  // the row sums of exp(logit - max), eight partial sums a row
+  float part[2][8];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) part[r][j][0] = part[r][j][1] = 0.0f;
+    for (int j = 0; j < 8; ++j) part[r][j] = 0.0f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     if (c >= nch) break;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          part[r][j][e] += expf(s[c][j][2 * r + e] - mx[r]);
-          part[r][j][e] += expf(s[c][j + 4][2 * r + e] - mx[r]);
-        }
+        for (int e = 0; e < 2; ++e) part[r][j] += expf(s[c][j][2 * r + e] - mx[r]);
   }
-  canonical_row_sums(part, sm);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) sm[r] = quad_sum(sum8(part[r]));
   float o[8][4];
   zero_strip(o);
 #pragma unroll
@@ -1057,7 +838,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(AttnArgs a) {
         }
       }
     __syncwarp();
-    mma_strip<T>(o, ncols, a.hdp, lane, vp, View<T, false>{Vs + j0 * LDH, LDH, 0}, a.simt);
+    mma_strip<T>(o, ncols, a.hdp, lane, vp, View<T, false>{Vs + j0 * LDH, LDH});
     __syncwarp();
   }
 #pragma unroll
@@ -1098,14 +879,10 @@ __device__ __forceinline__ void block_column_sums(float (&cs)[8][2], float* red,
   __syncthreads();
 }
 
-template <typename T>
-__device__ __forceinline__ float rd_of(const AttnArgs& a, float v) {
-  return a.rnd ? round_bf16(v) : rnd_t<T>(v);
-}
-
-// dq, the row sums of dp * p, the rel-pos gradient and dq's column sums. One
-// block per (head, group of windows, 64 query rows): k and v whole in
-// shared memory, a warp per strip of 16 queries.
+// K2's attention backward, in two kernels (operands rounded to T): dq, the
+// row sums of dp * p, the rel-pos gradient and dq's column sums. One block
+// per (head, group of windows, 64 query rows): k and v whole in shared
+// memory, a warp per strip of 16 queries.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1120,14 +897,14 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
   T* Sw = Ow + 16 * LDH;
   const Geom none = {1, 1, 1};
   const long long C3 = 3LL * a.C;
-  const Src src = {a.qkv, C3, 0, a.vec, 0};
-  const Src dsrc = {a.dout, a.C, 0, a.vec, 0};
+  const Src src = {a.qkv, C3, 0, a.vec};
+  const Src dsrc = {a.dout, a.C, 0, a.vec};
   const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
   const long long nn = (long long)a.n * a.n;
   float* part = a.drel + ((long long)gi * a.heads + h) * nn;
   const int nch = (a.np + kChunk - 1) / kChunk;
   const int q0 = (sg * (kThreads / 32) + warp) * 16;
-  const View<T, true> vq = {Qw, LDH, 0}, vo = {Ow, LDH, 0}, vs = {Sw, LDP, 0};
+  const View<T, true> vq = {Qw, LDH}, vo = {Ow, LDH}, vs = {Sw, LDP};
   float cs[8][2];
 #pragma unroll
   for (int j = 0; j < 8; ++j) cs[j][0] = cs[j][1] = 0.0f;
@@ -1160,9 +937,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
     auto chunk = [&](int c) {
       const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
       zero_strip(p);
-      mma_strip<T>(p, a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH, 0}, a.simt);
+      mma_strip<T>(p, a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH});
       zero_strip(dp);
-      mma_strip<T>(dp, a.hdp, ncols, lane, vo, View<T, true>{Vs + j0 * LDH, LDH, a.rnd}, a.simt);
+      mma_strip<T>(dp, a.hdp, ncols, lane, vo, View<T, true>{Vs + j0 * LDH, LDH});
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1173,29 +950,24 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
                         : 0.0f;
         }
     };
-    // D = sum over the keys of dp * p, in the order of the softmax's sums
-    float dpart[2][4][2], D[2];
+    // D = sum over the keys of dp * rd(p), eight partial sums a row
+    float dpart[2][8], D[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dpart[r][j][0] = dpart[r][j][1] = 0.0f;
+      for (int j = 0; j < 8; ++j) dpart[r][j] = 0.0f;
     for (int c = 0; c < nch; ++c) {
       chunk(c);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-#pragma unroll
-            for (int h = 0; h < 8; h += 4) {
-              const float pv = p[j + h][2 * r + e];
-              const float pq = a.use_pb ? rd_of<T>(a, pv) : pv;
-              dpart[r][j][e] = fmaf(dp[j + h][2 * r + e], pq, dpart[r][j][e]);
-            }
-          }
+          for (int e = 0; e < 2; ++e)
+            dpart[r][j] = fmaf(dp[j][2 * r + e], rnd_t<T>(p[j][2 * r + e]), dpart[r][j]);
     }
-    canonical_row_sums(dpart, D);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) D[r] = quad_sum(sum8(dpart[r]));
     if (tq == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -1227,13 +999,12 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
           if (j * 8 >= ncols) continue;
           const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
           const int qi = q0 + rl, kj = j0 + cl;
-          const float pq = a.use_pb ? rd_of<T>(a, p[j][e]) : p[j][e];
-          const float ds = pq * (dp[j][e] - D[e >> 1]);
+          const float ds = rnd_t<T>(p[j][e]) * (dp[j][e] - D[e >> 1]);
           if (qi < a.n && kj < a.n) part[(long long)qi * a.n + kj] = first ? ds : prev[j][e] + ds;
-          Sw[rl * LDP + cl] = from_f<T>(rd_of<T>(a, ds));
+          Sw[rl * LDP + cl] = from_f<T>(ds);
         }
       __syncwarp();
-      mma_strip<T>(dq, ncols, a.hdp, lane, vs, View<T, false>{Ks + j0 * LDH, LDH, a.rnd}, a.simt);
+      mma_strip<T>(dq, ncols, a.hdp, lane, vs, View<T, false>{Ks + j0 * LDH, LDH});
       __syncwarp();
     }
 #pragma unroll
@@ -1242,7 +1013,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
       for (int e = 0; e < 4; ++e) {
         const int qi = q0 + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
         if (qi < a.n && d < a.hd) {
-          const T v = from_f<T>(rd_of<T>(a, dq[j][e] * a.scale));
+          const T v = from_f<T>(dq[j][e] * a.scale);
           static_cast<T*>(a.out)[(row0 + qi) * C3 + cq + d] = v;
           cs[j][e & 1] += to_f(v);
         }
@@ -1273,13 +1044,12 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
   float* Ds = sms + a.np;
   const Geom none = {1, 1, 1};
   const long long C3 = 3LL * a.C;
-  const Src src = {a.qkv, C3, 0, a.vec, 0};
-  const Src dsrc = {a.dout, a.C, 0, a.vec, 0};
+  const Src src = {a.qkv, C3, 0, a.vec};
+  const Src dsrc = {a.dout, a.C, 0, a.vec};
   const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
   const int nch = (a.np + kChunk - 1) / kChunk;
   const int k0r = (sg * (kThreads / 32) + warp) * 16;
-  const View<T, true> vk = {Kw, LDH, 0}, vv = {Vw, LDH, a.rnd}, vp = {Pw, LDP, 0},
-                      vs = {Sw, LDP, 0};
+  const View<T, true> vk = {Kw, LDH}, vv = {Vw, LDH}, vp = {Pw, LDP}, vs = {Sw, LDP};
   float csk[8][2], csv[8][2];
 #pragma unroll
   for (int j = 0; j < 8; ++j) csk[j][0] = csk[j][1] = csv[j][0] = csv[j][1] = 0.0f;
@@ -1314,9 +1084,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
       const int i0 = c * kChunk, ncols = min(kChunk, a.np - i0);
       float s[8][4], dpt[8][4];   // S^T and dp^T: 16 keys x ncols queries
       zero_strip(s);
-      mma_strip<T>(s, a.hdp, ncols, lane, vk, View<T, true>{Qs + i0 * LDH, LDH, 0}, a.simt);
+      mma_strip<T>(s, a.hdp, ncols, lane, vk, View<T, true>{Qs + i0 * LDH, LDH});
       zero_strip(dpt);
-      mma_strip<T>(dpt, a.hdp, ncols, lane, vv, View<T, true>{Os + i0 * LDH, LDH, 0}, a.simt);
+      mma_strip<T>(dpt, a.hdp, ncols, lane, vv, View<T, true>{Os + i0 * LDH, LDH});
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1327,15 +1097,15 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
           float pb = 0.0f, ds = 0.0f;
           if (kj < a.n && qi < a.n) {
             const float p = expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi];
-            pb = rd_of<T>(a, p);
-            ds = (a.use_pb ? pb : p) * (dpt[j][e] - Ds[qi]);
+            pb = rnd_t<T>(p);
+            ds = pb * (dpt[j][e] - Ds[qi]);
           }
           Pw[rl * LDP + cl] = from_f<T>(pb);
-          Sw[rl * LDP + cl] = from_f<T>(rd_of<T>(a, ds));
+          Sw[rl * LDP + cl] = from_f<T>(ds);
         }
       __syncwarp();
-      mma_strip<T>(dv, ncols, a.hdp, lane, vp, View<T, false>{Os + i0 * LDH, LDH, 0}, a.simt);
-      mma_strip<T>(dk, ncols, a.hdp, lane, vs, View<T, false>{Qs + i0 * LDH, LDH, a.rnd}, a.simt);
+      mma_strip<T>(dv, ncols, a.hdp, lane, vp, View<T, false>{Os + i0 * LDH, LDH});
+      mma_strip<T>(dk, ncols, a.hdp, lane, vs, View<T, false>{Qs + i0 * LDH, LDH});
       __syncwarp();
     }
 #pragma unroll
@@ -1345,8 +1115,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
         const int kj = k0r + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
         if (kj < a.n && d < a.hd) {
           T* o = static_cast<T*>(a.out) + (row0 + kj) * C3;
-          const T vk_ = from_f<T>(rd_of<T>(a, dk[j][e] * a.scale));
-          const T vv_ = from_f<T>(rd_of<T>(a, dv[j][e]));
+          const T vk_ = from_f<T>(dk[j][e] * a.scale);
+          const T vv_ = from_f<T>(dv[j][e]);
           o[ck + d] = vk_;
           o[cv + d] = vv_;
           csk[j][e & 1] += to_f(vk_);
@@ -1361,12 +1131,318 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
   block_column_sums(csv, red, a.hdp, a.hd, out + cv);
 }
 
+// ------------------------------------------------------------ K4's attention backward
+
+constexpr int kBwdMaxThreads = 32 * kMaxN / 16;   // a warp per 16 keys
+
+// Rows [r0, r0 + rows) x columns [c0, c0 + cols) (cols even) of the f32
+// matrix s (row stride ld), rounded to bf16, into dst (row stride dld):
+// zeros outside rows < r_end and columns < c_end.
+__device__ __forceinline__ void stage_bf16_of(bf16* dst, int dld, int rows, int cols,
+                                              const float* s, long long ld, long long r0,
+                                              long long c0, long long r_end, long long c_end,
+                                              int tid, int nthreads) {
+  const int half = cols / 2;
+  for (int i = tid; i < rows * half; i += nthreads) {
+    const int r = i / half, c = (i - r * half) * 2;
+    const long long gr = r0 + r, gc = c0 + c;
+    float v0 = 0.0f, v1 = 0.0f;
+    if (gr < r_end) {
+      const float* p = s + gr * ld + gc;
+      if (gc < c_end) v0 = p[0];
+      if (gc + 1 < c_end) v1 = p[1];
+    }
+    *reinterpret_cast<uint32_t*>(dst + r * dld + c) = pack_bf16(v0, v1);
+  }
+}
+
+// bf16 B fragments of two n8 tiles (columns n0, n0 + 8) of the 16 rows of a
+// [k][n] tile in shared memory (row stride ld; k16 x n16): b0, b1 of the
+// first tile in r[0], r[1], of the second in r[2], r[3]. bf16 by ldmatrix;
+// f32 elements are rounded to bf16 as they are read.
+template <typename S>
+__device__ __forceinline__ void b_kn(uint32_t (&r)[4], const S* base, int ld, int n0, int lane) {
+  if constexpr (sizeof(S) == 2) {
+    const int li = lane & 7, mi = lane >> 3;
+    ldsm_x4<true>(r, base + ((mi & 1) * 8 + li) * ld + n0 + (mi >> 1) * 8);
+  } else {
+    const View<float, false> v = {base, ld};
+    Tc<bf16>::B b;
+    Bf16Of::load_b(b, v, 0, n0, lane);
+    r[0] = b.r[0];
+    r[1] = b.r[1];
+    Bf16Of::load_b(b, v, 0, n0 + 8, lane);
+    r[2] = b.r[0];
+    r[3] = b.r[1];
+  }
+}
+
+// The A fragment (m16 x k16, bf16) of an accumulator pair s[0], s[1] (two
+// n8 tiles of the same 16 rows), each element rounded to bf16
+__device__ __forceinline__ void a_of(Tc<bf16>::A& f, const float (&s)[2][4]) {
+  f.r[0] = pack_bf16(s[0][0], s[0][1]);
+  f.r[1] = pack_bf16(s[0][2], s[0][3]);
+  f.r[2] = pack_bf16(s[1][0], s[1][1]);
+  f.r[3] = pack_bf16(s[1][2], s[1][3]);
+}
+
+// K4's attention backward: dq, dk, dv of each window and head from one
+// computation of p and dp, every backward product on bf16 operands (the JAX
+// kernel rounds them to bf16 whatever the input type). One block per
+// (head, group of windows), a warp per strip of 16 keys. The block holds
+// the window's q and k in T (the logits, 3xTF32 in f32, as the forward
+// computes them), v and dO in bf16, the softmax's row statistics. Per tile
+// of 16 queries each warp computes its keys' logits, p, dp and their row
+// sums over its keys; the warps' sums are added in warp order (D); then ds
+// = p (dp - D), dv += rd(p)^T dO and dk += rd(ds)^T rd(q) from registers,
+// and rd(ds) goes to a shared [16, np] tile, from which the warps compute
+// the tile's dq over all keys, 16 columns each (warp w columns 16 w, 16 (w
+// + nw), ...). dk and dv
+// stay in registers until the window is done. The rel-pos gradient sums
+// the group's windows in a partial private to the block, the bias gradient
+// of qkv the stores of dq, dk and dv. No float atomics.
+template <typename T>
+__global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nw = blockDim.x >> 5;
+  const int LDQ = Att<T>::ldh(a.hdp), LDB = a.hdp + 8, LDS = a.np + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int li = lane & 7, mi = lane >> 3;
+  const int h = blockIdx.x % a.heads, gi = blockIdx.x / a.heads;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + a.np * LDQ;
+  bf16* Vs = reinterpret_cast<bf16*>(Ks + a.np * LDQ);
+  bf16* Os = Vs + a.np * LDB;
+  bf16* Sd = Os + a.np * LDB;        // rd(ds) of a query tile, [16][LDS]
+  float* red = reinterpret_cast<float*>(Sd);   // at a window's end: [2][nw][hdp]
+  float* redD = reinterpret_cast<float*>(Sd + 16 * LDS);   // [nw][16]
+  float* mxs = redD + 16 * nw;
+  float* sms = mxs + a.np;
+  float* csq = sms + a.np;           // column sums of dq, dk and dv, over the windows
+  float* csk = csq + a.hdp;
+  float* csv = csk + a.hdp;
+  const Geom none = {1, 1, 1};
+  const long long C3 = 3LL * a.C;
+  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
+  const Src src = {a.qkv, C3, 0, a.vec};
+  const Src dsrc = {a.dout, a.C, 0, (a.hd * 2) % 16 == 0};
+  const long long nn = (long long)a.n * a.n;
+  float* part = a.drel + ((long long)gi * a.heads + h) * nn;
+  const int k0r = warp * 16;
+  for (int d = tid; d < a.hdp; d += blockDim.x) csq[d] = csk[d] = csv[d] = 0.0f;
+  for (long long w = gi; w < a.BW; w += a.groups) {
+    const bool first = w == gi;
+    const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
+    const Bias bias(a, w, h);
+    __syncthreads();
+    stage_tile<T>(Qs, LDQ, a.np, a.hdp, src, row0, cq, rend, cq + a.hd, -1, none, tid,
+                  blockDim.x);
+    stage_tile<T>(Ks, LDQ, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid,
+                  blockDim.x);
+    if constexpr (sizeof(T) == 2)
+      stage_tile<bf16>(Vs, LDB, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid,
+                       blockDim.x);
+    else
+      stage_bf16_of(Vs, LDB, a.np, a.hdp, static_cast<const float*>(a.qkv), C3, row0, cv, rend,
+                    cv + a.hd, tid, blockDim.x);
+    stage_tile<bf16>(Os, LDB, a.np, a.hdp, dsrc, row0, cq, rend, cq + a.hd, -1, none, tid,
+                     blockDim.x);
+    for (int i = tid; i < a.np; i += blockDim.x) {
+      const bool ok = i < a.n;
+      mxs[i] = ok ? a.stats[(z * a.n + i) * 2] : 0.0f;
+      sms[i] = ok ? a.stats[(z * a.n + i) * 2 + 1] : 1.0f;
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float dk[8][4], dv[8][4];
+    zero_strip(dk);
+    zero_strip(dv);
+    for (int q0 = 0; q0 < a.np; q0 += 16) {
+      // s^T and dp^T: this warp's 16 keys x the tile's 16 queries
+      float s[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dpt[j][e] = 0.0f;
+      {
+        const View<T, true> vk = {Ks + k0r * LDQ, LDQ}, vq = {Qs + q0 * LDQ, LDQ};
+        for (int k0 = 0; k0 < a.hdp; k0 += Tc<T>::kK) {
+          typename Tc<T>::A fa;
+          Tc<T>::load_a(fa, vk, 0, k0, lane);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            typename Tc<T>::B fb;
+            Tc<T>::load_b(fb, vq, k0, j * 8, lane);
+            Tc<T>::step(s[j], fa, fb);
+          }
+        }
+        const View<bf16, true> vv = {Vs + k0r * LDB, LDB}, vo = {Os + q0 * LDB, LDB};
+        for (int k0 = 0; k0 < a.hdp; k0 += 16) {
+          Tc<bf16>::A fa;
+          Tc<bf16>::load_a(fa, vv, 0, k0, lane);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            Tc<bf16>::B fb;
+            Tc<bf16>::load_b(fb, vo, k0, j * 8, lane);
+            Tc<bf16>::mma(dpt[j], fa, fb);
+          }
+        }
+      }
+      // p (0 beyond the window), and the sums over this warp's keys of p dp
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0r + gq + (e >> 1) * 8, qi = q0 + j * 8 + 2 * tq + (e & 1);
+          s[j][e] = (kj < a.n && qi < a.n)
+                        ? expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi]
+                        : 0.0f;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = column_sum(s[j][c] * dpt[j][c] + s[j][2 + c] * dpt[j][2 + c]);
+          if (gq == 0) redD[warp * 16 + j * 8 + 2 * tq + c] = v;
+        }
+      __syncthreads();
+      float D[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float t = 0.0f;
+          for (int v = 0; v < nw; ++v) t += redD[v * 16 + j * 8 + 2 * tq + c];
+          D[j][c] = t;
+        }
+      // ds; the rel-pos partial (all loads before any store)
+      float ds[2][4], prev[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0r + gq + (e >> 1) * 8, qi = q0 + j * 8 + 2 * tq + (e & 1);
+          ds[j][e] = s[j][e] * (dpt[j][e] - D[j][e & 1]);
+          prev[j][e] = (!first && kj < a.n && qi < a.n) ? part[(long long)qi * a.n + kj] : 0.0f;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = gq + (e >> 1) * 8, ql = j * 8 + 2 * tq + (e & 1);
+          const int kj = k0r + kl, qi = q0 + ql;
+          if (kj < a.n && qi < a.n) part[(long long)qi * a.n + kj] = prev[j][e] + ds[j][e];
+          Sd[ql * LDS + kj] = __float2bfloat16(ds[j][e]);
+        }
+      // dv += rd(p)^T dO, dk += rd(ds)^T rd(q)
+      Tc<bf16>::A pa, sa;
+      a_of(pa, s);
+      a_of(sa, ds);
+#pragma unroll
+      for (int n0 = 0; n0 < 64; n0 += 16) {
+        if (n0 >= a.hdp) break;
+        uint32_t fb[4];
+        b_kn<bf16>(fb, Os + q0 * LDB, LDB, n0, lane);
+        Tc<bf16>::mma(dv[n0 / 8], pa, Tc<bf16>::B{{fb[0], fb[1]}});
+        Tc<bf16>::mma(dv[n0 / 8 + 1], pa, Tc<bf16>::B{{fb[2], fb[3]}});
+        b_kn<T>(fb, Qs + q0 * LDQ, LDQ, n0, lane);
+        Tc<bf16>::mma(dk[n0 / 8], sa, Tc<bf16>::B{{fb[0], fb[1]}});
+        Tc<bf16>::mma(dk[n0 / 8 + 1], sa, Tc<bf16>::B{{fb[2], fb[3]}});
+      }
+      __syncthreads();
+      // dq of the tile = rd(ds) rd(k) * scale, rounded to bf16; its column
+      // sums (each column's by one warp, tile after tile)
+      for (int n0 = warp * 16; n0 < a.hdp; n0 += nw * 16) {
+        float dq[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
+        for (int k0 = 0; k0 < a.np; k0 += 16) {
+          Tc<bf16>::A fa;
+          ldsm_x4<false>(fa.r, Sd + ((mi & 1) * 8 + li) * LDS + k0 + (mi >> 1) * 8);
+          uint32_t fb[4];
+          b_kn<T>(fb, Ks + k0 * LDQ, LDQ, n0, lane);
+          Tc<bf16>::mma(dq[0], fa, Tc<bf16>::B{{fb[0], fb[1]}});
+          Tc<bf16>::mma(dq[1], fa, Tc<bf16>::B{{fb[2], fb[3]}});
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int d = n0 + j * 8 + 2 * tq + c;
+            float sq = 0.0f;
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int qi = q0 + gq + hr * 8;
+              if (qi < a.n && d < a.hd) {
+                const float v = round_bf16(dq[j][hr * 2 + c] * a.scale);
+                static_cast<T*>(a.out)[(row0 + qi) * C3 + cq + d] = from_f<T>(v);
+                sq += v;
+              }
+            }
+            sq = column_sum(sq);
+            if (gq == 0) csq[d] += sq;
+          }
+      }
+    }
+    // dk and dv of this warp's keys, rounded to bf16; their column sums
+    // over the warps, in warp order
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j * 8 >= a.hdp) break;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float sk = 0.0f, sv = 0.0f;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int kj = k0r + gq + hr * 8, d = j * 8 + 2 * tq + c;
+          if (kj < a.n && d < a.hd) {
+            const float vk = round_bf16(dk[j][hr * 2 + c] * a.scale);
+            const float vv = round_bf16(dv[j][hr * 2 + c]);
+            T* o = static_cast<T*>(a.out) + (row0 + kj) * C3;
+            o[ck + d] = from_f<T>(vk);
+            o[cv + d] = from_f<T>(vv);
+            sk += vk;
+            sv += vv;
+          }
+        }
+        sk = column_sum(sk);
+        sv = column_sum(sv);
+        if (gq == 0) {
+          red[warp * a.hdp + j * 8 + 2 * tq + c] = sk;
+          red[(nw + warp) * a.hdp + j * 8 + 2 * tq + c] = sv;
+        }
+      }
+    }
+    __syncthreads();
+    for (int d = tid; d < a.hdp; d += blockDim.x) {
+      float tk = 0.0f, tv = 0.0f;
+      for (int v = 0; v < nw; ++v) {
+        tk += red[v * a.hdp + d];
+        tv += red[(nw + v) * a.hdp + d];
+      }
+      csk[d] += tk;
+      csv[d] += tv;
+    }
+  }
+  __syncthreads();
+  float* out = a.dbias + (long long)gi * C3;
+  for (int d = tid; d < a.hd; d += blockDim.x) {
+    out[cq + d] = csq[d];
+    out[ck + d] = csk[d];
+    out[cv + d] = csv[d];
+  }
+}
+
 // ------------------------------------------------------------ rows
 
 // The LayerNorm backward of `rows` rows a block, with d = dL/d(LN output):
 //   r = add[row(m)] + inv * (d*s - mean(d*s) - xhat * mean(d*s*xhat))
-// out[row(m)] = r; out2[m] = dp[sample, 0] * r (rounded to T, and to bf16
-// first where out2_rnd) where out2 is given. Per block, the column sums of
+// out[row(m)] = r; out2[m] = dp[sample, 0] * r (rounded to T) where out2 is
+// given. Per block, the column sums of
 // d * xhat and d (the LayerNorm parameters' gradients) and, where given, of
 // dp[sample, 0] * r and dp[sample, 1] * add (biases').
 struct LnBwdArgs {
@@ -1379,7 +1455,6 @@ struct LnBwdArgs {
   int add_bf, add_map;
   Out out;
   void* out2;               // T [M, C] or null
-  int out2_rnd;
   const float* dp;          // [B, 2]
   float *ps, *pb, *p_res, *p_add;   // [blocks, C] partial sums (the last two may be null)
   long long M;
@@ -1438,11 +1513,11 @@ __global__ void __launch_bounds__(kRowThreads) ln_bwd_kernel(LnBwdArgs a) {
       const float dv = a.d[m * C + c];
       const float ad = load(a.add, arow[r] * C + c, a.add_bf);
       const float res = ad + invs[r] * (dv * sc - m1s[r] - xhat * m2s[r]);
-      store(a.out.p, orow[r] * C + c, a.out.rnd ? round_bf16(res) : res, a.out.bf);
+      store(a.out.p, orow[r] * C + c, res, a.out.bf);
       if (a.out2) {
         const float v = dp0[r] * res;
         sr += v;
-        static_cast<T*>(a.out2)[m * C + c] = from_f<T>(a.out2_rnd ? round_bf16(v) : v);
+        static_cast<T*>(a.out2)[m * C + c] = from_f<T>(v);
       }
       sa += dp1[r] * ad;
       ss += dv * xhat;
@@ -1557,13 +1632,26 @@ enum Kind { kBlockFwd = 0, kBlockBwd = 1, kAttnFwd = 2, kAttnBwd = 3 };
 // blocks of a window and head in the attention (64 rows each)
 int strip_groups(const Dims& d) { return (d.np + kChunk - 1) / kChunk; }
 
-// groups of windows a head in the attention's backward: about two blocks
+// groups of windows a head in K2's attention backward: about two blocks
 // an SM in all
 int attn_groups(const Dims& d) {
   const long long per = (long long)d.heads * strip_groups(d);
   const long long g = std::max(1LL, (2 * 132 + per - 1) / per);
   return (int)std::min(d.BW, g);
 }
+
+// groups of windows a head in K4's attention backward (a block each, a
+// warp per 16 keys): about 16 warps an SM in all
+int bwd_groups(const Dims& d) {
+  const long long per = (long long)d.heads * (d.np / 16);
+  const long long g = std::max(1LL, (16 * 132 + per - 1) / per);
+  return (int)std::min(d.BW, g);
+}
+
+// groups of windows of the attention backward of `kind`, and the blocks of
+// a window and head among which its qkv-bias partials are split
+int groups_of(int kind, const Dims& d) { return kind == kAttnBwd ? bwd_groups(d) : attn_groups(d); }
+int bias_splits(int kind, const Dims& d) { return kind == kAttnBwd ? 1 : strip_groups(d); }
 
 // rows a block of the LayerNorm backward: 8 to 32, about four blocks an SM
 int ln_rows(const Dims& d) {
@@ -1634,15 +1722,15 @@ void layout(int kind, const Dims& d, int bf, Carver& cv, Buffers& b) {
     b.g1 = cv.take(M * hid * es);
   }
   if (!bwd) return;
-  const int G = attn_groups(d);
+  const int G = groups_of(kind, d);
   b.astats = cv.f32(2 * d.Z * d.n);
-  b.dsum = cv.f32(d.Z * d.n);
-  b.dmerged = cv.take(M * C * es);
+  b.dmerged = cv.take(M * C * es);   // K4: bf16
   b.dqkv = cv.take(3 * M * C * es);
   b.p_atb = cv.f32(atb_plan(kind, d).floats);
   b.p_drel = cv.f32((long long)G * d.heads * d.n * d.n);
-  b.p_dbqkv = cv.f32((long long)G * strip_groups(d) * 3 * C);
+  b.p_dbqkv = cv.f32((long long)G * bias_splits(kind, d) * 3 * C);
   if (kind != kBlockBwd) return;
+  b.dsum = cv.f32(d.Z * d.n);
   const long long nrb = row_blocks(d);
   b.h1 = cv.take(M * C * es);
   b.h2 = cv.take(M * C * es);
@@ -1670,8 +1758,8 @@ int vec_ok(const void* p, long long ld, int es) {
 }
 
 template <typename T>
-Src src_of(const void* p, long long ld, int map = 0, int rnd = 0) {
-  return {p, ld, map, vec_ok(p, ld, (int)sizeof(T)), rnd};
+Src src_of(const void* p, long long ld, int map = 0) {
+  return {p, ld, map, vec_ok(p, ld, (int)sizeof(T))};
 }
 
 GemmArgs gemm_args(const Dims& d, int M, int N, int K) {
@@ -1684,18 +1772,29 @@ GemmArgs gemm_args(const Dims& d, int M, int N, int K) {
   return g;
 }
 
+// g.rb (f32, K4's products on bf16 operands) takes the RB kernel, built
+// for the backward's products (BT, no transform of A)
 template <typename T, bool BT, bool XF>
 cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t st) {
   const long long blocks = (long long)tiles(g.M) * tiles(g.N);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gemm_kernel<T, BT, XF><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  if constexpr (sizeof(T) == 4 && BT && !XF) {
+    if (g.rb)
+      gemm_kernel<T, BT, XF, true><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+    else
+      gemm_kernel<T, BT, XF, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  } else {
+    if (g.rb) return cudaErrorInvalidValue;
+    gemm_kernel<T, BT, XF, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  }
   ++g_launches;
   return cudaGetLastError();
 }
 
+// rb (f32): the products on operands rounded to bf16 (K4)
 template <typename T>
 cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, float* partial,
-                       cudaStream_t st, AtbPlan* plan_out) {
+                       cudaStream_t st, AtbPlan* plan_out, int rb = 0) {
   const AtbPlan plan = atb_plan(kind, d);
   AtbArgs g = {};
   g.count = plan.count;
@@ -1719,7 +1818,10 @@ cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, floa
     at += (long long)plan.splits * (p.Ka + p.ones) * p.N;
   }
   *plan_out = plan;
-  atb_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  if (sizeof(T) == 4 && rb)
+    atb_kernel<T, sizeof(T) == 4><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  else
+    atb_kernel<T, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
   ++g_launches;
   return cudaGetLastError();
 }
@@ -1771,6 +1873,16 @@ size_t attn_smem(int which, const Dims& d) {
   return (whole + 4 * 16 * (2 * ldh + 2 * ldp)) * es + 3 * (size_t)d.np * 4;
 }
 
+// attn_bwd_kernel<T>: q, k in T; v, dO and the ds tile in bf16; the warps'
+// row sums, the row statistics and the column sums in f32 (at most 225,536
+// bytes: np 256, hdp 64, f32)
+template <typename T>
+size_t bwd_smem(const Dims& d) {
+  const size_t ldq = Att<T>::ldh(d.hdp), ldb = d.hdp + 8, lds = d.np + 8, nw = d.np / 16;
+  return 2 * (size_t)d.np * ldq * sizeof(T) + 2 * (size_t)d.np * ldb * 2 + 16 * lds * 2 +
+         (16 * nw + 2 * (size_t)d.np + 3 * (size_t)d.hdp) * 4;
+}
+
 template <typename T>
 AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float* mask) {
   AttnArgs a = {};
@@ -1805,21 +1917,20 @@ cudaError_t launch_attn(K kernel, long long blocks, size_t smem, const AttnArgs&
 // merged = attention(qkv); the softmax's row statistics into stats where given
 template <typename T>
 cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
-                          void* merged, float* stats, cudaStream_t st, int simt = 0) {
+                          void* merged, float* stats, cudaStream_t st) {
   AttnArgs a = attn_args<T>(d, qkv, rel, mask);
   a.out = merged;
   a.stats = stats;
-  a.simt = simt;
   const long long blocks = d.Z * a.sgroups;
   if (d.np <= kChunk)   // one chunk: the logits of 64 keys in registers
     return launch_attn<T>(attn_fwd_kernel<T, 1>, blocks, attn_smem<T>(0, d), a, st);
   return launch_attn<T>(attn_fwd_kernel<T, kMaxN / kChunk>, blocks, attn_smem<T>(0, d), a, st);
 }
 
-// dqkv (rounded to rd) from dout, with the rel-pos and qkv-bias partials
+// K2: dqkv (rounded to T) from dout, with the rel-pos and qkv-bias partials
 template <typename T>
-cudaError_t attention_bwd(const Dims& d, int rnd, int use_pb, const void* qkv, const float* rel,
-                          const float* mask, const Buffers& b, cudaStream_t st) {
+cudaError_t attention_bwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
+                          const Buffers& b, cudaStream_t st) {
   AttnArgs a = attn_args<T>(d, qkv, rel, mask);
   a.dout = b.dmerged;
   a.out = b.dqkv;
@@ -1827,12 +1938,32 @@ cudaError_t attention_bwd(const Dims& d, int rnd, int use_pb, const void* qkv, c
   a.dsum = b.dsum;
   a.drel = b.p_drel;
   a.dbias = b.p_dbqkv;
-  a.rnd = rnd;
-  a.simt = rnd;
-  a.use_pb = use_pb;
   const long long blocks = (long long)a.groups * d.heads * a.sgroups;
   TRY(launch_attn<T>(attn_bwd_q_kernel<T>, blocks, attn_smem<T>(1, d), a, st));
   return launch_attn<T>(attn_bwd_kv_kernel<T>, blocks, attn_smem<T>(2, d), a, st);
+}
+
+// K4: dqkv (rounded to bf16) from dout (bf16), with the rel-pos and
+// qkv-bias partials, in one launch
+template <typename T>
+cudaError_t attention_bwd_k4(const Dims& d, const void* qkv, const float* rel,
+                             const float* mask, const Buffers& b, cudaStream_t st) {
+  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+  a.dout = b.dmerged;
+  a.out = b.dqkv;
+  a.stats = b.astats;
+  a.drel = b.p_drel;
+  a.dbias = b.p_dbqkv;
+  a.groups = bwd_groups(d);
+  a.sgroups = 1;
+  const size_t smem = bwd_smem<T>(d);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    TRY(cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem));
+  attn_bwd_kernel<T><<<(unsigned)((long long)a.groups * d.heads), 32 * (d.np / 16), smem, st>>>(a);
+  ++g_launches;
+  return cudaGetLastError();
 }
 
 struct BlockParams {
@@ -1858,7 +1989,7 @@ cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* 
   g.eps = w.eps;
   g.stats = save ? b.stats1 : nullptr;
   g.side = save ? b.h1 : nullptr;
-  g.c = {b.qkv, 3LL * C, bf, 0, 0};
+  g.c = {b.qkv, 3LL * C, bf, 0};
   g.bias = w.bqkv;
   g.bias_bf = bf;
   TRY((launch_gemm<T, false, true>(g, st)));
@@ -1871,7 +2002,7 @@ cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* 
   g.res = src_of<T>(w.x, C, 1);
   g.dp = w.dp;
   g.dp_col = 0;
-  g.c = {b.r1, C, bf, 0, 0};
+  g.c = {b.r1, C, bf, 0};
   g.bias = w.bproj;
   g.bias_bf = bf;
   TRY((launch_gemm<T, false, false>(g, st)));
@@ -1887,7 +2018,7 @@ cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* 
   g.side = save ? b.h2 : nullptr;
   g.epi = kGelu;
   g.aux = save ? b.z1 : nullptr;
-  g.c = {b.g1, hid, bf, 0, 0};
+  g.c = {b.g1, hid, bf, 0};
   g.bias = w.b1;
   TRY((launch_gemm<T, false, true>(g, st)));
   if (!out) return cudaSuccess;
@@ -1899,7 +2030,7 @@ cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* 
   g.res = src_of<T>(b.r1, C);
   g.dp = w.dp;
   g.dp_col = 1;
-  g.c = {out, C, bf, 1, 0};
+  g.c = {out, C, bf, 1};
   g.bias = w.b2;
   return launch_gemm<T, false, false>(g, st);
 }
@@ -1927,13 +2058,13 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   g.epi = kDGelu;
   g.aux = b.z1;
   g.colsum = b.p_db1;
-  g.c = {b.dz1, hid, bf, 0, 0};
+  g.c = {b.dz1, hid, bf, 0};
   TRY((launch_gemm<T, true, true>(g, st)));
   // dh2 = dz1 @ w1^T
   g = gemm_args(d, M, C, hid);
   g.a = src_of<T>(b.dz1, hid);
   g.b = src_of<T>(w.w1, hid);
-  g.c = {b.dh, C, 0, 0, 0};
+  g.c = {b.dh, C, 0, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
   // dr1 = dy + LN2's backward; datt = dp1 * dr1
   LnBwdArgs l = {};
@@ -1945,7 +2076,7 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   l.add = dy;
   l.add_bf = bf;
   l.add_map = 1;
-  l.out = {b.dr1, C, 0, 0, 0};
+  l.out = {b.dr1, C, 0, 0};
   l.out2 = b.datt;
   l.dp = w.dp;
   l.ps = b.p_ln2;
@@ -1963,14 +2094,14 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   g = gemm_args(d, M, C, C);
   g.a = src_of<T>(b.datt, C);
   g.b = src_of<T>(w.wproj, C);
-  g.c = {b.dmerged, C, bf, 0, 0};
+  g.c = {b.dmerged, C, bf, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
-  TRY(attention_bwd<T>(d, 0, 1, b.qkv, w.rel, w.mask, b, st));
+  TRY(attention_bwd<T>(d, b.qkv, w.rel, w.mask, b, st));
   // dh1 = dqkv @ wqkv^T; dx = dr1 + LN1's backward
   g = gemm_args(d, M, C, 3 * C);
   g.a = src_of<T>(b.dqkv, 3 * C);
   g.b = src_of<T>(w.wqkv, 3 * C);
-  g.c = {b.dh, C, 0, 0, 0};
+  g.c = {b.dh, C, 0, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
   l = LnBwdArgs();
   l.d = b.dh;
@@ -1981,7 +2112,7 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   l.add = b.dr1;
   l.add_bf = 0;
   l.add_map = 0;
-  l.out = {dx, C, bf, 1, 0};
+  l.out = {dx, C, bf, 1};
   l.dp = w.dp;
   l.ps = b.p_ln1;
   l.pb = b.p_ln1 + (long long)nrb * C;
@@ -2019,12 +2150,11 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
 // K3's or K4's qkv: x (grid order) @ wqkv + bqkv, in window order
 template <typename T>
 cudaError_t attn_qkv(const Dims& d, const void* x, const void* wqkv, const void* bqkv,
-                     const Buffers& b, cudaStream_t st, int simt = 0) {
+                     const Buffers& b, cudaStream_t st) {
   GemmArgs g = gemm_args(d, (int)d.M, 3 * d.C, d.C);
-  g.simt = simt;
   g.a = src_of<T>(x, d.C, 1);
   g.b = src_of<T>(wqkv, 3 * d.C);
-  g.c = {b.qkv, 3LL * d.C, sizeof(T) == 2, 0, 0};
+  g.c = {b.qkv, 3LL * d.C, sizeof(T) == 2, 0};
   g.bias = bqkv;
   g.bias_bf = sizeof(T) == 2;
   return launch_gemm<T, false, false>(g, st);
@@ -2039,50 +2169,53 @@ cudaError_t attn_forward(const Dims& d, const void* x, const void* wqkv, const v
   GemmArgs g = gemm_args(d, (int)d.M, d.C, d.C);
   g.a = src_of<T>(b.merged, d.C);
   g.b = src_of<T>(wproj, d.C);
-  g.c = {out, d.C, sizeof(T) == 2, 1, 0};
+  g.c = {out, d.C, sizeof(T) == 2, 1};
   g.bias = bproj;
   g.bias_bf = sizeof(T) == 2;
   return launch_gemm<T, false, false>(g, st);
 }
 
+// K4 (7 launches): the forward recomputed in T (qkv, the softmax's
+// statistics and the merged heads, f32 as 3xTF32), then every backward
+// product on operands rounded to bf16, as the JAX kernel rounds them
+// whatever the input type: in f32 by the RB products, which round f32
+// operands as their fragments are read.
 template <typename T>
-cudaError_t attn_backward(const Dims& d, int rd, const void* x, const void* dy,
-                          const void* wqkv, const void* bqkv, const void* wproj,
-                          const float* rel, const float* mask, void* dx, float* dwqkv,
-                          float* dbqkv, float* dwproj, float* dbproj, float* drel,
-                          const Buffers& b, cudaStream_t st) {
+cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const void* wqkv,
+                          const void* bqkv, const void* wproj, const float* rel,
+                          const float* mask, void* dx, float* dwqkv, float* dbqkv,
+                          float* dwproj, float* dbproj, float* drel, const Buffers& b,
+                          cudaStream_t st) {
   const int M = (int)d.M, C = d.C, bf = sizeof(T) == 2;
-  // f32 operands rounded to bf16 as they are read; the f32 products whose
-  // results are rounded to bf16 later (q, k, v, p, dp, dmerged, dqkv) as
-  // FMA chains, so that they round where the plain version's do
-  const int rnd = rd && !bf;
-  TRY(attn_qkv<T>(d, x, wqkv, bqkv, b, st, rnd));
-  TRY(attention_fwd<T>(d, b.qkv, rel, mask, b.merged, b.astats, st, rnd));
-  // dmerged = rd(dy) @ rd(wproj)^T, rounded to rd
+  TRY(attn_qkv<T>(d, x, wqkv, bqkv, b, st));
+  TRY(attention_fwd<T>(d, b.qkv, rel, mask, b.merged, b.astats, st));
+  // dmerged = rd(dy) @ rd(wproj)^T, stored in bf16
   GemmArgs g = gemm_args(d, M, C, C);
-  g.simt = rnd;
-  g.a = src_of<T>(dy, C, 1, rnd);
-  g.b = src_of<T>(wproj, C, 0, rnd);
-  g.c = {b.dmerged, C, bf, 0, rnd};
+  g.rb = !bf;
+  g.a = src_of<T>(dy, C, 1);
+  g.b = src_of<T>(wproj, C);
+  g.c = {b.dmerged, C, 1, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
-  TRY(attention_bwd<T>(d, rnd, 0, b.qkv, rel, mask, b, st));
+  TRY(attention_bwd_k4<T>(d, b.qkv, rel, mask, b, st));
   // dx = dqkv @ rd(wqkv)^T, at the grid rows
   g = gemm_args(d, M, C, 3 * C);
+  g.rb = !bf;
   g.a = src_of<T>(b.dqkv, 3 * C);
-  g.b = src_of<T>(wqkv, 3 * C, 0, rnd);
-  g.c = {dx, C, bf, 1, 0};
+  g.b = src_of<T>(wqkv, 3 * C);
+  g.c = {dx, C, bf, 1};
   TRY((launch_gemm<T, true, false>(g, st)));
-  const Src a[2] = {src_of<T>(b.merged, C, 0, rnd), src_of<T>(x, C, 1, rnd)};
-  const Src bb[2] = {src_of<T>(dy, C, 1, rnd), src_of<T>(b.dqkv, 3 * C)};
+  // dwproj = rd(merged)^T rd(dy) (and dbproj), dwqkv = rd(x)^T dqkv
+  const Src a[2] = {src_of<T>(b.merged, C), src_of<T>(x, C, 1)};
+  const Src bb[2] = {src_of<T>(dy, C, 1), src_of<T>(b.dqkv, 3 * C)};
   AtbPlan plan;
-  TRY(launch_atb<T>(d, kAttnBwd, a, bb, b.p_atb, st, &plan));
+  TRY(launch_atb<T>(d, kAttnBwd, a, bb, b.p_atb, st, &plan, !bf));
   ReduceArgs r = {};
   float* const dw[2] = {dwproj, dwqkv};
   float* const db[2] = {dbproj, nullptr};
   add_atb_entries(r, plan, b.p_atb, dw, db);
   const long long hnn = (long long)d.heads * d.n * d.n;
-  add_entry(r, b.p_drel, hnn, attn_groups(d), hnn, drel);
-  add_entry(r, b.p_dbqkv, 3LL * C, attn_groups(d) * strip_groups(d), 3LL * C, dbqkv);
+  add_entry(r, b.p_drel, hnn, bwd_groups(d), hnn, drel);
+  add_entry(r, b.p_dbqkv, 3LL * C, bwd_groups(d), 3LL * C, dbqkv);
   return launch_reduce(r, st);
 }
 
@@ -2091,7 +2224,7 @@ cudaError_t attn_backward(const Dims& d, int rd, const void* x, const void* dy,
 extern "C" {
 
 // Kernels this library has launched since it was loaded (K1 5 a call, K2 14,
-// K3 3, K4 8).
+// K3 3, K4 7).
 long long window_any_launches(void) { return g_launches; }
 
 // Bytes of scratch a launch of `kind` (0 block forward, 1 block backward,
@@ -2184,14 +2317,14 @@ int attn_any_fwd(const void* x, const void* wqkv, const void* bqkv, const void* 
 }
 
 // K4: dx (T) and the five parameter gradients (f32, zeroed by the caller)
-// of K3 from dy (T); operands of the backward products rounded to bf16 where
-// rd.
+// of K3 from dy (T); operands of the backward products rounded to bf16 (`rd`
+// must be 1, as the JAX kernel rounds them whatever the input type).
 int attn_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bqkv,
                  const void* wproj, const void* rel, const void* mask, void* dx,
                  float* dwqkv, float* dbqkv, float* dwproj, float* dbproj, float* drel,
                  void* scratch, int bf, int rd, int B, int H, int W, int C, int heads,
                  int ws, void* stream) {
-  if (!valid(B, H, W, C, heads, ws, 1)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, W, C, heads, ws, 1) || rd != 1) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(B, H, W, C, heads, ws, 1);
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;
@@ -2199,10 +2332,10 @@ int attn_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* frel = static_cast<const float*>(rel);
   const float* fmask = static_cast<const float*>(mask);
-  return (int)(bf ? attn_backward<bf16>(d, rd, x, dy, wqkv, bqkv, wproj, frel, fmask, dx,
-                                        dwqkv, dbqkv, dwproj, dbproj, drel, b, st)
-                  : attn_backward<float>(d, rd, x, dy, wqkv, bqkv, wproj, frel, fmask, dx,
-                                         dwqkv, dbqkv, dwproj, dbproj, drel, b, st));
+  return (int)(bf ? attn_backward<bf16>(d, x, dy, wqkv, bqkv, wproj, frel, fmask, dx, dwqkv,
+                                        dbqkv, dwproj, dbproj, drel, b, st)
+                  : attn_backward<float>(d, x, dy, wqkv, bqkv, wproj, frel, fmask, dx, dwqkv,
+                                         dbqkv, dwproj, dbproj, drel, b, st));
 }
 
 }  // extern "C"

@@ -26,9 +26,12 @@ zero outside the ``2H x 2W`` image. Kernels keep the JAX layout, HWIO:
   and keeps the intermediate in shared memory; it is built for the model's
   tails in bf16, ``Cin = 96`` and ``Cmid = 48``, and a small kernel of the
   same source folds both kernels and packs them into the products' operand
-  layout per launch. Route ``"any"``, ``csrc/decoder_tail_any.cu``, is a
-  direct SIMT convolution for every other width, f32 or bf16, that keeps
-  the intermediate in shared memory too. The backward is autograd of the
+  layout per launch. Route ``"any"``, ``csrc/decoder_tail_any.cu``, takes
+  every other width, f32 or bf16: the same phase form as an implicit GEMM
+  on ``mma.sync`` (bf16, or f32 as 3xTF32) per chunk of 16 intermediate
+  channels, the intermediate in shared memory too, after a small kernel
+  that folds the weights and pads them to the products' tiles (two
+  launches a call). The backward is autograd of the
   naive composition, as the JAX custom VJP is: there is no backward kernel.
   What neither route takes (two output channels only), or a failed build
   or launch, raises. ``decoder_tail.launches`` counts the wgmma route's
@@ -187,8 +190,10 @@ def _lib_any():
     lib = load_library("decoder_tail_any")
     if not getattr(lib, "_bound", False):
         lib.decoder_tail_any_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.decoder_tail_any_fwd.restype = ctypes.c_int
+        lib.decoder_tail_any_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.decoder_tail_any_scratch_bytes.restype = ctypes.c_longlong
         lib._bound = True
     return lib
 
@@ -275,17 +280,21 @@ def _launch_any(x, w_up, b_up, w_out, b_out):
     f32 = torch.float32
     wu, bu, wo, bo = (t.to(f32).contiguous()
                       for t in (w_up, b_up, w_out, b_out))
+    bf = int(x.dtype == torch.bfloat16)
+    lib = _lib_any()
     out = torch.empty(n, 2 * h, 2 * w, 2, dtype=x.dtype, device=x.device)
+    # the folded weights, padded to the products' tiles
+    scratch = torch.empty(lib.decoder_tail_any_scratch_bytes(bf, cin, cmid),
+                          dtype=torch.uint8, device=x.device)
     check_tensors({"x": (x, x.dtype, (n, h, w, cin)),
                    "w_up": (wu, f32, (3, 3, cin, cmid)),
                    "b_up": (bu, f32, (cmid,)),
                    "w_out": (wo, f32, (3, 3, cmid, 2)),
                    "b_out": (bo, f32, (2,))}, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib_any().decoder_tail_any_fwd(
-        ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo), ptr(out),
-        int(x.dtype == torch.bfloat16), n, h, w, cin, cmid,
-        ctypes.c_void_p(stream))
+    err = lib.decoder_tail_any_fwd(
+        ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo), ptr(out), ptr(scratch),
+        bf, n, h, w, cin, cmid, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"decoder_tail general kernel launch failed with "
                            f"CUDA error {err}")

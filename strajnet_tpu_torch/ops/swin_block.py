@@ -505,7 +505,7 @@ def window_any_lib():
 
 def window_any_launches() -> int:
     """Kernels the general route's library has launched since it was
-    loaded: 5 a K1 call, 14 a K2 call, 3 a K3 call, 8 a K4 call."""
+    loaded: 5 a K1 call, 14 a K2 call, 3 a K3 call, 7 a K4 call."""
     return int(window_any_lib().window_any_launches())
 
 

@@ -22,7 +22,7 @@ block's, picked by ``ops/swin_block.py::kernel_route`` from the element type
 and the widths before any launch: ``"wgmma"`` kernels on the fused Swin
 block's device code for bf16 8x8 windows of C 96, 192 or 384 with head_dim
 32, and the tensor-core kernels of ``csrc/window_any.cu`` (``attn_any_fwd``,
-three launches; ``attn_any_bwd``, eight) for every other shape up to that
+three launches; ``attn_any_bwd``, seven) for every other shape up to that
 module's limits, in f32 or bf16. The general backward rounds its products' operands to bf16 whatever
 the input type, as the JAX kernel does (``pallas_window_attention.py:142``):
 its plain counterpart is :func:`window_attention_backward_reference` with

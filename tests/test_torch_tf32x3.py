@@ -109,11 +109,11 @@ def _toward_zero(x):
 
 def test_steps_added_to_nearest_beat_the_tensor_cores_own_sum():
     """fc2's depth (1536) in stages of STAGE_K, each two m16n8k8 steps of
-    three passes in the kernel's order (``Tc<float>::mma3``: lo hi, hi lo,
-    hi hi), every pass added toward zero to a fresh accumulator, which is
-    added to the running sum to nearest (the model of the kernel): within
-    1e-6. The same passes kept in one accumulator, rounded toward zero at
-    every pass, drift further."""
+    three passes in the kernel's order (``csrc/mma_sync.cuh``,
+    ``Tc<float>::mma``: lo hi, hi lo, hi hi), every pass added toward zero
+    to a fresh accumulator, which is added to the running sum to nearest
+    (the model of the kernel): within 1e-6. The same passes kept in one
+    accumulator, rounded toward zero at every pass, drift further."""
     m, k, n = 64, 1536, 64
     a, b = operands((m, k, n), seed=7)
     (ah, al), (bh, bl) = split(a), split(b)
