@@ -26,8 +26,11 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
   windows of 49, 144 and 256 tokens (``ANY_GEOMETRIES``), each twice
   against its plain version (the two runs bit-identical; K4 in f32 within
   the limits of its bf16 operands, ``ANY_K4_F32_*``), with the library's
-  kernels a call counted (K1 at most 5, K2 at most 16, K4 at most 7) and
-  timed beside it, the general K1, K2 and K4 broken down by kernel; and of
+  kernels a call counted (K1 at most 5, K2 at most 13, K3 at most 3, K4
+  at most 7) and timed beside it, the general K1-K4 broken down by kernel;
+  at the edges of the route (``ANY_EDGES``: K3 at its largest f32 and bf16
+  widths and in f32 at 256 tokens, K2 in f32 at head_dim 64 and 256
+  tokens), twice against plain, untimed; and of
   K7 (``csrc/decoder_tail_any.cu``) at the model's tail widths in f32, at
   64 -> 32 channels in bf16, at the f32 flagship tail and at a ragged
   geometry (``ANY_TAILS``), twice, timed in rounds and broken down by
@@ -321,11 +324,24 @@ ANY_GEOMETRIES = (
     (2, 56, 96, 3, 7, 384, 3, "float32"),
     (1, 96, 128, 4, 12, 512, 6, "bfloat16"),
 )
-# Kernels a call of the general K1, K2 and K4 may launch
-# (csrc/window_any.cu: 5, 14 and 7).
+# Kernels a call of the general K1, K2, K3 and K4 may launch
+# (csrc/window_any.cu: 5, 13, 3 and 7).
 ANY_K1_MAX_KERNELS = 5
-ANY_K2_MAX_KERNELS = 16
+ANY_K2_MAX_KERNELS = 13
+ANY_K3_MAX_KERNELS = 3
 ANY_K4_MAX_KERNELS = 7
+# (B, H = W, C, heads, window, MLP width, shift, dtype, what) at the edges of
+# the general route, checked like ANY_GEOMETRIES (twice, bit-identical,
+# against plain) but not summed into the times: K3 at C 576 over 121-token
+# windows in f32 and at C 1024 over 225-token windows in bf16, K3 in f32 at
+# 256 tokens, and K2 in f32 at head_dim 64 and 256 tokens, where q, k, v and
+# dO held whole would take 278,528 bytes of shared memory.
+ANY_EDGES = (
+    (1, 22, 576, 12, 11, 576, 5, "float32", "k3 f32, C 576, 121 tokens"),
+    (1, 30, 1024, 32, 15, 1024, 7, "bfloat16", "k3 bf16, C 1024, 225 tokens"),
+    (1, 32, 48, 2, 16, 96, 8, "float32", "k3 f32, 256 tokens"),
+    (1, 32, 64, 1, 16, 256, 8, "float32", "k2 f32, head_dim 64"),
+)
 # Rounds of plain / kernel / kernel / plain behind each time of the general
 # route (phase kernels) and of phase widths, printed as min / median / max
 # over the rounds; the kernels line takes the medians.
@@ -1120,134 +1136,154 @@ def fmt_spread(s: dict, digits: int = 4) -> str:
     return " / ".join(f"{s[k]:.{digits}f}" for k in ("min", "median", "max"))
 
 
-def check_general_kernels(g: torch.Generator) -> dict:
-    """The general route of K1-K4 at ANY_GEOMETRIES, each kernel twice
-    against its plain version (K4's with operands rounded to bf16, as it
-    rounds them; in f32 within ANY_K4_F32_*): the two runs bit-identical
-    (output, dx and every gradient), the kernels of a call counted (K1, K2
-    and K4 at most ANY_K1_MAX_KERNELS, ANY_K2_MAX_KERNELS,
-    ANY_K4_MAX_KERNELS), each timed beside
-    its plain version in TIMING_ROUNDS rounds (min / median / max printed
-    per geometry, with f32's bound at the f32 SIMT rate beside the 3xTF32
-    one). Returns per kernel the worst error, the kernels a call, and the
-    median times and the bounds (f32 at the 3xTF32 rate) summed over the
-    geometries."""
-    names = ("k1", "k2", "k3", "k4")
-    out = {k: dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
-                   flops=0.0, bytes=0.0, bound_ms=0.0,
-                   kernels_per_call=0) for k in names}
-    for b, h, c, heads, ws, hidden, shift, dtn in ANY_GEOMETRIES:
-        dt = getattr(torch, dtn)
-        f32 = dt == torch.float32
-        check(kernel_route(dt, c, heads, ws, hidden) == "any",
-              f"[{b},{h},{h},{c}] heads {heads} ws {ws} {dtn} takes the "
-              f"general route")
-        args, mask, dp = general_inputs(b, h, c, heads, ws, hidden, shift,
-                                        dt, g)
-        dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dt)
-        kw = dict(window_size=ws, num_heads=heads)
-        attn = args[:6]
-        attn_bwd = (*attn[:4], attn[5], mask, dy)
-        calls = {
-            "k1": (lambda: swin_block(*args, mask, dp, **kw),
-                   lambda: swin_block_reference(*args, mask, dp, **kw)),
-            "k2": (lambda: swin_block_bwd(*args, mask, dp, dy, **kw),
-                   lambda: swin_block_backward_reference(*args, mask, dp, dy,
-                                                         **kw)),
-            "k3": (lambda: wa.window_attention(*attn, mask, **kw),
-                   lambda: wa.window_attention_reference(*attn, mask, **kw)),
-            "k4": (lambda: wa.window_attention_bwd(*attn_bwd, **kw),
-                   lambda: wa.window_attention_backward_reference(
-                       *attn_bwd, operand_dtype=torch.bfloat16, **kw)),
-        }
-        with torch.inference_mode():
-            reset_counters()
-            got, again, per_call = {}, {}, {}
-            for k in names:
-                before = window_any_launches()
-                got[k] = calls[k][0]()
-                per_call[k] = window_any_launches() - before
-                again[k] = calls[k][0]()
-            torch.cuda.synchronize()
-            check(read_general_counters() == counts(
-                      GENERAL_COUNTERS, k1=2, k2=2, k3=2, k4=2)
-                  and read_counters() == counts(),
-                  f"two general launches of each of K1-K4 and no other: "
-                  f"{read_general_counters()}, {read_counters()}")
-            check(per_call["k1"] <= ANY_K1_MAX_KERNELS
-                  and per_call["k2"] <= ANY_K2_MAX_KERNELS
-                  and per_call["k4"] <= ANY_K4_MAX_KERNELS,
-                  f"kernels a call: K1 {per_call['k1']} (at most "
-                  f"{ANY_K1_MAX_KERNELS}), K2 {per_call['k2']} (at most "
-                  f"{ANY_K2_MAX_KERNELS}), K4 {per_call['k4']} (at most "
-                  f"{ANY_K4_MAX_KERNELS})")
-            want = {k: calls[k][1]() for k in names}
-            line = []
-            for k in names:
-                fwd = k in ("k1", "k3")
-                if f32 and k == "k4":
-                    limit = ANY_K4_F32_MAX_ABS_REL
-                    omc_limit = ANY_K4_F32_ONE_MINUS_COS
-                elif f32:
-                    limit = (ANY_F32_FWD_MAX_ABS_REL if fwd
-                             else ANY_F32_GRAD_MAX_ABS_REL)
-                    omc_limit = None
-                else:
-                    limit, omc_limit = {
-                        "k1": (K1_MAX_ABS_REL, K1_ONE_MINUS_COS),
-                        "k2": (K2_MAX_ABS_REL, K2_ONE_MINUS_COS),
-                        "k3": (K3_MAX_ABS_REL, K3_ONE_MINUS_COS),
-                        "k4": (K4_MAX_ABS_REL, K4_ONE_MINUS_COS)}[k]
-                if fwd:
-                    pairs = [("y", got[k], want[k], again[k])]
-                else:
-                    grad_names = GRAD_NAMES if k == "k2" else wa.GRAD_NAMES
-                    pairs = list(zip(("dx",) + grad_names,
-                                     (got[k][0],) + tuple(got[k][1]),
-                                     (want[k][0],) + tuple(want[k][1]),
-                                     (again[k][0],) + tuple(again[k][1])))
-                worst, worst_abs = 0.0, 0.0
-                for name, a, w, a2 in pairs:
-                    what = f"{k} any [{b},{h},{h},{c}] ws {ws} {dtn} {name}"
-                    rel = held_against(what, a, w, limit, omc_limit)
-                    check(torch.equal(a, a2),
-                          f"{what}: two runs bit-identical")
-                    worst = max(worst, rel)
-                    worst_abs = max(worst_abs,
-                                    float((a.float() - w.float()).abs().max()))
+def general_calls(args, mask, dp, dy, kw) -> dict:
+    """{kernel: (general route, plain version)} of K1-K4 at these inputs;
+    K4's plain version rounds its operands to bf16, as K4 does."""
+    attn = args[:6]
+    attn_bwd = (*attn[:4], attn[5], mask, dy)
+    return {
+        "k1": (lambda: swin_block(*args, mask, dp, **kw),
+               lambda: swin_block_reference(*args, mask, dp, **kw)),
+        "k2": (lambda: swin_block_bwd(*args, mask, dp, dy, **kw),
+               lambda: swin_block_backward_reference(*args, mask, dp, dy,
+                                                     **kw)),
+        "k3": (lambda: wa.window_attention(*attn, mask, **kw),
+               lambda: wa.window_attention_reference(*attn, mask, **kw)),
+        "k4": (lambda: wa.window_attention_bwd(*attn_bwd, **kw),
+               lambda: wa.window_attention_backward_reference(
+                   *attn_bwd, operand_dtype=torch.bfloat16, **kw)),
+    }
+
+
+def general_limits(k: str, f32: bool):
+    """(max |err| / max |ref|, 1 - cos or None) of the general K1-K4."""
+    if f32 and k == "k4":
+        return ANY_K4_F32_MAX_ABS_REL, ANY_K4_F32_ONE_MINUS_COS
+    if f32:
+        return (ANY_F32_FWD_MAX_ABS_REL if k in ("k1", "k3")
+                else ANY_F32_GRAD_MAX_ABS_REL), None
+    return {"k1": (K1_MAX_ABS_REL, K1_ONE_MINUS_COS),
+            "k2": (K2_MAX_ABS_REL, K2_ONE_MINUS_COS),
+            "k3": (K3_MAX_ABS_REL, K3_ONE_MINUS_COS),
+            "k4": (K4_MAX_ABS_REL, K4_ONE_MINUS_COS)}[k]
+
+
+def general_geometry(geo, g, names=("k1", "k2", "k3", "k4"), timed=True):
+    """K1-K4 (those of ``names``) on the general route at ``geo``, each twice
+    against its plain version: the limits, the two runs bit-identical, the
+    kernels a call counted; timed beside the plain version in
+    TIMING_ROUNDS rounds where ``timed``. Returns {kernel: dict(worst,
+    worst_abs, per_call, ms, plain_ms, flops, bytes, bound_ms)} and prints
+    one line."""
+    b, h, c, heads, ws, hidden, shift, dtn = geo[:8]
+    dt = getattr(torch, dtn)
+    f32 = dt == torch.float32
+    check(kernel_route(dt, c, heads, ws, hidden) == "any",
+          f"[{b},{h},{h},{c}] heads {heads} ws {ws} {dtn} takes the "
+          f"general route")
+    args, mask, dp = general_inputs(b, h, c, heads, ws, hidden, shift, dt, g)
+    dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dt)
+    kw = dict(window_size=ws, num_heads=heads)
+    calls = general_calls(args, mask, dp, dy, kw)
+    res = {}
+    with torch.inference_mode():
+        reset_counters()
+        got, again, per_call = {}, {}, {}
+        for k in names:
+            before = window_any_launches()
+            got[k] = calls[k][0]()
+            per_call[k] = window_any_launches() - before
+            again[k] = calls[k][0]()
+        torch.cuda.synchronize()
+        check(read_general_counters() == counts(
+                  GENERAL_COUNTERS, **{k: 2 for k in names})
+              and read_counters() == counts(),
+              f"two general launches of each of {names} and no other: "
+              f"{read_general_counters()}, {read_counters()}")
+        want = {k: calls[k][1]() for k in names}
+        line = []
+        for k in names:
+            limit, omc_limit = general_limits(k, f32)
+            if k in ("k1", "k3"):
+                pairs = [("y", got[k], want[k], again[k])]
+            else:
+                grad_names = GRAD_NAMES if k == "k2" else wa.GRAD_NAMES
+                pairs = list(zip(("dx",) + grad_names,
+                                 (got[k][0],) + tuple(got[k][1]),
+                                 (want[k][0],) + tuple(want[k][1]),
+                                 (again[k][0],) + tuple(again[k][1])))
+            worst, worst_abs = 0.0, 0.0
+            for name, a, w, a2 in pairs:
+                what = f"{k} any [{b},{h},{h},{c}] ws {ws} {dtn} {name}"
+                rel = held_against(what, a, w, limit, omc_limit)
+                check(torch.equal(a, a2), f"{what}: two runs bit-identical")
+                worst = max(worst, rel)
+                worst_abs = max(worst_abs,
+                                float((a.float() - w.float()).abs().max()))
+            r = res[k] = dict(worst=worst, worst_abs=worst_abs,
+                              per_call=per_call[k])
+            text = (f"{k} err/max|ref|={worst:.2e} (limit {limit:.2e}"
+                    + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
+                    + f") kernels a call {per_call[k]}")
+            if timed:
                 ks, ps = in_turns(calls[k][1], calls[k][0],
                                   lambda fn: kernel_ms(fn, iters=3))
-                ms, plain_ms = ks["median"], ps["median"]
                 fl, by = general_work(k, b, h, c, heads, ws, hidden, shift,
                                       2 if dt == torch.bfloat16 else 4)
                 peak = PEAK_TF32X3_FLOPS if f32 else PEAK_BF16_FLOPS
                 bms, bby = bound(fl, by, peak)
                 bms_simt = bound(fl, by, PEAK_F32_FLOPS)[0] if f32 else bms
-                o = out[k]
-                o["max_abs_err"] = max(o["max_abs_err"], worst_abs)
-                o["max_abs_rel"] = max(o["max_abs_rel"], worst)
-                o["kernels_per_call"] = max(o["kernels_per_call"],
-                                            per_call[k])
-                o["ms"] += ms
-                o["plain_ms"] += plain_ms
-                o["bound_ms"] += bms
-                o["flops"] += fl / peak     # seconds at the peak rates
-                o["bytes"] += by / PEAK_HBM_BYTES
-                line.append(f"{k} err/max|ref|={worst:.2e} (limit {limit:.2e}"
-                            + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
-                            + f") ms={fmt_spread(ks)} plain_ms="
-                            f"{fmt_spread(ps)} (min / median / max of "
-                            f"{2 * TIMING_ROUNDS}) bound_ms={bms:.4f} ({bby}"
-                            + (f"; f32 SIMT {bms_simt:.4f}" if f32 else "")
-                            + f") kernels a call {per_call[k]}")
-            print(f"general route [{b},{h},{h},{c}] heads={heads} ws={ws} "
-                  f"hidden={hidden} shift={shift} {dtn}, 2 launches each, "
-                  f"bit-identical: " + "; ".join(line))
-        del args, mask, dp, dy, got, again, want, calls
-        torch.cuda.empty_cache()
+                r.update(ms=ks["median"], plain_ms=ps["median"],
+                         flops=fl / peak, bytes=by / PEAK_HBM_BYTES,
+                         bound_ms=bms)
+                text += (f" ms={fmt_spread(ks)} plain_ms={fmt_spread(ps)} "
+                         f"(min / median / max of {2 * TIMING_ROUNDS}) "
+                         f"bound_ms={bms:.4f} ({bby}"
+                         + (f"; f32 SIMT {bms_simt:.4f}" if f32 else "")
+                         + ")")
+            line.append(text)
+        print(f"general route [{b},{h},{h},{c}] heads={heads} ws={ws} "
+              f"hidden={hidden} shift={shift} {dtn}, 2 launches each, "
+              f"bit-identical: " + "; ".join(line))
+    del args, mask, dp, dy, got, again, want, calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_general_kernels(g: torch.Generator) -> dict:
+    """The general route of K1-K4 at ANY_GEOMETRIES (``general_geometry``;
+    K4 against a plain version with operands rounded to bf16, as it rounds
+    them; in f32 within ANY_K4_F32_*): the kernels of a call at most
+    ANY_K1_MAX_KERNELS, ANY_K2_MAX_KERNELS, ANY_K3_MAX_KERNELS,
+    ANY_K4_MAX_KERNELS, each timed beside its plain version (min / median / max printed per
+    geometry, with f32's bound at the f32 SIMT rate beside the 3xTF32 one).
+    Then ANY_EDGES, checked alike and not timed. Returns per kernel the
+    worst error, the kernels a call, and the median times and the bounds
+    (f32 at the 3xTF32 rate) summed over ANY_GEOMETRIES."""
+    names = ("k1", "k2", "k3", "k4")
+    most = dict(k1=ANY_K1_MAX_KERNELS, k2=ANY_K2_MAX_KERNELS,
+                k3=ANY_K3_MAX_KERNELS, k4=ANY_K4_MAX_KERNELS)
+    out = {k: dict(max_abs_err=0.0, max_abs_rel=0.0, ms=0.0, plain_ms=0.0,
+                   flops=0.0, bytes=0.0, bound_ms=0.0,
+                   kernels_per_call=0) for k in names}
+    for geo in ANY_GEOMETRIES:
+        res = general_geometry(geo, g)
+        check(all(res[k]["per_call"] <= most[k] for k in names),
+              "kernels a call: " + ", ".join(
+                  f"{k.upper()} {res[k]['per_call']} (at most {most[k]})"
+                  for k in names))
+        for k in names:
+            o, r = out[k], res[k]
+            o["max_abs_err"] = max(o["max_abs_err"], r["worst_abs"])
+            o["max_abs_rel"] = max(o["max_abs_rel"], r["worst"])
+            o["kernels_per_call"] = max(o["kernels_per_call"],
+                                        r["per_call"])
+            for key in ("ms", "plain_ms", "bound_ms", "flops", "bytes"):
+                o[key] += r[key]
     print("general route, kernels a call: "
           + ", ".join(f"{k.upper()} {out[k]['kernels_per_call']}"
                       for k in names))
+    check_general_edges(g)
     for k in names:
         o = out[k]
         # the rate that sets the summed bound: the larger of the two sums
@@ -1257,10 +1293,26 @@ def check_general_kernels(g: torch.Generator) -> dict:
     return out
 
 
+def check_general_edges(g: torch.Generator) -> None:
+    """ANY_EDGES: K3 at its largest widths and K2 in f32 at head_dim 64 and
+    256 tokens (its route printed), each twice against its plain version,
+    with its kernels a call held to ANY_K3_MAX_KERNELS or
+    ANY_K2_MAX_KERNELS."""
+    for geo in ANY_EDGES:
+        b, h, c, heads, ws, hidden, shift, dtn, what = geo
+        k = what[:2]
+        most = ANY_K3_MAX_KERNELS if k == "k3" else ANY_K2_MAX_KERNELS
+        res = general_geometry(geo, g, (k,), timed=False)
+        route = kernel_route(getattr(torch, dtn), c, heads, ws, hidden)
+        print(f"  edge {what}: route {route}, {res[k]['per_call']} kernels "
+              f"a call (at most {most})")
+        check(res[k]["per_call"] <= most, f"{what}: kernels a call")
+
+
 # (B, H = W, C, heads, window, MLP width, shift, dtype) where the general K1,
-# K2 and K4 are broken down by kernel: the flagship's last width in f32, the
-# Swin-B width in bf16; K4 also at windows of 256 tokens in bf16. K7 at the
-# f32 flagship tail (ANY_TAILS[2]).
+# K2, K3 and K4 are broken down by kernel: the flagship's last width in f32,
+# the Swin-B width in bf16; K3 and K4 also at windows of 256 tokens in bf16.
+# K7 at the f32 flagship tail (ANY_TAILS[2]).
 ANY_BREAKDOWN = ((2, 32, 384, 12, 8, 1536, 4, "float32"),
                  (2, 128, 128, 4, 8, 512, 4, "bfloat16"))
 ANY_BREAKDOWN_K4 = ANY_BREAKDOWN + ((1, 32, 64, 2, 16, 256, 8, "bfloat16"),)
@@ -1288,9 +1340,9 @@ def device_us_by_kernel(fn, names, calls: int = 3) -> str:
 
 
 def general_breakdown(g: torch.Generator) -> None:
-    """Device time of the general K1, K2 and K4 by kernel at ANY_BREAKDOWN
-    (K4 at ANY_BREAKDOWN_K4) and of the general K7 at the f32 flagship tail:
-    where a call's time goes."""
+    """Device time of the general K1, K2, K3 and K4 by kernel at
+    ANY_BREAKDOWN (K3 and K4 at ANY_BREAKDOWN_K4) and of the general K7 at
+    the f32 flagship tail: where a call's time goes."""
     for geo in ANY_BREAKDOWN_K4:
         b, h, c, heads, ws, hidden, shift, dtn = geo
         dt = getattr(torch, dtn)
@@ -1301,9 +1353,10 @@ def general_breakdown(g: torch.Generator) -> None:
         attn_bwd = (*args[:4], args[5], mask, dy)
         calls = (("K1", lambda: swin_block(*args, mask, dp, **kw)),
                  ("K2", lambda: swin_block_bwd(*args, mask, dp, dy, **kw)),
+                 ("K3", lambda: wa.window_attention(*args[:6], mask, **kw)),
                  ("K4", lambda: wa.window_attention_bwd(*attn_bwd, **kw)))
         for k, fn in calls:
-            if k != "K4" and geo not in ANY_BREAKDOWN:
+            if k in ("K1", "K2") and geo not in ANY_BREAKDOWN:
                 continue
             print(f"general {k} [{b},{h},{h},{c}] ws {ws} {dtn}, device us "
                   f"a call by kernel: "
@@ -1320,7 +1373,6 @@ def general_breakdown(g: torch.Generator) -> None:
 
 
 WINDOW_ANY_KERNELS = ("gemm_kernel", "atb_kernel", "attn_fwd_kernel",
-                      "attn_bwd_q_kernel", "attn_bwd_kv_kernel",
                       "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel")
 DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
                             "decoder_tail_any_kernel")

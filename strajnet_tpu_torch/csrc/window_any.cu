@@ -43,18 +43,15 @@
 //   staging tile. p never reaches device memory; the row max and sum do (8
 //   bytes a row) for the backward. k and v are held whole, not streamed:
 //   174 KB of shared memory at n = 256, hd = 64 in f32.
-// - attn_bwd_q_kernel / attn_bwd_kv_kernel (K2): a block per (head, group
-//   of windows, 64 rows). The first holds k and v and walks query strips
-//   (dp, the row sums of dp * p, ds, dq and the rel-pos gradient), the
-//   second holds q and dO and walks key strips (dk, dv); each recomputes p
-//   from the saved row statistics.
-// - attn_bwd_kernel (K4): a block per (head, group of windows), a warp per
-//   16 keys, the window's q, k, v and dO whole in shared memory: p and dp
+// - attn_bwd_kernel (K2 and K4): a block per (head, group of windows), a
+//   warp per 16 keys, k and v of the window whole in shared memory, the
+//   16-query tiles of q and dO streamed through a double buffer: p and dp
 //   computed once per window and head, dk and dv in registers, dq summed
-//   over the key strips through shared memory in a fixed order.
-//   In both the rel-pos gradient sums the group's windows in a partial
-//   private to the block, the bias gradient of qkv the stores of dq, dk and
-//   dv.
+//   over the key strips through shared memory in a fixed order. Templated
+//   on the products' operand type (bf16 for K4, T for K2) and on the
+//   softmax dS takes (f32 p for K4, p rounded to T for K2). The rel-pos
+//   gradient sums the group's windows in a partial private to the block,
+//   the bias gradient of qkv the stores of dq, dk and dv.
 // - ln_bwd_kernel (the LayerNorm backward of a block of rows, with the
 //   column sums of the LayerNorm parameters' and biases' gradients) and
 //   reduce_kernel (every per-split partial added in a fixed order, one
@@ -76,7 +73,7 @@
 // stage's product to the f32 sum to nearest; only its recomputed forward
 // (qkv, q k^T, p v) runs in f32.
 //
-// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 14, K3 3, K4 7
+// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 13, K3 3, K4 7
 // (window_any_launches counts them). Rounding follows the plain versions
 // (ops/swin_block.py::swin_block_reference and swin_block_backward_reference,
 // ops/window_attention.py's two references): to T after qkv's bias, p before
@@ -88,6 +85,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "mma_sync.cuh"
 
@@ -680,15 +678,14 @@ struct AttnArgs {
   const float* rel;     // [heads, n, n]
   const float* mask;    // [n_mask, n, n] or null
   int n_mask;
-  const void* dout;     // backward: dL/d(merged heads) [M, C], T (K2) or bf16 (K4)
+  const void* dout;     // backward: dL/d(merged heads) [M, C], in the products' type
   void* out;            // forward: the merged heads T [M, C]; backward: dqkv T [M, 3C]
   float* stats;         // [BW * heads, n, 2]: row max and sum of the softmax
-  float* dsum;          // K2: [BW * heads, n]: sum over the keys of dp * p
   float* drel;          // backward: [groups, heads, n, n], sums over a group's windows
-  float* dbias;         // backward: [groups * sgroups, 3C], column sums of dqkv
+  float* dbias;         // backward: [groups, 3C], column sums of dqkv
   long long BW;
   int groups;           // backward: window w is in group w % groups
-  int sgroups;          // blocks a window and head: 64 rows (four strips of 16) each; K4 1
+  int sgroups;          // forward: blocks a window and head, 64 rows (four strips of 16) each
   int n, np, hd, hdp, heads, C;
   float scale;
   int vec;
@@ -861,279 +858,10 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
   }
 }
 
-// the column sums cs of four warps (each the sum over its lanes' rows) into
-// out[0 .. hd): warps in order
-__device__ __forceinline__ void block_column_sums(float (&cs)[8][2], float* red, int hdp,
-                                                  int hd, float* out) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float v = column_sum(cs[j][e]);
-      if (lane < 4 && j * 8 < hdp) red[warp * hdp + j * 8 + 2 * lane + e] = v;
-    }
-  __syncthreads();
-  for (int d = tid; d < hd; d += kThreads)
-    out[d] = red[d] + red[hdp + d] + red[2 * hdp + d] + red[3 * hdp + d];
-  __syncthreads();
-}
-
-// K2's attention backward, in two kernels (operands rounded to T): dq, the
-// row sums of dp * p, the rel-pos gradient and dq's column sums. One block
-// per (head, group of windows, 64 query rows): k and v whole in shared
-// memory, a warp per strip of 16 queries.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(AttnArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
-  const int sg = blockIdx.x % a.sgroups, h = (blockIdx.x / a.sgroups) % a.heads;
-  const int gi = blockIdx.x / a.sgroups / a.heads;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + a.np * LDH;
-  T* Qw = Vs + a.np * LDH + warp * 16 * (2 * LDH + LDP);
-  T* Ow = Qw + 16 * LDH;
-  T* Sw = Ow + 16 * LDH;
-  const Geom none = {1, 1, 1};
-  const long long C3 = 3LL * a.C;
-  const Src src = {a.qkv, C3, 0, a.vec};
-  const Src dsrc = {a.dout, a.C, 0, a.vec};
-  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
-  const long long nn = (long long)a.n * a.n;
-  float* part = a.drel + ((long long)gi * a.heads + h) * nn;
-  const int nch = (a.np + kChunk - 1) / kChunk;
-  const int q0 = (sg * (kThreads / 32) + warp) * 16;
-  const View<T, true> vq = {Qw, LDH}, vo = {Ow, LDH}, vs = {Sw, LDP};
-  float cs[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) cs[j][0] = cs[j][1] = 0.0f;
-  for (long long w = gi; w < a.BW; w += a.groups) {
-    const bool first = w == gi;
-    const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
-    const Bias bias(a, w, h);
-    __syncthreads();
-    // k and v whole and this warp's queries and dO, in flight together
-    stage_tile<T>(Ks, LDH, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid, kThreads);
-    stage_tile<T>(Vs, LDH, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid, kThreads);
-    if (q0 < a.np) {
-      stage_tile<T>(Qw, LDH, 16, a.hdp, src, row0 + q0, cq, rend, cq + a.hd, -1, none, lane, 32);
-      stage_tile<T>(Ow, LDH, 16, a.hdp, dsrc, row0 + q0, cq, rend, cq + a.hd, -1, none, lane,
-                    32);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (q0 >= a.np) continue;
-    float mx[2], sm[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qi = q0 + gq + r * 8;
-      mx[r] = qi < a.n ? a.stats[(z * a.n + qi) * 2] : 0.0f;
-      sm[r] = qi < a.n ? a.stats[(z * a.n + qi) * 2 + 1] : 1.0f;
-    }
-    float p[8][4], dp[8][4];
-    // p (0 beyond the window) and dp = dO V^T of chunk c
-    auto chunk = [&](int c) {
-      const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
-      zero_strip(p);
-      mma_strip<T>(p, a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH});
-      zero_strip(dp);
-      mma_strip<T>(dp, a.hdp, ncols, lane, vo, View<T, true>{Vs + j0 * LDH, LDH});
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + gq + (e >> 1) * 8, kj = j0 + j * 8 + 2 * tq + (e & 1);
-          p[j][e] = (j * 8 < ncols && qi < a.n && kj < a.n)
-                        ? expf(bias.logit(p[j][e], a.scale, qi, kj) - mx[e >> 1]) / sm[e >> 1]
-                        : 0.0f;
-        }
-    };
-    // D = sum over the keys of dp * rd(p), eight partial sums a row
-    float dpart[2][8], D[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dpart[r][j] = 0.0f;
-    for (int c = 0; c < nch; ++c) {
-      chunk(c);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            dpart[r][j] = fmaf(dp[j][2 * r + e], rnd_t<T>(p[j][2 * r + e]), dpart[r][j]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) D[r] = quad_sum(sum8(dpart[r]));
-    if (tq == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = q0 + gq + r * 8;
-        if (qi < a.n) a.dsum[z * a.n + qi] = D[r];
-      }
-    }
-    float dq[8][4];
-    zero_strip(dq);
-    for (int c = 0; c < nch; ++c) {
-      const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
-      if (nch > 1) chunk(c);
-      // the rel-pos partial of these rows and keys: all loads before any
-      // store, so that they are in flight together
-      float prev[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = q0 + gq + (e >> 1) * 8, kj = j0 + j * 8 + 2 * tq + (e & 1);
-          prev[j][e] = (!first && j * 8 < ncols && qi < a.n && kj < a.n)
-                           ? part[(long long)qi * a.n + kj]
-                           : 0.0f;
-        }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (j * 8 >= ncols) continue;
-          const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
-          const int qi = q0 + rl, kj = j0 + cl;
-          const float ds = rnd_t<T>(p[j][e]) * (dp[j][e] - D[e >> 1]);
-          if (qi < a.n && kj < a.n) part[(long long)qi * a.n + kj] = first ? ds : prev[j][e] + ds;
-          Sw[rl * LDP + cl] = from_f<T>(ds);
-        }
-      __syncwarp();
-      mma_strip<T>(dq, ncols, a.hdp, lane, vs, View<T, false>{Ks + j0 * LDH, LDH});
-      __syncwarp();
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
-        if (qi < a.n && d < a.hd) {
-          const T v = from_f<T>(dq[j][e] * a.scale);
-          static_cast<T*>(a.out)[(row0 + qi) * C3 + cq + d] = v;
-          cs[j][e & 1] += to_f(v);
-        }
-      }
-  }
-  __syncthreads();
-  block_column_sums(cs, reinterpret_cast<float*>(smem_raw), a.hdp, a.hd,
-                    a.dbias + ((long long)gi * a.sgroups + sg) * C3 + cq);
-}
-
-// dk, dv and their column sums. One block per (head, group of windows, 64
-// keys): q and dO whole in shared memory, a warp per strip of 16 keys.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(AttnArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
-  const int sg = blockIdx.x % a.sgroups, h = (blockIdx.x / a.sgroups) % a.heads;
-  const int gi = blockIdx.x / a.sgroups / a.heads;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Os = Qs + a.np * LDH;
-  T* Kw = Os + a.np * LDH + warp * 16 * (2 * LDH + 2 * LDP);
-  T* Vw = Kw + 16 * LDH;
-  T* Pw = Vw + 16 * LDH;
-  T* Sw = Pw + 16 * LDP;
-  float* mxs = reinterpret_cast<float*>(Os + a.np * LDH + 4 * 16 * (2 * LDH + 2 * LDP));
-  float* sms = mxs + a.np;
-  float* Ds = sms + a.np;
-  const Geom none = {1, 1, 1};
-  const long long C3 = 3LL * a.C;
-  const Src src = {a.qkv, C3, 0, a.vec};
-  const Src dsrc = {a.dout, a.C, 0, a.vec};
-  const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
-  const int nch = (a.np + kChunk - 1) / kChunk;
-  const int k0r = (sg * (kThreads / 32) + warp) * 16;
-  const View<T, true> vk = {Kw, LDH}, vv = {Vw, LDH}, vp = {Pw, LDP}, vs = {Sw, LDP};
-  float csk[8][2], csv[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) csk[j][0] = csk[j][1] = csv[j][0] = csv[j][1] = 0.0f;
-  for (long long w = gi; w < a.BW; w += a.groups) {
-    const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
-    const Bias bias(a, w, h);
-    __syncthreads();
-    stage_tile<T>(Qs, LDH, a.np, a.hdp, src, row0, cq, rend, cq + a.hd, -1, none, tid, kThreads);
-    stage_tile<T>(Os, LDH, a.np, a.hdp, dsrc, row0, cq, rend, cq + a.hd, -1, none, tid,
-                  kThreads);
-    // with this warp's keys and values, in flight together
-    if (k0r < a.np) {
-      stage_tile<T>(Kw, LDH, 16, a.hdp, src, row0 + k0r, ck, rend, ck + a.hd, -1, none, lane,
-                    32);
-      stage_tile<T>(Vw, LDH, 16, a.hdp, src, row0 + k0r, cv, rend, cv + a.hd, -1, none, lane,
-                    32);
-    }
-    for (int i = tid; i < a.np; i += kThreads) {
-      const bool ok = i < a.n;
-      mxs[i] = ok ? a.stats[(z * a.n + i) * 2] : 0.0f;
-      sms[i] = ok ? a.stats[(z * a.n + i) * 2 + 1] : 1.0f;
-      Ds[i] = ok ? a.dsum[z * a.n + i] : 0.0f;
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    if (k0r >= a.np) continue;
-    float dk[8][4], dv[8][4];
-    zero_strip(dk);
-    zero_strip(dv);
-    for (int c = 0; c < nch; ++c) {
-      const int i0 = c * kChunk, ncols = min(kChunk, a.np - i0);
-      float s[8][4], dpt[8][4];   // S^T and dp^T: 16 keys x ncols queries
-      zero_strip(s);
-      mma_strip<T>(s, a.hdp, ncols, lane, vk, View<T, true>{Qs + i0 * LDH, LDH});
-      zero_strip(dpt);
-      mma_strip<T>(dpt, a.hdp, ncols, lane, vv, View<T, true>{Os + i0 * LDH, LDH});
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (j * 8 >= ncols) continue;
-          const int rl = gq + (e >> 1) * 8, cl = j * 8 + 2 * tq + (e & 1);
-          const int kj = k0r + rl, qi = i0 + cl;
-          float pb = 0.0f, ds = 0.0f;
-          if (kj < a.n && qi < a.n) {
-            const float p = expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi];
-            pb = rnd_t<T>(p);
-            ds = pb * (dpt[j][e] - Ds[qi]);
-          }
-          Pw[rl * LDP + cl] = from_f<T>(pb);
-          Sw[rl * LDP + cl] = from_f<T>(ds);
-        }
-      __syncwarp();
-      mma_strip<T>(dv, ncols, a.hdp, lane, vp, View<T, false>{Os + i0 * LDH, LDH});
-      mma_strip<T>(dk, ncols, a.hdp, lane, vs, View<T, false>{Qs + i0 * LDH, LDH});
-      __syncwarp();
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0r + gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
-        if (kj < a.n && d < a.hd) {
-          T* o = static_cast<T*>(a.out) + (row0 + kj) * C3;
-          const T vk_ = from_f<T>(dk[j][e] * a.scale);
-          const T vv_ = from_f<T>(dv[j][e]);
-          o[ck + d] = vk_;
-          o[cv + d] = vv_;
-          csk[j][e & 1] += to_f(vk_);
-          csv[j][e & 1] += to_f(vv_);
-        }
-      }
-  }
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem_raw);
-  float* out = a.dbias + ((long long)gi * a.sgroups + sg) * C3;
-  block_column_sums(csk, red, a.hdp, a.hd, out + ck);
-  block_column_sums(csv, red, a.hdp, a.hd, out + cv);
-}
-
-// ------------------------------------------------------------ K4's attention backward
+// ------------------------------------------------------------ the attention backward
 
 constexpr int kBwdMaxThreads = 32 * kMaxN / 16;   // a warp per 16 keys
+constexpr long long kMaxSmem = 232448;            // a block's shared memory on sm_90
 
 // Rows [r0, r0 + rows) x columns [c0, c0 + cols) (cols even) of the f32
 // matrix s (row stride ld), rounded to bf16, into dst (row stride dld):
@@ -1186,35 +914,65 @@ __device__ __forceinline__ void a_of(Tc<bf16>::A& f, const float (&s)[2][4]) {
   f.r[3] = pack_bf16(s[1][2], s[1][3]);
 }
 
-// K4's attention backward: dq, dk, dv of each window and head from one
-// computation of p and dp, every backward product on bf16 operands (the JAX
-// kernel rounds them to bf16 whatever the input type). One block per
-// (head, group of windows), a warp per strip of 16 keys. The block holds
-// the window's q and k in T (the logits, 3xTF32 in f32, as the forward
-// computes them), v and dO in bf16, the softmax's row statistics. Per tile
-// of 16 queries each warp computes its keys' logits, p, dp and their row
-// sums over its keys; the warps' sums are added in warp order (D); then ds
-// = p (dp - D), dv += rd(p)^T dO and dk += rd(ds)^T rd(q) from registers,
-// and rd(ds) goes to a shared [16, np] tile, from which the warps compute
-// the tile's dq over all keys, 16 columns each (warp w columns 16 w, 16 (w
-// + nw), ...). dk and dv
+// The TF32 A fragments (m16 x k8, hi and lo) of the two n8 accumulator tiles
+// s[0], s[1] of the same 16 rows, one a k8 step: lane (g, t) takes columns
+// t and t + 4 of rows g and g + 8, which lanes (g, t / 2) and (g, t / 2 + 2)
+// hold.
+__device__ __forceinline__ void a_of_tf32(Tc<float>::A (&f)[2], const float (&s)[2][4],
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3, src = g * 4 + (t >> 1), odd = t & 1;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // e: (row g, col t), (row g + 8, col t), (row g, col t + 4), (row g + 8, col t + 4)
+      const int from = src + (e >> 1) * 2, hi = e & 1;
+      const float a0 = __shfl_sync(0xffffffffu, s[j][2 * hi], from);
+      const float a1 = __shfl_sync(0xffffffffu, s[j][2 * hi + 1], from);
+      v[e] = odd ? a1 : a0;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) Tc<float>::split(v[e], f[j].hi[e], f[j].lo[e]);
+  }
+}
+
+// The attention backward of K2 and K4: dq, dk, dv of each window and head
+// from one computation of p and dp. P is the type of the backward
+// products' operands: bf16 for K4 whatever T is (the JAX attention kernel
+// rounds them to bf16), T for K2 (as the block kernel rounds them to T);
+// bf16 products run as m16n8k16, f32 ones as 3xTF32, each 16-deep stage
+// summed from zero and added to its f32 sum to nearest. dS takes the f32 p
+// in K4 (as pallas_window_attention.py) and p rounded to T in K2 (as
+// pallas_swin_block.py). One block per (head, group of windows), a warp per
+// strip of 16 keys. The block holds the window's k (T: the logits, 3xTF32
+// in f32, as the forward computes them) and v (P) whole, the softmax's row
+// statistics, and streams the 16-query tiles of q (T) and dO (P) through a
+// double buffer, the next tile in flight under this one. Per tile each warp
+// computes its keys' logits, p, dp and their row sums over its keys; the
+// warps' sums are added in warp order (D); then ds = p (dp - D), dv +=
+// rd(p)^T dO and dk += rd(ds)^T rd(q) from registers, and rd(ds) goes to a
+// shared [16, np] tile, from which the warps compute the tile's dq over all
+// keys, 16 columns each (warp w columns 16 w, 16 (w + nw), ...). dk and dv
 // stay in registers until the window is done. The rel-pos gradient sums
 // the group's windows in a partial private to the block, the bias gradient
 // of qkv the stores of dq, dk and dv. No float atomics.
-template <typename T>
+template <typename T, bool kK2>
 __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
+  using P = std::conditional_t<kK2, T, bf16>;
+  constexpr bool kPf = sizeof(P) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nw = blockDim.x >> 5;
-  const int LDQ = Att<T>::ldh(a.hdp), LDB = a.hdp + 8, LDS = a.np + 8;
+  const int LDQ = Att<T>::ldh(a.hdp), LDV = Att<P>::ldh(a.hdp), LDS = a.np + Att<P>::kPad;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
   const int li = lane & 7, mi = lane >> 3;
   const int h = blockIdx.x % a.heads, gi = blockIdx.x / a.heads;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + a.np * LDQ;
-  bf16* Vs = reinterpret_cast<bf16*>(Ks + a.np * LDQ);
-  bf16* Os = Vs + a.np * LDB;
-  bf16* Sd = Os + a.np * LDB;        // rd(ds) of a query tile, [16][LDS]
-  float* red = reinterpret_cast<float*>(Sd);   // at a window's end: [2][nw][hdp]
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Qb = Ks + a.np * LDQ;                       // [2][16][LDQ]: query tiles of q
+  P* Vs = reinterpret_cast<P*>(Qb + 2 * 16 * LDQ);
+  P* Ob = Vs + a.np * LDV;                       // [2][16][LDV]: query tiles of dO
+  P* Sd = Ob + 2 * 16 * LDV;                     // rd(ds) of a query tile, [16][LDS]
+  float* red = reinterpret_cast<float*>(Sd);     // at a window's end: [2][nw][hdp]
   float* redD = reinterpret_cast<float*>(Sd + 16 * LDS);   // [nw][16]
   float* mxs = redD + 16 * nw;
   float* sms = mxs + a.np;
@@ -1225,7 +983,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
   const long long C3 = 3LL * a.C;
   const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
   const Src src = {a.qkv, C3, 0, a.vec};
-  const Src dsrc = {a.dout, a.C, 0, (a.hd * 2) % 16 == 0};
+  const Src dsrc = {a.dout, a.C, 0, (a.hd * (int)sizeof(P)) % 16 == 0};
   const long long nn = (long long)a.n * a.n;
   float* part = a.drel + ((long long)gi * a.heads + h) * nn;
   const int k0r = warp * 16;
@@ -1234,19 +992,24 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
     const bool first = w == gi;
     const long long z = w * a.heads + h, row0 = w * a.n, rend = row0 + a.n;
     const Bias bias(a, w, h);
+    // query tile q0's q and dO into buffer (q0 / 16) % 2
+    auto stage_queries = [&](int q0) {
+      const int b = (q0 / 16) & 1;
+      stage_tile<T>(Qb + b * 16 * LDQ, LDQ, 16, a.hdp, src, row0 + q0, cq, rend, cq + a.hd, -1,
+                    none, tid, blockDim.x);
+      stage_tile<P>(Ob + b * 16 * LDV, LDV, 16, a.hdp, dsrc, row0 + q0, cq, rend, cq + a.hd, -1,
+                    none, tid, blockDim.x);
+    };
     __syncthreads();
-    stage_tile<T>(Qs, LDQ, a.np, a.hdp, src, row0, cq, rend, cq + a.hd, -1, none, tid,
-                  blockDim.x);
     stage_tile<T>(Ks, LDQ, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid,
                   blockDim.x);
-    if constexpr (sizeof(T) == 2)
-      stage_tile<bf16>(Vs, LDB, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid,
-                       blockDim.x);
+    if constexpr (sizeof(P) == sizeof(T))
+      stage_tile<P>(Vs, LDV, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid,
+                    blockDim.x);
     else
-      stage_bf16_of(Vs, LDB, a.np, a.hdp, static_cast<const float*>(a.qkv), C3, row0, cv, rend,
+      stage_bf16_of(Vs, LDV, a.np, a.hdp, static_cast<const float*>(a.qkv), C3, row0, cv, rend,
                     cv + a.hd, tid, blockDim.x);
-    stage_tile<bf16>(Os, LDB, a.np, a.hdp, dsrc, row0, cq, rend, cq + a.hd, -1, none, tid,
-                     blockDim.x);
+    stage_queries(0);
     for (int i = tid; i < a.np; i += blockDim.x) {
       const bool ok = i < a.n;
       mxs[i] = ok ? a.stats[(z * a.n + i) * 2] : 0.0f;
@@ -1259,6 +1022,12 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
     zero_strip(dk);
     zero_strip(dv);
     for (int q0 = 0; q0 < a.np; q0 += 16) {
+      // the next tile's q and dO in flight under this one (its buffer was
+      // last read before the previous tile's second barrier)
+      if (q0 + 16 < a.np) stage_queries(q0 + 16);
+      cp_async_commit();
+      const T* Qt = Qb + ((q0 / 16) & 1) * 16 * LDQ;
+      const P* Ot = Ob + ((q0 / 16) & 1) * 16 * LDV;
       // s^T and dp^T: this warp's 16 keys x the tile's 16 queries
       float s[2][4], dpt[2][4];
 #pragma unroll
@@ -1266,7 +1035,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dpt[j][e] = 0.0f;
       {
-        const View<T, true> vk = {Ks + k0r * LDQ, LDQ}, vq = {Qs + q0 * LDQ, LDQ};
+        const View<T, true> vk = {Ks + k0r * LDQ, LDQ}, vq = {Qt, LDQ};
         for (int k0 = 0; k0 < a.hdp; k0 += Tc<T>::kK) {
           typename Tc<T>::A fa;
           Tc<T>::load_a(fa, vk, 0, k0, lane);
@@ -1277,27 +1046,29 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
             Tc<T>::step(s[j], fa, fb);
           }
         }
-        const View<bf16, true> vv = {Vs + k0r * LDB, LDB}, vo = {Os + q0 * LDB, LDB};
-        for (int k0 = 0; k0 < a.hdp; k0 += 16) {
-          Tc<bf16>::A fa;
-          Tc<bf16>::load_a(fa, vv, 0, k0, lane);
+        const View<P, true> vv = {Vs + k0r * LDV, LDV}, vo = {Ot, LDV};
+        for (int k0 = 0; k0 < a.hdp; k0 += Tc<P>::kK) {
+          typename Tc<P>::A fa;
+          Tc<P>::load_a(fa, vv, 0, k0, lane);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            Tc<bf16>::B fb;
-            Tc<bf16>::load_b(fb, vo, k0, j * 8, lane);
-            Tc<bf16>::mma(dpt[j], fa, fb);
+            typename Tc<P>::B fb;
+            Tc<P>::load_b(fb, vo, k0, j * 8, lane);
+            Tc<P>::step(dpt[j], fa, fb);
           }
         }
       }
-      // p (0 beyond the window), and the sums over this warp's keys of p dp
+      // p (0 beyond the window; K2: rounded to T), and the sums over this
+      // warp's keys of p dp
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0r + gq + (e >> 1) * 8, qi = q0 + j * 8 + 2 * tq + (e & 1);
-          s[j][e] = (kj < a.n && qi < a.n)
-                        ? expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi]
-                        : 0.0f;
+          const float p = (kj < a.n && qi < a.n)
+                              ? expf(bias.logit(s[j][e], a.scale, qi, kj) - mxs[qi]) / sms[qi]
+                              : 0.0f;
+          s[j][e] = kK2 ? rnd_t<P>(p) : p;
         }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -1333,25 +1104,53 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
           const int kl = gq + (e >> 1) * 8, ql = j * 8 + 2 * tq + (e & 1);
           const int kj = k0r + kl, qi = q0 + ql;
           if (kj < a.n && qi < a.n) part[(long long)qi * a.n + kj] = prev[j][e] + ds[j][e];
-          Sd[ql * LDS + kj] = __float2bfloat16(ds[j][e]);
+          Sd[ql * LDS + kj] = from_f<P>(ds[j][e]);
         }
       // dv += rd(p)^T dO, dk += rd(ds)^T rd(q)
-      Tc<bf16>::A pa, sa;
-      a_of(pa, s);
-      a_of(sa, ds);
+      if constexpr (kPf) {
+        // 3xTF32: the tile's two k8 steps summed from zero, then added to
+        // nearest
+        Tc<float>::A pa[2], sa[2];
+        a_of_tf32(pa, s, lane);
+        a_of_tf32(sa, ds, lane);
+        const View<float, false> vo = {Ot, LDV}, vq = {Qt, LDQ};
 #pragma unroll
-      for (int n0 = 0; n0 < 64; n0 += 16) {
-        if (n0 >= a.hdp) break;
-        uint32_t fb[4];
-        b_kn<bf16>(fb, Os + q0 * LDB, LDB, n0, lane);
-        Tc<bf16>::mma(dv[n0 / 8], pa, Tc<bf16>::B{{fb[0], fb[1]}});
-        Tc<bf16>::mma(dv[n0 / 8 + 1], pa, Tc<bf16>::B{{fb[2], fb[3]}});
-        b_kn<T>(fb, Qs + q0 * LDQ, LDQ, n0, lane);
-        Tc<bf16>::mma(dk[n0 / 8], sa, Tc<bf16>::B{{fb[0], fb[1]}});
-        Tc<bf16>::mma(dk[n0 / 8 + 1], sa, Tc<bf16>::B{{fb[2], fb[3]}});
+        for (int j = 0; j < 8; ++j) {
+          if (j * 8 >= a.hdp) break;
+          float tv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, tk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            Tc<float>::B fb;
+            Tc<float>::load_b(fb, vo, kk * 8, j * 8, lane);
+            Tc<float>::mma(tv, pa[kk], fb);
+            Tc<float>::load_b(fb, vq, kk * 8, j * 8, lane);
+            Tc<float>::mma(tk, sa[kk], fb);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv[j][e] += tv[e];
+            dk[j][e] += tk[e];
+          }
+        }
+      } else {
+        Tc<bf16>::A pa, sa;
+        a_of(pa, s);
+        a_of(sa, ds);
+#pragma unroll
+        for (int n0 = 0; n0 < 64; n0 += 16) {
+          if (n0 >= a.hdp) break;
+          uint32_t fb[4];
+          b_kn<bf16>(fb, Ot, LDV, n0, lane);
+          Tc<bf16>::mma(dv[n0 / 8], pa, Tc<bf16>::B{{fb[0], fb[1]}});
+          Tc<bf16>::mma(dv[n0 / 8 + 1], pa, Tc<bf16>::B{{fb[2], fb[3]}});
+          b_kn<T>(fb, Qt, LDQ, n0, lane);
+          Tc<bf16>::mma(dk[n0 / 8], sa, Tc<bf16>::B{{fb[0], fb[1]}});
+          Tc<bf16>::mma(dk[n0 / 8 + 1], sa, Tc<bf16>::B{{fb[2], fb[3]}});
+        }
       }
+      cp_async_wait<0>();
       __syncthreads();
-      // dq of the tile = rd(ds) rd(k) * scale, rounded to bf16; its column
+      // dq of the tile = rd(ds) rd(k) * scale, rounded to P; its column
       // sums (each column's by one warp, tile after tile)
       for (int n0 = warp * 16; n0 < a.hdp; n0 += nw * 16) {
         float dq[2][4];
@@ -1360,12 +1159,33 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
         for (int k0 = 0; k0 < a.np; k0 += 16) {
-          Tc<bf16>::A fa;
-          ldsm_x4<false>(fa.r, Sd + ((mi & 1) * 8 + li) * LDS + k0 + (mi >> 1) * 8);
-          uint32_t fb[4];
-          b_kn<T>(fb, Ks + k0 * LDQ, LDQ, n0, lane);
-          Tc<bf16>::mma(dq[0], fa, Tc<bf16>::B{{fb[0], fb[1]}});
-          Tc<bf16>::mma(dq[1], fa, Tc<bf16>::B{{fb[2], fb[3]}});
+          if constexpr (kPf) {
+            const View<float, true> vs = {Sd, LDS};
+            const View<float, false> vk = {Ks, LDQ};
+            float t[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+            for (int kk = 0; kk < 16; kk += 8) {
+              Tc<float>::A fa;
+              Tc<float>::load_a(fa, vs, 0, k0 + kk, lane);
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                Tc<float>::B fb;
+                Tc<float>::load_b(fb, vk, k0 + kk, n0 + j * 8, lane);
+                Tc<float>::mma(t[j], fa, fb);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dq[j][e] += t[j][e];
+          } else {
+            Tc<bf16>::A fa;
+            ldsm_x4<false>(fa.r, Sd + ((mi & 1) * 8 + li) * LDS + k0 + (mi >> 1) * 8);
+            uint32_t fb[4];
+            b_kn<T>(fb, Ks + k0 * LDQ, LDQ, n0, lane);
+            Tc<bf16>::mma(dq[0], fa, Tc<bf16>::B{{fb[0], fb[1]}});
+            Tc<bf16>::mma(dq[1], fa, Tc<bf16>::B{{fb[2], fb[3]}});
+          }
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -1377,7 +1197,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
             for (int hr = 0; hr < 2; ++hr) {
               const int qi = q0 + gq + hr * 8;
               if (qi < a.n && d < a.hd) {
-                const float v = round_bf16(dq[j][hr * 2 + c] * a.scale);
+                const float v = rnd_t<P>(dq[j][hr * 2 + c] * a.scale);
                 static_cast<T*>(a.out)[(row0 + qi) * C3 + cq + d] = from_f<T>(v);
                 sq += v;
               }
@@ -1387,8 +1207,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
           }
       }
     }
-    // dk and dv of this warp's keys, rounded to bf16; their column sums
-    // over the warps, in warp order
+    // dk and dv of this warp's keys, rounded to P; their column sums over
+    // the warps, in warp order
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1400,8 +1220,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
         for (int hr = 0; hr < 2; ++hr) {
           const int kj = k0r + gq + hr * 8, d = j * 8 + 2 * tq + c;
           if (kj < a.n && d < a.hd) {
-            const float vk = round_bf16(dk[j][hr * 2 + c] * a.scale);
-            const float vv = round_bf16(dv[j][hr * 2 + c]);
+            const float vk = rnd_t<P>(dk[j][hr * 2 + c] * a.scale);
+            const float vv = rnd_t<P>(dv[j][hr * 2 + c]);
             T* o = static_cast<T*>(a.out) + (row0 + kj) * C3;
             o[ck + d] = from_f<T>(vk);
             o[cv + d] = from_f<T>(vv);
@@ -1629,29 +1449,16 @@ struct Carver {
 
 enum Kind { kBlockFwd = 0, kBlockBwd = 1, kAttnFwd = 2, kAttnBwd = 3 };
 
-// blocks of a window and head in the attention (64 rows each)
+// blocks of a window and head in the forward attention (64 rows each)
 int strip_groups(const Dims& d) { return (d.np + kChunk - 1) / kChunk; }
 
-// groups of windows a head in K2's attention backward: about two blocks
-// an SM in all
-int attn_groups(const Dims& d) {
-  const long long per = (long long)d.heads * strip_groups(d);
-  const long long g = std::max(1LL, (2 * 132 + per - 1) / per);
-  return (int)std::min(d.BW, g);
-}
-
-// groups of windows a head in K4's attention backward (a block each, a
+// groups of windows a head in the attention backward (a block each, a
 // warp per 16 keys): about 16 warps an SM in all
 int bwd_groups(const Dims& d) {
   const long long per = (long long)d.heads * (d.np / 16);
   const long long g = std::max(1LL, (16 * 132 + per - 1) / per);
   return (int)std::min(d.BW, g);
 }
-
-// groups of windows of the attention backward of `kind`, and the blocks of
-// a window and head among which its qkv-bias partials are split
-int groups_of(int kind, const Dims& d) { return kind == kAttnBwd ? bwd_groups(d) : attn_groups(d); }
-int bias_splits(int kind, const Dims& d) { return kind == kAttnBwd ? 1 : strip_groups(d); }
 
 // rows a block of the LayerNorm backward: 8 to 32, about four blocks an SM
 int ln_rows(const Dims& d) {
@@ -1706,7 +1513,7 @@ AtbPlan atb_plan(int kind, const Dims& d) {
 // The intermediates of one launch, carved from its scratch.
 struct Buffers {
   void *qkv, *merged, *r1, *g1, *h1, *h2, *dz2, *dz1, *datt, *dmerged, *dqkv;   // T
-  float *stats1, *stats2, *astats, *dsum, *z1, *dh, *dr1;
+  float *stats1, *stats2, *astats, *z1, *dh, *dr1;
   float *p_atb, *p_db1, *p_ln2, *p_ln1, *p_drel, *p_dbqkv;
 };
 
@@ -1722,15 +1529,14 @@ void layout(int kind, const Dims& d, int bf, Carver& cv, Buffers& b) {
     b.g1 = cv.take(M * hid * es);
   }
   if (!bwd) return;
-  const int G = groups_of(kind, d);
+  const int G = bwd_groups(d);
   b.astats = cv.f32(2 * d.Z * d.n);
-  b.dmerged = cv.take(M * C * es);   // K4: bf16
+  b.dmerged = cv.take(M * C * es);   // in the backward products' type (K4: bf16)
   b.dqkv = cv.take(3 * M * C * es);
   b.p_atb = cv.f32(atb_plan(kind, d).floats);
   b.p_drel = cv.f32((long long)G * d.heads * d.n * d.n);
-  b.p_dbqkv = cv.f32((long long)G * bias_splits(kind, d) * 3 * C);
+  b.p_dbqkv = cv.f32((long long)G * 3 * C);
   if (kind != kBlockBwd) return;
-  b.dsum = cv.f32(d.Z * d.n);
   const long long nrb = row_blocks(d);
   b.h1 = cv.take(M * C * es);
   b.h2 = cv.take(M * C * es);
@@ -1864,22 +1670,24 @@ void add_atb_entries(ReduceArgs& r, const AtbPlan& plan, const float* partial, f
   }
 }
 
+// attn_fwd_kernel<T>: k and v whole, and per warp its queries and p tile
 template <typename T>
-size_t attn_smem(int which, const Dims& d) {
-  const size_t ldh = Att<T>::ldh(d.hdp), ldp = Att<T>::ldp(), es = sizeof(T);
-  const size_t whole = 2 * (size_t)d.np * ldh;
-  if (which == 0) return (whole + 4 * 16 * (ldh + ldp)) * es;
-  if (which == 1) return (whole + 4 * 16 * (2 * ldh + ldp)) * es;
-  return (whole + 4 * 16 * (2 * ldh + 2 * ldp)) * es + 3 * (size_t)d.np * 4;
+size_t attn_smem(const Dims& d) {
+  const size_t ldh = Att<T>::ldh(d.hdp), ldp = Att<T>::ldp();
+  return (2 * (size_t)d.np * ldh + 4 * 16 * (ldh + ldp)) * sizeof(T);
 }
 
-// attn_bwd_kernel<T>: q, k in T; v, dO and the ds tile in bf16; the warps'
-// row sums, the row statistics and the column sums in f32 (at most 225,536
-// bytes: np 256, hdp 64, f32)
-template <typename T>
+// attn_bwd_kernel<T, kK2>: k whole and two query tiles of q in T; v whole,
+// two query tiles of dO and the ds tile in the products' type P; the warps'
+// row sums, the row statistics and the column sums in f32 (at most 177,152
+// bytes: np 256, hdp 64, K2 in f32)
+template <typename T, bool kK2>
 size_t bwd_smem(const Dims& d) {
-  const size_t ldq = Att<T>::ldh(d.hdp), ldb = d.hdp + 8, lds = d.np + 8, nw = d.np / 16;
-  return 2 * (size_t)d.np * ldq * sizeof(T) + 2 * (size_t)d.np * ldb * 2 + 16 * lds * 2 +
+  using P = std::conditional_t<kK2, T, bf16>;
+  const size_t ldq = Att<T>::ldh(d.hdp), ldv = Att<P>::ldh(d.hdp);
+  const size_t lds = d.np + Att<P>::kPad, nw = d.np / 16;
+  return ((size_t)d.np + 32) * ldq * sizeof(T) +
+         (((size_t)d.np + 32) * ldv + 16 * lds) * sizeof(P) +
          (16 * nw + 2 * (size_t)d.np + 3 * (size_t)d.hdp) * 4;
 }
 
@@ -1891,7 +1699,7 @@ AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float
   a.mask = mask;
   a.n_mask = d.nW;
   a.BW = d.BW;
-  a.groups = attn_groups(d);
+  a.groups = bwd_groups(d);
   a.sgroups = strip_groups(d);
   a.n = d.n;
   a.np = d.np;
@@ -1923,45 +1731,27 @@ cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, cons
   a.stats = stats;
   const long long blocks = d.Z * a.sgroups;
   if (d.np <= kChunk)   // one chunk: the logits of 64 keys in registers
-    return launch_attn<T>(attn_fwd_kernel<T, 1>, blocks, attn_smem<T>(0, d), a, st);
-  return launch_attn<T>(attn_fwd_kernel<T, kMaxN / kChunk>, blocks, attn_smem<T>(0, d), a, st);
+    return launch_attn<T>(attn_fwd_kernel<T, 1>, blocks, attn_smem<T>(d), a, st);
+  return launch_attn<T>(attn_fwd_kernel<T, kMaxN / kChunk>, blocks, attn_smem<T>(d), a, st);
 }
 
-// K2: dqkv (rounded to T) from dout, with the rel-pos and qkv-bias partials
-template <typename T>
+// dqkv from dout, with the rel-pos and qkv-bias partials, in one launch:
+// K2 (kK2) with its products' operands rounded to T, K4 to bf16
+template <typename T, bool kK2>
 cudaError_t attention_bwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
                           const Buffers& b, cudaStream_t st) {
   AttnArgs a = attn_args<T>(d, qkv, rel, mask);
   a.dout = b.dmerged;
   a.out = b.dqkv;
   a.stats = b.astats;
-  a.dsum = b.dsum;
   a.drel = b.p_drel;
   a.dbias = b.p_dbqkv;
-  const long long blocks = (long long)a.groups * d.heads * a.sgroups;
-  TRY(launch_attn<T>(attn_bwd_q_kernel<T>, blocks, attn_smem<T>(1, d), a, st));
-  return launch_attn<T>(attn_bwd_kv_kernel<T>, blocks, attn_smem<T>(2, d), a, st);
-}
-
-// K4: dqkv (rounded to bf16) from dout (bf16), with the rel-pos and
-// qkv-bias partials, in one launch
-template <typename T>
-cudaError_t attention_bwd_k4(const Dims& d, const void* qkv, const float* rel,
-                             const float* mask, const Buffers& b, cudaStream_t st) {
-  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
-  a.dout = b.dmerged;
-  a.out = b.dqkv;
-  a.stats = b.astats;
-  a.drel = b.p_drel;
-  a.dbias = b.p_dbqkv;
-  a.groups = bwd_groups(d);
-  a.sgroups = 1;
-  const size_t smem = bwd_smem<T>(d);
-  if (smem > 232448) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem<T, kK2>(d);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = attn_bwd_kernel<T, kK2>;
   if (smem > 48 * 1024)
-    TRY(cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem));
-  attn_bwd_kernel<T><<<(unsigned)((long long)a.groups * d.heads), 32 * (d.np / 16), smem, st>>>(a);
+    TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kernel<<<(unsigned)((long long)a.groups * d.heads), 32 * (d.np / 16), smem, st>>>(a);
   ++g_launches;
   return cudaGetLastError();
 }
@@ -2096,7 +1886,7 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   g.b = src_of<T>(w.wproj, C);
   g.c = {b.dmerged, C, bf, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
-  TRY(attention_bwd<T>(d, b.qkv, w.rel, w.mask, b, st));
+  TRY((attention_bwd<T, true>(d, b.qkv, w.rel, w.mask, b, st)));
   // dh1 = dqkv @ wqkv^T; dx = dr1 + LN1's backward
   g = gemm_args(d, M, C, 3 * C);
   g.a = src_of<T>(b.dqkv, 3 * C);
@@ -2142,8 +1932,8 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   add_entry(r, b.p_ln1, C, nrb, C, gr.dln1s);
   add_entry(r, b.p_ln1 + nc, C, nrb, C, gr.dln1b);
   const long long hnn = (long long)d.heads * d.n * d.n;
-  add_entry(r, b.p_drel, hnn, attn_groups(d), hnn, gr.drel);
-  add_entry(r, b.p_dbqkv, 3LL * C, attn_groups(d) * strip_groups(d), 3LL * C, gr.dbqkv);
+  add_entry(r, b.p_drel, hnn, bwd_groups(d), hnn, gr.drel);
+  add_entry(r, b.p_dbqkv, 3LL * C, bwd_groups(d), 3LL * C, gr.dbqkv);
   return launch_reduce(r, st);
 }
 
@@ -2196,7 +1986,7 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
   g.b = src_of<T>(wproj, C);
   g.c = {b.dmerged, C, 1, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
-  TRY(attention_bwd_k4<T>(d, b.qkv, rel, mask, b, st));
+  TRY((attention_bwd<T, false>(d, b.qkv, rel, mask, b, st)));
   // dx = dqkv @ rd(wqkv)^T, at the grid rows
   g = gemm_args(d, M, C, 3 * C);
   g.rb = !bf;
@@ -2223,7 +2013,7 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
 
 extern "C" {
 
-// Kernels this library has launched since it was loaded (K1 5 a call, K2 14,
+// Kernels this library has launched since it was loaded (K1 5 a call, K2 13,
 // K3 3, K4 7).
 long long window_any_launches(void) { return g_launches; }
 

@@ -25,7 +25,7 @@ element type and the widths alone, before any launch:
   bf16, and f32 as three TF32 passes) for every other shape the TPU kernels
   take, in f32 or bf16, up to 256 tokens a window, head_dim 64, C 1024 and
   an MLP width of 4096: five launches a forward (the products with their
-  LayerNorm prologues and epilogues, a fused window attention), 14 a
+  LayerNorm prologues and epilogues, a fused window attention), 13 a
   backward (:func:`window_any_launches` counts them).
 
 The wrappers hand the kernels their scratch (the weights packed into tiles,
@@ -129,6 +129,28 @@ GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "drel", "dln1s", "dln1b",
               "dln2s", "dln2b", "dw1", "db1", "dw2", "db2")
 
 
+def attention_backward_stage(q, k, v, p, do, scale: float,
+                             rd: torch.dtype):
+    """The attention stage of :func:`swin_block_backward_reference`, as
+    ``_bwd_kernel`` computes it: from q, k, v ``[BW, heads, n, hd]`` (in
+    the forward's type), the f32 softmax p and dO (rounded to ``rd``),
+    ``(dq, dk, dv, drel)`` in f32 with every product on operands rounded to
+    ``rd`` and dS taken from p rounded to ``rd``; drel sums dS over the
+    windows."""
+    def rnd(t):
+        return t.to(rd).to(torch.float32)
+
+    pb = rnd(p)
+    dpr = do @ rnd(v).transpose(-1, -2)
+    dv = pb.transpose(-1, -2) @ do
+    ds = pb * (dpr - (dpr * pb).sum(-1, keepdim=True))
+    drel = ds.sum(0)
+    dsb = rnd(ds)
+    dq = (dsb @ rnd(k)) * scale
+    dk = (dsb.transpose(-1, -2) @ rnd(q)) * scale
+    return dq, dk, dv, drel
+
+
 def swin_block_backward_reference(
         x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s, ln2b, w1,
         b1, w2, b2, mask, drop_path, dy, *, window_size: int, num_heads: int,
@@ -200,7 +222,6 @@ def swin_block_backward_reference(
              + mask.to(f32)[None, :, None]).reshape(-1, heads, n, n)
     p = torch.softmax(s, dim=-1)
     outs = rnd(p, dt) @ v
-    pb = rnd(p, rd)
     merged = rnd(outs.transpose(1, 2).reshape(-1, n, c), dt)
     att = merged @ wproj_f + bproj.to(f32)
     r1 = rnd(xw + dp1 * att, dt)
@@ -231,13 +252,7 @@ def swin_block_backward_reference(
     dmerged = dattb @ rnd(wproj_f, rd).t()
 
     do = heads_of(rnd(dmerged, rd))
-    dpr = do @ rnd(v, rd).transpose(-1, -2)
-    dv = pb.transpose(-1, -2) @ do
-    ds = pb * (dpr - (dpr * pb).sum(-1, keepdim=True))
-    drel = ds.sum(0)
-    dsb = rnd(ds, rd)
-    dq = (dsb @ rnd(k, rd)) * scale
-    dk = (dsb.transpose(-1, -2) @ rnd(q, rd)) * scale
+    dq, dk, dv, drel = attention_backward_stage(q, k, v, p, do, scale, rd)
     dqkv = rnd(torch.cat([t.transpose(1, 2).reshape(-1, n, c)
                           for t in (dq, dk, dv)], dim=-1), rd)
 
@@ -505,7 +520,7 @@ def window_any_lib():
 
 def window_any_launches() -> int:
     """Kernels the general route's library has launched since it was
-    loaded: 5 a K1 call, 14 a K2 call, 3 a K3 call, 7 a K4 call."""
+    loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call."""
     return int(window_any_lib().window_any_launches())
 
 

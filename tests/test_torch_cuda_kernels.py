@@ -23,7 +23,7 @@ from strajnet_tpu_torch.ops.windows import shifted_window_mask
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import (ANY_K4_F32_MAX_ABS_REL,  # noqa: E402
+from chip_smoke import (ANY_EDGES, ANY_K4_F32_MAX_ABS_REL,  # noqa: E402
                         ANY_K4_F32_ONE_MINUS_COS)
 
 pytestmark = pytest.mark.cuda
@@ -437,6 +437,48 @@ def test_general_route_matches_plain(card, b, h, c, heads, ws, hidden, shift,
                     <= ANY_K4_F32_ONE_MINUS_COS, (k, i)
     assert torch.equal(got["k2"][0], again[0])
     assert all(torch.equal(a, b) for a, b in zip(got["k2"][1], again[1]))
+
+
+@pytest.mark.parametrize("b,h,c,heads,ws,hidden,shift,dtn,what", ANY_EDGES)
+def test_general_route_at_its_edges(card, b, h, c, heads, ws, hidden, shift,
+                                    dtn, what):
+    """``chip_smoke.ANY_EDGES``: K3 at its largest widths and in f32 at 256
+    tokens (three launches a call), and K2 in f32 at head_dim 64 and 256
+    tokens (one attention-backward kernel that streams its query tiles),
+    each twice (bit-identical) against its plain version under the general
+    route's limits."""
+    dtype = getattr(torch, dtn)
+    f32 = dtype == torch.float32
+    args, mask, dp, dy = _general_case(card, b, h, c, heads, ws, hidden,
+                                       shift, dtype)
+    kw = dict(window_size=ws, num_heads=heads)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            if what.startswith("k3"):
+                before = sb.window_any_launches()
+                got = wa.window_attention(*args[:6], mask, **kw)
+                assert sb.window_any_launches() - before == 3
+                again = wa.window_attention(*args[:6], mask, **kw)
+                want = wa.window_attention_reference(*args[:6], mask, **kw)
+                tol = 1e-4 if f32 else 2.0 ** -5
+                pairs = [(got, want, again)]
+            else:
+                got = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
+                again = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
+                want = sb.swin_block_backward_reference(*args, mask, dp, dy,
+                                                        **kw)
+                tol = 1e-3 if f32 else 2.0 ** -6
+                pairs = list(zip((got[0],) + tuple(got[1]),
+                                 (want[0],) + tuple(want[1]),
+                                 (again[0],) + tuple(again[1])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for i, (a, w, a2) in enumerate(pairs):
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= tol * scale, i
+        assert torch.equal(a, a2), i
 
 
 @pytest.mark.parametrize("n,h,w,cin,cmid,dtype", [
