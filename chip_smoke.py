@@ -24,13 +24,15 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
 - the general route of K1-K4 (``csrc/window_any.cu``) at ULTRA_TINY's,
   TINY's, the Swin-B and the flagship's widths in f32 and bf16 and at
   windows of 49, 144 and 256 tokens (``ANY_GEOMETRIES``), each twice
-  against its plain version (the two runs bit-identical; K4 in f32 within
-  the limits of its bf16 operands, ``ANY_K4_F32_*``), with the library's
-  kernels a call counted (K1 at most 5, K2 at most 13, K3 at most 3, K4
-  at most 7) and timed beside it, the general K1-K4 broken down by kernel;
-  at the edges of the route (``ANY_EDGES``: K3 at its largest f32 and bf16
+  against its plain version (the two runs bit-identical; K2 and K4 in f32
+  within the limits of their bf16 operands, ``ANY_BF16_OPERANDS_*``), with
+  the library's kernels a call counted (K1 at most 5, K2 at most 13, K3 at
+  most 3, K4 at most 7) and timed beside it, the general K1-K4 broken down
+  by kernel (K3's products beside ``torch.addmm`` on the same shapes); at
+  the edges of the route (``ANY_EDGES``: K3 at its largest f32 and bf16
   widths and in f32 at 256 tokens, K2 in f32 at head_dim 64 and 256
-  tokens), twice against plain, untimed; and of
+  tokens), twice against plain, untimed; the forward attention's grid
+  (``attn_plan``) against its Python twin at all of these; and of
   K7 (``csrc/decoder_tail_any.cu``) at the model's tail widths in f32, at
   64 -> 32 channels in bf16, at the f32 flagship tail and at a ragged
   geometry (``ANY_TAILS``), twice, timed in rounds and broken down by
@@ -293,22 +295,23 @@ PHASES = ("kernels", "forward", "serve", "train", "eval", "loop", "variants",
           "ddp", "tp", "preprocess", "tools", "widths")
 # The general route of K1-K4 (csrc/window_any.cu) and K7
 # (csrc/decoder_tail_any.cu) against the plain versions. In f32, with TF32
-# off, the same f32 arithmetic summed in another order: forward within 1e-4
-# and gradients within 1e-3 of the largest entry of the plain result (K1, K2,
-# K3, K7). In bf16 the limits of the wgmma route: K1_*, K2_*, K3_*, K4_*, K7_*.
+# off, the same f32 arithmetic summed in another order: forwards within 1e-4
+# of the largest entry of the plain result (K1, K3, K7). In bf16 the limits
+# of the wgmma route: K1_*, K2_*, K3_*, K4_*, K7_*.
 ANY_F32_FWD_MAX_ABS_REL = 1e-4
-ANY_F32_GRAD_MAX_ABS_REL = 1e-3
-# K4 in f32 rounds every backward product's operands and results to bf16
-# (q, k, v, p, dO, ds, dqkv), as the JAX kernel and its plain oracle
-# (window_attention_backward_reference(operand_dtype=bf16)) do: an f32 sum
-# that differs in its last bit rounds to the neighbouring bf16 value, so the
-# oracle's own answer moves by bf16 steps when its f32 sums change order
-# (tests/test_torch_k4_f32_check.py: 1.8e-3 of max|ref| in dx at the
-# flagship's last width). Its limits are then those of bf16 operands, the
-# bf16 K4's: 2^-6 of the largest entry (8.9x that spread), and 1 - cos
-# within 1e-6 (49x the spread's 2.05e-8, 100x under the bf16 K4's).
-ANY_K4_F32_MAX_ABS_REL = 2.0 ** -6
-ANY_K4_F32_ONE_MINUS_COS = 1e-6
+# K2 and K4 in f32 round every backward product's operands and results to
+# bf16 (q, k, v, p, dO, ds, dqkv; K2 also dz2, dz1, datt, g1, h1, h2,
+# merged), as the JAX kernels and their plain oracles
+# (swin_block_backward_reference and window_attention_backward_reference
+# with operand_dtype=bf16) do: an f32 sum that differs in its last bit
+# rounds to the neighbouring bf16 value, so the oracle's own answer moves by
+# bf16 steps when its f32 sums change order (tests/test_torch_k4_f32_check.py:
+# 1.8e-3 of max|ref| in K4's dx at the flagship's last width). Their limits
+# are then those of bf16 operands, the bf16 K4's: 2^-6 of the largest entry
+# (8.9x that spread), and 1 - cos within 1e-6 (49x the spread's 2.05e-8,
+# 100x under the bf16 K4's).
+ANY_BF16_OPERANDS_MAX_ABS_REL = 2.0 ** -6
+ANY_BF16_OPERANDS_ONE_MINUS_COS = 1e-6
 # (B, H = W, C, heads, window, MLP width, shift, dtype): ULTRA_TINY's stage
 # 0 without and with the shift, TINY's widest stage at its C, the Swin-B
 # width, the flagship's last width in f32, windows of 256 tokens, and two
@@ -1138,15 +1141,16 @@ def fmt_spread(s: dict, digits: int = 4) -> str:
 
 def general_calls(args, mask, dp, dy, kw) -> dict:
     """{kernel: (general route, plain version)} of K1-K4 at these inputs;
-    K4's plain version rounds its operands to bf16, as K4 does."""
+    K2's and K4's plain versions round their operands to bf16, as both
+    kernels do."""
     attn = args[:6]
     attn_bwd = (*attn[:4], attn[5], mask, dy)
     return {
         "k1": (lambda: swin_block(*args, mask, dp, **kw),
                lambda: swin_block_reference(*args, mask, dp, **kw)),
         "k2": (lambda: swin_block_bwd(*args, mask, dp, dy, **kw),
-               lambda: swin_block_backward_reference(*args, mask, dp, dy,
-                                                     **kw)),
+               lambda: swin_block_backward_reference(
+                   *args, mask, dp, dy, operand_dtype=torch.bfloat16, **kw)),
         "k3": (lambda: wa.window_attention(*attn, mask, **kw),
                lambda: wa.window_attention_reference(*attn, mask, **kw)),
         "k4": (lambda: wa.window_attention_bwd(*attn_bwd, **kw),
@@ -1157,11 +1161,10 @@ def general_calls(args, mask, dp, dy, kw) -> dict:
 
 def general_limits(k: str, f32: bool):
     """(max |err| / max |ref|, 1 - cos or None) of the general K1-K4."""
-    if f32 and k == "k4":
-        return ANY_K4_F32_MAX_ABS_REL, ANY_K4_F32_ONE_MINUS_COS
+    if f32 and k in ("k2", "k4"):
+        return ANY_BF16_OPERANDS_MAX_ABS_REL, ANY_BF16_OPERANDS_ONE_MINUS_COS
     if f32:
-        return (ANY_F32_FWD_MAX_ABS_REL if k in ("k1", "k3")
-                else ANY_F32_GRAD_MAX_ABS_REL), None
+        return ANY_F32_FWD_MAX_ABS_REL, None
     return {"k1": (K1_MAX_ABS_REL, K1_ONE_MINUS_COS),
             "k2": (K2_MAX_ABS_REL, K2_ONE_MINUS_COS),
             "k3": (K3_MAX_ABS_REL, K3_ONE_MINUS_COS),
@@ -1253,7 +1256,7 @@ def general_geometry(geo, g, names=("k1", "k2", "k3", "k4"), timed=True):
 def check_general_kernels(g: torch.Generator) -> dict:
     """The general route of K1-K4 at ANY_GEOMETRIES (``general_geometry``;
     K4 against a plain version with operands rounded to bf16, as it rounds
-    them; in f32 within ANY_K4_F32_*): the kernels of a call at most
+    them; in f32 within ANY_BF16_OPERANDS_*): the kernels of a call at most
     ANY_K1_MAX_KERNELS, ANY_K2_MAX_KERNELS, ANY_K3_MAX_KERNELS,
     ANY_K4_MAX_KERNELS, each timed beside its plain version (min / median / max printed per
     geometry, with f32's bound at the f32 SIMT rate beside the 3xTF32 one).
@@ -1284,6 +1287,7 @@ def check_general_kernels(g: torch.Generator) -> dict:
           + ", ".join(f"{k.upper()} {out[k]['kernels_per_call']}"
                       for k in names))
     check_general_edges(g)
+    check_attention_plans()
     for k in names:
         o = out[k]
         # the rate that sets the summed bound: the larger of the two sums
@@ -1307,6 +1311,23 @@ def check_general_edges(g: torch.Generator) -> None:
         print(f"  edge {what}: route {route}, {res[k]['per_call']} kernels "
               f"a call (at most {most})")
         check(res[k]["per_call"] <= most, f"{what}: kernels a call")
+
+
+def check_attention_plans() -> None:
+    """The grid of the general route's forward attention as the library
+    computes it (``attn_plan``) against its Python twin
+    (``ops/window_attention.py::attention_plan``) at every geometry of
+    ANY_GEOMETRIES and ANY_EDGES."""
+    plans = []
+    for geo in ANY_GEOMETRIES + ANY_EDGES:
+        b, h, c, heads, ws = geo[:5]
+        got = wa.attention_plan_of_kernel(b, h, h, c, heads, ws)
+        want = wa.attention_plan(ws * ws, heads, b * (h // ws) ** 2)
+        check(got == want, f"attention plan at [{b},{h},{h},{c}] heads "
+              f"{heads} ws {ws}: library {got}, Python {want}")
+        plans.append(f"[{b},{h},{h},{c}] ws {ws}: {got[0]} x {got[1]}")
+    print("general attention plans (strips a block x parts of the keys), "
+          "library = Python: " + "; ".join(plans))
 
 
 # (B, H = W, C, heads, window, MLP width, shift, dtype) where the general K1,
@@ -1339,10 +1360,30 @@ def device_us_by_kernel(fn, names, calls: int = 3) -> str:
         us.items(), key=lambda kv: -kv[1]))
 
 
+def addmm_us(args) -> float:
+    """Device us of ``torch.addmm`` on the general K3's two products at
+    these block arguments, in their type (TF32 off in f32): qkv = x @ wqkv
+    + bqkv and proj = merged @ wproj + bproj over all tokens (merged a
+    random stand-in of its shape). A yardstick for the kernels' product
+    stage, not a route of the port."""
+    x, wqkv, bqkv, wproj, bproj = args[:5]
+    x2 = x.reshape(-1, x.shape[-1])
+    merged = torch.randn_like(x2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            return 1e3 * kernel_ms(lambda: (torch.addmm(bqkv, x2, wqkv),
+                                            torch.addmm(bproj, merged, wproj)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def general_breakdown(g: torch.Generator) -> None:
     """Device time of the general K1, K2, K3 and K4 by kernel at
-    ANY_BREAKDOWN (K3 and K4 at ANY_BREAKDOWN_K4) and of the general K7 at
-    the f32 flagship tail: where a call's time goes."""
+    ANY_BREAKDOWN (K3 and K4 at ANY_BREAKDOWN_K4; K3 with the time of
+    ``torch.addmm`` on its two products beside, ``addmm_us``) and of the
+    general K7 at the f32 flagship tail: where a call's time goes."""
     for geo in ANY_BREAKDOWN_K4:
         b, h, c, heads, ws, hidden, shift, dtn = geo
         dt = getattr(torch, dtn)
@@ -1360,7 +1401,9 @@ def general_breakdown(g: torch.Generator) -> None:
                 continue
             print(f"general {k} [{b},{h},{h},{c}] ws {ws} {dtn}, device us "
                   f"a call by kernel: "
-                  + device_us_by_kernel(fn, WINDOW_ANY_KERNELS))
+                  + device_us_by_kernel(fn, WINDOW_ANY_KERNELS)
+                  + (f"; torch.addmm of its two products {addmm_us(args):.1f}"
+                     if k == "K3" else ""))
         del args, mask, dp, dy
     n, h, cin, cmid, dtn = ANY_TAILS[2]
     dt = getattr(torch, dtn)
@@ -1372,7 +1415,8 @@ def general_breakdown(g: torch.Generator) -> None:
     del args
 
 
-WINDOW_ANY_KERNELS = ("gemm_kernel", "atb_kernel", "attn_fwd_kernel",
+WINDOW_ANY_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "gemm_tf32x3_kernel",
+                      "atb_kernel", "attn_fwd_kernel",
                       "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel")
 DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
                             "decoder_tail_any_kernel")
@@ -1386,8 +1430,9 @@ def window_any_label(name: str, kernels=WINDOW_ANY_KERNELS) -> str:
     rest = name.split(base, 1)[1]
     kind = ("bf16" if "nv_bfloat16" in rest
             else "f32" if rest.startswith("If") else "")
-    flags = ",".join(re.findall(r"L[bi](\d+)E", rest))
-    return base + (f"<{kind}{',' + flags if flags else ''}>" if kind else "")
+    parts = [kind] if kind else []
+    parts += re.findall(r"L[bi](\d+)E", rest)
+    return base + (f"<{','.join(parts)}>" if parts else "")
 
 
 def tail_inputs(n, h, cin, cmid, dt, g):

@@ -18,68 +18,84 @@
 // depths (K = C = 128) each product tile's prologue and epilogue weigh as
 // much as its main loop.
 //
-// The kernels, every product on the tensor cores with mma.sync:
+// The kernels, every product on the tensor cores:
 //
-// - gemm_kernel: C = epilogue(A @ B) over the tokens, 64 x 64 block tiles,
-//   four warps of 32 x 32, the operands staged by cp.async (16-byte copies
-//   where the rows allow, element copies else, zero-filled edges) into a
-//   ring of three shared-memory stages; bf16 fragments by ldmatrix, f32
-//   ones split into TF32 halves as they are read. A LayerNorm prologue (the
-//   block computes its rows' mean and 1/std, two threads a row, under the
-//   first stages' loads; each stage of A
-//   is normalised and rounded to T in shared memory once it lands, by the
-//   threads that copied it; the statistics and, for the backward, the
-//   normalised rows are saved) or a drop-path row scale on A; epilogues
-//   bias, bias + tanh-gelu (keeping the pre-activation), the gelu gradient
-//   (with the column sums of its result), `res + dp[sample] * (acc + bias)`;
-//   the window-order <-> grid-order row map (Geom::grid_row) on any operand.
+// - gemm_kernel (mma.sync): C = epilogue(A @ B) over the tokens, 64 x 64
+//   block tiles, four warps of 32 x 32, the operands staged by cp.async
+//   (16-byte copies where the rows allow, element copies else, zero-filled
+//   edges) into a ring of three shared-memory stages; bf16 fragments by
+//   ldmatrix, f32 ones split into TF32 halves as they are read. A LayerNorm
+//   prologue (the block computes its rows' mean and 1/std, two threads a
+//   row, under the first stages' loads; each stage of A is normalised and
+//   rounded to T in shared memory once it lands, by the threads that copied
+//   it; the statistics and, for the backward, the normalised rows are
+//   saved) or a drop-path row scale on A; epilogues bias, bias + tanh-gelu
+//   (keeping the pre-activation), the gelu gradient (with the column sums
+//   of its result), `res + dp[sample] * (acc + bias)`; the window-order <->
+//   grid-order row map (Geom::grid_row) on any operand. The backward's
+//   products (RB in f32) read f32 operands rounded to bf16.
+// - gemm_sm90_kernel (wgmma, bf16) and gemm_tf32x3_kernel (wgmma, f32 as
+//   three TF32 passes, each landed stage split once into TF32 halves in
+//   shared memory): the plain products C = A @ B + bias of K3 and of K4's
+//   recomputed qkv, 128-row block tiles of two consumer warpgroups fed by a
+//   cp.async ring (see the kernels); qkv stored in window order, the
+//   projection at the grid rows.
 // - atb_kernel: the weight gradients, sum over tokens of a^T b, up to four
 //   in one launch, split over the tokens into per-split f32 partials; a row
 //   of ones under a^T gives the column sums of b (a bias gradient).
-// - attn_fwd_kernel: a block per (window, head, 64 queries): k and v of the
-//   window whole in shared memory, a warp per 16 queries, logits and p in
-//   registers (all of a strip's keys for windows over 64 tokens; passes
-//   for the row max, the row sum and p @ v), p rounded to T in a per-warp
-//   staging tile. p never reaches device memory; the row max and sum do (8
-//   bytes a row) for the backward. k and v are held whole, not streamed:
-//   174 KB of shared memory at n = 256, hd = 64 in f32.
+// - attn_fwd_kernel: a block per (window, head, 16-64 queries): k and v of
+//   the window whole in shared memory, a warp per strip of 16 queries and
+//   part of the keys (attn_plan: strips a block are traded for parts of the
+//   keys while the grid is under two waves), logits and p in registers
+//   (passes for the row max, the row sum and p @ v; with several parts
+//   their statistics and p @ v combined in part order through shared
+//   memory), p rounded to T in a per-warp staging tile. p never reaches
+//   device memory; the row max and sum do (8 bytes a row) for the backward.
+//   k and v are held whole, not streamed: 174 KB of shared memory at n =
+//   256, hd = 64 in f32. It reads qkv in window order (K1, K2) or gathers
+//   each window's rows from grid order (K3, K4).
 // - attn_bwd_kernel (K2 and K4): a block per (head, group of windows), a
 //   warp per 16 keys, k and v of the window whole in shared memory, the
 //   16-query tiles of q and dO streamed through a double buffer: p and dp
 //   computed once per window and head, dk and dv in registers, dq summed
-//   over the key strips through shared memory in a fixed order. Templated
-//   on the products' operand type (bf16 for K4, T for K2) and on the
-//   softmax dS takes (f32 p for K4, p rounded to T for K2). The rel-pos
-//   gradient sums the group's windows in a partial private to the block,
-//   the bias gradient of qkv the stores of dq, dk and dv.
+//   over the key strips through shared memory in a fixed order. Its
+//   products take bf16 operands; templated on the softmax dS takes (f32 p
+//   for K4, p rounded to bf16 for K2). The rel-pos gradient sums the
+//   group's windows in a partial private to the block, the bias gradient of
+//   qkv the stores of dq, dk and dv.
 // - ln_bwd_kernel (the LayerNorm backward of a block of rows, with the
 //   column sums of the LayerNorm parameters' and biases' gradients) and
 //   reduce_kernel (every per-split partial added in a fixed order, one
 //   launch).
 //
-// Why mma.sync and not wgmma: many operands pass through a per-element
-// step between shared memory and the tensor cores (the rounding to bf16 of
-// K4's f32 operands, the split of f32 into two TF32 halves), any M, N, K
-// and stride is taken, and the attention's tiles are 16 rows of one warp;
-// register fragments serve all of these, wgmma's descriptors none of them.
+// Why mma.sync for most products: their operands pass through a
+// per-element step between shared memory and the tensor cores that depends
+// on the row (the LayerNorm and the row scale) or is done per fragment (the
+// rounding to bf16 of the backward's f32 operands), A's rows may be
+// gathered by a row map, and the attention's tiles are 16 rows of one
+// warp; register fragments serve all of these. The plain products have
+// none of these steps and run on wgmma: bf16 as stored, f32 split into its
+// TF32 halves once a stage in shared memory, where wgmma reads them.
 //
 // f32 runs as 3xTF32 (mma_sync.cuh), each stage of a sum (the product
 // loop's 16-deep stage, an attention strip's k step) summed from zero and
 // added to the f32 total to nearest (the tensor cores round their sums
-// toward zero). K4 rounds every backward product's operands to bf16
-// whatever T is (as the JAX kernel does): in f32 these run
-// as bf16 m16n8k16 products, their f32 operands rounded as the fragments
-// are read, and the deep ones (dmerged, dx, the weight gradients) add each
-// stage's product to the f32 sum to nearest; only its recomputed forward
-// (qkv, q k^T, p v) runs in f32.
+// toward zero). K2 and K4 round every backward product's operands to bf16
+// whatever T is (as the JAX kernels do): in f32 these run as bf16 m16n8k16
+// products, their f32 operands rounded as the fragments are read, and the
+// deep ones (dz1's input, dmerged, dx, the weight gradients) add each
+// stage's product to the f32 sum to nearest; only the recomputed forward
+// (LayerNorm, qkv, q k^T, p v, the MLP) runs in f32.
 //
-// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 13, K3 3, K4 7
-// (window_any_launches counts them). Rounding follows the plain versions
-// (ops/swin_block.py::swin_block_reference and swin_block_backward_reference,
-// ops/window_attention.py's two references): to T after qkv's bias, p before
-// p @ v, the merged heads, r1, both LayerNorm outputs and gelu; the backward
-// products take operands rounded to `rd` (T for K2, bf16 for K4 whatever T
-// is) and accumulate in f32. No float atomics: two runs are bit-identical.
+// Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 13, K3 3 (qkv, the
+// attention, proj), K4 7 (window_any_launches counts them). Rounding
+// follows the plain versions (ops/swin_block.py::swin_block_reference and
+// swin_block_backward_reference, ops/window_attention.py's two references):
+// to T after qkv's bias, p before p @ v, the merged heads, r1, both
+// LayerNorm outputs and gelu; the backward products take operands rounded
+// to bf16 and accumulate in f32; dqkv is rounded to bf16 before its column
+// sums (dbqkv), db1, db2, dbproj sum f32 values. No float atomics: two runs
+// are bit-identical.
 
 #include <math.h>
 #include <stdint.h>
@@ -88,6 +104,7 @@
 #include <type_traits>
 
 #include "mma_sync.cuh"
+#include "sm90_ptx.cuh"
 
 namespace {
 
@@ -174,6 +191,14 @@ struct Geom {
     const int wh = w / nww, ww = w - wh * nww;
     const int ty = t / ws;
     return b * hw + (wh * ws + ty) * W + ww * ws + (t - ty * ws);
+  }
+  // the window-order row of grid row g (grid_row's inverse)
+  __device__ int window_row(long long g64) const {
+    const int g = (int)g64, hw = H * W;
+    const int b = g / hw, r = g - b * hw;
+    const int y = r / W, x = r - y * W;
+    const int wh = y / ws, ww = x / ws;
+    return b * hw + (wh * (W / ws) + ww) * (ws * ws) + (y - wh * ws) * ws + (x - ww * ws);
   }
 };
 
@@ -405,8 +430,10 @@ __device__ __forceinline__ void mainloop(float (&acc)[2][4][4], T* smem, const S
   __syncthreads();
 }
 
-// A result: element (i, j) stored at p[row(i) * ld + j] (row as in Src), in
+// A result: element (i, j) stored at p[row(i) * ld + j] (row as in Src; the
+// wgmma products also take map == kToWindow: row(i) = window_row(i)), in
 // bf16 where bf, else f32.
+constexpr int kToWindow = 2;
 struct Out {
   void* p;
   long long ld;
@@ -434,7 +461,6 @@ struct GemmArgs {
   Src res;                    // kResid: the residual [M, N], in T
   float* aux;                 // kGelu: the pre-activation out; kDGelu: in; f32 [M, N]
   float* colsum;              // kDGelu: column sums of the result, [tiles_m, N], or null
-  int rb;                     // f32: operands rounded to bf16, bf16 products (RB)
   Geom g;
 };
 
@@ -671,6 +697,295 @@ __global__ void __launch_bounds__(kThreads) atb_kernel(AtbArgs g) {
       }
 }
 
+// ------------------------------------------------------------ Hopper products
+
+// The plain products C = A @ B + bias of K3 and of K4's recomputed qkv (A
+// [M, K], B [K, N], C [M, N] row-major, any M, N, K and row stride; qkv
+// stored at its window-order rows, the projection at the grid rows), on
+// wgmma. Bound by bytes at the route's widths in bf16 (K = C, N = C or 3C:
+// 16 to 3C operations a byte) and near the balance point in f32 (three TF32
+// passes), so the design moves each byte once and keeps the loads in
+// flight: a block of two consumer warpgroups (256 threads) owns a 128-row
+// tile of C, 64 rows each warpgroup; all its threads stage 64-byte-deep
+// slices of A and B by cp.async (16-byte copies where the rows allow,
+// element copies with zero fill past M, N and K else) into a ring of
+// kProdStages stages, the next stages in flight under this one's products.
+// The stage layout is wgmma's 8 x 8 core matrices without swizzle, each
+// column of core matrices padded by 16 bytes so that the eight 16-byte
+// copies of a quarter-warp land on distinct banks. The epilogue adds the
+// bias, rounds to T, writes the tile to shared memory and stores whole rows
+// in 16-byte pieces at the rows c.map says. No atomics: two runs are
+// bit-identical.
+//
+// gemm_sm90_kernel (bf16): m64nBNk16 (BN 64 or 128) with A K-major (a row's
+// eight depths in 16 bytes) and B MN-major (eight columns of one depth in
+// 16 bytes: B is read as stored, not transposed), 64-deep stages.
+// gemm_tf32x3_kernel (f32): m64n64k8 with both operands K-major, as TF32
+// requires; 32-deep stages of A (K-major) and B (as stored) are split once
+// they land, in shared memory, into TF32 halves hi = tf32(a), lo = tf32(a -
+// hi) (A's hi in place, B's halves transposed to [n][k]), and each
+// warpgroup sums lo_a hi_b + hi_a lo_b + hi_a hi_b over the stage's four k
+// steps from zero and adds the stage to its f32 total to nearest (the
+// tensor cores round their sums toward zero): gemm_kernel's 3xTF32 with a
+// 32-deep stage, the split done once a stage for the block rather than per
+// warp and fragment.
+constexpr int kProdThreads = 256, kProdBM = 128, kProdStages = 3;
+
+// The 16 bytes at d: elements [0, 16 / sizeof(T)) of p where i + e < end,
+// zero beyond
+template <typename T>
+__device__ __forceinline__ void copy16_zero(uint8_t* d, const T* p, long long i,
+                                            long long end, int vec) {
+  constexpr int CE = 16 / (int)sizeof(T);
+  if (vec && i + CE <= end) {
+    cp_async16(d, p);
+    return;
+  }
+  alignas(16) T e[CE];
+#pragma unroll
+  for (int j = 0; j < CE; ++j) e[j] = i + j < end ? p[j] : from_f<T>(0.0f);
+  *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(e);
+}
+
+// 128 rows x 8 pieces of 16 bytes of A (rows m0.., elements k0..) into the
+// K-major core-matrix layout at st: piece (r, kc) at kc * ld + r * 16
+template <typename T>
+__device__ __forceinline__ void stage_a(uint8_t* st, int ld, const GemmArgs& g, long long m0,
+                                        long long k0) {
+  constexpr int CE = 16 / (int)sizeof(T);
+  const T* A = static_cast<const T*>(g.a.p);
+  for (int i = threadIdx.x; i < kProdBM * 8; i += kProdThreads) {
+    const int r = i >> 3, kc = i & 7;   // a row's eight pieces by neighbouring threads
+    const long long m = m0 + r, k = k0 + kc * CE;
+    uint8_t* d = st + kc * ld + r * 16;
+    if (m < g.M)
+      copy16_zero<T>(d, A + m * g.a.ld + k, k, g.K, g.a.vec);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The end of a product tile: acc (each warpgroup's 64 x BN accumulator of
+// wgmma) + bias, rounded to T, written to shared memory and stored as whole
+// rows in 16-byte pieces at the rows c.map says (the tile's own, the grid
+// rows or the window-order rows). The caller has synchronised; smem may
+// take the tile.
+template <typename T, int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const GemmArgs& g,
+                                           long long m0, long long n0, uint8_t* smem,
+                                           long long* orow) {
+  constexpr int CE = 16 / (int)sizeof(T), LDC = BN + CE;   // a row of the tile, padded
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  if (tid < kProdBM) {
+    const long long m = m0 + tid;
+    orow[tid] = m >= g.M               ? 0
+                : g.c.map == kToWindow ? (long long)g.g.window_row(m)
+                : g.c.map              ? (long long)g.g.grid_row(m)
+                                       : m;
+  }
+  T* ct = reinterpret_cast<T*>(smem);
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2), t4 = lane & 3;
+  const int bias_bf = sizeof(T) == 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + 2 * t4;
+    const long long n = n0 + c;
+    const float b0 = g.bias && n < g.N ? load(g.bias, n, bias_bf) : 0.0f;
+    const float b1 = g.bias && n + 1 < g.N ? load(g.bias, n + 1, bias_bf) : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T* d = ct + (r0 + 8 * h) * LDC + c;
+      d[0] = from_f<T>(acc[4 * j + 2 * h] + b0);
+      d[1] = from_f<T>(acc[4 * j + 2 * h + 1] + b1);
+    }
+  }
+  __syncthreads();
+  const bool vec = g.c.ld % CE == 0 && (uintptr_t)g.c.p % 16 == 0;
+  for (int i = tid; i < kProdBM * (BN / CE); i += kProdThreads) {
+    const int r = i / (BN / CE), c = (i - r * (BN / CE)) * CE;
+    const long long m = m0 + r, n = n0 + c;
+    if (m >= g.M || n >= g.N) continue;
+    T* o = static_cast<T*>(g.c.p) + orow[r] * g.c.ld + n;
+    const T* v = ct + r * LDC + c;
+    if (vec && n + CE <= g.N) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+    } else {
+      for (int e = 0; e < CE && n + e < g.N; ++e) o[e] = v[e];
+    }
+  }
+}
+
+template <int BN>
+struct WgTile {   // gemm_sm90_kernel's shared memory
+  static constexpr int kBK = 64;                    // bf16 depths a stage
+  static constexpr int kLdA = kProdBM * 16 + 16;    // bytes between A's columns of core matrices
+  static constexpr int kLdB = kBK * 16 + 16;        // bytes between B's columns of core matrices
+  static constexpr int kA = 8 * kLdA;               // A's bytes a stage
+  static constexpr int kStage = kA + (BN / 8) * kLdB;
+  static constexpr int kSmem = kProdStages * kStage;   // also holds the C tile
+  static_assert(kSmem >= kProdBM * (BN + 8) * 2, "the C tile fits in the ring");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kProdThreads, BN == 128 ? 2 : 3) gemm_sm90_kernel(GemmArgs g) {
+  using TL = WgTile<BN>;
+  constexpr int S = kProdStages;
+  extern __shared__ __align__(128) uint8_t wg_smem[];
+  __shared__ long long orow[kProdBM];   // the row each row of the tile is stored at
+  const int tiles_n = (g.N + BN - 1) / BN;
+  const long long m0 = (long long)(blockIdx.x / tiles_n) * kProdBM;
+  const long long n0 = (long long)(blockIdx.x % tiles_n) * BN;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const bf16* B = static_cast<const bf16*>(g.b.p);
+  const int ktiles = (g.K + TL::kBK - 1) / TL::kBK;
+  auto issue = [&](int kt) {
+    uint8_t* st = wg_smem + (kt % S) * TL::kStage;
+    const long long k0 = (long long)kt * TL::kBK;
+    stage_a<bf16>(st, TL::kLdA, g, m0, k0);
+    for (int i = tid; i < TL::kBK * (BN / 8); i += kProdThreads) {
+      const int kr = i / (BN / 8), nc = i - kr * (BN / 8);
+      const long long k = k0 + kr, n = n0 + nc * 8;
+      uint8_t* d = st + TL::kA + nc * TL::kLdB + kr * 16;
+      if (k < g.K)
+        copy16_zero<bf16>(d, B + k * g.b.ld + n, n, g.N, g.b.vec);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ktiles) issue(s);
+    cp_async_commit();
+  }
+  float acc[BN / 2];
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<S - 2>();
+    sm90::fence_proxy_async();   // this thread's copies, visible to wgmma
+    __syncthreads();             // every thread's; the slot read last step is free
+    if (kt + S - 1 < ktiles) issue(kt + S - 1);
+    cp_async_commit();
+    const uint32_t sa = sm90::smem_u32(wg_smem + (kt % S) * TL::kStage) + wg * 64 * 16;
+    const uint32_t sb = sm90::smem_u32(wg_smem + (kt % S) * TL::kStage + TL::kA);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TL::kBK / 16; ++kk) {
+      if (kk > 0 && (long long)kt * TL::kBK + kk * 16 >= g.K) break;   // zeros past K
+      const uint64_t da = sm90::make_desc(sa + kk * 2 * TL::kLdA, TL::kLdA, 128);
+      const uint64_t db = sm90::make_desc(sb + kk * 256, 128, TL::kLdB);
+      if constexpr (BN == 128)
+        sm90::wgmma_ss_n128<0, 1>(acc, da, db, (kt | kk) != 0);
+      else
+        sm90::wgmma_ss_n64<0, 1>(acc, da, db, (kt | kk) != 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // both warpgroups' products done: the ring takes the C tile
+  store_tile<bf16, BN>(acc, g, m0, n0, wg_smem, orow);
+}
+
+struct Tf32Tile {   // gemm_tf32x3_kernel's shared memory
+  static constexpr int kBN = 64, kBK = 32;        // f32 depths a stage
+  static constexpr int kLdA = kProdBM * 16 + 16;  // bytes between A's columns of core matrices
+  static constexpr int kLdB = kBN * 16 + 16;      // the same for B's halves ([n][k])
+  static constexpr int kLdR = kBN + 4;            // floats a row of a staged B ([k][n])
+  static constexpr int kA = 8 * kLdA;             // A's bytes a stage
+  static constexpr int kStage = kA + kBK * kLdR * 4;
+  static constexpr int kHalfB = 8 * kLdB;
+  static constexpr int kSmem = kProdStages * kStage + kA + 2 * kHalfB;   // + A's lo, B's halves
+  static_assert(kProdStages * kStage >= kProdBM * (kBN + 4) * 4, "the C tile fits in the ring");
+};
+
+__global__ void __launch_bounds__(kProdThreads, 2) gemm_tf32x3_kernel(GemmArgs g) {
+  using TL = Tf32Tile;
+  constexpr int BN = TL::kBN, BK = TL::kBK, S = kProdStages;
+  extern __shared__ __align__(128) uint8_t wg_smem[];
+  __shared__ long long orow[kProdBM];
+  uint8_t* alo = wg_smem + S * TL::kStage;
+  uint8_t* bhi = alo + TL::kA;
+  uint8_t* blo = bhi + TL::kHalfB;
+  const int tiles_n = (g.N + BN - 1) / BN;
+  const long long m0 = (long long)(blockIdx.x / tiles_n) * kProdBM;
+  const long long n0 = (long long)(blockIdx.x % tiles_n) * BN;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const float* B = static_cast<const float*>(g.b.p);
+  const int ktiles = (g.K + BK - 1) / BK;
+  auto issue = [&](int kt) {
+    uint8_t* st = wg_smem + (kt % S) * TL::kStage;
+    const long long k0 = (long long)kt * BK;
+    stage_a<float>(st, TL::kLdA, g, m0, k0);
+    for (int i = tid; i < BK * (BN / 4); i += kProdThreads) {
+      const int kr = i / (BN / 4), nc = i - kr * (BN / 4);
+      const long long k = k0 + kr, n = n0 + nc * 4;
+      uint8_t* d = st + TL::kA + (kr * TL::kLdR + nc * 4) * 4;
+      if (k < g.K)
+        copy16_zero<float>(d, B + k * g.b.ld + n, n, g.N, g.b.vec);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < ktiles) issue(s);
+    cp_async_commit();
+  }
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();   // the stage has landed; last step's products are done
+    if (kt + S - 1 < ktiles) issue(kt + S - 1);
+    cp_async_commit();
+    uint8_t* st = wg_smem + (kt % S) * TL::kStage;
+    // the stage's TF32 halves: A's hi in place and its lo beside, B's both
+    // transposed to [n][k]
+    for (int i = tid; i < kProdBM * 8; i += kProdThreads) {
+      const int off = (i & 7) * TL::kLdA + (i >> 3) * 16;
+      const float4 v = *reinterpret_cast<const float4*>(st + off);
+      uint4 hi, lo;
+      Tc<float>::split(v.x, hi.x, lo.x);
+      Tc<float>::split(v.y, hi.y, lo.y);
+      Tc<float>::split(v.z, hi.z, lo.z);
+      Tc<float>::split(v.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(st + off) = hi;
+      *reinterpret_cast<uint4*>(alo + off) = lo;
+    }
+    const float* braw = reinterpret_cast<const float*>(st + TL::kA);
+    for (int i = tid; i < BN * (BK / 4); i += kProdThreads) {
+      const int n = i % BN, kc = i / BN;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) Tc<float>::split(braw[(kc * 4 + e) * TL::kLdR + n], hi[e], lo[e]);
+      const int off = kc * TL::kLdB + n * 16;
+      *reinterpret_cast<uint4*>(bhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(blo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    sm90::fence_proxy_async();   // the halves, visible to wgmma
+    __syncthreads();
+    const uint32_t sa = sm90::smem_u32(st) + wg * 64 * 16, sl = sm90::smem_u32(alo) + wg * 64 * 16;
+    const uint32_t sh = sm90::smem_u32(bhi), sq = sm90::smem_u32(blo);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      if (kk > 0 && (long long)kt * BK + kk * 8 >= g.K) break;   // zeros past K
+      const uint64_t a_hi = sm90::make_desc(sa + kk * 2 * TL::kLdA, TL::kLdA, 128);
+      const uint64_t a_lo = sm90::make_desc(sl + kk * 2 * TL::kLdA, TL::kLdA, 128);
+      const uint64_t b_hi = sm90::make_desc(sh + kk * 2 * TL::kLdB, TL::kLdB, 128);
+      const uint64_t b_lo = sm90::make_desc(sq + kk * 2 * TL::kLdB, TL::kLdB, 128);
+      sm90::wgmma_tf32_n64(part, a_lo, b_hi, kk != 0);
+      sm90::wgmma_tf32_n64(part, a_hi, b_lo, 1);
+      sm90::wgmma_tf32_n64(part, a_hi, b_hi, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // both warpgroups' products done: the ring takes the C tile
+  store_tile<float, BN>(acc, g, m0, n0, wg_smem, orow);
+}
+
 // ------------------------------------------------------------ attention
 
 struct AttnArgs {
@@ -685,7 +1000,7 @@ struct AttnArgs {
   float* dbias;         // backward: [groups, 3C], column sums of dqkv
   long long BW;
   int groups;           // backward: window w is in group w % groups
-  int sgroups;          // forward: blocks a window and head, 64 rows (four strips of 16) each
+  int sgroups;          // forward: blocks a window and head
   int n, np, hd, hdp, heads, C;
   float scale;
   int vec;
@@ -740,16 +1055,35 @@ struct Bias {
   }
 };
 
-// One block per (window, head, 64 query rows): k and v of the window whole
-// in shared memory, a warp per strip of 16 queries.
+// One block per (window, head, qtiles strips of 16 queries): k and v of the
+// window whole in shared memory, a warp per strip and part of the keys
+// (kparts parts of kpart keys; attn_plan picks both from the widths). A
+// warp holds its strip's logits over its keys in registers. With one part
+// (kSplit false) it takes the row max and sum alone; with several the
+// parts' maxima and then their sums of exp(logit - max) are combined
+// through shared memory in part order, so that every warp rounds p =
+// exp(logit - max) / sum to T with the row's own statistics, as the plain
+// version does, and the parts' p @ v are added in part order by the
+// strip's first warp. No atomics.
 // Blocks an SM the registers allow: eight for windows of 64 tokens (64
-// registers a thread), three in bf16 over 64 (170), two in f32 (256)
-template <typename T, int kChunks>
-__global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 3 : 2)
-    attn_fwd_kernel(AttnArgs a) {
+// registers a thread), three in bf16 over 64 (170), two in f32 (256); split,
+// four for parts of 64 keys (128), two over.
+// The forward attention's split of a window and head (attn_plan): qtiles
+// strips of 16 queries a block, kparts parts of kpart keys (a multiple of
+// 16) a strip
+struct AttnSplit {
+  int qtiles, kparts, kpart;
+};
+
+template <typename T, int kChunks, bool kSplit>
+__global__ void __launch_bounds__(kThreads, kSplit ? (kChunks == 1 ? 4 : 2)
+                                  : kChunks == 1 ? 8 : sizeof(T) == 2 ? 3 : 2)
+    attn_fwd_kernel(AttnArgs a, AttnSplit sp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int LDH = Att<T>::ldh(a.hdp), LDP = Att<T>::ldp();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int nthreads = kSplit ? (int)blockDim.x : kThreads, nwarps = nthreads >> 5;
+  const int wq = kSplit ? warp / sp.kparts : warp, wk = kSplit ? warp - wq * sp.kparts : 0;
   const long long z = blockIdx.x / a.sgroups, w = z / a.heads;
   const int h = (int)(z - w * a.heads), sg = blockIdx.x % a.sgroups;
   T* Ks = reinterpret_cast<T*>(smem_raw);
@@ -761,26 +1095,30 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
   const long long row0 = w * a.n, rend = row0 + a.n;
   const Bias bias(a, w, h);
   const long long cq = (long long)h * a.hd, ck = a.C + cq, cv = 2LL * a.C + cq;
-  const int nch = (a.np + kChunk - 1) / kChunk;
-  const int q0 = (sg * (kThreads / 32) + warp) * 16;
+  const int q0 = (sg * (kSplit ? sp.qtiles : kThreads / 32) + wq) * 16;
+  const int kb = kSplit ? wk * sp.kpart : 0, ke = kSplit ? min(a.np, kb + sp.kpart) : a.np;
+  const int nch = (ke - kb + kChunk - 1) / kChunk;
   // k and v whole and this warp's queries, in flight together
-  stage_tile<T>(Ks, LDH, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid, kThreads);
-  stage_tile<T>(Vs, LDH, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid, kThreads);
+  stage_tile<T>(Ks, LDH, a.np, a.hdp, src, row0, ck, rend, ck + a.hd, -1, none, tid, nthreads);
+  stage_tile<T>(Vs, LDH, a.np, a.hdp, src, row0, cv, rend, cv + a.hd, -1, none, tid, nthreads);
   if (q0 < a.np)
     stage_tile<T>(Qw, LDH, 16, a.hdp, src, row0 + q0, cq, rend, cq + a.hd, -1, none, lane, 32);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (q0 >= a.np) return;
+  if (!kSplit && q0 >= a.np) return;
+  // split: every warp takes part in the barriers below, those with no
+  // queries or keys on zeros
+  const bool on = !kSplit || (q0 < a.np && kb < ke);
   const View<T, true> vq = {Qw, LDH}, vp = {Pw, LDP};
   float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.0f, 0.0f};
-  // the logits of the strip, all chunks (kChunks at most) in registers:
-  // -inf beyond the window's keys
+  // the logits of the strip over this warp's keys, all chunks (kChunks at
+  // most) in registers: -inf beyond the window's keys
   float s[kChunks][8][4];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    if (c >= nch) break;
-    const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+    if (c >= nch || !on) break;
+    const int j0 = kb + c * kChunk, ncols = min(kChunk, ke - j0);
     zero_strip(s[c]);
     mma_strip<T>(s[c], a.hdp, ncols, lane, vq, View<T, true>{Ks + j0 * LDH, LDH});
 #pragma unroll
@@ -800,6 +1138,25 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
       mx[r] = fmaxf(mx[r], quad_max(cm));
     }
   }
+  // split: the parts' row maxima and sums [nwarps][16], and p @ v
+  // [nwarps][16][hdp]; the strip's first warp
+  float* rmax = reinterpret_cast<float*>(Vs + a.np * LDH + nwarps * 16 * (LDH + LDP));
+  float* rsum = rmax + nwarps * 16;
+  float* ro = rsum + nwarps * 16;
+  const int first = wq * sp.kparts;
+  if constexpr (kSplit) {   // the row max over the parts, in part order
+    if (tq == 0) {
+      rmax[warp * 16 + gq] = mx[0];
+      rmax[warp * 16 + gq + 8] = mx[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = -INFINITY;
+      for (int p = 0; p < sp.kparts; ++p) m = fmaxf(m, rmax[(first + p) * 16 + gq + 8 * r]);
+      mx[r] = m;
+    }
+  }
   // the row sums of exp(logit - max), eight partial sums a row
   float part[2][8];
 #pragma unroll
@@ -808,7 +1165,7 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
     for (int j = 0; j < 8; ++j) part[r][j] = 0.0f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    if (c >= nch) break;
+    if (c >= nch || !on) break;
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -818,12 +1175,25 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) sm[r] = quad_sum(sum8(part[r]));
+  if constexpr (kSplit) {   // the row sum over the parts, in part order
+    if (tq == 0) {
+      rsum[warp * 16 + gq] = sm[0];
+      rsum[warp * 16 + gq + 8] = sm[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t = 0.0f;
+      for (int p = 0; p < sp.kparts; ++p) t += rsum[(first + p) * 16 + gq + 8 * r];
+      sm[r] = t;
+    }
+  }
   float o[8][4];
   zero_strip(o);
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    if (c >= nch) break;
-    const int j0 = c * kChunk, ncols = min(kChunk, a.np - j0);
+    if (c >= nch || !on) break;
+    const int j0 = kb + c * kChunk, ncols = min(kChunk, ke - j0);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -837,6 +1207,27 @@ __global__ void __launch_bounds__(kThreads, kChunks == 1 ? 8 : sizeof(T) == 2 ? 
     __syncwarp();
     mma_strip<T>(o, ncols, a.hdp, lane, vp, View<T, false>{Vs + j0 * LDH, LDH});
     __syncwarp();
+  }
+  if constexpr (kSplit) {   // p @ v over the parts, in part order
+    if (wk > 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
+          if (d < a.hdp) ro[(warp * 16 + rl) * a.hdp + d] = o[j][e];
+        }
+    }
+    __syncthreads();
+    if (wk > 0 || !on) return;
+    for (int p = 1; p < sp.kparts; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = gq + (e >> 1) * 8, d = j * 8 + 2 * tq + (e & 1);
+          if (d < a.hdp) o[j][e] += ro[((first + p) * 16 + rl) * a.hdp + d];
+        }
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -914,36 +1305,11 @@ __device__ __forceinline__ void a_of(Tc<bf16>::A& f, const float (&s)[2][4]) {
   f.r[3] = pack_bf16(s[1][2], s[1][3]);
 }
 
-// The TF32 A fragments (m16 x k8, hi and lo) of the two n8 accumulator tiles
-// s[0], s[1] of the same 16 rows, one a k8 step: lane (g, t) takes columns
-// t and t + 4 of rows g and g + 8, which lanes (g, t / 2) and (g, t / 2 + 2)
-// hold.
-__device__ __forceinline__ void a_of_tf32(Tc<float>::A (&f)[2], const float (&s)[2][4],
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3, src = g * 4 + (t >> 1), odd = t & 1;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // e: (row g, col t), (row g + 8, col t), (row g, col t + 4), (row g + 8, col t + 4)
-      const int from = src + (e >> 1) * 2, hi = e & 1;
-      const float a0 = __shfl_sync(0xffffffffu, s[j][2 * hi], from);
-      const float a1 = __shfl_sync(0xffffffffu, s[j][2 * hi + 1], from);
-      v[e] = odd ? a1 : a0;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) Tc<float>::split(v[e], f[j].hi[e], f[j].lo[e]);
-  }
-}
-
 // The attention backward of K2 and K4: dq, dk, dv of each window and head
-// from one computation of p and dp. P is the type of the backward
-// products' operands: bf16 for K4 whatever T is (the JAX attention kernel
-// rounds them to bf16), T for K2 (as the block kernel rounds them to T);
-// bf16 products run as m16n8k16, f32 ones as 3xTF32, each 16-deep stage
-// summed from zero and added to its f32 sum to nearest. dS takes the f32 p
-// in K4 (as pallas_window_attention.py) and p rounded to T in K2 (as
+// from one computation of p and dp. Every backward product takes operands
+// rounded to bf16 whatever T is (P), as both JAX kernels round them, and
+// runs as bf16 m16n8k16. dS takes the f32 p in K4 (as
+// pallas_window_attention.py) and p rounded to bf16 in K2 (as
 // pallas_swin_block.py). One block per (head, group of windows), a warp per
 // strip of 16 keys. The block holds the window's k (T: the logits, 3xTF32
 // in f32, as the forward computes them) and v (P) whole, the softmax's row
@@ -959,8 +1325,7 @@ __device__ __forceinline__ void a_of_tf32(Tc<float>::A (&f)[2], const float (&s)
 // of qkv the stores of dq, dk and dv. No float atomics.
 template <typename T, bool kK2>
 __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
-  using P = std::conditional_t<kK2, T, bf16>;
-  constexpr bool kPf = sizeof(P) == 4;
+  using P = bf16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nw = blockDim.x >> 5;
   const int LDQ = Att<T>::ldh(a.hdp), LDV = Att<P>::ldh(a.hdp), LDS = a.np + Att<P>::kPad;
@@ -1107,32 +1472,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
           Sd[ql * LDS + kj] = from_f<P>(ds[j][e]);
         }
       // dv += rd(p)^T dO, dk += rd(ds)^T rd(q)
-      if constexpr (kPf) {
-        // 3xTF32: the tile's two k8 steps summed from zero, then added to
-        // nearest
-        Tc<float>::A pa[2], sa[2];
-        a_of_tf32(pa, s, lane);
-        a_of_tf32(sa, ds, lane);
-        const View<float, false> vo = {Ot, LDV}, vq = {Qt, LDQ};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j * 8 >= a.hdp) break;
-          float tv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, tk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            Tc<float>::B fb;
-            Tc<float>::load_b(fb, vo, kk * 8, j * 8, lane);
-            Tc<float>::mma(tv, pa[kk], fb);
-            Tc<float>::load_b(fb, vq, kk * 8, j * 8, lane);
-            Tc<float>::mma(tk, sa[kk], fb);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dv[j][e] += tv[e];
-            dk[j][e] += tk[e];
-          }
-        }
-      } else {
+      {
         Tc<bf16>::A pa, sa;
         a_of(pa, s);
         a_of(sa, ds);
@@ -1159,33 +1499,12 @@ __global__ void __launch_bounds__(kBwdMaxThreads) attn_bwd_kernel(AttnArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
         for (int k0 = 0; k0 < a.np; k0 += 16) {
-          if constexpr (kPf) {
-            const View<float, true> vs = {Sd, LDS};
-            const View<float, false> vk = {Ks, LDQ};
-            float t[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-            for (int kk = 0; kk < 16; kk += 8) {
-              Tc<float>::A fa;
-              Tc<float>::load_a(fa, vs, 0, k0 + kk, lane);
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                Tc<float>::B fb;
-                Tc<float>::load_b(fb, vk, k0 + kk, n0 + j * 8, lane);
-                Tc<float>::mma(t[j], fa, fb);
-              }
-            }
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dq[j][e] += t[j][e];
-          } else {
-            Tc<bf16>::A fa;
-            ldsm_x4<false>(fa.r, Sd + ((mi & 1) * 8 + li) * LDS + k0 + (mi >> 1) * 8);
-            uint32_t fb[4];
-            b_kn<T>(fb, Ks + k0 * LDQ, LDQ, n0, lane);
-            Tc<bf16>::mma(dq[0], fa, Tc<bf16>::B{{fb[0], fb[1]}});
-            Tc<bf16>::mma(dq[1], fa, Tc<bf16>::B{{fb[2], fb[3]}});
-          }
+          Tc<bf16>::A fa;
+          ldsm_x4<false>(fa.r, Sd + ((mi & 1) * 8 + li) * LDS + k0 + (mi >> 1) * 8);
+          uint32_t fb[4];
+          b_kn<T>(fb, Ks + k0 * LDQ, LDQ, n0, lane);
+          Tc<bf16>::mma(dq[0], fa, Tc<bf16>::B{{fb[0], fb[1]}});
+          Tc<bf16>::mma(dq[1], fa, Tc<bf16>::B{{fb[2], fb[3]}});
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -1449,8 +1768,25 @@ struct Carver {
 
 enum Kind { kBlockFwd = 0, kBlockBwd = 1, kAttnFwd = 2, kAttnBwd = 3 };
 
-// blocks of a window and head in the forward attention (64 rows each)
-int strip_groups(const Dims& d) { return (d.np + kChunk - 1) / kChunk; }
+// The forward attention's grid: a block holds qt strips of 16 queries, each
+// by kp parts of the keys (a warp each, qt kp <= 4). Strips a block are
+// halved (and the keys split in their place) while the grid has fewer than
+// kAttnBlocks blocks; a part keeps 16 keys or more, and a window of 16
+// tokens or fewer keeps one part and four strips a block (one of them
+// used). A pure function of the widths, held against
+// ops/window_attention.py::attention_plan.
+constexpr long long kAttnBlocks = 264;   // two waves of 132 SMs
+struct AttnPlan {
+  int qt, kp;
+};
+
+AttnPlan attn_plan(const Dims& d) {
+  const int tiles = d.np / 16;
+  int qt = 4;
+  while (qt > 1 && d.Z * ((tiles + qt - 1) / qt) < kAttnBlocks) qt /= 2;
+  const int kp = std::min(4 / qt, tiles);
+  return kp == 1 ? AttnPlan{4, 1} : AttnPlan{qt, kp};
+}
 
 // groups of windows a head in the attention backward (a block each, a
 // warp per 16 keys): about 16 warps an SM in all
@@ -1578,29 +1914,47 @@ GemmArgs gemm_args(const Dims& d, int M, int N, int K) {
   return g;
 }
 
-// g.rb (f32, K4's products on bf16 operands) takes the RB kernel, built
-// for the backward's products (BT, no transform of A)
+// The backward's products (BT) take operands rounded to bf16: in f32 the RB
+// kernel. The forward's products round nothing.
 template <typename T, bool BT, bool XF>
 cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t st) {
   const long long blocks = (long long)tiles(g.M) * tiles(g.N);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if constexpr (sizeof(T) == 4 && BT && !XF) {
-    if (g.rb)
-      gemm_kernel<T, BT, XF, true><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-    else
-      gemm_kernel<T, BT, XF, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-  } else {
-    if (g.rb) return cudaErrorInvalidValue;
-    gemm_kernel<T, BT, XF, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-  }
+  gemm_kernel<T, BT, XF, sizeof(T) == 4 && BT><<<(unsigned)blocks, kThreads, 0, st>>>(g);
   ++g_launches;
   return cudaGetLastError();
 }
 
-// rb (f32): the products on operands rounded to bf16 (K4)
+// A product kernel over 128-row tiles of C, bn columns each
+template <typename K>
+cudaError_t launch_product(K kernel, int smem, int bn, const GemmArgs& g, cudaStream_t st) {
+  const long long blocks =
+      (long long)((g.M + kProdBM - 1) / kProdBM) * ((g.N + bn - 1) / bn);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  kernel<<<(unsigned)blocks, kProdThreads, smem, st>>>(g);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+// A plain product C = A @ B + bias (no transform or row map of A): bf16 on
+// gemm_sm90_kernel (BN 64 for N up to 64, else 128), f32 on
+// gemm_tf32x3_kernel
+template <typename T>
+cudaError_t launch_plain_product(const GemmArgs& g, cudaStream_t st) {
+  if (g.xf || g.epi != kStore || g.a.map) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4)
+    return launch_product(gemm_tf32x3_kernel, Tf32Tile::kSmem, Tf32Tile::kBN, g, st);
+  else if (g.N <= 64)
+    return launch_product(gemm_sm90_kernel<64>, WgTile<64>::kSmem, 64, g, st);
+  else
+    return launch_product(gemm_sm90_kernel<128>, WgTile<128>::kSmem, 128, g, st);
+}
+
+// The weight gradients, on operands rounded to bf16 (in f32 the RB kernel)
 template <typename T>
 cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, float* partial,
-                       cudaStream_t st, AtbPlan* plan_out, int rb = 0) {
+                       cudaStream_t st, AtbPlan* plan_out) {
   const AtbPlan plan = atb_plan(kind, d);
   AtbArgs g = {};
   g.count = plan.count;
@@ -1624,10 +1978,7 @@ cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, floa
     at += (long long)plan.splits * (p.Ka + p.ones) * p.N;
   }
   *plan_out = plan;
-  if (sizeof(T) == 4 && rb)
-    atb_kernel<T, sizeof(T) == 4><<<(unsigned)blocks, kThreads, 0, st>>>(g);
-  else
-    atb_kernel<T, false><<<(unsigned)blocks, kThreads, 0, st>>>(g);
+  atb_kernel<T, sizeof(T) == 4><<<(unsigned)blocks, kThreads, 0, st>>>(g);
   ++g_launches;
   return cudaGetLastError();
 }
@@ -1670,20 +2021,22 @@ void add_atb_entries(ReduceArgs& r, const AtbPlan& plan, const float* partial, f
   }
 }
 
-// attn_fwd_kernel<T>: k and v whole, and per warp its queries and p tile
+// attn_fwd_kernel<T>: k and v whole, and per warp its queries and p tile;
+// with parts of the keys, their row statistics and p @ v in f32
 template <typename T>
-size_t attn_smem(const Dims& d) {
-  const size_t ldh = Att<T>::ldh(d.hdp), ldp = Att<T>::ldp();
-  return (2 * (size_t)d.np * ldh + 4 * 16 * (ldh + ldp)) * sizeof(T);
+size_t attn_smem(const Dims& d, const AttnPlan& p) {
+  const size_t ldh = Att<T>::ldh(d.hdp), ldp = Att<T>::ldp(), nw = (size_t)p.qt * p.kp;
+  return (2 * (size_t)d.np * ldh + nw * 16 * (ldh + ldp)) * sizeof(T) +
+         (p.kp > 1 ? nw * 16 * (2 + (size_t)d.hdp) * 4 : 0);
 }
 
 // attn_bwd_kernel<T, kK2>: k whole and two query tiles of q in T; v whole,
-// two query tiles of dO and the ds tile in the products' type P; the warps'
-// row sums, the row statistics and the column sums in f32 (at most 177,152
-// bytes: np 256, hdp 64, K2 in f32)
-template <typename T, bool kK2>
+// two query tiles of dO and the ds tile in bf16; the warps' row sums, the
+// row statistics and the column sums in f32 (at most 132,096 bytes: np
+// 256, hdp 64 in f32)
+template <typename T>
 size_t bwd_smem(const Dims& d) {
-  using P = std::conditional_t<kK2, T, bf16>;
+  using P = bf16;
   const size_t ldq = Att<T>::ldh(d.hdp), ldv = Att<P>::ldh(d.hdp);
   const size_t lds = d.np + Att<P>::kPad, nw = d.np / 16;
   return ((size_t)d.np + 32) * ldq * sizeof(T) +
@@ -1700,7 +2053,6 @@ AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float
   a.n_mask = d.nW;
   a.BW = d.BW;
   a.groups = bwd_groups(d);
-  a.sgroups = strip_groups(d);
   a.n = d.n;
   a.np = d.np;
   a.hd = d.hd;
@@ -1712,27 +2064,27 @@ AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float
   return a;
 }
 
-template <typename T, typename K>
-cudaError_t launch_attn(K kernel, long long blocks, size_t smem, const AttnArgs& a,
-                        cudaStream_t st) {
-  if (smem > 48 * 1024)
-    TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  kernel<<<(unsigned)blocks, kThreads, smem, st>>>(a);
-  ++g_launches;
-  return cudaGetLastError();
-}
-
 // merged = attention(qkv); the softmax's row statistics into stats where given
 template <typename T>
 cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
                           void* merged, float* stats, cudaStream_t st) {
   AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+  const AttnPlan p = attn_plan(d);
+  const AttnSplit sp = {p.qt, p.kp, (d.np / 16 + p.kp - 1) / p.kp * 16};
   a.out = merged;
   a.stats = stats;
-  const long long blocks = d.Z * a.sgroups;
-  if (d.np <= kChunk)   // one chunk: the logits of 64 keys in registers
-    return launch_attn<T>(attn_fwd_kernel<T, 1>, blocks, attn_smem<T>(d), a, st);
-  return launch_attn<T>(attn_fwd_kernel<T, kMaxN / kChunk>, blocks, attn_smem<T>(d), a, st);
+  a.sgroups = (d.np / 16 + p.qt - 1) / p.qt;
+  const size_t smem = attn_smem<T>(d, p);
+  // one chunk: the logits of a part of at most 64 keys in registers
+  auto kernel = p.kp == 1 ? (sp.kpart <= kChunk ? attn_fwd_kernel<T, 1, false>
+                                                : attn_fwd_kernel<T, kMaxN / kChunk, false>)
+                          : (sp.kpart <= kChunk ? attn_fwd_kernel<T, 1, true>
+                                                : attn_fwd_kernel<T, kMaxN / kChunk, true>);
+  if (smem > 48 * 1024)
+    TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kernel<<<(unsigned)(d.Z * a.sgroups), 32 * p.qt * p.kp, smem, st>>>(a, sp);
+  ++g_launches;
+  return cudaGetLastError();
 }
 
 // dqkv from dout, with the rel-pos and qkv-bias partials, in one launch:
@@ -1746,7 +2098,7 @@ cudaError_t attention_bwd(const Dims& d, const void* qkv, const float* rel, cons
   a.stats = b.astats;
   a.drel = b.p_drel;
   a.dbias = b.p_dbqkv;
-  const size_t smem = bwd_smem<T, kK2>(d);
+  const size_t smem = bwd_smem<T>(d);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = attn_bwd_kernel<T, kK2>;
   if (smem > 48 * 1024)
@@ -1837,7 +2189,9 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   const int nrb = row_blocks(d);
   const Geom geo = geom(d);
   TRY(block_forward<T>(d, w, true, nullptr, b, st));
-  // out = r1 + dp2 * (g1 @ w2 + b2): dz1 = (rd(dp2 * dy) @ w2^T) * gelu'(z1)
+  // out = r1 + dp2 * (g1 @ w2 + b2): dz1 = (rd(dp2 * dy) @ rd(w2)^T) *
+  // gelu'(z1); dz2 = dp2 * dy unrounded to the side (db2 sums it so, dw2
+  // rounds it as it reads it)
   GemmArgs g = gemm_args(d, M, hid, C);
   g.a = src_of<T>(dy, C, 1);
   g.b = src_of<T>(w.w2, C);
@@ -1850,7 +2204,7 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   g.colsum = b.p_db1;
   g.c = {b.dz1, hid, bf, 0};
   TRY((launch_gemm<T, true, true>(g, st)));
-  // dh2 = dz1 @ w1^T
+  // dh2 = rd(dz1) @ rd(w1)^T
   g = gemm_args(d, M, C, hid);
   g.a = src_of<T>(b.dz1, hid);
   g.b = src_of<T>(w.w1, hid);
@@ -1880,14 +2234,15 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   ln_bwd_kernel<T><<<nrb, kRowThreads, 0, st>>>(l);
   ++g_launches;
   TRY(cudaGetLastError());
-  // dmerged = datt @ wproj^T
+  // dmerged = rd(datt) @ rd(wproj)^T, stored in bf16
   g = gemm_args(d, M, C, C);
   g.a = src_of<T>(b.datt, C);
   g.b = src_of<T>(w.wproj, C);
-  g.c = {b.dmerged, C, bf, 0};
+  g.c = {b.dmerged, C, 1, 0};
   TRY((launch_gemm<T, true, false>(g, st)));
   TRY((attention_bwd<T, true>(d, b.qkv, w.rel, w.mask, b, st)));
-  // dh1 = dqkv @ wqkv^T; dx = dr1 + LN1's backward
+  // dh1 = dqkv @ rd(wqkv)^T (dqkv is rounded to bf16); dx = dr1 + LN1's
+  // backward
   g = gemm_args(d, M, C, 3 * C);
   g.a = src_of<T>(b.dqkv, 3 * C);
   g.b = src_of<T>(w.wqkv, 3 * C);
@@ -1913,7 +2268,7 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   ln_bwd_kernel<T><<<nrb, kRowThreads, 0, st>>>(l);
   ++g_launches;
   TRY(cudaGetLastError());
-  // the weight gradients
+  // the weight gradients, rd(a)^T rd(b)
   const Src a[4] = {src_of<T>(b.g1, hid), src_of<T>(b.h2, C), src_of<T>(b.merged, C),
                     src_of<T>(b.h1, C)};
   const Src bb[4] = {src_of<T>(b.dz2, C), src_of<T>(b.dz1, hid), src_of<T>(b.datt, C),
@@ -1937,19 +2292,21 @@ cudaError_t block_backward(const Dims& d, const BlockParams& w, const void* dy, 
   return launch_reduce(r, st);
 }
 
-// K3's or K4's qkv: x (grid order) @ wqkv + bqkv, in window order
+// K3's or K4's qkv = x @ wqkv + bqkv in window order: x read in grid
+// order, each row stored at its window-order row
 template <typename T>
 cudaError_t attn_qkv(const Dims& d, const void* x, const void* wqkv, const void* bqkv,
                      const Buffers& b, cudaStream_t st) {
   GemmArgs g = gemm_args(d, (int)d.M, 3 * d.C, d.C);
-  g.a = src_of<T>(x, d.C, 1);
+  g.a = src_of<T>(x, d.C);
   g.b = src_of<T>(wqkv, 3 * d.C);
-  g.c = {b.qkv, 3LL * d.C, sizeof(T) == 2, 0};
+  g.c = {b.qkv, 3LL * d.C, sizeof(T) == 2, kToWindow};
   g.bias = bqkv;
   g.bias_bf = sizeof(T) == 2;
-  return launch_gemm<T, false, false>(g, st);
+  return launch_plain_product<T>(g, st);
 }
 
+// K3 (3 launches): qkv, the attention, the projection stored at the grid rows
 template <typename T>
 cudaError_t attn_forward(const Dims& d, const void* x, const void* wqkv, const void* bqkv,
                          const void* wproj, const void* bproj, const float* rel,
@@ -1962,7 +2319,7 @@ cudaError_t attn_forward(const Dims& d, const void* x, const void* wqkv, const v
   g.c = {out, d.C, sizeof(T) == 2, 1};
   g.bias = bproj;
   g.bias_bf = sizeof(T) == 2;
-  return launch_gemm<T, false, false>(g, st);
+  return launch_plain_product<T>(g, st);
 }
 
 // K4 (7 launches): the forward recomputed in T (qkv, the softmax's
@@ -1981,7 +2338,6 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
   TRY(attention_fwd<T>(d, b.qkv, rel, mask, b.merged, b.astats, st));
   // dmerged = rd(dy) @ rd(wproj)^T, stored in bf16
   GemmArgs g = gemm_args(d, M, C, C);
-  g.rb = !bf;
   g.a = src_of<T>(dy, C, 1);
   g.b = src_of<T>(wproj, C);
   g.c = {b.dmerged, C, 1, 0};
@@ -1989,7 +2345,6 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
   TRY((attention_bwd<T, false>(d, b.qkv, rel, mask, b, st)));
   // dx = dqkv @ rd(wqkv)^T, at the grid rows
   g = gemm_args(d, M, C, 3 * C);
-  g.rb = !bf;
   g.a = src_of<T>(b.dqkv, 3 * C);
   g.b = src_of<T>(wqkv, 3 * C);
   g.c = {dx, C, bf, 1};
@@ -1998,7 +2353,7 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
   const Src a[2] = {src_of<T>(b.merged, C), src_of<T>(x, C, 1)};
   const Src bb[2] = {src_of<T>(dy, C, 1), src_of<T>(b.dqkv, 3 * C)};
   AtbPlan plan;
-  TRY(launch_atb<T>(d, kAttnBwd, a, bb, b.p_atb, st, &plan, !bf));
+  TRY(launch_atb<T>(d, kAttnBwd, a, bb, b.p_atb, st, &plan));
   ReduceArgs r = {};
   float* const dw[2] = {dwproj, dwqkv};
   float* const db[2] = {dbproj, nullptr};
@@ -2016,6 +2371,17 @@ extern "C" {
 // Kernels this library has launched since it was loaded (K1 5 a call, K2 13,
 // K3 3, K4 7).
 long long window_any_launches(void) { return g_launches; }
+
+// The forward attention's grid at these widths (attn_plan): the strips of 16
+// queries a block into out[0], the parts of the keys into out[1]. Returns 0,
+// or -1 for widths the route does not take.
+int window_any_attn_plan(int B, int H, int W, int C, int heads, int ws, int* out) {
+  if (!valid(B, H, W, C, heads, ws, 1)) return -1;
+  const AttnPlan p = attn_plan(make_dims(B, H, W, C, heads, ws, 1));
+  out[0] = p.qt;
+  out[1] = p.kp;
+  return 0;
+}
 
 // Bytes of scratch a launch of `kind` (0 block forward, 1 block backward,
 // 2 attention forward, 3 attention backward) needs.
@@ -2058,7 +2424,8 @@ int swin_any_fwd(const void* x, const void* wqkv, const void* bqkv, const void* 
 
 // K2: dx (T, [B, H, W, C]) and the 13 parameter gradients (f32, zeroed by
 // the caller, summed into) of the block from dy (T). The backward products
-// take operands rounded to rd = T (`rd` must equal `bf`).
+// take operands rounded to bf16 whatever T is (`rd` must be 1, as the JAX
+// kernel rounds them).
 int swin_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bqkv,
                  const void* wproj, const void* bproj, const void* rel, const void* ln1s,
                  const void* ln1b, const void* ln2s, const void* ln2b, const void* w1,
@@ -2068,7 +2435,7 @@ int swin_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
                  float* dln2b, float* dw1, float* db1, float* dw2, float* db2,
                  void* scratch, int bf, int rd, int B, int H, int W, int C, int heads,
                  int ws, int hidden, float eps, void* stream) {
-  if (!valid(B, H, W, C, heads, ws, hidden) || rd != bf) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, W, C, heads, ws, hidden) || rd != 1) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(B, H, W, C, heads, ws, hidden);
   Carver cv = {static_cast<char*>(scratch), 0};
   Buffers b;

@@ -469,6 +469,9 @@ def _lib(name: str):
             lib.window_any_scratch_bytes.restype = ctypes.c_longlong
             lib.window_any_launches.argtypes = []
             lib.window_any_launches.restype = ctypes.c_longlong
+            lib.window_any_attn_plan.argtypes = (
+                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+            lib.window_any_attn_plan.restype = ctypes.c_int
             lib.swin_any_fwd.argtypes = (
                 [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -598,16 +601,18 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
     """Backward of :func:`swin_block`: ``(dx, 13 f32 parameter gradients)``.
 
     The kernel of :func:`kernel_route`'s route on CUDA tensors,
-    :func:`swin_block_backward_reference` on CPU tensors. The general route
-    rounds the backward products' operands to x's element type, as the
-    plain version does.
+    :func:`swin_block_backward_reference` with ``operand_dtype=bfloat16`` on
+    CPU tensors. Both routes round every backward product's operands to
+    bf16 whatever x's element type, as ``_bwd_kernel`` does
+    (``pallas_swin_block.py``): in f32 the general route runs those products
+    as bf16 products on operands rounded as they are read.
     """
     args = (x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s, ln2b,
             w1, b1, w2, b2)
     if x.device.type == "cpu":
         return swin_block_backward_reference(
             *args, mask, drop_path, dy, window_size=window_size,
-            num_heads=num_heads, eps=eps)
+            num_heads=num_heads, eps=eps, operand_dtype=torch.bfloat16)
     if x.device.type != "cuda":
         raise ValueError(f"swin_block_bwd runs on CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -639,7 +644,7 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
         err = window_any_lib().swin_any_bwd(
             ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
             ptr(drop_path), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
-            bf, bf, b, h, w, c, num_heads, window_size, hidden, eps,
+            bf, 1, b, h, w, c, num_heads, window_size, hidden, eps,
             ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"swin_block_bwd general kernels failed with "

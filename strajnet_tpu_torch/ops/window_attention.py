@@ -50,6 +50,10 @@ from strajnet_tpu_torch.ops.swin_block import (
 from strajnet_tpu_torch.ops.windows import window_partition, window_reverse
 
 GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+# The general route's forward attention halves its strips a block while its
+# grid has fewer blocks than this: two waves of the H100's 132 SMs
+# (csrc/window_any.cu: kAttnBlocks).
+ATTN_BLOCKS = 264
 _FWD_KERNEL = "the window-attention forward kernels"
 _BWD_KERNEL = "the window-attention backward kernels"
 
@@ -153,6 +157,37 @@ def window_attention_backward_reference(
     dxw = dqkv @ _rnd(_rnd(wqkv, dt), rd).t()
     dx = window_reverse(dxw, ws, h, w, c).to(dt)
     return dx, (dwqkv, dbqkv, dwproj, dbproj, dbias)
+
+
+def attention_plan(n: int, heads: int, windows: int) -> Tuple[int, int]:
+    """The grid of the general route's forward attention
+    (``csrc/window_any.cu::attn_plan``, its twin) for windows of ``n``
+    tokens: ``(strips of 16 queries a block, parts of the keys)``, a warp
+    each pair. A block holds four strips while the grid, ``windows * heads``
+    times the blocks a window and head, has :data:`ATTN_BLOCKS` blocks or
+    more; below that the strips a block are halved and the keys split into
+    as many more parts, down to one strip and four parts; a part keeps 16
+    keys or more, and with one part a block keeps four strips (a window of
+    16 tokens uses one of them). Pure: a function of the widths alone."""
+    tiles = -(-n // 16)
+    qt = 4
+    while qt > 1 and windows * heads * -(-tiles // qt) < ATTN_BLOCKS:
+        qt //= 2
+    kp = min(4 // qt, tiles)
+    return (4, 1) if kp == 1 else (qt, kp)
+
+
+def attention_plan_of_kernel(b: int, h: int, w: int, c: int, heads: int,
+                             window_size: int) -> Tuple[int, int]:
+    """:func:`attention_plan` as the built library computes it (needs
+    nvcc)."""
+    out = (ctypes.c_int * 2)()
+    if window_any_lib().window_any_attn_plan(b, h, w, c, heads, window_size,
+                                             out) != 0:
+        raise ValueError(f"the general route takes no attention at "
+                         f"[{b}, {h}, {w}, {c}], heads={heads}, "
+                         f"window_size={window_size}")
+    return out[0], out[1]
 
 
 def _lib():
@@ -266,12 +301,16 @@ def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
     """Backward of :func:`window_attention`: ``(dx, 5 f32 gradients)``.
 
     The kernel of ``kernel_route``'s route on CUDA tensors,
-    :func:`window_attention_backward_reference` on CPU tensors.
+    :func:`window_attention_backward_reference` with
+    ``operand_dtype=bfloat16`` on CPU tensors: every backward product takes
+    operands rounded to bf16 whatever x's element type, as the JAX kernel
+    and both routes round them.
     """
     if x.device.type == "cpu":
         return window_attention_backward_reference(
             x, wqkv, bqkv, wproj, rel_bias, mask, dy,
-            window_size=window_size, num_heads=num_heads)
+            window_size=window_size, num_heads=num_heads,
+            operand_dtype=torch.bfloat16)
     if x.device.type != "cuda":
         raise ValueError(f"window_attention_bwd runs on CPU or CUDA tensors, "
                          f"got {x.device}")

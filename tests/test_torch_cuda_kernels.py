@@ -23,8 +23,9 @@ from strajnet_tpu_torch.ops.windows import shifted_window_mask
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import (ANY_EDGES, ANY_K4_F32_MAX_ABS_REL,  # noqa: E402
-                        ANY_K4_F32_ONE_MINUS_COS)
+from chip_smoke import (ANY_EDGES, ANY_GEOMETRIES,  # noqa: E402
+                        ANY_BF16_OPERANDS_MAX_ABS_REL,
+                        ANY_BF16_OPERANDS_ONE_MINUS_COS)
 
 pytestmark = pytest.mark.cuda
 
@@ -385,19 +386,20 @@ def _general_case(card, b, h, c, heads, ws, hidden, shift, dtype, seed=0):
 def test_general_route_matches_plain(card, b, h, c, heads, ws, hidden, shift,
                                      dtype):
     """K1-K4 on the general route (``csrc/window_any.cu``) against their
-    plain versions, K4's with operands rounded to bf16 as it rounds them.
-    f32 with TF32 off: the forwards within 1e-4, K2's gradients within 1e-3
-    of each result's largest entry (sums in another order), K4's within the
-    bf16 operands' limits (2^-6, 1 - cos 1e-6: ``chip_smoke.ANY_K4_F32_*``,
-    since a sum off in its last bit rounds a bf16 operand the other way);
-    bf16: the wgmma route's limits. Twice on the same inputs: bit-identical
-    (no atomics)."""
+    plain versions, K2's and K4's with operands rounded to bf16 as both
+    round them. f32 with TF32 off: the forwards within 1e-4 of each
+    result's largest entry (sums in another order), K2's and K4's gradients
+    within the bf16 operands' limits (2^-6, 1 - cos 1e-6:
+    ``chip_smoke.ANY_BF16_OPERANDS_*``, since a sum off in its last bit
+    rounds a bf16 operand the other way); bf16: the wgmma route's limits.
+    Twice on the same inputs: bit-identical (no atomics)."""
     args, mask, dp, dy = _general_case(card, b, h, c, heads, ws, hidden,
                                        shift, dtype)
     assert sb.kernel_route(dtype, c, heads, ws, hidden) == "any"
     kw = dict(window_size=ws, num_heads=heads)
     attn, f32 = args[:6], dtype == torch.float32
-    fwd_tol, bwd_tol = (1e-4, 1e-3) if f32 else (2.0 ** -5, 2.0 ** -6)
+    fwd_tol = 1e-4 if f32 else 2.0 ** -5
+    bwd_tol = ANY_BF16_OPERANDS_MAX_ABS_REL if f32 else 2.0 ** -6
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -412,8 +414,9 @@ def test_general_route_matches_plain(card, b, h, c, heads, ws, hidden, shift,
             assert (sb.swin_block.launches_any,
                     sb.swin_block.launches) == (before[0] + 1, before[1])
             want = {"k1": sb.swin_block_reference(*args, mask, dp, **kw),
-                    "k2": sb.swin_block_backward_reference(*args, mask, dp,
-                                                           dy, **kw),
+                    "k2": sb.swin_block_backward_reference(
+                        *args, mask, dp, dy, operand_dtype=torch.bfloat16,
+                        **kw),
                     "k3": wa.window_attention_reference(*attn, mask, **kw),
                     "k4": wa.window_attention_backward_reference(
                         *attn[:4], attn[5], mask, dy,
@@ -425,16 +428,15 @@ def test_general_route_matches_plain(card, b, h, c, heads, ws, hidden, shift,
         assert float((got[k].float() - want[k].float()).abs().max()) <= \
             fwd_tol * scale, k
     for k in ("k2", "k4"):
-        tol = ANY_K4_F32_MAX_ABS_REL if k == "k4" and f32 else bwd_tol
         for i, (a, w) in enumerate(zip((got[k][0],) + tuple(got[k][1]),
                                        (want[k][0],) + tuple(want[k][1]))):
             scale = float(w.float().abs().max())
             assert float((a.float() - w.float()).abs().max()) <= \
-                tol * scale, (k, i)
-            if k == "k4" and f32:
+                bwd_tol * scale, (k, i)
+            if f32:
                 a64, w64 = a.double().flatten(), w.double().flatten()
                 assert 1.0 - float(a64 @ w64 / (a64.norm() * w64.norm())) \
-                    <= ANY_K4_F32_ONE_MINUS_COS, (k, i)
+                    <= ANY_BF16_OPERANDS_ONE_MINUS_COS, (k, i)
     assert torch.equal(got["k2"][0], again[0])
     assert all(torch.equal(a, b) for a, b in zip(got["k2"][1], again[1]))
 
@@ -444,9 +446,10 @@ def test_general_route_at_its_edges(card, b, h, c, heads, ws, hidden, shift,
                                     dtn, what):
     """``chip_smoke.ANY_EDGES``: K3 at its largest widths and in f32 at 256
     tokens (three launches a call), and K2 in f32 at head_dim 64 and 256
-    tokens (one attention-backward kernel that streams its query tiles),
-    each twice (bit-identical) against its plain version under the general
-    route's limits."""
+    tokens (one attention-backward kernel that streams its query tiles, on
+    operands rounded to bf16, against the bf16-operand oracle), each twice
+    (bit-identical) against its plain version under the general route's
+    limits."""
     dtype = getattr(torch, dtn)
     f32 = dtype == torch.float32
     args, mask, dp, dy = _general_case(card, b, h, c, heads, ws, hidden,
@@ -467,9 +470,9 @@ def test_general_route_at_its_edges(card, b, h, c, heads, ws, hidden, shift,
             else:
                 got = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
                 again = sb.swin_block_bwd(*args, mask, dp, dy, **kw)
-                want = sb.swin_block_backward_reference(*args, mask, dp, dy,
-                                                        **kw)
-                tol = 1e-3 if f32 else 2.0 ** -6
+                want = sb.swin_block_backward_reference(
+                    *args, mask, dp, dy, operand_dtype=torch.bfloat16, **kw)
+                tol = ANY_BF16_OPERANDS_MAX_ABS_REL if f32 else 2.0 ** -6
                 pairs = list(zip((got[0],) + tuple(got[1]),
                                  (want[0],) + tuple(want[1]),
                                  (again[0],) + tuple(again[1])))
@@ -478,7 +481,60 @@ def test_general_route_at_its_edges(card, b, h, c, heads, ws, hidden, shift,
     for i, (a, w, a2) in enumerate(pairs):
         scale = float(w.float().abs().max())
         assert float((a.float() - w.float()).abs().max()) <= tol * scale, i
+        if f32 and not what.startswith("k3"):
+            a64, w64 = a.double().flatten(), w.double().flatten()
+            assert 1.0 - float(a64 @ w64 / (a64.norm() * w64.norm())) \
+                <= ANY_BF16_OPERANDS_ONE_MINUS_COS, i
         assert torch.equal(a, a2), i
+
+
+def test_general_attention_plan_matches_its_python_twin(card):
+    """The grid of the general route's forward attention as the library
+    computes it (``attn_plan``) against ``attention_plan`` at every geometry
+    of ``chip_smoke.ANY_GEOMETRIES`` and ``ANY_EDGES`` and at windows of 4
+    to 256 tokens over one to 300 windows."""
+    del card
+    cases = [geo[:5] for geo in ANY_GEOMETRIES + ANY_EDGES]
+    cases += [(b, ws * k, 8 * heads, heads, ws)
+              for b in (1, 3) for ws in (2, 5, 8, 11, 16)
+              for k in (1, 4, 10) for heads in (1, 4)]
+    for b, h, c, heads, ws in cases:
+        assert wa.attention_plan_of_kernel(b, h, h, c, heads, ws) == \
+            wa.attention_plan(ws * ws, heads, b * (h // ws) ** 2), \
+            (b, h, c, heads, ws)
+
+
+@pytest.mark.parametrize("b,h,c,heads,ws,shift,dtype", [
+    (1, 12, 18, 3, 6, 3, torch.float32),    # rows of 72 bytes: element copies
+    (1, 12, 18, 3, 6, 3, torch.bfloat16),   # rows of 36 bytes
+    (2, 14, 24, 3, 7, 3, torch.float32),    # K 24: a ragged stage of depth
+    (3, 20, 40, 5, 5, 2, torch.bfloat16),   # N 120, 40: ragged column tiles
+])
+def test_general_k3_products_at_ragged_widths(card, b, h, c, heads, ws,
+                                              shift, dtype):
+    """K3 on the general route, whose products run on wgmma
+    (``gemm_sm90_kernel`` in bf16, ``gemm_tf32x3_kernel`` in f32), at widths
+    whose rows, depths and columns fill no tile: against the plain version
+    within the general route's limits (f32 1e-4, bf16 2^-5 of the largest
+    entry), three kernels a call, two runs bit-identical."""
+    args, mask, _, _ = _general_case(card, b, h, c, heads, ws, 2 * c, shift,
+                                     dtype)
+    kw = dict(window_size=ws, num_heads=heads)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            before = sb.window_any_launches()
+            got = wa.window_attention(*args[:6], mask, **kw)
+            assert sb.window_any_launches() - before == 3
+            again = wa.window_attention(*args[:6], mask, **kw)
+            want = wa.window_attention_reference(*args[:6], mask, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cmid,dtype", [

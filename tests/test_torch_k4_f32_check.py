@@ -9,7 +9,7 @@ its last bit then rounds to the neighbouring bf16 value. The first test shows
 that the oracle's own answer moves when its recomputed forward sums in
 another, equally correct order (the products in f64, rounded to f32): the
 spread is what any kernel must be allowed, and the f32 limits of
-``chip_smoke.py`` (``ANY_K4_F32_*``) sit at least 4x above it. The second
+``chip_smoke.py`` (``ANY_BF16_OPERANDS_*``) sit at least 4x above it. The second
 models the kernel's arithmetic in numpy, as ``tests/test_torch_tf32x3.py``
 models 3xTF32: every backward product on bf16 operands, summed in f32 in the
 order of the kernel's tiles, held against the oracle within those limits.
@@ -29,8 +29,8 @@ from strajnet_tpu_torch.ops.windows import shifted_window_mask
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-from chip_smoke import (ANY_K4_F32_MAX_ABS_REL,  # noqa: E402
-                        ANY_K4_F32_ONE_MINUS_COS)
+from chip_smoke import (ANY_BF16_OPERANDS_MAX_ABS_REL,  # noqa: E402
+                        ANY_BF16_OPERANDS_ONE_MINUS_COS)
 
 torch.set_num_threads(2)
 NAMES = ("dx",) + wa.GRAD_NAMES
@@ -110,8 +110,8 @@ def test_the_oracle_moves_when_its_f32_sums_change_order(geometry):
     # the fault: the oracle's answer moves with the order of its f32 sums
     assert worst_rel > 0.0
     # the limits hold that spread with a margin of 4x or more
-    assert MARGIN * worst_rel <= ANY_K4_F32_MAX_ABS_REL
-    assert MARGIN * worst_omc <= ANY_K4_F32_ONE_MINUS_COS
+    assert MARGIN * worst_rel <= ANY_BF16_OPERANDS_MAX_ABS_REL
+    assert MARGIN * worst_omc <= ANY_BF16_OPERANDS_ONE_MINUS_COS
 
 
 def test_the_old_limit_fails_against_the_oracle_itself():
@@ -253,5 +253,5 @@ def test_the_kernels_bf16_products_stay_within_the_f32_limit(geometry):
     for name, a, w in zip(NAMES, got, want):
         rel, omc = _spread(torch.from_numpy(np.ascontiguousarray(a)), w)
         print(f"{geometry} {name}: {rel:.3e} of max|ref|, 1-cos {omc:.3e}")
-        assert rel <= ANY_K4_F32_MAX_ABS_REL, name
-        assert omc <= ANY_K4_F32_ONE_MINUS_COS, name
+        assert rel <= ANY_BF16_OPERANDS_MAX_ABS_REL, name
+        assert omc <= ANY_BF16_OPERANDS_ONE_MINUS_COS, name

@@ -142,14 +142,20 @@ def test_dropped_sample_passes_dy_through():
 
 
 def test_wrappers_on_cpu_take_plain_path():
+    """``swin_block_bwd`` on CPU f32 tensors is the plain backward with
+    operands rounded to bf16 (as ``_bwd_kernel`` and the kernels round
+    them), bit for bit; the forward wrapper under autograd, both backward
+    modes, is the exact f32 gradient, the plain backward unrounded."""
     a, dy, dp, mask = *_inputs(seed=4), _mask(2)
-    t, tm, (dx, grads) = _ours(a, dy, dp, mask)
+    t, tm, (dx_bf, grads_bf) = _ours(a, dy, dp, mask,
+                                     operand_dtype=torch.bfloat16)
     before = (swin_block.launches, swin_block_bwd.launches)
     dx2, grads2 = swin_block_bwd(*t, tm, torch.from_numpy(dp),
                                  torch.from_numpy(dy), **KW)
-    np.testing.assert_array_equal(dx.numpy(), dx2.numpy())
-    for g, g2 in zip(grads, grads2):
+    np.testing.assert_array_equal(dx_bf.numpy(), dx2.numpy())
+    for g, g2 in zip(grads_bf, grads2):
         np.testing.assert_array_equal(g.numpy(), g2.numpy())
+    _, _, (dx, _) = _ours(a, dy, dp, mask, operand_dtype=None)
     # the forward wrapper under autograd, both backward modes
     for backward in ("kernel", "plain"):
         ins = [v.clone().requires_grad_(True) for v in t]

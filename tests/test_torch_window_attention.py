@@ -118,6 +118,10 @@ def test_plain_versions_match_jax_at_head_dim_8(shift):
 
 @pytest.mark.parametrize("shift", [0, 2])
 def test_plain_backward_is_the_gradient_of_the_plain_forward(shift):
+    """Unrounded (``operand_dtype=None``), the plain backward is autograd of
+    the plain forward; ``window_attention_bwd`` on CPU f32 tensors is the
+    plain backward with operands rounded to bf16, as the JAX kernel and the
+    CUDA kernels round them, bit for bit."""
     shape = GEOMETRIES[0]
     ws, heads = shape[4], shape[5]
     args, mask, dy = _inputs(shape, shift, seed=1)
@@ -126,20 +130,29 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward(shift):
                             num_heads=heads)
     want = torch.autograd.grad(y, ins, torch.from_numpy(dy))
     x, wqkv, bqkv, wproj, _, rel = [a.detach() for a in ins]
-    dx, grads = wa.window_attention_bwd(
-        x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
-        window_size=ws, num_heads=heads)
+    bwd_args = (x, wqkv, bqkv, wproj, rel, _tmask(mask),
+                torch.from_numpy(dy))
+    kw = dict(window_size=ws, num_heads=heads)
+    dx, grads = wa.window_attention_backward_reference(
+        *bwd_args, operand_dtype=None, **kw)
     for name, got, w in zip(("dx",) + wa.GRAD_NAMES, (dx,) + grads, want):
         np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5 * max(1.0, float(w.abs().max())),
                                    err_msg=name)
+    got = wa.window_attention_bwd(*bwd_args, **kw)
+    rounded = wa.window_attention_backward_reference(
+        *bwd_args, operand_dtype=torch.bfloat16, **kw)
+    for a, b in zip((got[0],) + got[1], (rounded[0],) + rounded[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("backward", ["kernel", "plain"])
 def test_autograd_function_plumbing(monkeypatch, backward):
     """The ``autograd.Function`` of the CUDA path with its forward launch
     replaced by the plain version: both backward switches hand every input
-    its own gradient, the mask none."""
+    its own gradient, the mask none. "plain" is autograd of the plain
+    forward; "kernel" is ``window_attention_bwd``, on the CPU the plain
+    backward with operands rounded to bf16 (as the kernels round them)."""
     shape = GEOMETRIES[0]
     ws, heads = shape[4], shape[5]
     args, mask, dy = _inputs(shape, 2, seed=2)
@@ -155,10 +168,17 @@ def test_autograd_function_plumbing(monkeypatch, backward):
     y = wa._WindowAttentionFn.apply(ws, heads, backward == "plain",
                                     _tmask(mask), *ins)
     got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
-    ref_ins = [a.requires_grad_(True) for a in _t(args)]
-    y_ref = wa.window_attention_reference(*ref_ins, _tmask(mask),
-                                          window_size=ws, num_heads=heads)
-    want = torch.autograd.grad(y_ref, ref_ins, torch.from_numpy(dy))
+    if backward == "plain":
+        ref_ins = [a.requires_grad_(True) for a in _t(args)]
+        y_ref = wa.window_attention_reference(*ref_ins, _tmask(mask),
+                                              window_size=ws, num_heads=heads)
+        want = torch.autograd.grad(y_ref, ref_ins, torch.from_numpy(dy))
+    else:
+        x, wqkv, bqkv, wproj, _, rel = _t(args)
+        dx, grads = wa.window_attention_backward_reference(
+            x, wqkv, bqkv, wproj, rel, _tmask(mask), torch.from_numpy(dy),
+            window_size=ws, num_heads=heads, operand_dtype=torch.bfloat16)
+        want = (dx,) + grads
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
