@@ -1,0 +1,9 @@
+"""decoder_ms.infer: the device time of the kernels, copies and sets charged
+to the decoder's, the output's layout with it (``strajnet.decoder``) span
+in the attribution pass, a serving step (a batch), in ms."""
+
+from benchmark.spans import layer_ms
+
+
+def read(r):
+    return layer_ms(r, "decoder")

@@ -1,0 +1,9 @@
+"""fgmsa_ms.infer: the device time of the kernels, copies and sets charged to
+FG-MSA's (``strajnet.fg_msa``) span in the attribution pass, a serving step
+(a batch), in ms."""
+
+from benchmark.spans import layer_ms
+
+
+def read(r):
+    return layer_ms(r, "fgmsa")

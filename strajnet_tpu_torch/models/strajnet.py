@@ -23,6 +23,10 @@ decoder's upsampled volumes record the split over ``'model'`` that JAX
 lays out and stay whole (nothing computes on a split activation yet), so
 the forward is the same with and without it; without such an axis the
 hints return their input, as in JAX.
+
+The forward marks its four layers with ``tracing.span``
+(``strajnet.encoder``, ``strajnet.fg_msa``, ``strajnet.trajnet``,
+``strajnet.decoder``), recorded only while a ``torch.profiler`` runs.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from strajnet_tpu_torch.models.fgmsa import FGMSA
 from strajnet_tpu_torch.models.swin import SwinTransformerEncoder
 from strajnet_tpu_torch.models.trajnet import TrajNetCrossAttention
 from strajnet_tpu_torch.ops.attention import TfaMultiHeadAttention
+from strajnet_tpu_torch.tracing import span
 
 # The CLIs' --pallas choices (besides "auto") -> use_pallas_attention.
 PALLAS_MODES = {"off": False, "attn": "attn", "block": "block",
@@ -130,22 +135,27 @@ class STrajNet(nn.Module):
         t = cfg.num_waypoints
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
-        res_list = self.encoder(ogm, map_img, flow, generator)
+        with span("strajnet.encoder"):
+            res_list = self.encoder(ogm, map_img, flow, generator)
         q = res_list[-1]                              # [B, bh*bw, bd]
         if cfg.fg_msa:
-            q = q.reshape(-1, bh, bw, bd)
-            res, _, ref = self.fg_msa_layer(q, generator=generator)
-            q = (res + q).reshape(-1, bh * bw, bd)
-        query = q[:, None].repeat(1, t, 1, 1)         # [B, T, N, D]
-        if cfg.fg_msa and cfg.fg:
-            # per-group flow features projected onto the waypoint axis
-            # (n_groups is reused as T)
-            query = ref.reshape(-1, t, bh * bw, bd) + query
-        obs_value = self.trajnet_attn(query, obs, occ, mapt,
-                                       generator=generator)
-        y = self.decoder(obs_value, res_list)
-        _, _, oh, ow, c = y.shape
-        return y.permute(0, 2, 3, 1, 4).reshape(-1, oh, ow, t * c).float()
+            with span("strajnet.fg_msa"):
+                q = q.reshape(-1, bh, bw, bd)
+                res, _, ref = self.fg_msa_layer(q, generator=generator)
+                q = (res + q).reshape(-1, bh * bw, bd)
+        with span("strajnet.trajnet"):
+            query = q[:, None].repeat(1, t, 1, 1)     # [B, T, N, D]
+            if cfg.fg_msa and cfg.fg:
+                # per-group flow features projected onto the waypoint axis
+                # (n_groups is reused as T)
+                query = ref.reshape(-1, t, bh * bw, bd) + query
+            obs_value = self.trajnet_attn(query, obs, occ, mapt,
+                                           generator=generator)
+        with span("strajnet.decoder"):
+            y = self.decoder(obs_value, res_list)
+            _, _, oh, ow, c = y.shape
+            return y.permute(0, 2, 3, 1, 4).reshape(-1, oh, ow,
+                                                    t * c).float()
 
 
 def build_model(cfg: ModelConfig) -> STrajNet:

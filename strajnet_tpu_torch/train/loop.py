@@ -179,7 +179,8 @@ def train(model_cfg: ModelConfig = STRAJNET_CONFIG,
     of the process group's ranks (``parallel/mesh.py``); ``batches`` then
     gives this rank's ``'data'`` shard. ``profile_dir`` gets a
     ``torch.profiler`` trace of steps 10 to 20 of the first epoch run (rank
-    0's).
+    0's), the steps' ``strajnet.*`` spans (``tracing.py``) among its host
+    operations.
     """
     device = resolve_device(device)
     mesh = tp.create_mesh(model_axis, device) if model_axis > 1 else None

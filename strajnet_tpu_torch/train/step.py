@@ -18,6 +18,12 @@ refuse uneven ones), and the train step gives the replicated parameters'
 gradients model-rank 0's values before the update
 (``parallel/mesh.py::align_replicated_grads``), so that the peers' copies
 stay bit-equal.
+
+The train and predict steps mark their phases with ``tracing.span``
+(``strajnet.train_step``: ``strajnet.forward``, ``strajnet.loss``,
+``strajnet.backward``, ``strajnet.optimizer``; ``strajnet.predict_step``:
+``strajnet.forward``), which records them only while a ``torch.profiler``
+runs.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from strajnet_tpu_torch.objective.metrics import (
     apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics)
 from strajnet_tpu_torch.parallel import mesh as tp
 from strajnet_tpu_torch.parallel.ddp import data_size, sum_over_ranks
+from strajnet_tpu_torch.tracing import span
 
 # The model casts its input rasters to its compute dtype itself, so compact
 # uint8 / f16 feeds of these pass through unwidened.
@@ -95,20 +102,25 @@ def make_train_step(task_cfg: TaskConfig, loss_cfg: LossConfig,
     loss_fn = OGMFlowLoss(task_cfg, loss_cfg, reduce_sum=_ranks_reduce_sum())
 
     def _step_math(state, batch, generator):
-        tp.check_rows(len(batch["ogm"]))
-        batch = ensure_f32(batch)
-        true_waypoints = true_waypoints_from_batch(batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        outputs = _forward(state.model, batch, generator)
-        logits = split_pred_waypoints(outputs, num_waypoints)
-        loss_dict = loss_fn(true_waypoints, logits)
-        total = _total(loss_dict)
-        total.backward()
-        tp.align_replicated_grads(state.model)
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach()
-                       for k, v in dict(loss_dict, total=total).items()}
+        with span("strajnet.train_step"):
+            tp.check_rows(len(batch["ogm"]))
+            batch = ensure_f32(batch)
+            true_waypoints = true_waypoints_from_batch(batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("strajnet.forward"):
+                outputs = _forward(state.model, batch, generator)
+            with span("strajnet.loss"):
+                logits = split_pred_waypoints(outputs, num_waypoints)
+                loss_dict = loss_fn(true_waypoints, logits)
+                total = _total(loss_dict)
+            with span("strajnet.backward"):
+                total.backward()
+            with span("strajnet.optimizer"):
+                tp.align_replicated_grads(state.model)
+                state.optimizer.step()
+            state.step += 1
+            return state, {k: v.detach()
+                           for k, v in dict(loss_dict, total=total).items()}
 
     if accumulate:
         def train_step(state, batch, generator, loss_sums):
@@ -163,8 +175,9 @@ def make_predict_step(num_waypoints: int = 8) -> Callable:
 
     def predict_step(model: nn.Module,
                      batch: Dict[str, torch.Tensor]) -> WaypointGrids:
-        with torch.inference_mode():
-            outputs = _forward(model, ensure_f32(batch))
+        with span("strajnet.predict_step"), torch.inference_mode():
+            with span("strajnet.forward"):
+                outputs = _forward(model, ensure_f32(batch))
             logits = split_pred_waypoints(outputs, num_waypoints)
             return apply_sigmoid_to_occupancy_logits(logits)
 

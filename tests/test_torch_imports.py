@@ -26,8 +26,7 @@ import strajnet_tpu_torch.config as tconfig
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "chex", "strajnet_tpu")
 # The port's scripts under tools/, beside the JAX package's.
-PORT_SCRIPTS = ("profile_train_step_gpu.py", "profile_loop_gpu.py",
-                "swin_block_bwd_phases.py")
+PORT_SCRIPTS = ("profile_loop_gpu.py", "swin_block_bwd_phases.py")
 # Numbers of the TPU and A100 rounds, which are not the port's.
 FOREIGN_NUMBERS = ("197e12", "1365e9", "293.0")
 
