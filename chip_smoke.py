@@ -186,7 +186,7 @@ from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
     GRAD_NAMES, atb_accum, kernel_route, kernel_smem_bytes, swin_block,
     swin_block_backward_reference, swin_block_bwd, swin_block_reference,
-    token_blocked, window_any_launches)
+    token_blocked, window_any_fwd_launches, window_any_launches)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
     warp_gather_bwd, warp_gather_fwd)
@@ -1191,11 +1191,12 @@ def general_geometry(geo, g, names=("k1", "k2", "k3", "k4"), timed=True):
     res = {}
     with torch.inference_mode():
         reset_counters()
-        got, again, per_call = {}, {}, {}
+        got, again, per_call, fwd_per_call = {}, {}, {}, {}
         for k in names:
-            before = window_any_launches()
+            before = window_any_launches(), window_any_fwd_launches()
             got[k] = calls[k][0]()
-            per_call[k] = window_any_launches() - before
+            per_call[k] = window_any_launches() - before[0]
+            fwd_per_call[k] = window_any_fwd_launches() - before[1]
             again[k] = calls[k][0]()
         torch.cuda.synchronize()
         check(read_general_counters() == counts(
@@ -1203,6 +1204,11 @@ def general_geometry(geo, g, names=("k1", "k2", "k3", "k4"), timed=True):
               and read_counters() == counts(),
               f"two general launches of each of {names} and no other: "
               f"{read_general_counters()}, {read_counters()}")
+        # every f32 product of a block's forward on fwd_product_kernel
+        want_fwd = dict(k1=4, k2=3) if f32 else {}
+        check(all(fwd_per_call[k] == want_fwd.get(k, 0) for k in names),
+              f"fwd_product_kernel launches a call: {fwd_per_call} "
+              f"(f32: K1 4, K2 3; else none)")
         want = {k: calls[k][1]() for k in names}
         line = []
         for k in names:
@@ -1227,7 +1233,8 @@ def general_geometry(geo, g, names=("k1", "k2", "k3", "k4"), timed=True):
                               per_call=per_call[k])
             text = (f"{k} err/max|ref|={worst:.2e} (limit {limit:.2e}"
                     + (f", 1-cos {omc_limit:.0e}" if omc_limit else "")
-                    + f") kernels a call {per_call[k]}")
+                    + f") kernels a call {per_call[k]} "
+                    f"(fwd_product_kernel {fwd_per_call[k]})")
             if timed:
                 ks, ps = in_turns(calls[k][1], calls[k][0],
                                   lambda fn: kernel_ms(fn, iters=3))
@@ -1415,8 +1422,8 @@ def general_breakdown(g: torch.Generator) -> None:
     del args
 
 
-WINDOW_ANY_KERNELS = ("gemm_kernel", "gemm_sm90_kernel", "gemm_tf32x3_kernel",
-                      "atb_kernel", "attn_fwd_kernel",
+WINDOW_ANY_KERNELS = ("fwd_product_kernel", "gemm_kernel", "gemm_sm90_kernel",
+                      "gemm_tf32x3_kernel", "atb_kernel", "attn_fwd_kernel",
                       "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel")
 DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
                             "decoder_tail_any_kernel")

@@ -1,8 +1,10 @@
-// PTX wrappers for Hopper (sm_90a): mbarriers, bulk asynchronous copies,
-// named barriers, the proxy fence, and wgmma's descriptors and
-// instructions (bf16 in, f32 sums: m64nNk16 with A and B from shared memory
-// or A from registers; tf32 in: m64n64k8 from shared memory). Shared by the wgmma kernels (swin_block_sm90.cuh)
-// and the general route's products (window_any.cu).
+// PTX wrappers for Hopper (sm_90a): mbarriers (also as the end of cp.async
+// copies), bulk and tensor-map (TMA) copies, named barriers, the proxy fence,
+// and wgmma's descriptors and instructions (bf16 in, f32 sums: m64nNk16 with
+// A and B from shared memory or A from registers; tf32 in: m64n64k8 from
+// shared memory, m64n128k8 with A from registers). Shared by the wgmma
+// kernels (swin_block_sm90.cuh) and the general route's products
+// (window_any.cu).
 
 #pragma once
 
@@ -51,6 +53,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Arrives on the mbarrier once every cp.async this thread has started has
+// landed; the arrival counts against those the barrier was initialised with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Adds `bytes` to the transactions the barrier's phase waits for, without
+// arriving.
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// A box of a 2-D tensor map (`map`: the generic address of a CUtensorMap
+// kernel parameter) at inner, outer coordinates (c0, c1) -> shared memory,
+// zero past the tensor's edges; completion is counted on the mbarrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 // Orders this thread's ordinary shared-memory writes before later reads by
@@ -274,6 +303,39 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma.mma_async m64n128k8, tf32 x tf32 -> f32 with A from registers (four
+// TF32 values a thread: rows g and g + 8 of its warp's 16, depths t and t +
+// 4, g = lane / 4, t = lane % 4, as mma.sync's m16n8k8) and B K-major from
+// shared memory. d += A B when scale_d != 0, d = A B otherwise.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 }  // namespace sm90

@@ -20,8 +20,8 @@
 //
 // The kernels, every product on the tensor cores:
 //
-// - gemm_kernel (mma.sync): C = epilogue(A @ B) over the tokens, 64 x 64
-//   block tiles, four warps of 32 x 32, the operands staged by cp.async
+// - gemm_kernel (mma.sync): C = epilogue(A @ B) over the tokens (the
+//   backward's products, and the forward's in bf16), 64 x 64 block tiles, four warps of 32 x 32, the operands staged by cp.async
 //   (16-byte copies where the rows allow, element copies else, zero-filled
 //   edges) into a ring of three shared-memory stages; bf16 fragments by
 //   ldmatrix, f32 ones split into TF32 halves as they are read. A LayerNorm
@@ -40,6 +40,12 @@
 //   recomputed qkv, 128-row block tiles of two consumer warpgroups fed by a
 //   cp.async ring (see the kernels); qkv stored in window order, the
 //   projection at the grid rows.
+// - fwd_product_kernel (wgmma, f32 as three TF32 passes): the four products
+//   of K1's forward and of K2's recompute in f32 (LN1 -> qkv, the
+//   projection + residual, LN2 -> fc1 + gelu, fc2 + residual), 128 x 128
+//   tiles of two consumer warpgroups fed by a producer warp's tensor-map
+//   copies into an mbarrier ring, A's LayerNorm and TF32 split in registers
+//   while the last stage's products run (see the kernel).
 // - atb_kernel: the weight gradients, sum over tokens of a^T b, up to four
 //   in one launch, split over the tokens into per-split f32 partials; a row
 //   of ones under a^T gives the column sums of b (a bias gradient).
@@ -68,14 +74,15 @@
 //   reduce_kernel (every per-split partial added in a fixed order, one
 //   launch).
 //
-// Why mma.sync for most products: their operands pass through a
-// per-element step between shared memory and the tensor cores that depends
-// on the row (the LayerNorm and the row scale) or is done per fragment (the
-// rounding to bf16 of the backward's f32 operands), A's rows may be
-// gathered by a row map, and the attention's tiles are 16 rows of one
-// warp; register fragments serve all of these. The plain products have
-// none of these steps and run on wgmma: bf16 as stored, f32 split into its
-// TF32 halves once a stage in shared memory, where wgmma reads them.
+// Why mma.sync for the backward's products: their operands pass through a
+// per-element step between shared memory and the tensor cores that is done
+// per fragment (the rounding to bf16 of the backward's f32 operands, the
+// row scale), A's rows may be gathered by a row map, and the attention's
+// tiles are 16 rows of one warp; register fragments serve all of these.
+// The plain products run on wgmma: bf16 as stored, f32 split into its TF32
+// halves once a stage in shared memory, where wgmma reads them; so do the
+// forward's in f32, with A's LayerNorm and split in registers, which wgmma
+// reads A from.
 //
 // f32 runs as 3xTF32 (mma_sync.cuh), each stage of a sum (the product
 // loop's 16-deep stage, an attention strip's k step) summed from zero and
@@ -97,6 +104,8 @@
 // sums (dbqkv), db1, db2, dbproj sum f32 values. No float atomics: two runs
 // are bit-identical.
 
+#include <cuda.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -120,7 +129,8 @@ constexpr int kRowsPerBlock = 32;   // the LayerNorm backward's rows a block, at
 constexpr int kChunk = 64;         // keys (or queries) a step of the attention
 constexpr long long kTargetBlocks = 528;   // four blocks an SM
 
-long long g_launches = 0;   // kernels launched by this library
+long long g_launches = 0;       // kernels launched by this library
+long long g_fwd_launches = 0;   // of them, fwd_product_kernel's
 
 // ------------------------------------------------------------ elements
 
@@ -250,6 +260,48 @@ __device__ __forceinline__ void stage_tile(T* dst, int dld, int rows, int cols, 
 }
 
 // ------------------------------------------------------------ token products
+
+// The mean and 1 / std of a row of K elements (null: 0 and 0), summed by two
+// neighbouring lanes (half 0 and 1), each over half of the row: 16-byte
+// loads where the row allows (vec), all in flight at once.
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* row, int K, int half, int vec, float eps,
+                                          float& mean, float& inv) {
+  constexpr int CE = 16 / (int)sizeof(T);
+  const bool v16 = vec && K % (2 * CE) == 0;
+  const int hk = K / 2;
+  auto row_sum = [&](float mu, bool sq) {
+    float acc_ = 0.0f;
+    if (!row) return 0.0f;
+    if (v16) {
+      const uint4* p = reinterpret_cast<const uint4*>(row + half * hk);
+#pragma unroll 8
+      for (int i = 0; i < hk / CE; ++i) {
+        const uint4 u = p[i];
+        const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int j = 0; j < CE; ++j) {
+          const float v = to_f(e[j]) - mu;
+          acc_ += sq ? v * v : v;
+        }
+      }
+    } else {
+#pragma unroll 8
+      for (int k = half; k < K; k += 2) {
+        const float v = to_f(row[k]) - mu;
+        acc_ += sq ? v * v : v;
+      }
+    }
+    return acc_;
+  };
+  float s1 = row_sum(0.0f, false);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  mean = s1 / K;
+  float s2 = row_sum(mean, true);
+  s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+  inv = row ? rsqrtf(s2 / K + eps) : 0.0f;
+}
+
 
 template <typename T>
 struct Tile {
@@ -494,46 +546,13 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs g) {
           col_s[i] = i < g.K ? g.ln_s[i] : 0.0f;
           col_b[i] = i < g.K ? g.ln_b[i] : 0.0f;
         }
-        // two threads a row, each summing half of it: 16-byte loads where the
-        // rows allow, all in flight at once
         const int r = tid >> 1, half = tid & 1;
         const long long m = m0 + r;
         const T* row = m < g.M ? static_cast<const T*>(g.a.p) +
                                      (g.a.map ? (long long)grid_rows[r] : m) * g.a.ld
                                : nullptr;
-        const bool vec = g.a.vec && g.K % (2 * CE) == 0;
-        const int hk = g.K / 2;
-        float mean = 0.0f, inv = 0.0f;
-        auto row_sum = [&](float mu, bool sq) {
-          float acc_ = 0.0f;
-          if (!row) return 0.0f;
-          if (vec) {
-            const uint4* p = reinterpret_cast<const uint4*>(row + half * hk);
-#pragma unroll 8
-            for (int i = 0; i < hk / CE; ++i) {
-              const uint4 u = p[i];
-              const T* e = reinterpret_cast<const T*>(&u);
-  #pragma unroll
-              for (int j = 0; j < CE; ++j) {
-                const float v = to_f(e[j]) - mu;
-                acc_ += sq ? v * v : v;
-              }
-            }
-          } else {
-#pragma unroll 8
-            for (int k = half; k < g.K; k += 2) {
-              const float v = to_f(row[k]) - mu;
-              acc_ += sq ? v * v : v;
-            }
-          }
-          return acc_;
-        };
-        float s1 = row_sum(0.0f, false);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-        mean = s1 / g.K;
-        float s2 = row_sum(mean, true);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
-        inv = row ? rsqrtf(s2 / g.K + g.eps) : 0.0f;
+        float mean, inv;
+        row_stats<T>(row, g.K, half, g.a.vec, g.eps, mean, inv);
         if (half == 0) {
           row_a[r] = row ? mean : 0.0f;
           row_b[r] = inv;
@@ -984,6 +1003,409 @@ __global__ void __launch_bounds__(kProdThreads, 2) gemm_tf32x3_kernel(GemmArgs g
   cp_async_wait<0>();
   __syncthreads();   // both warpgroups' products done: the ring takes the C tile
   store_tile<float, BN>(acc, g, m0, n0, wg_smem, orow);
+}
+
+// The four products of a block's forward in f32 (block_forward: LN1(x) @
+// wqkv + bqkv, x + dp1 (merged @ wproj + bproj), gelu(LN2(r1) @ w1 + b1),
+// r1 + dp2 (g1 @ w2 + b2)), on wgmma as three TF32 passes. Bound by
+// operations at K = C >= 192 (3xTF32's 165 TFLOP/s) and by bytes at C 96,
+// where fc1 writes g1 and z1 (1.9 KB a row) for 74 KFLOP a row. So the
+// design keeps the tensor cores and the loads busy at once: a block owns a
+// 128 x 128 tile of C (columns past N read as zero: a wider tile
+// normalises A's rows fewer times), two consumer warpgroups of 64 rows
+// each and a producer warp, of a warpgroup that gives its registers to the
+// consumers (setmaxnreg).
+// - Loads: a ring of kFwdStages stages, 16 depths of A's 128 rows and of
+//   B's 128 columns, by one tensor-map copy (TMA) each, zero past the edges,
+//   counted on the stage's mbarrier (element cp.async where a row stride is
+//   no multiple of 16 bytes). qkv runs over x's rows in grid order, each
+//   row stored at its window-order row (the attention's layout), so no
+//   operand needs a row map.
+// - A: its TF32 halves never go through shared memory. Each consumer
+//   thread reads its wgmma fragment of a landed stage (two 16-byte reads:
+//   the stage's depths are permuted so that a thread's four depths of its
+//   two 8-deep steps are adjacent; B takes the same order), applies the
+//   LayerNorm in f32 with the row's mean and 1 / std (computed by the
+//   consumers while the first stages land) and the column's scale and
+//   shift, writes it to the side output (h1, h2) in the tiles of the first
+//   column, and splits it into hi = tf32(a), lo = tf32(a - hi) in
+//   registers, for wgmma with A from registers.
+// - B: each stage split once by the consumers into its halves, transposed
+//   to wgmma's K-major layout, in one of two buffers.
+// - Products: those of stage k (lo_a hi_b + hi_a lo_b + hi_a hi_b over its
+//   two 8-deep steps, summed from zero and added to the f32 total to
+//   nearest, as gemm_kernel's 3xTF32) run while the consumers take stage
+//   k + 1.
+// - Epilogue: acc + bias into shared memory, then whole rows stored in
+//   16-byte pieces: gelu keeping the pre-activation (z1), or the residual
+//   res + dp[sample] * v (each loaded before any is used), at the rows
+//   c.map says.
+// No atomics: two runs are bit-identical.
+constexpr int kFwdConsumers = 256;                  // two warpgroups
+constexpr int kFwdThreads = kFwdConsumers + 128;    // and the producer's
+// Registers per thread once the warpgroups rebalance (setmaxnreg): the
+// consumers hold acc, the stage's sums and two stages of A's fragments
+constexpr int kFwdConsumerRegs = 232, kFwdProducerRegs = 40;
+static_assert(kFwdConsumers * kFwdConsumerRegs + 128 * kFwdProducerRegs <= 65536,
+              "the registers of an SM");
+constexpr int kFwdBM = 128, kFwdBN = 128, kFwdBK = 16, kFwdStages = 6;
+constexpr int kFwdBar = 1;                          // the consumers' named barrier
+constexpr int kStatPieces = 24;   // 16-byte pieces of a row a thread holds for its statistics
+
+struct FwdTile {   // fwd_product_kernel's dynamic shared memory, then LN's columns
+  static constexpr int kRawA = kFwdBM * kFwdBK * 4;         // A's stage as it lands, [128][16]
+  static constexpr int kRaw = kRawA + kFwdBK * kFwdBN * 4;  // and B's, [16][128]
+  static constexpr int kLdB = kFwdBN * 16;   // bytes between B's columns of core matrices
+  static constexpr int kHalfB = kFwdBK / 4 * kLdB;          // one TF32 half of B's stage
+  static constexpr int kSmem = kFwdStages * kRaw + 2 * 2 * kHalfB;
+  static_assert(kSmem >= kFwdBM * (kFwdBN + 4) * 4, "the C tile fits");
+  static_assert(kFwdBN * (kFwdBK / 4) % kFwdConsumers == 0, "a thread, whole pieces of B");
+};
+
+// The tensor maps of A [M, K] (boxes of 128 rows x 16 depths) and B [K, N]
+// (16 x 128), and whether each is used (else its stages go by cp.async)
+struct FwdMaps {
+  CUtensorMap a, b;
+  int ta, tb;
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_product_kernel(const GemmArgs g, const __grid_constant__ FwdMaps maps) {
+  using TL = FwdTile;
+  constexpr int S = kFwdStages, BN = kFwdBN, BK = kFwdBK;
+  extern __shared__ __align__(128) uint8_t fwd_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * S];   // each stage's full, then empty
+  __shared__ int orow[kFwdBM], rrow[kFwdBM];      // the rows C and the residual take
+  __shared__ float row_a[kFwdBM], row_b[kFwdBM], row_dp[kFwdBM];
+  const int ktiles = (g.K + BK - 1) / BK;
+  float* col_s = reinterpret_cast<float*>(fwd_smem + TL::kSmem);   // LN's, zero past K
+  float* col_b = col_s + ktiles * BK;
+  const int tiles_n = (g.N + BN - 1) / BN, bn = blockIdx.x % tiles_n;
+  const long long m0 = (long long)(blockIdx.x / tiles_n) * kFwdBM, n0 = (long long)bn * BN;
+  const int tid = threadIdx.x;
+  const uint32_t full0 = sm90::smem_u32(bars), empty0 = full0 + 8 * S;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 32);   // each producer lane, once a stage
+      sm90::mbar_init(empty0 + 8 * s, 1);   // the consumers, once they have read it
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  // the warp, uniform to the compiler (a branch on threadIdx would put the
+  // consumers' wgmma on a divergent path, which ptxas serialises)
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  if (warp_id >= kFwdConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwdProducerRegs));
+    if (warp_id > kFwdConsumers / 32) return;
+    // the producer warp: lane 0 the tensor-map copies; every lane element
+    // copies of an operand without a map, then its arrival once they landed
+    const int lane = tid & 31;
+    const char* A = static_cast<const char*>(g.a.p);
+    const char* B = static_cast<const char*>(g.b.p);
+    const int nb = (int)min((long long)BN, g.N - n0);   // B's columns in this tile
+    const uint32_t bytes = (maps.ta ? TL::kRawA : 0) + (maps.tb ? TL::kRaw - TL::kRawA : 0);
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % S;
+      if (kt >= S) sm90::mbar_wait(empty0 + 8 * s, (kt / S - 1) & 1);
+      uint8_t* ra = fwd_smem + s * TL::kRaw;
+      uint8_t* rb = ra + TL::kRawA;
+      const uint32_t full = full0 + 8 * s;
+      const int k0 = kt * BK, kb = min(BK, g.K - k0);   // depths in this stage
+      if (lane == 0 && bytes) {
+        sm90::mbar_expect_tx_only(full, bytes);
+        if (maps.ta) sm90::tma_load_2d(sm90::smem_u32(ra), &maps.a, k0, (int)m0, full);
+        if (maps.tb) sm90::tma_load_2d(sm90::smem_u32(rb), &maps.b, (int)n0, k0, full);
+      }
+      if (!maps.ta) {
+        for (int i = lane; i < kFwdBM * kb; i += 32) {
+          const int r = i / kb, c = i - r * kb;
+          if (m0 + r < g.M)
+            cp_async4(ra + (r * BK + c) * 4, A + ((m0 + r) * g.a.ld + k0 + c) * 4);
+        }
+      }
+      if (!maps.tb) {
+        for (int i = lane; i < kb * nb; i += 32) {
+          const int kr = i / nb, c = i - kr * nb;
+          cp_async4(rb + (kr * BN + c) * 4, B + ((k0 + kr) * g.b.ld + n0 + c) * 4);
+        }
+      }
+      sm90::cp_async_mbar_arrive(full);
+    }
+    return;
+  }
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwdConsumerRegs));
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int hw = g.g.H * g.g.W;
+  const bool ln = g.xf == kLayerNorm;
+  if (tid < kFwdBM) {
+    const long long m = m0 + tid;
+    const bool in = m < g.M;
+    orow[tid] = !in                    ? 0
+                : g.c.map == kToWindow ? g.g.window_row(m)
+                : g.c.map              ? g.g.grid_row(m)
+                                       : (int)m;
+    rrow[tid] = !in ? 0 : g.res.map ? g.g.grid_row(m) : (int)m;
+    row_dp[tid] = (g.dp && in) ? g.dp[((int)m / hw) * 2 + g.dp_col] : 1.0f;
+  }
+  if (ln) {
+    for (int i = tid; i < ktiles * BK; i += kFwdConsumers) {
+      col_s[i] = i < g.K ? g.ln_s[i] : 0.0f;
+      col_b[i] = i < g.K ? g.ln_b[i] : 0.0f;
+    }
+    // the rows' statistics while the first stages land: tpr threads a row,
+    // each holding every tpr-th 16 bytes of it (at most kStatPieces), so
+    // that both sums read the row once; rows in rounds of 256 / tpr
+    int tpr = 2;
+    while (g.K > 4 * kStatPieces * tpr) tpr *= 2;
+    if (g.a.vec && g.K % (4 * tpr) == 0) {
+      const int per = g.K / (4 * tpr), j = tid % tpr;
+      for (int r = tid / tpr; r < kFwdBM; r += kFwdConsumers / tpr) {
+        const long long m = m0 + r;
+        const float4* row = reinterpret_cast<const float4*>(static_cast<const float*>(g.a.p) +
+                                                            m * g.a.ld);
+        float4 v[kStatPieces];
+#pragma unroll
+        for (int i = 0; i < kStatPieces; ++i)
+          v[i] = i < per && m < g.M ? row[j + i * tpr] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kStatPieces; ++i) s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+        for (int o = 1; o < tpr; o <<= 1) s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        const float mean = s1 / g.K;
+#pragma unroll
+        for (int i = 0; i < kStatPieces; ++i) {
+          if (i >= per) break;
+          const float a = v[i].x - mean, b = v[i].y - mean, c = v[i].z - mean, d = v[i].w - mean;
+          s2 += (a * a + b * b) + (c * c + d * d);
+        }
+        for (int o = 1; o < tpr; o <<= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+        if (j == 0) {
+          row_a[r] = m < g.M ? mean : 0.0f;
+          row_b[r] = m < g.M ? rsqrtf(s2 / g.K + g.eps) : 0.0f;
+        }
+      }
+    } else {   // rows that allow no 16-byte reads: two threads a row, twice
+      const int r = tid >> 1, half = tid & 1;
+      const long long m = m0 + r;
+      const float* row = m < g.M ? static_cast<const float*>(g.a.p) + m * g.a.ld : nullptr;
+      float mean, inv;
+      row_stats<float>(row, g.K, half, g.a.vec, g.eps, mean, inv);
+      if (half == 0) {
+        row_a[r] = row ? mean : 0.0f;
+        row_b[r] = inv;
+      }
+    }
+  }
+  sm90::named_bar_sync(kFwdBar, kFwdConsumers);
+  // the side outputs at the rows C takes where it is stored in window order
+  const bool to_window = g.c.map == kToWindow;
+  if (ln && g.stats && bn == 0 && tid < kFwdBM && m0 + tid < g.M) {
+    const long long m = to_window ? orow[tid] : m0 + tid;
+    g.stats[2 * m] = row_a[tid];
+    g.stats[2 * m + 1] = row_b[tid];
+  }
+  // this thread's rows of A: R0 and R0 + 8 of the tile
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int R0 = wg * 64 + warp * 16 + gq;
+  const bool in0 = m0 + R0 < g.M, in1 = m0 + R0 + 8 < g.M;
+  const float mean0 = ln ? row_a[R0] : 0.0f, inv0 = ln ? row_b[R0] : 1.0f;
+  const float mean1 = ln ? row_a[R0 + 8] : 0.0f, inv1 = ln ? row_b[R0 + 8] : 1.0f;
+  float* const side = (ln && g.side && bn == 0) ? static_cast<float*>(g.side) : nullptr;
+  const long long side0 = in0 ? (to_window ? orow[R0] : m0 + R0) * g.K : -1;
+  const long long side1 = in1 ? (to_window ? orow[R0 + 8] : m0 + R0 + 8) * g.K : -1;
+  const bool side_vec = g.K % 4 == 0 && (uintptr_t)g.side % 16 == 0;
+  // A's fragments of stage kt for the two 8-deep steps: the thread's depths
+  // 4 t4 .. 4 t4 + 3 of the stage are step 0's t4 and t4 + 4, then step 1's
+  // (stage depth 4 e + 2 step + j / 4 is element j of a step), of rows R0
+  // and R0 + 8; LayerNorm, zero past M and K, the side output, TF32 halves
+  auto take_a = [&](int kt, uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+    const float* ra = reinterpret_cast<const float*>(fwd_smem + (kt % S) * TL::kRaw);
+    const int k = kt * BK + 4 * t4;
+    float4 x = *reinterpret_cast<const float4*>(ra + R0 * BK + 4 * t4);
+    float4 y = *reinterpret_cast<const float4*>(ra + (R0 + 8) * BK + 4 * t4);
+    float* xe = &x.x;
+    float* ye = &y.x;
+    float4 cs = make_float4(1.0f, 1.0f, 1.0f, 1.0f), cb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (ln) {
+      cs = *reinterpret_cast<const float4*>(col_s + k);
+      cb = *reinterpret_cast<const float4*>(col_b + k);
+    }
+    const float* se = &cs.x;
+    const float* be = &cb.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool kin = k + e < g.K;
+      if (ln) {
+        const float tx = (xe[e] - mean0) * inv0, ty = (ye[e] - mean1) * inv1;
+        xe[e] = tx * se[e] + be[e];
+        ye[e] = ty * se[e] + be[e];
+      }
+      xe[e] = kin && in0 ? xe[e] : 0.0f;
+      ye[e] = kin && in1 ? ye[e] : 0.0f;
+    }
+    if (side && k < g.K) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long o = h ? side1 : side0;
+        if (o < 0) continue;
+        const float4 v = h ? y : x;
+        if (side_vec) {
+          *reinterpret_cast<float4*>(side + o + k) = v;
+        } else {
+          const float* ve = &v.x;
+          for (int e = 0; e < 4 && k + e < g.K; ++e) side[o + k + e] = ve[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      Tc<float>::split(xe[2 * st], hi[st][0], lo[st][0]);
+      Tc<float>::split(ye[2 * st], hi[st][1], lo[st][1]);
+      Tc<float>::split(xe[2 * st + 1], hi[st][2], lo[st][2]);
+      Tc<float>::split(ye[2 * st + 1], hi[st][3], lo[st][3]);
+    }
+  };
+  // B's stage kt into halves buffer kt % 2: piece (n, kc) of a half holds
+  // depths kc, kc + 4, kc + 8, kc + 12 of column n (the permuted order),
+  // zero past N and K
+  auto take_b = [&](int kt) {
+    const float* rb = reinterpret_cast<const float*>(fwd_smem + (kt % S) * TL::kRaw + TL::kRawA);
+    uint8_t* hb = fwd_smem + S * TL::kRaw + (kt & 1) * 2 * TL::kHalfB;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int it = 0; it < BN * (BK / 4) / kFwdConsumers; ++it) {
+      const int i = tid + it * kFwdConsumers, n = i % BN, kc = i / BN;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = kc + 4 * e;
+        Tc<float>::split(k0 + d < g.K && n0 + n < g.N ? rb[d * BN + n] : 0.0f, hi[e], lo[e]);
+      }
+      const int off = kc * TL::kLdB + n * 16;
+      *reinterpret_cast<uint4*>(hb + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(hb + TL::kHalfB + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  uint32_t ahi[2][4], alo[2][4], nhi[2][4], nlo[2][4];
+  sm90::mbar_wait(full0, 0);
+  take_a(0, ahi, alo);
+  take_b(0);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    sm90::fence_proxy_async();   // this thread's halves of B, visible to wgmma
+    sm90::named_bar_sync(kFwdBar, kFwdConsumers);   // everyone's; the last products done
+    const uint32_t bh = sm90::smem_u32(fwd_smem + S * TL::kRaw + (kt & 1) * 2 * TL::kHalfB);
+    const uint32_t bl = bh + TL::kHalfB;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const uint64_t b_hi = sm90::make_desc(bh + st * 2 * TL::kLdB, TL::kLdB, 128);
+      const uint64_t b_lo = sm90::make_desc(bl + st * 2 * TL::kLdB, TL::kLdB, 128);
+      sm90::wgmma_tf32_rs_n128(part, alo[st], b_hi, st != 0);
+      sm90::wgmma_tf32_rs_n128(part, ahi[st], b_lo, 1);
+      sm90::wgmma_tf32_rs_n128(part, ahi[st], b_hi, 1);
+    }
+    sm90::wgmma_commit();
+    if (tid == 0) sm90::mbar_arrive(empty0 + 8 * (kt % S));   // the raw stage is free
+    if (kt + 1 < ktiles) {   // the next stage, under this one's products
+      sm90::mbar_wait(full0 + 8 * ((kt + 1) % S), ((kt + 1) / S) & 1);
+      take_a(kt + 1, nhi, nlo);
+      take_b(kt + 1);
+    }
+    sm90::wgmma_wait0();
+    // read only after the wait: the products' sums, and A's fragments kept
+    // until they are done with
+#pragma unroll
+    for (int st = 0; st < 2; ++st)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        asm volatile("" : "+r"(ahi[st][e]), "+r"(alo[st][e])::"memory");
+        ahi[st][e] = nhi[st][e];
+        alo[st][e] = nlo[st][e];
+      }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      asm volatile("" : "+f"(part[i])::"memory");
+      acc[i] += part[i];
+    }
+  }
+  // the epilogue: acc + bias into the tile in shared memory (the ring and
+  // the halves are free once both warpgroups' products are done), then rows
+  // in 16-byte pieces
+  sm90::named_bar_sync(kFwdBar, kFwdConsumers);
+  constexpr int LDC = BN + 4;
+  float* ct = reinterpret_cast<float*>(fwd_smem);
+  const float* bias = static_cast<const float*>(g.bias);
+  {
+    const int r0 = wg * 64 + warp * 16 + gq;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      const long long n = n0 + c;
+      const float b0 = bias && n < g.N ? bias[n] : 0.0f;
+      const float b1 = bias && n + 1 < g.N ? bias[n + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(ct + (r0 + 8 * h) * LDC + c) =
+            make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+    }
+  }
+  sm90::named_bar_sync(kFwdBar, kFwdConsumers);
+  const bool resid = g.epi == kResid, gelu = g.epi == kGelu;
+  const float* res = static_cast<const float*>(g.res.p);
+  float* out = static_cast<float*>(g.c.p);
+  const bool vec = g.N % 4 == 0 && g.c.ld % 4 == 0 && (uintptr_t)g.c.p % 16 == 0 &&
+                   (!resid || (g.res.ld % 4 == 0 && (uintptr_t)g.res.p % 16 == 0)) &&
+                   (uintptr_t)g.aux % 16 == 0;
+  // a thread's pieces: i = tid + it * 256 (each of its residuals loaded
+  // before any is used)
+  constexpr int kPieces = kFwdBM * (BN / 4) / kFwdConsumers;
+  float4 rv[kPieces];
+  if (resid && vec) {
+#pragma unroll
+    for (int it = 0; it < kPieces; ++it) {
+      const int i = tid + it * kFwdConsumers, r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      if (m0 + r < g.M && n0 + c < g.N)
+        rv[it] = *reinterpret_cast<const float4*>(res + (long long)rrow[r] * g.res.ld + n0 + c);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kPieces; ++it) {
+    const int i = tid + it * kFwdConsumers, r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+    const long long m = m0 + r, n = n0 + c;
+    if (m >= g.M || n >= g.N) continue;
+    float4 v = *reinterpret_cast<const float4*>(ct + r * LDC + c);
+    float* e = &v.x;
+    const long long o = (long long)orow[r] * g.c.ld + n;
+    if (vec) {
+      if (gelu) {
+        if (g.aux) *reinterpret_cast<float4*>(g.aux + m * g.N + n) = v;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[j] = gelu_tanh(e[j]);
+      } else if (resid) {
+        const float4 x = rv[it];
+        const float d = row_dp[r];
+        v = make_float4(x.x + d * v.x, x.y + d * v.y, x.z + d * v.z, x.w + d * v.w);
+      }
+      *reinterpret_cast<float4*>(out + o) = v;
+    } else {
+      const long long q = (long long)rrow[r] * g.res.ld + n;
+      for (int j = 0; j < 4 && n + j < g.N; ++j) {
+        float x = e[j];
+        if (gelu) {
+          if (g.aux) g.aux[m * g.N + n + j] = x;
+          x = gelu_tanh(x);
+        } else if (resid) {
+          x = res[q + j] + row_dp[r] * x;
+        }
+        out[o + j] = x;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------ attention
@@ -1951,6 +2373,71 @@ cudaError_t launch_plain_product(const GemmArgs& g, cudaStream_t st) {
     return launch_product(gemm_sm90_kernel<128>, WgTile<128>::kSmem, 128, g, st);
 }
 
+// fwd_product_kernel's dynamic shared memory: the ring and B's halves, and
+// with a LayerNorm its scale and shift (K rounded up to a stage)
+int fwd_smem_bytes(long long K, int ln) {
+  return FwdTile::kSmem + (ln ? 2 * (int)((K + kFwdBK - 1) / kFwdBK) * kFwdBK * 4 : 0);
+}
+
+// libcuda's cuTensorMapEncodeTiled (the CUDA runtime has loaded libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of the f32 matrix s (rows x cols) in boxes of box_rows x
+// box_cols, zero past its edges: 1 when encoded; 0 where its rows allow no
+// tensor-map copy (a row stride or address that is no multiple of 16 bytes:
+// its stages go by element copies); -1 where they allow one but libcuda has
+// no encoder or refuses the map, which the launch reports rather than fall
+// back to element copies a stage cannot be fed by.
+int f32_map(CUtensorMap* m, const Src& s, long long rows, long long cols, int box_rows,
+            int box_cols) {
+  if (!s.vec) return 0;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return -1;
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)s.ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(s.p), dim, stride, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 1
+             : -1;
+}
+
+// A forward product in f32 on fwd_product_kernel. A is read in its own row
+// order (no map).
+cudaError_t launch_fwd(const GemmArgs& g, cudaStream_t st) {
+  if (g.a.map || g.xf == kRowScale || g.epi == kDGelu || g.colsum || g.c.bf)
+    return cudaErrorInvalidValue;
+  const int smem = fwd_smem_bytes(g.K, g.xf == kLayerNorm);
+  const long long blocks =
+      (long long)((g.M + kFwdBM - 1) / kFwdBM) * ((g.N + kFwdBN - 1) / kFwdBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  FwdMaps maps;
+  maps.ta = f32_map(&maps.a, g.a, g.M, g.K, kFwdBM, kFwdBK);
+  maps.tb = f32_map(&maps.b, g.b, g.K, g.N, kFwdBK, kFwdBN);
+  if (maps.ta < 0 || maps.tb < 0) return cudaErrorNotSupported;
+  TRY(cudaFuncSetAttribute(fwd_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem));
+  fwd_product_kernel<<<(unsigned)blocks, kFwdThreads, smem, st>>>(g, maps);
+  ++g_launches;
+  ++g_fwd_launches;
+  return cudaGetLastError();
+}
+
 // The weight gradients, on operands rounded to bf16 (in f32 the RB kernel)
 template <typename T>
 cudaError_t launch_atb(const Dims& d, int kind, const Src* a, const Src* b, float* partial,
@@ -2114,67 +2601,98 @@ struct BlockParams {
   float eps;
 };
 
+// The four products of a block's forward
+enum FwdProduct { kQkv = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
+
+// The arguments of product `which` of a block's forward; `save` keeps what
+// the backward needs (the LayerNorm statistics and outputs, z1)
+template <typename T>
+GemmArgs fwd_args(const Dims& d, int which, const BlockParams& w, bool save, void* out,
+                  const Buffers& b) {
+  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
+  GemmArgs g;
+  if (which == kQkv) {   // qkv = LN1(x) @ wqkv + bqkv
+    // in f32 over x's rows in grid order, each stored at its window-order
+    // row (with its statistics and LN1(x)); in bf16 over the window-order
+    // rows, read at their grid rows
+    const bool f32 = sizeof(T) == 4;
+    g = gemm_args(d, M, 3 * C, C);
+    g.a = src_of<T>(w.x, C, f32 ? 0 : 1);
+    g.b = src_of<T>(w.wqkv, 3 * C);
+    g.xf = kLayerNorm;
+    g.ln_s = w.ln1s;
+    g.ln_b = w.ln1b;
+    g.eps = w.eps;
+    g.stats = save ? b.stats1 : nullptr;
+    g.side = save ? b.h1 : nullptr;
+    g.c = {b.qkv, 3LL * C, bf, f32 ? kToWindow : 0};
+    g.bias = w.bqkv;
+    g.bias_bf = bf;
+  } else if (which == kProj) {   // r1 = x + dp1 * (merged @ wproj + bproj)
+    g = gemm_args(d, M, C, C);
+    g.a = src_of<T>(b.merged, C);
+    g.b = src_of<T>(w.wproj, C);
+    g.epi = kResid;
+    g.res = src_of<T>(w.x, C, 1);
+    g.dp = w.dp;
+    g.dp_col = 0;
+    g.c = {b.r1, C, bf, 0};
+    g.bias = w.bproj;
+    g.bias_bf = bf;
+  } else if (which == kFc1) {   // g1 = gelu(LN2(r1) @ w1 + b1)
+    g = gemm_args(d, M, hid, C);
+    g.a = src_of<T>(b.r1, C);
+    g.b = src_of<T>(w.w1, hid);
+    g.xf = kLayerNorm;
+    g.ln_s = w.ln2s;
+    g.ln_b = w.ln2b;
+    g.eps = w.eps;
+    g.stats = save ? b.stats2 : nullptr;
+    g.side = save ? b.h2 : nullptr;
+    g.epi = kGelu;
+    g.aux = save ? b.z1 : nullptr;
+    g.c = {b.g1, hid, bf, 0};
+    g.bias = w.b1;
+  } else {   // out = r1 + dp2 * (g1 @ w2 + b2), at the grid rows
+    g = gemm_args(d, M, C, hid);
+    g.a = src_of<T>(b.g1, hid);
+    g.b = src_of<T>(w.w2, C);
+    g.epi = kResid;
+    g.res = src_of<T>(b.r1, C);
+    g.dp = w.dp;
+    g.dp_col = 1;
+    g.c = {out, C, bf, 1};
+    g.bias = w.b2;
+  }
+  return g;
+}
+
+// Product `which` of a block's forward: f32 on fwd_product_kernel, bf16 on
+// gemm_kernel
+template <typename T>
+cudaError_t fwd_product(const Dims& d, int which, const BlockParams& w, bool save, void* out,
+                        const Buffers& b, cudaStream_t st) {
+  const GemmArgs g = fwd_args<T>(d, which, w, save, out, b);
+  if constexpr (sizeof(T) == 4)
+    return launch_fwd(g, st);
+  else if (which == kQkv || which == kFc1)
+    return launch_gemm<T, false, true>(g, st);
+  else
+    return launch_gemm<T, false, false>(g, st);
+}
+
 // The forward of a whole block; `save` keeps what the backward needs (the
 // LayerNorm statistics and outputs, the softmax's statistics, z1), and
 // without `out` it stops before the last product.
 template <typename T>
 cudaError_t block_forward(const Dims& d, const BlockParams& w, bool save, void* out,
                           const Buffers& b, cudaStream_t st) {
-  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
-  // qkv = LN1(x) @ wqkv + bqkv
-  GemmArgs g = gemm_args(d, M, 3 * C, C);
-  g.a = src_of<T>(w.x, C, 1);
-  g.b = src_of<T>(w.wqkv, 3 * C);
-  g.xf = kLayerNorm;
-  g.ln_s = w.ln1s;
-  g.ln_b = w.ln1b;
-  g.eps = w.eps;
-  g.stats = save ? b.stats1 : nullptr;
-  g.side = save ? b.h1 : nullptr;
-  g.c = {b.qkv, 3LL * C, bf, 0};
-  g.bias = w.bqkv;
-  g.bias_bf = bf;
-  TRY((launch_gemm<T, false, true>(g, st)));
+  TRY(fwd_product<T>(d, kQkv, w, save, out, b, st));
   TRY(attention_fwd<T>(d, b.qkv, w.rel, w.mask, b.merged, save ? b.astats : nullptr, st));
-  // r1 = x + dp1 * (merged @ wproj + bproj)
-  g = gemm_args(d, M, C, C);
-  g.a = src_of<T>(b.merged, C);
-  g.b = src_of<T>(w.wproj, C);
-  g.epi = kResid;
-  g.res = src_of<T>(w.x, C, 1);
-  g.dp = w.dp;
-  g.dp_col = 0;
-  g.c = {b.r1, C, bf, 0};
-  g.bias = w.bproj;
-  g.bias_bf = bf;
-  TRY((launch_gemm<T, false, false>(g, st)));
-  // g1 = gelu(LN2(r1) @ w1 + b1)
-  g = gemm_args(d, M, hid, C);
-  g.a = src_of<T>(b.r1, C);
-  g.b = src_of<T>(w.w1, hid);
-  g.xf = kLayerNorm;
-  g.ln_s = w.ln2s;
-  g.ln_b = w.ln2b;
-  g.eps = w.eps;
-  g.stats = save ? b.stats2 : nullptr;
-  g.side = save ? b.h2 : nullptr;
-  g.epi = kGelu;
-  g.aux = save ? b.z1 : nullptr;
-  g.c = {b.g1, hid, bf, 0};
-  g.bias = w.b1;
-  TRY((launch_gemm<T, false, true>(g, st)));
+  TRY(fwd_product<T>(d, kProj, w, save, out, b, st));
+  TRY(fwd_product<T>(d, kFc1, w, save, out, b, st));
   if (!out) return cudaSuccess;
-  // out = r1 + dp2 * (g1 @ w2 + b2), at the grid rows
-  g = gemm_args(d, M, C, hid);
-  g.a = src_of<T>(b.g1, hid);
-  g.b = src_of<T>(w.w2, C);
-  g.epi = kResid;
-  g.res = src_of<T>(b.r1, C);
-  g.dp = w.dp;
-  g.dp_col = 1;
-  g.c = {out, C, bf, 1};
-  g.bias = w.b2;
-  return launch_gemm<T, false, false>(g, st);
+  return fwd_product<T>(d, kFc2, w, save, out, b, st);
 }
 
 struct BlockGrads {
@@ -2372,6 +2890,10 @@ extern "C" {
 // K3 3, K4 7).
 long long window_any_launches(void) { return g_launches; }
 
+// Of them, fwd_product_kernel's: every product of a block's forward in f32
+// (4 a K1 call, 3 in a K2 call's recompute).
+long long window_any_fwd_launches(void) { return g_fwd_launches; }
+
 // The forward attention's grid at these widths (attn_plan): the strips of 16
 // queries a block into out[0], the parts of the keys into out[1]. Returns 0,
 // or -1 for widths the route does not take.
@@ -2493,6 +3015,50 @@ int attn_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
                                         dbqkv, dwproj, dbproj, drel, b, st)
                   : attn_backward<float>(d, x, dy, wqkv, bqkv, wproj, frel, fmask, dx, dwqkv,
                                          dbqkv, dwproj, dbproj, drel, b, st));
+}
+
+// For the tests: product `which` (0 qkv, 1 the projection, 2 fc1, 3 fc2)
+// of a block's forward in f32 alone, as swin_any_fwd launches it, so that
+// its side outputs can be held against a reference: a its input A [B, H, W,
+// K] (qkv: x in grid order, read at the grid rows; else in window order),
+// res the residual (1: x, 3: r1), w [K, N], bias [N], ln_s and ln_b [K] (0,
+// 2), dp [B, 2] (1, 3), out [M, N] (3: in grid order); where stats is given
+// (0, 2) also stats [M, 2], side [M, K] and (2) aux [M, N], as the
+// backward's recompute keeps them. K and N follow from C and hidden. Every
+// weight and bias of the block's parameters points at w and bias (the one
+// product reads only its own), and every buffer at the operand or output
+// the product takes. Returns the CUDA error of the launch.
+int window_any_fwd_product(int which, const void* a, const void* res, const void* w,
+                           const void* bias, const void* ln_s, const void* ln_b,
+                           const void* dp, void* out, float* stats, void* side, float* aux,
+                           int B, int H, int W, int C, int ws, int hidden, float eps,
+                           void* stream) {
+  if (which < kQkv || which > kFc2 || !valid(B, H, W, C, C, ws, hidden))
+    return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(B, H, W, C, C, ws, hidden);
+  BlockParams p = {};
+  Buffers b = {};
+  const float* fs = static_cast<const float*>(ln_s);
+  const float* fb = static_cast<const float*>(ln_b);
+  p.eps = eps;
+  p.dp = static_cast<const float*>(dp);
+  // the operands where block_forward finds them
+  p.x = which == kQkv ? a : res;
+  b.merged = const_cast<void*>(a);
+  b.r1 = const_cast<void*>(which == kFc1 ? a : res);
+  b.g1 = which == kFc1 ? out : const_cast<void*>(a);
+  b.qkv = out;
+  p.wqkv = p.wproj = p.w1 = p.w2 = w;
+  p.bqkv = p.bproj = bias;
+  p.b1 = p.b2 = static_cast<const float*>(bias);
+  p.ln1s = p.ln2s = fs;
+  p.ln1b = p.ln2b = fb;
+  b.stats1 = b.stats2 = stats;
+  b.h1 = b.h2 = side;
+  b.z1 = aux;
+  if (which == kProj) b.r1 = out;
+  return (int)fwd_product<float>(d, which, p, stats != nullptr, out, b,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

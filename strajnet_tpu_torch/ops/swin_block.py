@@ -472,6 +472,12 @@ def _lib(name: str):
             lib.window_any_attn_plan.argtypes = (
                 [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
             lib.window_any_attn_plan.restype = ctypes.c_int
+            lib.window_any_fwd_launches.argtypes = []
+            lib.window_any_fwd_launches.restype = ctypes.c_longlong
+            lib.window_any_fwd_product.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.window_any_fwd_product.restype = ctypes.c_int
             lib.swin_any_fwd.argtypes = (
                 [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -525,6 +531,46 @@ def window_any_launches() -> int:
     """Kernels the general route's library has launched since it was
     loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call."""
     return int(window_any_lib().window_any_launches())
+
+
+def window_any_fwd_launches() -> int:
+    """Of :func:`window_any_launches`, those of the f32 forward products'
+    kernel (``fwd_product_kernel``): 4 a K1 call in f32, 3 in a K2 call's
+    recompute, none in bf16."""
+    return int(window_any_lib().window_any_fwd_launches())
+
+
+# the four products of a block's forward, as window_any_fwd_product numbers
+FWD_PRODUCTS = ("qkv", "proj", "fc1", "fc2")
+
+
+def window_any_fwd_product(which: str, a, w, bias, out, *, window_size: int,
+                           res=None, ln_s=None, ln_b=None, drop_path=None,
+                           stats=None, side=None, aux=None,
+                           eps: float = 1e-5) -> None:
+    """For the tests: one f32 product of the general K1's forward alone, as
+    it launches it (``fwd_product_kernel``), into
+    ``out``: ``qkv`` LN1(a) @ w + bias with ``a`` = x in grid order, read at
+    its window-order rows; ``proj`` res + dp1 (a @ w + bias) with ``res`` = x;
+    ``fc1`` gelu(LN2(a) @ w + bias); ``fc2`` res + dp2 (a @ w + bias) stored
+    in grid order. ``a`` is ``[B, H, W, K]``, ``out`` ``[B, H, W, N]``;
+    ``stats`` ``[M, 2]``, ``side`` ``[M, K]`` and ``aux`` ``[M, N]`` (fc1)
+    keep what the backward's recompute keeps, where given."""
+    b, h, w_, k = a.shape
+    n = w.shape[1]
+    c, hidden = {"qkv": (k, 1), "proj": (k, 1), "fc1": (k, n),
+                 "fc2": (n, k)}[which]
+    if w.shape[0] != k or n != {"qkv": 3 * k, "proj": k}.get(which, n):
+        raise ValueError(f"{which}: w {tuple(w.shape)} at depth {k}")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = window_any_lib().window_any_fwd_product(
+        FWD_PRODUCTS.index(which), ptr(a), ptr(res), ptr(w), ptr(bias),
+        ptr(ln_s), ptr(ln_b), ptr(drop_path), ptr(out), ptr(stats),
+        ptr(side), ptr(aux), b, h, w_, c, window_size, hidden, eps,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fwd_product_kernel ({which}) failed with CUDA "
+                           f"error {err}")
 
 
 def any_scratch(kind: int, x: torch.Tensor, num_heads: int,

@@ -537,6 +537,129 @@ def test_general_k3_products_at_ragged_widths(card, b, h, c, heads, ws,
     assert torch.equal(got, again)
 
 
+def _window_rows(b, h, w, ws):
+    """The grid row of each window-order row of ``[b, h, w]`` tokens."""
+    return torch.arange(b * h * w).reshape(b, h // ws, ws, w // ws, ws).permute(
+        0, 1, 3, 2, 4).reshape(-1)
+
+
+def _ln64(a, s, bias, eps=1e-5):
+    """LayerNorm of the rows of ``a`` in f64: the result, mean and 1/std."""
+    mu = a.mean(-1, keepdim=True)
+    inv = 1.0 / torch.sqrt(((a - mu) ** 2).mean(-1, keepdim=True) + eps)
+    return (a - mu) * inv * s.double() + bias.double(), mu, inv
+
+
+def _gelu64(z):
+    return 0.5 * z * (1.0 + torch.tanh(0.7978845608028654
+                                        * (z + 0.044715 * z ** 3)))
+
+
+def _fwd_product_case(card, which, b, h, c, ws, hidden, save, seed=0):
+    """Inputs of one f32 forward product (``sb.window_any_fwd_product``)
+    and its result, side outputs included, in f64: (kwargs, want)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, k=1.0: (torch.randn(*s, generator=g) * k).to(card)  # noqa
+    m = b * h * h
+    k = hidden if which == "fc2" else c
+    n = {"qkv": 3 * c, "proj": c, "fc1": hidden, "fc2": c}[which]
+    a = r(b, h, h, k)
+    w, bias = r(k, n, k=k ** -0.5), r(n, k=0.1)
+    kw = dict(a=a, w=w, bias=bias, out=torch.full((b, h, h, n), float("nan"),
+                                                  device=card),
+              window_size=ws)
+    rows = _window_rows(b, h, h, ws).to(card)
+    a64 = a.reshape(m, k).double()
+    want = {}
+    if which in ("qkv", "fc1"):
+        kw.update(ln_s=1 + r(k, k=0.2), ln_b=r(k, k=0.1))
+        if which == "qkv":
+            a64 = a64[rows]
+        a64, mu, inv = _ln64(a64, kw["ln_s"], kw["ln_b"])
+        if save:
+            kw.update(stats=torch.empty(m, 2, device=card),
+                      side=torch.empty(m, k, device=card))
+            want.update(stats=torch.cat([mu, inv], 1), side=a64)
+    z = a64 @ w.double() + bias.double()
+    if which == "fc1":
+        if save:
+            kw["aux"] = torch.empty(m, n, device=card)
+            want["aux"] = z
+        z = _gelu64(z)
+    if which in ("proj", "fc2"):
+        dp = (torch.rand(b, 2, generator=g) * 1.2).to(card)
+        res = r(b, h, h, n)
+        res64 = res.reshape(m, n).double()
+        if which == "proj":
+            res64 = res64[rows]
+        kw.update(res=res, drop_path=dp)
+        col = 0 if which == "proj" else 1
+        z = res64 + dp[:, col].double().repeat_interleave(h * h)[:, None] * z
+    if which == "fc2":   # stored at the grid rows
+        z = torch.empty_like(z).index_copy_(0, rows, z)
+    want["out"] = z
+    return kw, want
+
+
+@pytest.mark.parametrize("b,h,c,ws,hidden", [
+    (2, 32, 384, 8, 1536),   # the f32 flagship's last width
+    (2, 32, 96, 8, 384),     # its first: K 96, N 288 and 96
+    (1, 12, 20, 4, 36),      # M 144, K 20 and 36: ragged rows and depths
+    (1, 15, 8, 5, 24),       # nine windows, M 225, N 24: a narrow tile
+    (1, 12, 6, 6, 10),       # rows of 24 and 40 bytes: element copies
+])
+def test_general_forward_products_in_f32(card, b, h, c, ws, hidden):
+    """The four f32 products of the general K1 (``fwd_product_kernel``) alone
+    against f64 products: qkv with the LayerNorm of x read at its
+    shifted-window rows, the projection with x's residual at those rows and
+    the drop-path scales, fc1 with LN2 and gelu, fc2 stored at the grid
+    rows; with the backward's side outputs (statistics, the LayerNorm's
+    output, the pre-activation) and without; at N from 24 to 1536 on the
+    kernel's 128-column tile, whose columns past N read as zero. Within
+    1e-5 of each result's largest entry (three TF32 passes round nothing an
+    f32 product keeps), a rerun bit-identical."""
+    for which in sb.FWD_PRODUCTS:
+        for save in (False, True) if which in ("qkv", "fc1") else (False,):
+            kw, want = _fwd_product_case(card, which, b, h, c, ws, hidden,
+                                         save)
+            sb.window_any_fwd_product(which, **kw)
+            first = {key: kw[key].clone() for key in want}
+            sb.window_any_fwd_product(which, **kw)
+            torch.cuda.synchronize()
+            for key, w64 in want.items():
+                got = kw[key].reshape(w64.shape).double()
+                scale = float(w64.abs().max())
+                err = float((got - w64).abs().max())
+                assert err <= 1e-5 * scale, (which, save, key, err / scale)
+                assert torch.equal(kw[key], first[key]), (which, save, key)
+
+
+def test_general_forward_products_count(card):
+    """Every f32 product of the general K1 and of the general K2's recompute
+    runs on ``fwd_product_kernel`` (4 and 3 of the 5 and 13 kernels a call),
+    bf16 on ``gemm_kernel``, and no f32 forward instantiation of
+    ``gemm_kernel`` is built."""
+    from strajnet_tpu_torch._build import build
+    from chip_smoke import build_resources
+    for dtype, fwd in ((torch.float32, (4, 3)), (torch.bfloat16, (0, 0))):
+        args, mask, dp, dy = _general_case(card, 2, 16, 32, 4, 4, 64, 2,
+                                           dtype)
+        kw = dict(window_size=4, num_heads=4)
+        with torch.no_grad():
+            for call, total, n_fwd in (
+                    (lambda: sb.swin_block(*args, mask, dp, **kw), 5, fwd[0]),
+                    (lambda: sb.swin_block_bwd(*args, mask, dp, dy, **kw), 13,
+                     fwd[1])):
+                before = sb.window_any_launches(), sb.window_any_fwd_launches()
+                call()
+                assert (sb.window_any_launches() - before[0],
+                        sb.window_any_fwd_launches() - before[1]) == \
+                    (total, n_fwd), dtype
+    names = build_resources(build("window_any").log)
+    assert any("fwd_product_kernel" in n for n in names)
+    assert not any("gemm_kernelIfLb0E" in n for n in names), sorted(names)
+
+
 @pytest.mark.parametrize("n,h,w,cin,cmid,dtype", [
     (2, 16, 16, 96, 48, torch.float32), (1, 9, 20, 64, 32, torch.bfloat16),
     (3, 5, 7, 12, 20, torch.float32)])

@@ -14,6 +14,14 @@ projection, the model lands within 1e-6 of the largest entry of the f64
 product, under the f32 forward limit of the card's checks
 (``chip_smoke.ANY_F32_FWD_MAX_ABS_REL``) by two orders. The kernel itself
 runs only on a card (``chip_smoke.py``, ``tests/test_torch_cuda_kernels.py``).
+
+The same holds for the general K1's four f32 products on their own kernel
+(``fwd_product_kernel``): tiles of 128 x 128 (columns past N read as zero),
+16-deep stages of two 8-deep steps whose depths are permuted (depth 4 e + 2
+step + j / 4 is element j of a step), the LayerNorm applied in f32 to each
+landed stage of A before the split, and the bias, gelu and residual
+epilogues in f32, at ragged shapes and at each of the f32 configuration's
+three widths.
 """
 
 import os
@@ -87,3 +95,125 @@ def test_the_split_is_exact_and_once():
     assert np.all(np.abs(hi.astype(np.float64) + lo - x) <= 2.0 ** -22 * np.abs(x))
     np.testing.assert_array_equal(split(hi)[0], hi)
     np.testing.assert_array_equal(split(lo)[0], lo)
+
+
+FWD_TILE_M, FWD_TILE_N, FWD_STAGE_K = 128, 128, 16   # fwd_product_kernel
+# element j of step `step` of a stage is the stage's depth 4 (j % 4) + 2
+# step + j // 4: a thread's fragment of both steps is four adjacent depths
+FWD_STEP_DEPTHS = [[4 * (j % 4) + 2 * step + j // 4 for j in range(8)]
+                   for step in range(2)]
+
+
+def layer_norm_f32(a, s, b, eps=1e-5):
+    """The rows' LayerNorm in f32: both sums over the row in f32, then (a -
+    mean) * (1 / std) * s + b."""
+    mean = a.sum(1, dtype=np.float32, keepdims=True) / np.float32(a.shape[1])
+    d = a - mean
+    var = (d * d).sum(1, dtype=np.float32, keepdims=True) / np.float32(a.shape[1])
+    inv = (np.float32(1.0) / np.sqrt(var + np.float32(eps))).astype(np.float32)
+    return ((a - mean) * inv) * s + b
+
+
+def gelu_f32(z):
+    z = z.astype(np.float32)
+    k, c = np.float32(0.7978845608028654), np.float32(0.044715)
+    return np.float32(0.5) * z * (np.float32(1.0) + np.tanh(k * (z + c * z * z * z)))
+
+
+def forward_product_stages(a, w, bias, ln=None):
+    """a [M, K] @ w [K, N] + bias as ``fwd_product_kernel`` computes it:
+    padded to its tiles (zeros past M, N and K), each landed 16-deep stage
+    of A LayerNormed in f32 (``ln`` = (scale, shift)) before its split, the
+    stage's two permuted 8-deep steps of three passes added toward zero to a
+    fresh sum, the stage added to the total to nearest, then the bias."""
+    m, k = a.shape
+    n = w.shape[1]
+    mp = -(-m // FWD_TILE_M) * FWD_TILE_M
+    np_ = -(-n // FWD_TILE_N) * FWD_TILE_N
+    kp = -(-k // FWD_STAGE_K) * FWD_STAGE_K
+    if ln is not None:
+        a = layer_norm_f32(a, *ln)
+    a = np.pad(a, ((0, mp - m), (0, kp - k)))
+    w = np.pad(w, ((0, kp - k), (0, np_ - n)))
+    (ah, al), (wh, wl) = split(a), split(w)
+    total = np.zeros((mp, np_), np.float32)
+    for k0 in range(0, kp, FWD_STAGE_K):
+        stage = np.zeros_like(total)
+        for depths in FWD_STEP_DEPTHS:
+            idx = [k0 + d for d in depths]
+            for x, y in ((al, wh), (ah, wl), (ah, wh)):
+                p = x[:, idx].astype(np.float64) @ y[idx, :].astype(np.float64)
+                stage = _toward_zero(stage.astype(np.float64) + p)
+        total = (total + stage).astype(np.float32)
+    return total[:m, :n] + bias
+
+
+# (M, K, N) of each of the four products: ragged rows, depths and columns
+# (a tile that N 60 and 24 fill in part), and the f32 flagship's four at
+# batch 1, 32 x 32 tokens at each of its widths (C 96, 192 and 384, MLP 4 C)
+FWD_SHAPES = {"ragged": (144, 20, 60), "ragged_wide": (200, 36, 140),
+              "ragged_narrow": (130, 40, 24)}
+for _c in (96, 192, 384):
+    _name = "flagship" if _c == 384 else f"flagship_c{_c}"
+    FWD_SHAPES.update({f"{_name}_qkv": (1024, _c, 3 * _c),
+                       f"{_name}_proj": (1024, _c, _c),
+                       f"{_name}_fc1": (1024, _c, 4 * _c),
+                       f"{_name}_fc2": (1024, 4 * _c, _c)})
+
+
+FWD_CASES = [(name, epi) for name in sorted(FWD_SHAPES)
+             for epi in ("qkv", "proj", "fc1", "fc2")
+             if not name.startswith("flagship") or name.endswith(epi)]
+
+
+@pytest.mark.parametrize("name,epi", FWD_CASES)
+def test_forward_products_hold_f32(name, epi):
+    """Each of the general K1's products in f32 on its kernel's tiles and
+    stages (LayerNorm for qkv and fc1, gelu for fc1, the residual with a
+    drop-path scale for proj and fc2), against the same function in f64:
+    within 1e-6 of the result's largest entry (the LayerNorm's output too),
+    two orders under ``chip_smoke.ANY_F32_FWD_MAX_ABS_REL``. The flagship
+    shapes run each product at its own widths; the ragged ones run all
+    four."""
+    m, k, n = FWD_SHAPES[name]
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    f32 = np.float32
+    a = rng.standard_normal((m, k)).astype(f32) * f32(1.5) + f32(0.3)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(f32)
+    bias = (rng.standard_normal(n) * 0.1).astype(f32)
+    ln = None
+    if epi in ("qkv", "fc1"):
+        ln = ((1 + 0.2 * rng.standard_normal(k)).astype(f32),
+              (0.1 * rng.standard_normal(k)).astype(f32))
+    got = forward_product_stages(a, w, bias, ln)
+    a64 = a.astype(np.float64)
+    if ln is not None:
+        mu = a64.mean(1, keepdims=True)
+        h64 = (a64 - mu) / np.sqrt(((a64 - mu) ** 2).mean(1, keepdims=True)
+                                   + 1e-5) * ln[0] + ln[1]
+        h32 = layer_norm_f32(a, *ln)
+        assert np.abs(h32 - h64).max() <= 1e-6 * np.abs(h64).max()
+        a64 = h64
+    want = a64 @ w.astype(np.float64) + bias
+    if epi == "fc1":
+        got = gelu_f32(got)
+        want = 0.5 * want * (1 + np.tanh(0.7978845608028654
+                                         * (want + 0.044715 * want ** 3)))
+    elif epi in ("proj", "fc2"):
+        res = rng.standard_normal((m, n)).astype(f32)
+        dp = f32(1.1)
+        got = res + dp * got
+        want = res + 1.1 * want
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 1e-6
+    assert 100 * err <= ANY_F32_FWD_MAX_ABS_REL
+
+
+def test_forward_step_depths_cover_each_stage_once():
+    """The two steps of a stage take its 16 depths once each, and a
+    thread's four depths of both steps (elements t and t + 4 of each) are
+    adjacent: 4 t .. 4 t + 3, one 16-byte read of the landed row."""
+    assert sorted(FWD_STEP_DEPTHS[0] + FWD_STEP_DEPTHS[1]) == list(range(16))
+    for t in range(4):
+        got = sorted(FWD_STEP_DEPTHS[s][j] for s in range(2) for j in (t, t + 4))
+        assert got == [4 * t + e for e in range(4)]
