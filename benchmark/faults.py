@@ -2,13 +2,15 @@
 its place: the readings that set the correctness limits' upper ends beside
 the control's (:mod:`benchmark.reference.prec`), and the checks' own tests.
 
-In the program, through the weights it is handed:
+In the program, through the weights it is handed, on the leaves that the
+configuration's reference names (its ``FAULT_LEAVES``; ``model.py``'s in
+parentheses):
 
-- ``no_relpos``: the Swin blocks' attention without its relative-position
-  bias (every block's table zero), as a Swin-block kernel that skipped the
-  bias gather would compute;
-- ``no_ln_scale``: the Swin blocks' LayerNorms without their scales (one),
-  as a kernel whose LayerNorm prologue ignored them.
+- ``no_relpos``: the blocks' attention without its relative-position bias
+  (every Swin block's table zero), as a kernel that skipped the bias gather
+  would compute;
+- ``no_ln_scale``: the blocks' LayerNorms without their scales (one), as a
+  kernel whose LayerNorm prologue ignored them.
 
 In the training reference (:func:`benchmark.kinds.train.reference_steps`):
 
@@ -19,30 +21,32 @@ In the training reference (:func:`benchmark.kinds.train.reference_steps`):
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from benchmark.weights import ends_with
 
 WEIGHT_FAULTS = ("no_relpos", "no_ln_scale")
 BATCH_FAULTS = ("half", "half_loss")
 
 
-def weights_seen(p: Dict[str, torch.Tensor],
-                 fault: Optional[str]) -> Dict[str, torch.Tensor]:
-    """The weights handed to the program under ``fault``."""
+def weights_seen(p: Dict[str, torch.Tensor], fault: Optional[str],
+                 leaves: Dict[str, Tuple[str, Sequence[str], float]]
+                 ) -> Dict[str, torch.Tensor]:
+    """The weights handed to the program under ``fault``: for a weight
+    fault, ``leaves[fault]`` (the reference's ``FAULT_LEAVES``) is ``(under,
+    suffixes, value)``, and each leaf whose name holds ``under`` and ends in
+    one of ``suffixes`` is set to ``value``. Raises where it sets none."""
     if fault not in WEIGHT_FAULTS:
         return p
-    out = dict(p)
-    for k, v in p.items():
-        if ".blocks" not in k:               # a Swin block's leaf
-            continue
-        if fault == "no_relpos" and k.endswith(
-                "relative_position_bias_table"):
-            out[k] = torch.zeros_like(v)
-        elif fault == "no_ln_scale" and k.endswith(
-                ("norm1.weight", "norm2.weight")):
-            out[k] = torch.ones_like(v)
-    return out
+    under, suffixes, value = leaves[fault]
+    hit = {k: torch.full_like(v, value) for k, v in p.items()
+           if under in k and any(ends_with(k, s) for s in suffixes)}
+    if not hit:
+        raise ValueError(f"{fault}: no leaf under {under!r} ends in "
+                         f"{', '.join(suffixes)}")
+    return dict(p, **hit)
 
 
 def halved(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

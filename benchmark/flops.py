@@ -1,5 +1,5 @@
 """Floating-point operations of one step, counted by PyTorch's
-``FlopCounterMode`` over the benchmark's plain reference at the cell's
+``FlopCounterMode`` over the configuration's plain reference at the cell's
 shapes (matrix products and convolutions, two per multiply-add, the
 backward's included). The reference runs on the ``meta`` device: shapes
 only, no memory and no arithmetic. It never counts the program."""
@@ -11,7 +11,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark import pool as pools
 from benchmark.reference import loss as ref_loss
-from benchmark.reference import model as ref_model
 
 
 def _meta_batch(cfg: dict, batch: int, train: bool):
@@ -21,15 +20,17 @@ def _meta_batch(cfg: dict, batch: int, train: bool):
             for k, v in real.items()}
 
 
-def step_flops(model: dict, spec, batch: int, train: bool) -> float:
+def step_flops(reference, model: dict, spec, batch: int,
+               train: bool) -> float:
     """FLOPs of one forward (``train``: forward, loss and backward) of a
-    batch of ``batch`` scenes."""
+    batch of ``batch`` scenes, by the module ``reference``
+    (:func:`benchmark.harness.load_reference`)."""
     cfg = pools.with_sizes(model)
     params = {k: torch.empty(s, device="meta", requires_grad=train)
               for k, s in spec}
     data = _meta_batch(cfg, batch, train)
     with FlopCounterMode(display=False) as counter:
-        out = ref_model.forward(params, model, data)
+        out = reference.forward(params, model, data)
         if train:
             total = ref_loss.total(ref_loss.loss_terms(
                 data, out, model["num_waypoints"]))

@@ -8,6 +8,9 @@ finds, by those names alone:
 - ``benchmark/configs/<config>.json`` (the configuration's own ``file``
   entry): the model's settings as run, handed to the program's
   ``ModelConfig`` and to the plain reference;
+- ``benchmark/reference/<file>.py``, the file that the configuration names
+  under ``reference`` (``model.py`` without the key): its plain reference
+  (:func:`load_reference`);
 - ``benchmark/traffic/<traffic>.json``: the traffic's parameters, among
   them ``kind``, the module ``benchmark/kinds/<kind>.py`` that drives it;
 - ``benchmark/cells/<cell>.json``: the cell's correctness limits;
@@ -15,7 +18,8 @@ finds, by those names alone:
   ``read(reading)`` that returns a number or None.
 
 A new cell, configuration, traffic mix or per-layer metric is a new file
-and a new entry in ``BENCHMARK.json``; no file here changes.
+and a new entry in ``BENCHMARK.json``, and a new architecture a new
+reference file beside them; no file here changes.
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
+from benchmark.weights import draw
+
 ROOT = Path(__file__).resolve().parent.parent
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "strajnet_tpu")
+REFERENCE = "model.py"    # the reference of a configuration that names none
+REFERENCE_NAMES = ("forward", "check_config", "LEAF_RULES", "FAULT_LEAVES")
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -56,13 +64,46 @@ def load_json(kind: str, name: str, here: Path = HERE) -> dict:
     return json.loads((here / kind / f"{name}.json").read_text())
 
 
-def load_reader(metric: str, here: Path = HERE) -> Callable:
-    path = here / "metrics" / f"{metric}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"benchmark.metrics.{metric.replace('.', '_')}", path)
+def _load(path: Path, name: str):
+    """The module of the file ``path``, under ``name`` in ``sys.modules``
+    (where a dataclass of the module looks itself up)."""
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(mod_spec)
+    sys.modules[name] = module
     mod_spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(metric: str, here: Path = HERE) -> Callable:
+    return _load(here / "metrics" / f"{metric}.py",
+                 f"benchmark.metrics.{metric.replace('.', '_')}").read
+
+
+def load_reference(config: dict, here: Path = HERE):
+    """The plain reference that a configuration file names under
+    ``reference``: a file of ``benchmark/reference/``, ``model.py`` where
+    the file names none. It states the architecture:
+
+    - ``forward(p, model, batch, prec, generator)``: the outputs of a batch
+      from the weights ``p`` (the names of the program's ``state_dict``);
+    - ``check_config(model)``: raises on a wiring it does not state;
+    - ``LEAF_RULES``: ``{name suffix: rule(u, z)}``, the weights of its own
+      leaves (:func:`benchmark.weights.draw`);
+    - ``FAULT_LEAVES``: ``{fault: (under, suffixes, value)}``, the leaves
+      that each of :mod:`benchmark.faults`' weight faults sets.
+
+    Raises, naming the file, where it is not there or lacks one of them."""
+    name = config.get("reference", REFERENCE)
+    path = here / "reference" / name
+    if Path(name).name != name or path.suffix != ".py" or not path.is_file():
+        raise FileNotFoundError(f"the configuration's reference {name!r} is "
+                                f"not a .py file of {path.parent}")
+    module = _load(path, f"benchmark_reference.{path.stem}")
+    missing = [n for n in REFERENCE_NAMES if not hasattr(module, n)]
+    if missing:
+        raise AttributeError(f"the reference {name!r} does not state "
+                             f"{', '.join(missing)}")
+    return module
 
 
 def forbidden_modules() -> List[str]:
@@ -77,6 +118,7 @@ class Context:
 
     cell: dict
     model: dict           # the configuration's model settings
+    reference: Any        # its plain reference (load_reference)
     traffic: dict
     limits: Dict[str, float]
     seed: int
@@ -96,6 +138,12 @@ class Context:
         """A seed of its own for each part of the run."""
         return (self.seed * 4 + {"data": 0, "weights": 1, "noise": 2,
                                  "sample": 3}[part]) % 2 ** 63
+
+    def weights(self, spec) -> Dict[str, Any]:
+        """The run's weights for ``spec``, drawn from its seed by the
+        reference's rules: the same on both sides."""
+        return draw(spec, self.seed_of("weights"), self.device,
+                    self.reference.LEAF_RULES)
 
 
 @dataclasses.dataclass

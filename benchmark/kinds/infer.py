@@ -27,7 +27,6 @@ import torch
 from benchmark import compare, faults, pool as pools, weights
 from benchmark.harness import Context, judge
 from benchmark.kinds.train import _sync, alter_outputs
-from benchmark.reference import model as ref_model
 from benchmark.reference.prec import EXACT, Prec
 from benchmark.trace import trace_steps
 
@@ -50,8 +49,8 @@ class Program:
         mcfg = ports_config(ctx.model)
         self.model = STrajNet(mcfg).to(dev).eval()
         self.spec = weights.spec_of(self.model.state_dict())
-        self.model.load_state_dict(faults.weights_seen(weights.draw(
-            self.spec, ctx.seed_of("weights"), dev), ctx.fault))
+        self.model.load_state_dict(faults.weights_seen(
+            ctx.weights(self.spec), ctx.fault, ctx.reference.FAULT_LEAVES))
         self.step = make_predict_step(mcfg.num_waypoints)
         ctx.mark("model built")
         if ctx.fault == "half":
@@ -83,17 +82,17 @@ def held_bytes(tensors) -> int:
 
 
 def reference(ctx: Context, spec, batch, rows: int, prec: Prec = EXACT):
-    """The reference's (observed, occluded, flow) of a batch, ``rows``
-    scenes at a time, each ``[scenes, T, H, W, c]``: occupancy logits and
-    the flow."""
+    """The configuration's reference's (observed, occluded, flow) of a
+    batch, ``rows`` scenes at a time, each ``[scenes, T, H, W, c]``:
+    occupancy logits and the flow."""
     t = ctx.model["num_waypoints"]
     parts = []
     with torch.no_grad(), compare.exact_float32():
-        p = weights.draw(spec, ctx.seed_of("weights"), ctx.device)
+        p = ctx.weights(spec)
         n = batch["ogm"].shape[0]
         for lo in range(0, n, rows):
             chunk = {k: v[lo:lo + rows] for k, v in batch.items()}
-            y = ref_model.forward(p, ctx.model, chunk, prec)
+            y = ctx.reference.forward(p, ctx.model, chunk, prec)
             b, h, w, _ = y.shape
             y = y.reshape(b, h, w, t, 4).permute(0, 3, 1, 2, 4)
             parts.append((y[..., 0:1].clone(), y[..., 1:2].clone(),

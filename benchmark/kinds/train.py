@@ -27,7 +27,6 @@ import torch
 from benchmark import compare, faults, pool as pools, weights
 from benchmark.harness import Context
 from benchmark.reference import loss as ref_loss
-from benchmark.reference import model as ref_model
 from benchmark.reference.prec import EXACT, Prec
 from benchmark.trace import trace_steps
 
@@ -62,7 +61,7 @@ class Program:
         model = STrajNet(mcfg).to(dev).train()
         self.spec = weights.spec_of(model.state_dict())
         model.load_state_dict(faults.weights_seen(
-            weights.draw(self.spec, ctx.seed_of("weights"), dev), ctx.fault))
+            ctx.weights(self.spec), ctx.fault, ctx.reference.FAULT_LEAVES))
         self.state = TrainState(model, make_optimizer(TrainConfig(),
                                                       model.parameters()))
         task = TaskConfig(grid_height_cells=self.cfg["output_size"],
@@ -102,8 +101,7 @@ class Program:
                 grad = [(st[p]["mu"] / B1_SHARE if p in st
                          else torch.zeros_like(p)).detach().float().cpu()
                         for _, p in named]
-        p0 = weights.draw(self.spec, self.ctx.seed_of("weights"),
-                          self.ctx.device)
+        p0 = self.ctx.weights(self.spec)
         names = [k for k, _ in named]
         return {"losses": [float(v) for v in losses], "out": first[0],
                 "grad": {k: float(g.norm()) for k, g in zip(names, grad)},
@@ -156,14 +154,14 @@ def alter_outputs(model: torch.nn.Module) -> None:
 def reference_steps(ctx: Context, spec, pool: List[Dict[str, torch.Tensor]],
                     n: int, prec: Prec = EXACT,
                     fault: Optional[str] = None) -> dict:
-    """The reference's first ``n`` steps from the same weights, batches and
-    noise: what :meth:`Program.check_steps` reads. ``prec`` and a batch
-    ``fault`` (:mod:`benchmark.faults`) put the control or a planted fault
-    in the program's place."""
+    """The configuration's reference's first ``n`` steps from the same
+    weights, batches and noise: what :meth:`Program.check_steps` reads.
+    ``prec`` and a batch ``fault`` (:mod:`benchmark.faults`) put the control
+    or a planted fault in the program's place."""
     dev = ctx.device
     t = ctx.model["num_waypoints"]
     with compare.exact_float32():
-        p = weights.draw(spec, ctx.seed_of("weights"), dev)
+        p = ctx.weights(spec)
         names = list(p)
         params = [p[k].requires_grad_(True) for k in names]
         opt = ref_loss.Nadam(params)
@@ -173,7 +171,7 @@ def reference_steps(ctx: Context, spec, pool: List[Dict[str, torch.Tensor]],
             batch = pool[i % len(pool)]
             if fault == "half":
                 batch = faults.halved(batch)
-            out = ref_model.forward(p, ctx.model, batch, prec, gen)
+            out = ctx.reference.forward(p, ctx.model, batch, prec, gen)
             scored = batch
             if fault == "half_loss":
                 scored = faults.halved(batch)
@@ -188,7 +186,7 @@ def reference_steps(ctx: Context, spec, pool: List[Dict[str, torch.Tensor]],
                 first = out.detach().cpu()
             opt.step(grads)
             del out, total, grads
-        p0 = weights.draw(spec, ctx.seed_of("weights"), dev)
+        p0 = ctx.weights(spec)
         delta = {k: p[k].detach() - p0[k] for k in names}
     return {"losses": losses, "out": first,
             "grad": {k: float(g.norm()) for k, g in grad.items()},

@@ -13,7 +13,8 @@ flag raises.
 
 Parameters come as a ``{name: tensor}`` dict under the names of the
 program's ``state_dict`` (the weights the benchmark draws and hands to both
-sides); nothing here reads the program. Every product goes through a
+sides, by ``LEAF_RULES`` for this architecture's own leaves); nothing here
+reads the program. Every product goes through a
 :class:`~benchmark.reference.prec.Prec`; everything else is float32. The
 random parts of training mode (stochastic depth in the Swin blocks, dropout
 0.1 in TrajNet) draw from the generator they are handed, each mask one
@@ -50,6 +51,29 @@ FIXED = dict(sep_encode=True, flow_sep=True, use_flow=True, no_map=False,
              flow_sep_decode=True, conv_cnn=False, sep_conv=False,
              rep_res=True, stp_grad=False, drop_rate=0.0,
              attn_drop_rate=0.0, qkv_bias=True)
+
+
+TABLE_STD = 1.0      # relative-position tables: TABLE_STD z
+
+
+def _table(u, z):
+    return TABLE_STD * torch.clamp(z, -2.0, 2.0)
+
+
+# The weights of this architecture's own leaves, by name suffix
+# (benchmark/weights.py): the relative-position tables, the Swin blocks' and
+# FG-MSA's, at the scale of the attention logits they add to, so that a
+# forward which ignores them gives other outputs (at Swin's N(0, 0.02) a
+# Swin block that skipped its table would compute the same).
+LEAF_RULES = {"relative_position_bias_table": _table, "rpe_table": _table}
+
+# The leaves that benchmark/faults.py's weight faults set, as (a part of the
+# name, its suffixes, the value): the Swin blocks' tables zero, their
+# LayerNorms' scales one.
+FAULT_LEAVES = {
+    "no_relpos": (".blocks", ("relative_position_bias_table",), 0.0),
+    "no_ln_scale": (".blocks", ("norm1.weight", "norm2.weight"), 1.0),
+}
 
 
 def check_config(cfg: dict) -> None:

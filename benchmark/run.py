@@ -63,9 +63,9 @@ def result_line(spec: dict, ctx, out: dict, device_name: str,
         reading = harness.Reading(
             model=ctx.model, batch=ctx.traffic["batch"], trace=out["trace"],
             steps=out["steps"], window_s=out["window_s"],
-            flops_per_step=step_flops(ctx.model, out["spec"],
-                                      ctx.traffic["batch"],
-                                      ctx.traffic["kind"] == "train"))
+            flops_per_step=step_flops(
+                ctx.reference, ctx.model, out["spec"], ctx.traffic["batch"],
+                ctx.traffic["kind"] == "train"))
         metrics = harness.per_layer(spec, cell, reading,
                                     here or harness.HERE)
     device = {"platform": "gpu", "kind": device_name,
@@ -83,7 +83,8 @@ def result_line(spec: dict, ctx, out: dict, device_name: str,
 
 
 def context(spec: dict, args, device, t0: float, fault=None, root=None):
-    """The run's context; ``root`` is the checkout (this one's by
+    """The run's context, with the configuration's reference loaded and
+    its wiring checked; ``root`` is the checkout (this one's by
     default)."""
     from benchmark import harness
     root = harness.ROOT if root is None else root
@@ -91,8 +92,11 @@ def context(spec: dict, args, device, t0: float, fault=None, root=None):
     cell = harness.find_cell(spec, args.workload)
     traffic = harness.load_json("traffic", cell["traffic"], here)
     limits = harness.load_json("cells", cell["name"], here)["limits"]
-    model = harness.find_config(spec, cell["config"], root)["model"]
-    return harness.Context(cell=cell, model=model, traffic=traffic,
+    config = harness.find_config(spec, cell["config"], root)
+    reference = harness.load_reference(config, here)
+    reference.check_config(config["model"])
+    return harness.Context(cell=cell, model=config["model"],
+                           reference=reference, traffic=traffic,
                            limits=limits, seed=args.seed,
                            seconds=args.seconds, trace=bool(args.trace),
                            device=device, t0=t0, fault=fault)

@@ -27,7 +27,8 @@ def tiny_model(name: str = "strajnet_fgmsa_bf16", **changes) -> dict:
 def tiny_context(model: dict, traffic: dict, limits=None, seed=2 ** 31 + 7,
                  seconds=0.3, trace=False, fault=None) -> harness.Context:
     return harness.Context(
-        cell={"name": "tiny", "chips": 1}, model=model, traffic=traffic,
+        cell={"name": "tiny", "chips": 1}, model=model,
+        reference=harness.load_reference({}), traffic=traffic,
         limits=limits or {}, seed=seed, seconds=seconds, trace=trace,
         device=torch.device("cpu"), t0=time.perf_counter(), fault=fault)
 

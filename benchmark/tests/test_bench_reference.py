@@ -21,7 +21,7 @@ def test_forward_equals_the_programs_plain_path(fg_msa, training):
     model = tiny_model(dtype="float32", fg_msa=fg_msa, fg=fg_msa)
     net = STrajNet(port_config(model)).train(training)
     spec = weights.spec_of(net.state_dict())
-    p = weights.draw(spec, 17, "cpu")
+    p = weights.draw(spec, 17, "cpu", ref_model.LEAF_RULES)
     net.load_state_dict(p)
     b = pools.make_pool(pools.with_sizes(model), 3, 1, 9, "cpu", True)[0]
     g1 = torch.Generator().manual_seed(5) if training else None

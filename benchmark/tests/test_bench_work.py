@@ -15,7 +15,7 @@ from benchmark.tests.conftest import port_config, tiny_model
 def _tiny_params(model):
     from strajnet_tpu_torch.models.strajnet import STrajNet
     spec = weights.spec_of(STrajNet(port_config(model)).state_dict())
-    return spec, weights.draw(spec, 3, "cpu")
+    return spec, weights.draw(spec, 3, "cpu", ref_model.LEAF_RULES)
 
 
 def test_swin_counts_equal_the_reference_blocks():
@@ -67,5 +67,7 @@ def test_step_count_on_meta_equals_real_tensors():
     batch = pools.make_pool(cfg, 2, 1, 4, "cpu", train=False)[0]
     with FlopCounterMode(display=False) as c:
         ref_model.forward(p, model, batch)
-    assert step_flops(model, spec, 2, False) == c.get_total_flops()
-    assert step_flops(model, spec, 2, True) > 2.5 * c.get_total_flops()
+    assert step_flops(ref_model, model, spec, 2, False) == \
+        c.get_total_flops()
+    assert step_flops(ref_model, model, spec, 2, True) > \
+        2.5 * c.get_total_flops()
