@@ -37,7 +37,15 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
   64 -> 32 channels in bf16, at the f32 flagship tail and at a ragged
   geometry (``ANY_TAILS``), twice, timed in rounds and broken down by
   kernel at the f32 flagship tail; the flagship shapes launching none of
-  them.
+  them;
+- the SwinV2 block on the general route (``ops/swinv2_block.py``:
+  ``swinv2_any_fwd`` and ``swinv2_any_bwd``) in bf16 at the SwinV2-B
+  configuration's four widths at batch 16 (``V2_GEOMETRIES``: C 128 on a
+  shifted 128^2 grid, C 512 with 16 heads, C 1024 in one unshifted 16x16
+  window), a head of each past the logit scale's clamp, against the plain
+  block (``V2_BF16_*``, ``V2_DTAU_*``), the kernels of one call counted
+  from counters zeroed just before (8 and 18), timed beside the plain
+  block and broken down by kernel at C 128.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -118,8 +126,11 @@ flagship in f32 (forward at batch 2, 8 general K1), the Swin-B width in bf16
 (``SWIN_B_CONFIG``; forward and one training step at batch 4, 8 general K1
 and K2), TINY in the ``"block"`` and ``"attn"`` modes with the tail kernel
 (forward and a step each at batch 4: general K1/K2 or K3/K4, 2 general K7 a
-forward). The kernels line also lists the general route of each kernel with
-its launches on these paths.
+forward), and the SwinV2-B preset (``STRAJNET_SWINV2_B_CONFIG``; forward and
+one training step at batch 2, 26 SwinV2 blocks on the general route, no
+Swin-v1 block). The kernels line also lists the general route of each kernel
+and the SwinV2 block's forward and backward with their launches on these
+paths.
 
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
 variants, ddp, tp, preprocess, tools, widths) while developing; with no
@@ -135,6 +146,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -153,7 +165,8 @@ from strajnet_tpu_torch.core.sampling import (  # noqa: E402
     BorderType, PixelType, ResamplingType, dense_image_warp, flow_warp_origin,
     ref_points, rpe_bias, sample)
 from strajnet_tpu_torch.config import (  # noqa: E402
-    STRAJNET_CONFIG, STRAJNET_TRAIN_PY_CONFIG, TINY_MODEL_CONFIG,
+    STRAJNET_CONFIG, STRAJNET_SWINV2_B_CONFIG, STRAJNET_TRAIN_PY_CONFIG,
+    TINY_MODEL_CONFIG,
     WAYMO_OGM_TASK_CONFIG, WAYMO_TASK_CONFIG, LossConfig, ModelConfig,
     TaskConfig, TrainConfig)
 from strajnet_tpu_torch.core.libm import cosf, fmaf, sinf  # noqa: E402
@@ -173,12 +186,13 @@ from strajnet_tpu_torch.infer.submission import (  # noqa: E402
     SCENARIO_ID, SCENARIO_WAYPOINTS, SUBMISSION_SCENARIO_PREDICTIONS)
 from strajnet_tpu_torch.models.strajnet import STrajNet, init_params  # noqa: E402
 from strajnet_tpu_torch.models.swin import (  # noqa: E402
-    BasicLayerDecoder, SwinTransformerBlock)
+    BasicLayerDecoder, SwinTransformerBlock, SwinV2TransformerBlock)
 from strajnet_tpu_torch.objective.loss import (  # noqa: E402
     OGMFlowLoss, split_pred_waypoints, true_waypoints_from_batch)
 from strajnet_tpu_torch.objective.metrics import (  # noqa: E402
     apply_sigmoid_to_occupancy_logits, compute_occupancy_flow_metrics,
     print_metrics)
+from strajnet_tpu_torch.ops import swinv2_block as v2  # noqa: E402
 from strajnet_tpu_torch.ops import window_attention as wa  # noqa: E402
 from strajnet_tpu_torch.ops import decoder_tail as dtl  # noqa: E402
 from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
@@ -370,6 +384,28 @@ WIDTHS_GRAD_ONE_MINUS_COS = 1e-4
 # equal to its input width).
 SWIN_B_CONFIG = ModelConfig(embed_dim=128, num_heads=(4, 8, 16),
                             fgmsa_head_channels=64)
+# The SwinV2 block on the general route, bf16, window 16, MLP width 4C, at
+# batch 16: (H = W, C, heads, shift, blocks of this width in a forward of
+# STRAJNET_SWINV2_B_CONFIG, half of them unshifted but at 16^2) for its
+# flow stage and first stage, its second, its third and its last (one
+# unshifted window).
+V2_GEOMETRIES = ((128, 128, 4, 8, 4), (64, 256, 8, 8, 2),
+                 (32, 512, 16, 8, 18), (16, 1024, 32, 0, 2))
+# The limits of tests/test_torch_swinv2_kernels.py. The kernels and the
+# plain bf16 block round their intermediates to bf16 at their own places,
+# and the cosine logits multiply a rounding of q or k by the logit scale
+# (up to 100), so neither is the other's truth: both are held against the
+# plain block in f32 on the same bf16 inputs (TF32 off), the kernels no
+# further from it than V2_BF16_FACTOR times the plain bf16 block is, in the
+# largest entry's error and in 1 - cos, with floors of one bf16 rounding
+# where the plain block comes closer. dtau sums every token's q^ . dq^,
+# whose terms cancel, from dS taken off p rounded to bf16: 2^-3 of its
+# largest entry and 1 - cos 1e-3.
+V2_BF16_FACTOR = 2.0
+V2_BF16_FLOOR = 2.0 ** -8
+V2_BF16_COS_FLOOR = 1e-5
+V2_DTAU_MAX_ABS_REL = 2.0 ** -3
+V2_DTAU_ONE_MINUS_COS = 1e-3
 # FG-MSA's rel-pos bias, the window form against the direct gather, f32:
 # the bias and its two gradients by cosine.
 RPE_ONE_MINUS_COS = 1e-4
@@ -1424,7 +1460,10 @@ def general_breakdown(g: torch.Generator) -> None:
 
 WINDOW_ANY_KERNELS = ("fwd_product_kernel", "gemm_kernel", "gemm_sm90_kernel",
                       "gemm_tf32x3_kernel", "atb_kernel", "attn_fwd_kernel",
-                      "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel")
+                      "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel",
+                      "qk_norm_kernel", "qk_norm_bwd_kernel",
+                      "postnorm_kernel", "postnorm_bwd_kernel",
+                      "add_rows_kernel")
 DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
                             "decoder_tail_any_kernel")
 
@@ -1528,6 +1567,186 @@ def check_general_tail(g: torch.Generator) -> dict:
           f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}), bound "
           f"{res['bound_ms']:.4f} ms")
     return res
+
+
+def v2_inputs(h: int, c: int, heads: int, shift: int, g: torch.Generator,
+              batch: int = BATCH):
+    """SwinV2 block arguments at window 16 and MLP width 4C, drawn as the
+    kernel tests draw them: x and the matrix weights (and qkv's and proj's
+    biases, k's third zero) in bf16; a bias of 16 sigmoid(z); logit scales
+    spread over ln 10 +- 1.5, head 0's past the clamp; the rest f32."""
+    n, hidden, bf = 256, 4 * c, torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    tau = math.log(10.0) + 1.5 * (torch.rand(heads, generator=g,
+                                             device="cuda")
+                            * 2 - 1)
+    tau[0] = 5.0
+    bqkv = r(3 * c, scale=0.1)
+    bqkv[c:2 * c] = 0.0
+    args = (r(batch, h, h, c).to(bf), r(c, 3 * c, scale=c ** -0.5).to(bf),
+            bqkv.to(bf), r(c, c, scale=c ** -0.5).to(bf),
+            r(c, scale=0.1).to(bf), 16.0 * torch.sigmoid(r(heads, n, n)),
+            tau, 1 + r(c, scale=0.2), r(c, scale=0.1), 1 + r(c, scale=0.2),
+            r(c, scale=0.1), r(c, hidden, scale=c ** -0.5).to(bf),
+            r(hidden, scale=0.1), r(hidden, c, scale=hidden ** -0.5).to(bf),
+            r(c, scale=0.1))
+    mask = (torch.from_numpy(shifted_window_mask(h, h, 16, shift)).cuda()
+            if shift else None)
+    dp = torch.rand(batch, 2, generator=g, device="cuda") * 1.2
+    return args, mask, dp
+
+
+def v2_held(what: str, got, plain, exact, dtau: bool = False) -> float:
+    """The SwinV2 route's ``got`` against the plain block in f32
+    (``exact``): within V2_BF16_FACTOR times the plain bf16 block's
+    (``plain``) distance, with the floors; dtau at V2_DTAU_*. Returns the
+    largest entry's error over the largest entry of ``exact``."""
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    scale = float(exact.float().abs().max())
+
+    def gaps(t):
+        return (float((t.float() - exact.float()).abs().max()) / scale,
+                one_minus_cos(t, exact))
+
+    err, omc = gaps(got)
+    if dtau:
+        lim = (V2_DTAU_MAX_ABS_REL, V2_DTAU_ONE_MINUS_COS)
+    else:
+        perr, pomc = gaps(plain)
+        lim = (max(V2_BF16_FACTOR * perr, V2_BF16_FLOOR),
+               max(V2_BF16_FACTOR * pomc, V2_BF16_COS_FLOOR))
+    check(err <= lim[0] and omc <= lim[1],
+          f"{what}: err/max|f32| {err:.3e} <= {lim[0]:.3e} and 1-cos "
+          f"{omc:.3e} <= {lim[1]:.3e}")
+    return err
+
+
+def v2_call(fn, counter, want: int, what: str):
+    """``fn()`` with ``counter.launches_any`` zeroed just before: one call
+    counted there and ``want`` kernels in the library's own count."""
+    counter.launches_any = 0
+    before = window_any_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    kernels = window_any_launches() - before
+    check(counter.launches_any == 1 and kernels == want,
+          f"{what}: {counter.launches_any} call(s) and {kernels} kernels "
+          f"(want 1 and {want})")
+    return out
+
+
+def as_f32(args):
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+
+
+def check_swinv2_block(g: torch.Generator) -> dict:
+    """The SwinV2 block's forward kernels (``swinv2_any_fwd``) against the
+    plain block at V2_GEOMETRIES (``v2_held``), FWD_LAUNCHES kernels a call;
+    times and bounds summed over the 26 blocks of a forward, each
+    geometry's times its count; the kernels' device time by kernel at C
+    128."""
+    worst, ms, plain_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0
+    for h, c, heads, shift, count in V2_GEOMETRIES:
+        args, mask, dp = v2_inputs(h, c, heads, shift, g)
+        kw = dict(window_size=16, num_heads=heads)
+        what = f"SwinV2 forward [{BATCH},{h},{h},{c}] heads {heads}"
+        with torch.inference_mode():
+            y = v2_call(lambda: v2.swinv2_block(*args, mask, dp, **kw),
+                        v2.swinv2_block, v2.FWD_LAUNCHES, what)
+            plain = v2.swinv2_block_reference(*args, mask, dp, **kw)
+            exact = v2.swinv2_block_reference(*as_f32(args), mask, dp, **kw)
+            err = v2_held(what, y, plain, exact)
+            del plain, exact
+            t_kernel = kernel_ms(lambda: v2.swinv2_block(*args, mask, dp,
+                                                         **kw), iters=10)
+            t_plain = kernel_ms(lambda: v2.swinv2_block_reference(
+                *args, mask, dp, **kw), iters=5)
+        print(f"{what} shift={shift}: err/max|f32|={err:.3e} "
+              f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f}")
+        if c == 128:
+            print("  device us a call by kernel: " + device_us_by_kernel(
+                lambda: v2.swinv2_block(*args, mask, dp, **kw),
+                WINDOW_ANY_KERNELS))
+        worst = max(worst, err)
+        ms += count * t_kernel
+        plain_ms += count * t_plain
+        fl, by = general_work("k1", BATCH, h, c, heads, 16, 4 * c, shift, 2)
+        flops += count * fl
+        nbytes += count * by
+        del args, mask, dp, y
+        torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(max_abs_err_rel=worst, kernels_per_call=v2.FWD_LAUNCHES,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def check_swinv2_block_bwd(g: torch.Generator) -> dict:
+    """The SwinV2 block's backward kernels (``swinv2_any_bwd``: the forward
+    recomputed, dx and the 14 gradients) against autograd of the plain block
+    at V2_GEOMETRIES (``v2_held``; dbqkv without k's third, no gradient;
+    dtau zero for the head past the clamp and no other), BWD_LAUNCHES
+    kernels a call; times summed over the 26 blocks of a step, the plain
+    time that of autograd's forward and backward; the kernels' device time
+    by kernel at C 128."""
+    worst, ms, plain_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0
+    for h, c, heads, shift, count in V2_GEOMETRIES:
+        args, mask, dp = v2_inputs(h, c, heads, shift, g)
+        dy = torch.randn(args[0].shape, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        kw = dict(window_size=16, num_heads=heads)
+        what = f"SwinV2 backward [{BATCH},{h},{h},{c}] heads {heads}"
+
+        def autograd_of_plain(ins, d):
+            ins = [t.detach().requires_grad_(True) for t in ins]
+            y = v2.swinv2_block_reference(*ins, mask, dp, **kw)
+            return torch.autograd.grad(y, ins, d)
+
+        with torch.no_grad():
+            dx, grads = v2_call(
+                lambda: v2.swinv2_block_bwd(*args, mask, dp, dy, **kw),
+                v2.swinv2_block_bwd, v2.BWD_LAUNCHES, what)
+        plain = autograd_of_plain(args, dy)
+        exact = autograd_of_plain(as_f32(args), dy.float())
+        report = []
+        for name, got, p, e in zip(("dx",) + v2.GRAD_NAMES,
+                                   (dx,) + grads, plain, exact):
+            if name == "dbqkv":
+                got, p, e = (torch.cat([t[:c], t[2 * c:]])
+                             for t in (got, p, e))
+            err = v2_held(f"{what} {name}", got, p, e, name == "dtau")
+            report.append(f"{name} {err:.2e}")
+            if name != "dtau":
+                worst = max(worst, err)
+        dtau = grads[v2.GRAD_NAMES.index("dtau")]
+        check(float(dtau[0]) == 0.0 and float(dtau[1:].abs().min()) > 0.0,
+              f"{what}: dtau zero past the clamp (head 0) and no other")
+        del plain, exact
+        with torch.no_grad():
+            t_kernel = kernel_ms(lambda: v2.swinv2_block_bwd(
+                *args, mask, dp, dy, **kw), iters=5)
+        t_plain = kernel_ms(lambda: autograd_of_plain(args, dy), iters=2)
+        print(f"{what} shift={shift}: kernel_ms={t_kernel:.4f} "
+              f"autograd_of_plain_fwd_bwd_ms={t_plain:.4f}\n  err/max|f32|: "
+              + ", ".join(report))
+        if c == 128:
+            print("  device us a call by kernel: " + device_us_by_kernel(
+                lambda: v2.swinv2_block_bwd(*args, mask, dp, dy, **kw),
+                WINDOW_ANY_KERNELS))
+        ms += count * t_kernel
+        plain_ms += count * t_plain
+        fl, by = general_work("k2", BATCH, h, c, heads, 16, 4 * c, shift, 2)
+        flops += count * fl
+        nbytes += count * by
+        del args, mask, dp, dy, dx, grads
+        torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(max_abs_err_rel=worst, kernels_per_call=v2.BWD_LAUNCHES,
+                ms=ms, autograd_of_plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def to_device(batch, keys=MODEL_KEYS):
@@ -3410,23 +3629,46 @@ def swin_block_count(model) -> int:
     return sum(isinstance(m, SwinTransformerBlock) for m in model.modules())
 
 
-def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel):
+V2_COUNTERS = (v2.swinv2_block, v2.swinv2_block_bwd)
+
+
+def reset_v2_counters() -> None:
+    for fn in V2_COUNTERS:
+        fn.launches_any = 0
+
+
+def read_v2_counters() -> tuple:
+    """The SwinV2 block's forward and backward calls since
+    ``reset_v2_counters``."""
+    return tuple(fn.launches_any for fn in V2_COUNTERS)
+
+
+def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel,
+                   expect=None, expect_v2=(0, 0)):
     """One eval-mode forward of ``cfg`` through the kernels against
     ``plain_cfg`` on the same seed-0 weights and batch; times both in
-    TIMING_ROUNDS rounds of turns. Returns the general route's launches of the kernel forward."""
+    TIMING_ROUNDS rounds of turns. The kernel forward's launches: the
+    general route's ``expect_any``, the wgmma route's ``expect`` (none by
+    default), the SwinV2 block's ``expect_v2``. Returns the general route's
+    launches of the kernel forward."""
+    expect = counts() if expect is None else expect
     state = init_params(cfg, torch.Generator().manual_seed(0))
     model, plain = (bench.load_model(c, state, "cuda")
                     for c in (cfg, plain_cfg))
     inputs = bench.model_inputs(cfg, batch_size, "cuda")
     with torch.inference_mode():
         reset_counters()
+        reset_v2_counters()
         y = model(**inputs)
         torch.cuda.synchronize()
         got_any, got = read_general_counters(), read_counters()
+        got_v2 = read_v2_counters()
         y_plain = plain(**inputs)
-        check(got_any == expect_any and got == counts(),
+        check(got_any == expect_any and got == expect
+              and got_v2 == expect_v2,
               f"{name} forward: general launches {got_any} (want "
-              f"{expect_any}), wgmma {got}")
+              f"{expect_any}), wgmma {got} (want {expect}), SwinV2 "
+              f"{got_v2} (want {expect_v2})")
         check(bool(torch.isfinite(y).all()), f"{name} forward finite")
         err = float((y.float() - y_plain.float()).abs().max())
         scale = float(y_plain.float().abs().max())
@@ -3445,32 +3687,43 @@ def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel):
           + (f" (limit {WIDTHS_F32_MAX_ABS_REL})" if f32_rel else "")
           + f" 1-cos={omc:.3e}"
           + ("" if f32_rel else f" (limit {WIDTHS_ONE_MINUS_COS})")
-          + f"; launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; "
-          f"kernel path {fmt_spread(ks, 3)} ms, plain path "
+          + f"; launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}, "
+          f"SwinV2 {got_v2}; kernel path {fmt_spread(ks, 3)} ms, plain path "
           f"{fmt_spread(ps, 3)} ms (min / median / max of "
           f"{2 * TIMING_ROUNDS})")
     return got_any
 
 
-def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
+def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect,
+                expect_v2=(0, 0), exact_cfg=None):
     """The first training step of ``cfg`` through the kernels against the
     plain path's from the same weights, batch and noise: loss and whole
     gradient; then the later steps of each, timed on the host's clock in
-    TIMING_ROUNDS rounds of turns. Returns the general route's launches of
-    the kernel step."""
+    TIMING_ROUNDS rounds of turns. With ``exact_cfg`` (the plain path in
+    f32) the whole gradient is held against that step's instead, no further
+    from it than V2_BF16_FACTOR times the plain path's (floor
+    V2_BF16_COS_FLOOR), as the SwinV2 block's checks hold the block. The
+    kernel step's launches: the general route's ``expect_any``, the wgmma
+    route's ``expect``, the SwinV2 block's forward and backward
+    ``expect_v2``. Returns the general route's launches of the kernel
+    step."""
     task = TaskConfig(grid_height_cells=cfg.output_size[0],
                       grid_width_cells=cfg.output_size[1],
                       num_waypoints=cfg.num_waypoints)
     batch = bench.train_batch(cfg, batch_size, "cuda")
     res, runs = {}, {}
-    for which, c in (("kernel", cfg), ("plain", plain_cfg)):
+    for which, c in (("kernel", cfg), ("plain", plain_cfg),
+                     ("exact", exact_cfg)):
+        if c is None:
+            continue
         state = bench.train_state(c, batch_size, "cuda")
         step = make_train_step(task, LossConfig(), c.num_waypoints)
         noise = torch.Generator(device="cuda").manual_seed(0)
         reset_counters()
+        reset_v2_counters()
         state, losses = step(state, batch, noise)
         torch.cuda.synchronize()
-        launches = read_general_counters(), read_counters()
+        launches = read_general_counters(), read_counters(), read_v2_counters()
         grads = torch.cat([p.grad.flatten().float()
                            for p in state.model.parameters()])
         res[which] = (float(losses["total"]), grads, launches)
@@ -3484,26 +3737,37 @@ def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    runs.pop("exact", None)
     ks, ps = in_turns("plain", "kernel", step_ms)
     del runs
-    (loss, grads, (got_any, got)), (ref_loss, ref_grads, _) = (
+    (loss, grads, (got_any, got, got_v2)), (ref_loss, ref_grads, _) = (
         res["kernel"], res["plain"])
-    check(got_any == expect_any and got == expect,
+    check(got_any == expect_any and got == expect and got_v2 == expect_v2,
           f"{name} step: general launches {got_any} (want {expect_any}), "
-          f"wgmma {got} (want {expect})")
+          f"wgmma {got} (want {expect}), SwinV2 {got_v2} (want "
+          f"{expect_v2})")
     check(bool(np.isfinite(loss)) and bool(torch.isfinite(grads).all()),
           f"{name} step: loss and gradients finite")
-    omc = one_minus_cos(grads, ref_grads)
+    omc, limit, against = (one_minus_cos(grads, ref_grads),
+                           WIDTHS_GRAD_ONE_MINUS_COS, "plain")
+    if exact_cfg is not None:
+        exact_grads = res["exact"][1]
+        omc_plain = one_minus_cos(ref_grads, exact_grads)
+        omc, limit = (one_minus_cos(grads, exact_grads),
+                      max(V2_BF16_FACTOR * omc_plain, V2_BF16_COS_FLOOR))
+        against = (f"f32 plain, the plain path's {omc_plain:.3e}, kernels "
+                   f"against plain {one_minus_cos(grads, ref_grads):.3e}")
     print(f"widths {name} step [{batch_size}, ...]: total loss {loss:.6f} "
           f"vs plain {ref_loss:.6f} (limit {WIDTHS_LOSS_RTOL} relative); "
-          f"gradient 1-cos={omc:.3e} (limit {WIDTHS_GRAD_ONE_MINUS_COS}); "
-          f"launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}; later "
-          f"steps {fmt_spread(ks, 1)} ms, plain {fmt_spread(ps, 1)} ms (min "
+          f"gradient 1-cos={omc:.3e} against {against} (limit "
+          f"{limit:.3e}); "
+          f"launches general K1-K4,K7 {got_any}, wgmma K1-K7 {got}, SwinV2 "
+          f"{got_v2}; later steps {fmt_spread(ks, 1)} ms, plain "
+          f"{fmt_spread(ps, 1)} ms (min "
           f"/ median / max of {2 * TIMING_ROUNDS}, host clock)")
     check(abs(loss - ref_loss) <= WIDTHS_LOSS_RTOL * abs(ref_loss),
           f"{name} step: loss {loss} within {WIDTHS_LOSS_RTOL} of {ref_loss}")
-    check(omc <= WIDTHS_GRAD_ONE_MINUS_COS,
-          f"{name} step: gradient 1-cos {omc} <= {WIDTHS_GRAD_ONE_MINUS_COS}")
+    check(omc <= limit, f"{name} step: gradient 1-cos {omc} <= {limit}")
     return got_any
 
 
@@ -3513,8 +3777,12 @@ def widths_phase() -> tuple:
     (``use_pallas_attention=False``, the naive tail): the flagship in f32
     (forward, batch 2), the Swin-B width in bf16 (forward and a step, batch
     4), TINY in the ``"block"`` and ``"attn"`` modes with the tail kernel
-    (forward and a step each, batch 4). Returns the general route's launches
-    of K1-K4 and K7 over these runs."""
+    (forward and a step each, batch 4), the SwinV2-B preset (forward and a
+    step, batch 2: its 26 blocks on the SwinV2 route, no Swin-v1 block, the
+    wgmma K7 in the forward's two tails; the step's gradient held against
+    the plain path's in f32). Returns the general route's
+    launches of K1-K4 and K7 and the SwinV2 block's forward and backward
+    calls over these runs."""
     t0 = time.perf_counter()
     total = [0] * len(GENERAL_COUNTERS)
 
@@ -3550,8 +3818,21 @@ def widths_phase() -> tuple:
                         general(**{fwd: blocks, bwd: blocks}, k7=2),
                         counts(k5=1)))
     torch.cuda.empty_cache()
+    v2_cfg = STRAJNET_SWINV2_B_CONFIG
+    blocks = sum(isinstance(m, SwinV2TransformerBlock)
+                 for m in STrajNet(v2_cfg).modules())
+    check(blocks == 26, f"SwinV2-B has 26 SwinV2 blocks, got {blocks}")
+    v2_plain = dataclasses.replace(v2_cfg, **plain)
+    add(widths_forward("SwinV2-B", v2_cfg, v2_plain, 2, general(), False,
+                       counts(k7=2), (blocks, 0)))
+    add(widths_step("SwinV2-B", v2_cfg, v2_plain, 2, general(), counts(k5=1),
+                    (blocks, blocks),
+                    dataclasses.replace(v2_plain, dtype="float32")))
+    total += [2 * blocks, blocks]   # the forward's and the step's
+    torch.cuda.empty_cache()
     print(f"widths phase: {time.perf_counter() - t0:.1f} s; general "
-          f"launches K1-K4,K7 {tuple(total)}")
+          f"launches K1-K4,K7 {tuple(total[:-2])}, SwinV2 forward and "
+          f"backward calls {tuple(total[-2:])}")
     return tuple(total)
 
 
@@ -3641,7 +3922,15 @@ def main(argv=None) -> int:
             source=csrc + "decoder_tail_any.cu",
             replaces=jax_ops + "pallas_decoder_tail.py:127"),
     }
-    launches = dict.fromkeys(list(kernels) + list(general), 0)
+    # the SwinV2 block's forward and backward on the general route
+    swinv2 = {
+        "swinv2_block_any": dict(source=csrc + "window_any.cu",
+                                 replaces=None),
+        "swinv2_block_bwd_any": dict(source=csrc + "window_any.cu",
+                                     replaces=None),
+    }
+    launches = dict.fromkeys(list(kernels) + list(general) + list(swinv2),
+                             0)
 
     def add_launches(counters, names=tuple(kernels)):
         for name, count in zip(names, counters):
@@ -3699,6 +3988,8 @@ def main(argv=None) -> int:
                              + (check_general_tail(g),)):
             general[name].update(res)
         general_breakdown(g)
+        swinv2["swinv2_block_any"].update(check_swinv2_block(g))
+        swinv2["swinv2_block_bwd_any"].update(check_swinv2_block_bwd(g))
         general["swin_block_any"]["resources"] = {
             window_any_label(n): list(r)
             for n, r in build_resources(builds["window_any"].log).items()}
@@ -3740,12 +4031,13 @@ def main(argv=None) -> int:
     if "tools" in phases:
         add_launches(tools_phase())
     if "widths" in phases:
-        add_launches(widths_phase(), tuple(general))
+        add_launches(widths_phase(), tuple(general) + tuple(swinv2))
 
     print(smi)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **info)
-        for name, info in list(kernels.items()) + list(general.items())]}))
+        for name, info in list(kernels.items()) + list(general.items())
+        + list(swinv2.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -187,6 +187,15 @@ class ModelConfig:
     # on CPU tensors); "infer" = the kernel in eval() mode only.
     use_pallas_decoder_tail: Any = None
 
+    # The Swin blocks' kind: "swin" (Swin-v1: pre-norm, scaled dot-product
+    # attention, a relative-position table) or "swinv2" (SwinV2: post-norm
+    # residuals, scaled cosine attention with a learned logit scale per
+    # head, a continuous position bias from a small MLP, q and v biases
+    # only, patch merging that reduces before it normalises). The port's
+    # own field (the JAX package has no SwinV2): it comes after the JAX
+    # package's fields, which it leaves as they are.
+    block: str = "swin"
+
     @property
     def shallow_decode(self) -> int:
         return 4 - len(self.depths)
@@ -288,6 +297,32 @@ STRAJNET_CONFIG = ModelConfig()
 
 # The exact checked-in training variant (fg_msa off, reference train.py:194).
 STRAJNET_TRAIN_PY_CONFIG = ModelConfig(fg_msa=False, fg=False)
+
+# The fields of ModelConfig that the JAX package's copy does not have.
+PORT_ONLY_MODEL_FIELDS = ("block",)
+
+# STrajNet on a SwinV2-B encoder (arXiv 2111.09883; microsoft/Swin-Transformer
+# configs/swinv2/swinv2_base_patch4_window16_256.yaml: embed 128, depths
+# (2, 2, 18, 2), heads (4, 8, 16, 32), window 16, MLP ratio 4, patch 4) in
+# place of the paper's 3-stage Swin-v1 encoder, in bf16. Not SwinV2's own:
+# FG-MSA's head width scaled to the 1024-wide bottleneck (8 heads x 128),
+# the paper's 384-wide actors and STrajNet's drop-path rate 0.1. The port
+# alone runs it (no JAX counterpart, no Flax import).
+STRAJNET_SWINV2_B_CONFIG = ModelConfig(
+    block="swinv2",
+    embed_dim=128,
+    depths=(2, 2, 18, 2),
+    num_heads=(4, 8, 16, 32),
+    window_size=16,
+    mlp_ratio=4.0,
+    fgmsa_heads=8,
+    fgmsa_head_channels=128,
+    fgmsa_groups=8,
+    traj_out_dim=384,
+    drop_path_rate=0.1,
+    dtype="bfloat16",
+    use_pallas_decoder_tail="infer",
+)
 
 
 @dataclass(frozen=True)

@@ -73,6 +73,13 @@
 //   column sums of the LayerNorm parameters' and biases' gradients) and
 //   reduce_kernel (every per-split partial added in a fixed order, one
 //   launch).
+// - SwinV2's block (swinv2_any_fwd, swinv2_any_bwd) on the same products
+//   (none with a prologue) and attention (scale 1), around kernels of its
+//   own: qk_norm_kernel (q and k normalised per head, q times its logit
+//   scale exp(min(tau, ln 100))) and its backward (with dtau's partials),
+//   postnorm_kernel (x + dp LN(y), the post-norm residuals) and its
+//   backward, add_rows_kernel (dx's last sum). 8 launches a forward, 18 a
+//   backward; the Swin-v1 kernels' code is as it was.
 //
 // Why mma.sync for the backward's products: their operands pass through a
 // per-element step between shared memory and the tensor cores that is done
@@ -95,7 +102,8 @@
 // (LayerNorm, qkv, q k^T, p v, the MLP) runs in f32.
 //
 // Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 13, K3 3 (qkv, the
-// attention, proj), K4 7 (window_any_launches counts them). Rounding
+// attention, proj), K4 7, SwinV2's block 8 and 18 (window_any_launches
+// counts them). Rounding
 // follows the plain versions (ops/swin_block.py::swin_block_reference and
 // swin_block_backward_reference, ops/window_attention.py's two references):
 // to T after qkv's bias, p before p @ v, the merged heads, r1, both
@@ -2138,6 +2146,255 @@ __global__ void __launch_bounds__(kReduceThreads) reduce_kernel(ReduceArgs a) {
   }
 }
 
+// ------------------------------------------------------------ SwinV2
+
+// SwinV2's block (swinv2_any_fwd, swinv2_any_bwd) runs on the products and
+// the fused attention above, with kernels of its own around them: the
+// scaled cosine attention takes q and k normalised per head beforehand (q
+// times its head's logit scale; the attention then runs with scale 1), and
+// the post-norms LN(proj) and LN(fc2) run as passes of their own after the
+// products, since a product's tile holds part of a row. A warp a row or a
+// thread a (row, head); no atomics.
+
+constexpr float kLogScaleMax = 4.605170185988092f;   // ln 100, the logit scale's clamp
+constexpr float kNormEps = 1e-12f;                     // F.normalize's
+
+__device__ __forceinline__ float logit_scale(const float* tau, int h) {
+  return expf(fminf(tau[h], kLogScaleMax));
+}
+
+// q <- normalize(q) * exp(min(tau_h, ln 100)), k <- normalize(k) in qkv (T
+// [M, 3C], window order), a thread a (row, head); q and k as they were into
+// raw (T [M, 2C]) where given, for the backward
+struct QkNormArgs {
+  void* qkv;
+  void* raw;
+  const float* tau;   // [heads]
+  long long M;
+  int C, heads, hd;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) qk_norm_kernel(QkNormArgs a) {
+  const long long p = (long long)blockIdx.x * kRowThreads + threadIdx.x;
+  if (p >= a.M * a.heads) return;
+  const long long m = p / a.heads;
+  const int h = (int)(p - m * a.heads);
+  const float s = logit_scale(a.tau, h);
+  for (int part = 0; part < 2; ++part) {
+    T* v = static_cast<T*>(a.qkv) + m * 3 * a.C + part * a.C + h * a.hd;
+    float ss = 0.0f;
+    for (int e = 0; e < a.hd; ++e) {
+      const float x = to_f(v[e]);
+      ss += x * x;
+    }
+    const float den = fmaxf(sqrtf(ss), kNormEps), g = part == 0 ? s : 1.0f;
+    if (a.raw) {
+      T* r = static_cast<T*>(a.raw) + m * 2 * a.C + part * a.C + h * a.hd;
+      for (int e = 0; e < a.hd; ++e) r[e] = v[e];
+    }
+    for (int e = 0; e < a.hd; ++e) v[e] = from_f<T>(to_f(v[e]) / den * g);
+  }
+}
+
+// The backward of qk_norm_kernel: dq', dk' (in dqkv, T [M, 3C]) to dq, dk in
+// place, through the normalisation of raw's q and k; per block, each head's
+// part of dtau = s * sum(dq' . q^) (zero where tau > ln 100, as the clamp's
+// gradient), the block's (row, head) pairs of the head in order
+struct QkNormBwdArgs {
+  const void* raw;    // T [M, 2C]
+  void* dqkv;
+  const float* tau;
+  float* ptau;        // [blocks, heads]
+  long long M;
+  int C, heads, hd;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) qk_norm_bwd_kernel(QkNormBwdArgs a) {
+  __shared__ float dots[kRowThreads];
+  const long long p0 = (long long)blockIdx.x * kRowThreads, p = p0 + threadIdx.x;
+  float dtau = 0.0f;
+  if (p < a.M * a.heads) {
+    const long long m = p / a.heads;
+    const int h = (int)(p - m * a.heads);
+    const float s = logit_scale(a.tau, h);
+    for (int part = 0; part < 2; ++part) {
+      const T* x = static_cast<const T*>(a.raw) + m * 2 * a.C + part * a.C + h * a.hd;
+      T* d = static_cast<T*>(a.dqkv) + m * 3 * a.C + part * a.C + h * a.hd;
+      const float g = part == 0 ? s : 1.0f;
+      float ss = 0.0f;
+      for (int e = 0; e < a.hd; ++e) {
+        const float v = to_f(x[e]);
+        ss += v * v;
+      }
+      const float nrm = sqrtf(ss), den = fmaxf(nrm, kNormEps);
+      // dot = x^ . (dL/dx^), dL/dx^ = g * d
+      float dot = 0.0f;
+      for (int e = 0; e < a.hd; ++e) dot += to_f(x[e]) / den * (g * to_f(d[e]));
+      if (part == 0 && a.tau[h] <= kLogScaleMax) dtau = dot;
+      for (int e = 0; e < a.hd; ++e) {
+        const float xh = to_f(x[e]) / den, dxh = g * to_f(d[e]);
+        d[e] = from_f<T>(nrm > kNormEps ? (dxh - xh * dot) / den : dxh / den);
+      }
+    }
+  }
+  dots[threadIdx.x] = dtau;
+  __syncthreads();
+  if (threadIdx.x < a.heads) {
+    const int h = threadIdx.x;
+    float t = 0.0f;
+    for (int i = (int)((h - p0 % a.heads + a.heads) % a.heads); i < kRowThreads; i += a.heads)
+      t += dots[i];
+    a.ptau[(long long)blockIdx.x * a.heads + h] = t;
+  }
+}
+
+// A post-norm residual: out[row(m)] = res[row(m)] + dp[sample, dp_col] *
+// (LN(y[m]) * s + b), y in T (window order), statistics in f32; a warp a row
+struct PostNormArgs {
+  const void* y;
+  const float *s, *b;
+  Src res;            // T
+  Out out;
+  const float* dp;    // [B, 2]
+  int dp_col;
+  long long M;
+  int C;
+  float eps;
+  Geom g;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) postnorm_kernel(PostNormArgs a) {
+  const long long m = (long long)blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (m >= a.M) return;
+  const int lane = threadIdx.x & 31, C = a.C;
+  const T* y = static_cast<const T*>(a.y) + m * C;
+  float s1 = 0.0f;
+  for (int c = lane; c < C; c += 32) s1 += to_f(y[c]);
+  const float mean = warp_sum(s1) / C;
+  float s2 = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = to_f(y[c]) - mean;
+    s2 += v * v;
+  }
+  const float inv = rsqrtf(warp_sum(s2) / C + a.eps);
+  const long long hw = (long long)a.g.H * a.g.W, gr = a.g.grid_row(m);
+  const float d = a.dp[(m / hw) * 2 + a.dp_col];
+  const T* res = static_cast<const T*>(a.res.p) + (a.res.map ? gr : m) * a.res.ld;
+  const long long o = (a.out.map ? gr : m) * a.out.ld;
+  for (int c = lane; c < C; c += 32) {
+    const float v = (to_f(y[c]) - mean) * inv * a.s[c] + a.b[c];
+    store(a.out.p, o + c, to_f(res[c]) + d * v, a.out.bf);
+  }
+}
+
+// The backward of postnorm_kernel, `rows` rows a block: with g = dL/dout =
+// g1[row(m)] + g2[m] and u = dp[sample, dp_col] * g,
+//   dy[m] = inv * (u*s - mean(u*s) - yhat * mean(u*s*yhat))   (T)
+// and g into gout (f32) where given; per block, the column sums of u * yhat
+// and u (the LayerNorm's scale and shift) and of dy (the bias of the
+// product before it), rows in order
+struct PostNormBwdArgs {
+  const void* y;      // T [M, C], window order
+  const float* s;
+  const void* g1;     // T [M, C]
+  int g1_map;
+  const float* g2;    // f32 [M, C] or null
+  void* dy;           // T [M, C]
+  float* gout;        // f32 [M, C] or null
+  const float* dp;
+  int dp_col;
+  float *ps, *pb, *py;   // [blocks, C]
+  long long M;
+  int C, rows;
+  float eps;
+  Geom g;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) postnorm_bwd_kernel(PostNormBwdArgs a) {
+  __shared__ float m1s[kRowsPerBlock], m2s[kRowsPerBlock], means[kRowsPerBlock],
+      invs[kRowsPerBlock], dps[kRowsPerBlock];
+  __shared__ long long grows[kRowsPerBlock];
+  const long long r0 = (long long)blockIdx.x * a.rows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, C = a.C;
+  const T* y = static_cast<const T*>(a.y);
+  const T* g1 = static_cast<const T*>(a.g1);
+  const long long hw = (long long)a.g.H * a.g.W;
+  for (int r = warp; r < a.rows; r += kRowThreads / 32) {
+    const long long m = r0 + r;
+    float mean = 0.0f, inv = 0.0f, m1 = 0.0f, m2 = 0.0f, d = 0.0f;
+    long long gr = 0;
+    if (m < a.M) {
+      gr = a.g1_map ? a.g.grid_row(m) : m;
+      d = a.dp[(m / hw) * 2 + a.dp_col];
+      const T* yr = y + m * C;
+      float s1 = 0.0f;
+      for (int c = lane; c < C; c += 32) s1 += to_f(yr[c]);
+      mean = warp_sum(s1) / C;
+      float s2 = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float v = to_f(yr[c]) - mean;
+        s2 += v * v;
+      }
+      inv = rsqrtf(warp_sum(s2) / C + a.eps);
+      for (int c = lane; c < C; c += 32) {
+        const float yhat = (to_f(yr[c]) - mean) * inv;
+        const float g = to_f(g1[gr * C + c]) + (a.g2 ? a.g2[m * C + c] : 0.0f);
+        const float us = d * g * a.s[c];
+        m1 += us;
+        m2 += us * yhat;
+      }
+      m1 = warp_sum(m1) / C;
+      m2 = warp_sum(m2) / C;
+    }
+    if (lane == 0) {
+      m1s[r] = m1;
+      m2s[r] = m2;
+      means[r] = mean;
+      invs[r] = inv;
+      dps[r] = d;
+      grows[r] = gr;
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += kRowThreads) {
+    float ss = 0.0f, sb = 0.0f, sy = 0.0f;
+    const float sc = a.s[c];
+    for (int r = 0; r < a.rows; ++r) {
+      const long long m = r0 + r;
+      if (m >= a.M) break;
+      const float yhat = (to_f(y[m * C + c]) - means[r]) * invs[r];
+      const float g = to_f(g1[grows[r] * C + c]) + (a.g2 ? a.g2[m * C + c] : 0.0f);
+      const float u = dps[r] * g;
+      const float dv = invs[r] * (u * sc - m1s[r] - yhat * m2s[r]);
+      static_cast<T*>(a.dy)[m * C + c] = from_f<T>(dv);
+      if (a.gout) a.gout[m * C + c] = g;
+      ss += u * yhat;
+      sb += u;
+      sy += dv;
+    }
+    const long long o = (long long)blockIdx.x * C + c;
+    a.ps[o] = ss;
+    a.pb[o] = sb;
+    a.py[o] = sy;
+  }
+}
+
+// out[grid_row(m)] = x[m] + y[m]: f32 [M, C] in window order, summed in
+// f32 and rounded to T once (the block backward's dx)
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) add_rows_kernel(const float* x, const float* y,
+                                                               T* out, long long M, int C,
+                                                               Geom g) {
+  const long long i = (long long)blockIdx.x * kRowThreads + threadIdx.x;
+  if (i >= M * C) return;
+  const long long m = i / C;
+  out[(long long)g.grid_row(m) * C + (i - m * C)] = from_f<T>(x[i] + y[i]);
+}
+
 // ------------------------------------------------------------ host side
 
 struct Dims {
@@ -2188,7 +2445,14 @@ struct Carver {
   float* f32(long long n) { return static_cast<float*>(take(n * 4)); }
 };
 
-enum Kind { kBlockFwd = 0, kBlockBwd = 1, kAttnFwd = 2, kAttnBwd = 3 };
+enum Kind {
+  kBlockFwd = 0,
+  kBlockBwd = 1,
+  kAttnFwd = 2,
+  kAttnBwd = 3,
+  kBlockFwdV2 = 4,   // SwinV2's block
+  kBlockBwdV2 = 5
+};
 
 // The forward attention's grid: a block holds qt strips of 16 queries, each
 // by kp parts of the keys (a warp each, qt kp <= 4). Strips a block are
@@ -2249,6 +2513,11 @@ AtbPlan atb_plan(int kind, const Dims& d) {
     add(C, hid, 0);      // dw1 = h2^T dz1
     add(C, C, 0);        // dwproj = merged^T datt
     add(C, 3 * C, 0);    // dwqkv = h1^T dqkv
+  } else if (kind == kBlockBwdV2) {
+    add(hid, C, 0);      // dw2 = g1^T dy2
+    add(C, hid, 0);      // dw1 = r1^T dz1
+    add(C, C, 0);        // dwproj = merged^T dy1
+    add(C, 3 * C, 1);    // dwqkv = x^T dqkv, and dbqkv
   } else {
     add(C, C, 1);        // dwproj = merged^T dy, and dbproj
     add(C, 3 * C, 0);    // dwqkv = x^T dqkv
@@ -2273,9 +2542,14 @@ struct Buffers {
   void *qkv, *merged, *r1, *g1, *h1, *h2, *dz2, *dz1, *datt, *dmerged, *dqkv;   // T
   float *stats1, *stats2, *astats, *z1, *dh, *dr1;
   float *p_atb, *p_db1, *p_ln2, *p_ln1, *p_drel, *p_dbqkv;
+  void *qkraw, *y1, *y2, *dy1, *dy2;   // SwinV2's (T)
+  float* p_tau;
 };
 
+void layout_v2(int kind, const Dims& d, int bf, Carver& cv, Buffers& b);
+
 void layout(int kind, const Dims& d, int bf, Carver& cv, Buffers& b) {
+  if (kind == kBlockFwdV2 || kind == kBlockBwdV2) return layout_v2(kind, d, bf, cv, b);
   b = Buffers();
   const long long es = bf ? 2 : 4, M = d.M, C = d.C, hid = d.hidden;
   const bool block = kind == kBlockFwd || kind == kBlockBwd;
@@ -2531,8 +2805,11 @@ size_t bwd_smem(const Dims& d) {
          (16 * nw + 2 * (size_t)d.np + 3 * (size_t)d.hdp) * 4;
 }
 
+// cosine: SwinV2's attention, q and k normalised beforehand and q scaled
+// per head (qk_norm_kernel), so the logits take no scale here
 template <typename T>
-AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float* mask) {
+AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float* mask,
+                   bool cosine = false) {
   AttnArgs a = {};
   a.qkv = qkv;
   a.rel = rel;
@@ -2546,7 +2823,7 @@ AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float
   a.hdp = d.hdp;
   a.heads = d.heads;
   a.C = d.C;
-  a.scale = 1.0f / sqrtf((float)d.hd);
+  a.scale = cosine ? 1.0f : 1.0f / sqrtf((float)d.hd);
   a.vec = (d.hd * (int)sizeof(T)) % 16 == 0;
   return a;
 }
@@ -2554,8 +2831,8 @@ AttnArgs attn_args(const Dims& d, const void* qkv, const float* rel, const float
 // merged = attention(qkv); the softmax's row statistics into stats where given
 template <typename T>
 cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
-                          void* merged, float* stats, cudaStream_t st) {
-  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+                          void* merged, float* stats, cudaStream_t st, bool cosine = false) {
+  AttnArgs a = attn_args<T>(d, qkv, rel, mask, cosine);
   const AttnPlan p = attn_plan(d);
   const AttnSplit sp = {p.qt, p.kp, (d.np / 16 + p.kp - 1) / p.kp * 16};
   a.out = merged;
@@ -2578,8 +2855,8 @@ cudaError_t attention_fwd(const Dims& d, const void* qkv, const float* rel, cons
 // K2 (kK2) with its products' operands rounded to T, K4 to bf16
 template <typename T, bool kK2>
 cudaError_t attention_bwd(const Dims& d, const void* qkv, const float* rel, const float* mask,
-                          const Buffers& b, cudaStream_t st) {
-  AttnArgs a = attn_args<T>(d, qkv, rel, mask);
+                          const Buffers& b, cudaStream_t st, bool cosine = false) {
+  AttnArgs a = attn_args<T>(d, qkv, rel, mask, cosine);
   a.dout = b.dmerged;
   a.out = b.dqkv;
   a.stats = b.astats;
@@ -2882,12 +3159,260 @@ cudaError_t attn_backward(const Dims& d, const void* x, const void* dy, const vo
   return launch_reduce(r, st);
 }
 
+// ------------------------------------------------------------ SwinV2, host side
+
+// (row, head) pairs a block of the normalisation and its backward
+long long qk_blocks(const Dims& d) { return (d.M * d.heads + kRowThreads - 1) / kRowThreads; }
+
+// The intermediates of SwinV2's block forward (y1 and y2 share a buffer)
+// and backward
+void layout_v2(int kind, const Dims& d, int bf, Carver& cv, Buffers& b) {
+  b = Buffers();
+  const long long es = bf ? 2 : 4, M = d.M, C = d.C, hid = d.hidden;
+  b.qkv = cv.take(3 * M * C * es);
+  b.merged = cv.take(M * C * es);
+  b.y1 = cv.take(M * C * es);
+  b.r1 = cv.take(M * C * es);
+  b.g1 = cv.take(M * hid * es);
+  if (kind == kBlockFwdV2) {
+    b.y2 = b.y1;
+    return;
+  }
+  const long long nrb = row_blocks(d);
+  const int G = bwd_groups(d);
+  b.y2 = cv.take(M * C * es);
+  b.qkraw = cv.take(2 * M * C * es);
+  b.astats = cv.f32(2 * d.Z * d.n);
+  b.z1 = cv.f32(M * hid);
+  b.dy2 = cv.take(M * C * es);
+  b.dz1 = cv.take(M * hid * es);
+  b.dh = cv.f32(M * C);
+  b.dr1 = cv.f32(M * C);
+  b.dy1 = cv.take(M * C * es);
+  b.dmerged = cv.take(M * C * es);   // bf16
+  b.dqkv = cv.take(3 * M * C * es);
+  b.p_atb = cv.f32(atb_plan(kBlockBwdV2, d).floats);
+  b.p_drel = cv.f32((long long)G * d.heads * d.n * d.n);
+  // the shared attention backward writes its column sums of dq, dk, dv
+  // here; SwinV2's are taken before the normalisation's backward, so not
+  // the bias's gradient (the atb pass sums that), and go unread. Kept so
+  // that the Swin-v1 attention kernel needs no branch to skip them
+  b.p_dbqkv = cv.f32((long long)G * 3 * C);
+  b.p_db1 = cv.f32((long long)tiles(M) * hid);
+  b.p_ln2 = cv.f32(3 * nrb * C);
+  b.p_ln1 = cv.f32(3 * nrb * C);
+  b.p_tau = cv.f32(qk_blocks(d) * d.heads);
+}
+
+// Product `which` of SwinV2's block forward, none with a prologue: qkv =
+// x @ wqkv + bqkv (stored in window order), y1 = merged @ wproj + bproj,
+// g1 = gelu(r1 @ w1 + b1) (z1 kept where `save`), y2 = g1 @ w2 + b2; f32 on
+// fwd_product_kernel, bf16 on gemm_kernel
+template <typename T>
+cudaError_t fwd_product_v2(const Dims& d, int which, const BlockParams& w, bool save,
+                           const Buffers& b, cudaStream_t st) {
+  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
+  const bool f32 = sizeof(T) == 4;
+  GemmArgs g;
+  if (which == kQkv) {   // f32: x's grid rows stored at window rows; bf16: read at them
+    g = gemm_args(d, M, 3 * C, C);
+    g.a = src_of<T>(w.x, C, f32 ? 0 : 1);
+    g.b = src_of<T>(w.wqkv, 3 * C);
+    g.c = {b.qkv, 3LL * C, bf, f32 ? kToWindow : 0};
+    g.bias = w.bqkv;
+    g.bias_bf = bf;
+  } else if (which == kProj) {
+    g = gemm_args(d, M, C, C);
+    g.a = src_of<T>(b.merged, C);
+    g.b = src_of<T>(w.wproj, C);
+    g.c = {b.y1, C, bf, 0};
+    g.bias = w.bproj;
+    g.bias_bf = bf;
+  } else if (which == kFc1) {
+    g = gemm_args(d, M, hid, C);
+    g.a = src_of<T>(b.r1, C);
+    g.b = src_of<T>(w.w1, hid);
+    g.epi = kGelu;
+    g.aux = save ? b.z1 : nullptr;
+    g.c = {b.g1, hid, bf, 0};
+    g.bias = w.b1;
+  } else {
+    g = gemm_args(d, M, C, hid);
+    g.a = src_of<T>(b.g1, hid);
+    g.b = src_of<T>(w.w2, C);
+    g.c = {b.y2, C, bf, 0};
+    g.bias = w.b2;
+  }
+  if constexpr (sizeof(T) == 4)
+    return launch_fwd(g, st);
+  else
+    return launch_gemm<T, false, false>(g, st);
+}
+
+template <typename T>
+cudaError_t qk_norm(const Dims& d, const float* tau, void* raw, const Buffers& b,
+                    cudaStream_t st) {
+  const QkNormArgs a = {b.qkv, raw, tau, d.M, d.C, d.heads, d.hd};
+  qk_norm_kernel<T><<<(unsigned)qk_blocks(d), kRowThreads, 0, st>>>(a);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+// out[row] = res[row] + dp[sample, col] * LN(y)
+template <typename T>
+cudaError_t postnorm(const Dims& d, const void* y, const float* s, const float* sh, Src res,
+                     Out out, const BlockParams& w, int col, cudaStream_t st) {
+  PostNormArgs a = {};
+  a.y = y;
+  a.s = s;
+  a.b = sh;
+  a.res = res;
+  a.out = out;
+  a.dp = w.dp;
+  a.dp_col = col;
+  a.M = d.M;
+  a.C = d.C;
+  a.eps = w.eps;
+  a.g = geom(d);
+  const long long rows = kRowThreads / 32;
+  postnorm_kernel<T><<<(unsigned)((d.M + rows - 1) / rows), kRowThreads, 0, st>>>(a);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t postnorm_bwd(const Dims& d, const void* y, const float* s, const void* g1,
+                         const float* g2, void* dy, float* gout, const BlockParams& w, int col,
+                         float* partial, cudaStream_t st) {
+  const long long nrb = row_blocks(d), nc = nrb * d.C;
+  PostNormBwdArgs a = {};
+  a.y = y;
+  a.s = s;
+  a.g1 = g1;
+  a.g1_map = 1;
+  a.g2 = g2;
+  a.dy = dy;
+  a.gout = gout;
+  a.dp = w.dp;
+  a.dp_col = col;
+  a.ps = partial;
+  a.pb = partial + nc;
+  a.py = partial + 2 * nc;
+  a.M = d.M;
+  a.C = d.C;
+  a.rows = ln_rows(d);
+  a.eps = w.eps;
+  a.g = geom(d);
+  postnorm_bwd_kernel<T><<<(unsigned)nrb, kRowThreads, 0, st>>>(a);
+  ++g_launches;
+  return cudaGetLastError();
+}
+
+// SwinV2's block forward (8 launches): qkv, the normalisation of q and k,
+// the attention, the projection, LN1's residual, fc1, fc2, LN2's residual;
+// `save` keeps what the backward needs (q and k as they were, the softmax's
+// statistics, z1), and without `out` it stops before the last pass.
+template <typename T>
+cudaError_t block_forward_v2(const Dims& d, const BlockParams& w, const float* tau, bool save,
+                             void* out, const Buffers& b, cudaStream_t st) {
+  const int C = d.C, bf = sizeof(T) == 2;
+  TRY(fwd_product_v2<T>(d, kQkv, w, save, b, st));
+  TRY(qk_norm<T>(d, tau, save ? b.qkraw : nullptr, b, st));
+  TRY(attention_fwd<T>(d, b.qkv, w.rel, w.mask, b.merged, save ? b.astats : nullptr, st,
+                       true));
+  TRY(fwd_product_v2<T>(d, kProj, w, save, b, st));
+  // r1 = x + dp1 * LN1(y1), x read at the grid rows
+  TRY(postnorm<T>(d, b.y1, w.ln1s, w.ln1b, src_of<T>(w.x, C, 1), Out{b.r1, C, bf, 0}, w, 0,
+                  st));
+  TRY(fwd_product_v2<T>(d, kFc1, w, save, b, st));
+  TRY(fwd_product_v2<T>(d, kFc2, w, save, b, st));
+  if (!out) return cudaSuccess;
+  // out = r1 + dp2 * LN2(y2), at the grid rows
+  return postnorm<T>(d, b.y2, w.ln2s, w.ln2b, src_of<T>(b.r1, C), Out{out, C, bf, 1}, w, 1,
+                     st);
+}
+
+// SwinV2's block backward (18 launches): the forward recomputed (7), then
+// every product on operands rounded to bf16 as the Swin-v1 backward's
+template <typename T>
+cudaError_t block_backward_v2(const Dims& d, const BlockParams& w, const float* tau,
+                              const void* dy, void* dx, const BlockGrads& gr, float* dtau,
+                              const Buffers& b, cudaStream_t st) {
+  const int M = (int)d.M, C = d.C, hid = d.hidden, bf = sizeof(T) == 2;
+  const long long nrb = row_blocks(d), nc = nrb * C;
+  TRY(block_forward_v2<T>(d, w, tau, true, nullptr, b, st));
+  // out = r1 + dp2 * LN2(y2): dy2 = LN2's backward of dp2 * dy
+  TRY(postnorm_bwd<T>(d, b.y2, w.ln2s, dy, nullptr, b.dy2, nullptr, w, 1, b.p_ln2, st));
+  // y2 = g1 @ w2 + b2: dz1 = (rd(dy2) @ rd(w2)^T) * gelu'(z1), with db1's partials
+  GemmArgs g = gemm_args(d, M, hid, C);
+  g.a = src_of<T>(b.dy2, C);
+  g.b = src_of<T>(w.w2, C);
+  g.epi = kDGelu;
+  g.aux = b.z1;
+  g.colsum = b.p_db1;
+  g.c = {b.dz1, hid, bf, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  // dh = rd(dz1) @ rd(w1)^T
+  g = gemm_args(d, M, C, hid);
+  g.a = src_of<T>(b.dz1, hid);
+  g.b = src_of<T>(w.w1, hid);
+  g.c = {b.dh, C, 0, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  // r1 = x + dp1 * LN1(y1): dr1 = dy + dh, dy1 = LN1's backward of dp1 * dr1
+  TRY(postnorm_bwd<T>(d, b.y1, w.ln1s, dy, b.dh, b.dy1, b.dr1, w, 0, b.p_ln1, st));
+  // dmerged = rd(dy1) @ rd(wproj)^T, stored in bf16
+  g = gemm_args(d, M, C, C);
+  g.a = src_of<T>(b.dy1, C);
+  g.b = src_of<T>(w.wproj, C);
+  g.c = {b.dmerged, C, 1, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  TRY((attention_bwd<T, true>(d, b.qkv, w.rel, w.mask, b, st, true)));
+  // dq, dk through the normalisation; dtau's partials
+  const QkNormBwdArgs q = {b.qkraw, b.dqkv, tau, b.p_tau, d.M, C, d.heads, d.hd};
+  qk_norm_bwd_kernel<T><<<(unsigned)qk_blocks(d), kRowThreads, 0, st>>>(q);
+  ++g_launches;
+  TRY(cudaGetLastError());
+  // dx = dr1 + dqkv @ rd(wqkv)^T, at the grid rows
+  g = gemm_args(d, M, C, 3 * C);
+  g.a = src_of<T>(b.dqkv, 3 * C);
+  g.b = src_of<T>(w.wqkv, 3 * C);
+  g.c = {b.dh, C, 0, 0};
+  TRY((launch_gemm<T, true, false>(g, st)));
+  const long long n = d.M * C;
+  add_rows_kernel<T><<<(unsigned)((n + kRowThreads - 1) / kRowThreads), kRowThreads, 0, st>>>(
+      b.dr1, b.dh, static_cast<T*>(dx), d.M, C, geom(d));
+  ++g_launches;
+  TRY(cudaGetLastError());
+  // the weight gradients, rd(a)^T rd(b), and dbqkv
+  const Src a[4] = {src_of<T>(b.g1, hid), src_of<T>(b.r1, C), src_of<T>(b.merged, C),
+                    src_of<T>(w.x, C, 1)};
+  const Src bb[4] = {src_of<T>(b.dy2, C), src_of<T>(b.dz1, hid), src_of<T>(b.dy1, C),
+                     src_of<T>(b.dqkv, 3 * C)};
+  AtbPlan plan;
+  TRY(launch_atb<T>(d, kBlockBwdV2, a, bb, b.p_atb, st, &plan));
+  ReduceArgs r = {};
+  float* const dw[4] = {gr.dw2, gr.dw1, gr.dwproj, gr.dwqkv};
+  float* const db[4] = {nullptr, nullptr, nullptr, gr.dbqkv};
+  add_atb_entries(r, plan, b.p_atb, dw, db);
+  add_entry(r, b.p_db1, hid, tiles(M), hid, gr.db1);
+  add_entry(r, b.p_ln2, C, (int)nrb, C, gr.dln2s);
+  add_entry(r, b.p_ln2 + nc, C, (int)nrb, C, gr.dln2b);
+  add_entry(r, b.p_ln2 + 2 * nc, C, (int)nrb, C, gr.db2);
+  add_entry(r, b.p_ln1, C, (int)nrb, C, gr.dln1s);
+  add_entry(r, b.p_ln1 + nc, C, (int)nrb, C, gr.dln1b);
+  add_entry(r, b.p_ln1 + 2 * nc, C, (int)nrb, C, gr.dbproj);
+  const long long hnn = (long long)d.heads * d.n * d.n;
+  add_entry(r, b.p_drel, hnn, bwd_groups(d), hnn, gr.drel);
+  add_entry(r, b.p_tau, d.heads, (int)qk_blocks(d), d.heads, dtau);
+  return launch_reduce(r, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Kernels this library has launched since it was loaded (K1 5 a call, K2 13,
-// K3 3, K4 7).
+// K3 3, K4 7, SwinV2's block 8 and 18).
 long long window_any_launches(void) { return g_launches; }
 
 // Of them, fwd_product_kernel's: every product of a block's forward in f32
@@ -2973,6 +3498,64 @@ int swin_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bq
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(bf ? block_backward<bf16>(d, w, dy, dx, gr, b, st)
                   : block_backward<float>(d, w, dy, dx, gr, b, st));
+}
+
+// SwinV2's block: arguments as swin_any_fwd's, with tau [heads] (f32, the
+// logit scales before their clamp and exp) after rel, bqkv = (q_bias, 0,
+// v_bias) and ln* the post-norms'.
+int swinv2_any_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                   const void* bproj, const void* rel, const void* tau, const void* ln1s,
+                   const void* ln1b, const void* ln2s, const void* ln2b, const void* w1,
+                   const void* b1, const void* w2, const void* b2, const void* mask,
+                   const void* dp, void* out, void* scratch, int bf, int B, int H, int W, int C,
+                   int heads, int ws, int hidden, float eps, void* stream) {
+  if (!valid(B, H, W, C, heads, ws, hidden)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(B, H, W, C, heads, ws, hidden);
+  Carver cv = {static_cast<char*>(scratch), 0};
+  Buffers b;
+  layout(kBlockFwdV2, d, bf, cv, b);
+  const BlockParams w = {x, wqkv, bqkv, wproj, bproj, w1, w2,
+                         static_cast<const float*>(rel), static_cast<const float*>(ln1s),
+                         static_cast<const float*>(ln1b), static_cast<const float*>(ln2s),
+                         static_cast<const float*>(ln2b), static_cast<const float*>(b1),
+                         static_cast<const float*>(b2), static_cast<const float*>(mask),
+                         static_cast<const float*>(dp), eps};
+  const float* t = static_cast<const float*>(tau);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf ? block_forward_v2<bf16>(d, w, t, false, out, b, st)
+                  : block_forward_v2<float>(d, w, t, false, out, b, st));
+}
+
+// SwinV2's block backward: dx (T) and the 14 parameter gradients (f32,
+// zeroed by the caller, summed into) from dy (T), the 13 of swin_any_bwd's
+// (dbqkv's k third unused) with dtau [heads] after drel. The backward
+// products take operands rounded to bf16 whatever T is.
+int swinv2_any_bwd(const void* x, const void* dy, const void* wqkv, const void* bqkv,
+                   const void* wproj, const void* bproj, const void* rel, const void* tau,
+                   const void* ln1s, const void* ln1b, const void* ln2s, const void* ln2b,
+                   const void* w1, const void* b1, const void* w2, const void* b2,
+                   const void* mask, const void* dp, void* dx, float* dwqkv, float* dbqkv,
+                   float* dwproj, float* dbproj, float* drel, float* dtau, float* dln1s,
+                   float* dln1b, float* dln2s, float* dln2b, float* dw1, float* db1,
+                   float* dw2, float* db2, void* scratch, int bf, int B, int H, int W, int C,
+                   int heads, int ws, int hidden, float eps, void* stream) {
+  if (!valid(B, H, W, C, heads, ws, hidden)) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(B, H, W, C, heads, ws, hidden);
+  Carver cv = {static_cast<char*>(scratch), 0};
+  Buffers b;
+  layout(kBlockBwdV2, d, bf, cv, b);
+  const BlockParams w = {x, wqkv, bqkv, wproj, bproj, w1, w2,
+                         static_cast<const float*>(rel), static_cast<const float*>(ln1s),
+                         static_cast<const float*>(ln1b), static_cast<const float*>(ln2s),
+                         static_cast<const float*>(ln2b), static_cast<const float*>(b1),
+                         static_cast<const float*>(b2), static_cast<const float*>(mask),
+                         static_cast<const float*>(dp), eps};
+  const BlockGrads gr = {dwqkv, dbqkv, dwproj, dbproj, drel, dln1s, dln1b,
+                         dln2s, dln2b, dw1,   db1,    dw2,    db2};
+  const float* t = static_cast<const float*>(tau);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf ? block_backward_v2<bf16>(d, w, t, dy, dx, gr, dtau, b, st)
+                  : block_backward_v2<float>(d, w, t, dy, dx, gr, dtau, b, st));
 }
 
 // K3: proj(attention(windows of x)), arguments in the order of

@@ -89,6 +89,9 @@ class STrajNet(nn.Module):
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         kernel_mode, tail_mode = resolve_kernel_knobs(cfg)
+        # the JAX package's configs, which the tests hand over too, have no
+        # block field: their blocks are Swin-v1's
+        block = getattr(cfg, "block", "swin")
         bh, bw = cfg.bottleneck_size
         bd = cfg.bottleneck_dim
         self.encoder = SwinTransformerEncoder(
@@ -98,7 +101,7 @@ class STrajNet(nn.Module):
             cfg.drop_rate, cfg.attn_drop_rate, cfg.drop_path_rate,
             cfg.remat_encoder, cfg.ape, cfg.sep_encode, cfg.no_map,
             cfg.flow_sep, cfg.use_flow, cfg.large_input, cfg.ogm_classes,
-            cfg.spatial_shard)
+            cfg.spatial_shard, block)
         if cfg.fg_msa:
             self.fg_msa_layer = FGMSA(
                 (bh, bw), cfg.fgmsa_heads, cfg.fgmsa_head_channels,

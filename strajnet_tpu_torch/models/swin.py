@@ -24,7 +24,12 @@ stage 0's. The block has no place for the in-block dropouts (``drop_rate``,
 ``attn_drop_rate``; 0 in every supported config), so a non-zero value raises.
 ``remat`` (the model's ``remat_encoder``) recomputes a block's forward in its
 backward instead of saving its intermediates, as the JAX encoder's
-``nn.remat`` does. :class:`BasicLayerDecoder` and :class:`PatchUpsampling`,
+``nn.remat`` does. ``block="swinv2"`` builds SwinV2's blocks and patch
+merging instead (:class:`SwinV2TransformerBlock`, :class:`PatchMergingV2`:
+post-norm residuals, scaled cosine attention, the continuous position bias,
+the published code's leaf names), which the JAX package does not have; they
+run in the ``"block"`` and plain modes without a mesh.
+:class:`BasicLayerDecoder` and :class:`PatchUpsampling`,
 the reference's upsampling stage, complete the module inventory; nothing
 builds them.
 
@@ -47,6 +52,7 @@ does; the hint records the split and leaves the tokens whole.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,11 +63,16 @@ from torch.utils.checkpoint import checkpoint
 
 from strajnet_tpu_torch.ops.dropout import drop_path_multipliers
 from strajnet_tpu_torch.ops.swin_block import swin_block, swin_block_reference
+from strajnet_tpu_torch.ops.swinv2_block import (swinv2_block,
+                                                 swinv2_block_reference)
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc
 from strajnet_tpu_torch.ops.window_attention import window_attention
 from strajnet_tpu_torch.ops.windows import (relative_position_index,
                                             shifted_window_mask)
 from strajnet_tpu_torch.parallel import mesh as tp
+from strajnet_tpu_torch.tracing import span
+
+BLOCKS = ("swin", "swinv2")
 
 
 class LayerNorm(nn.LayerNorm):
@@ -320,6 +331,158 @@ class PatchMerging(nn.Module):
         return dense(self.reduction, self.norm(x), self.dtype)
 
 
+def relative_coords_table(window_size: int) -> torch.Tensor:
+    """SwinV2's ``[(2W-1)^2, 2]`` table of relative offsets (dy, dx), each
+    over ``W - 1``, times 8, then ``sign(t) log2(|t| + 1) / log2(8)``."""
+    if window_size < 2:
+        raise ValueError(f"SwinV2's position bias needs windows of 2 or "
+                         f"more, got {window_size}")
+    r = torch.arange(-(window_size - 1), window_size, dtype=torch.float32)
+    t = torch.stack(torch.meshgrid(r, r, indexing="ij"), dim=-1)
+    t = t / (window_size - 1) * 8.0
+    return (torch.sign(t) * torch.log2(t.abs() + 1.0)
+            / math.log2(8.0)).reshape(-1, 2)
+
+
+class WindowAttentionV2(nn.Module):
+    """The attention parameters of a SwinV2 block, under the published
+    code's names: the logit scale of each head (``[heads, 1, 1]``, from ln
+    10), the continuous position bias MLP ``cpb_mlp`` (Linear(2, 512) ->
+    ReLU -> Linear(512, heads) without bias), ``qkv`` without bias and the
+    separate ``q_bias`` and ``v_bias`` (k has none), ``proj``."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int):
+        super().__init__()
+        self.logit_scale = nn.Parameter(
+            torch.full((num_heads, 1, 1), math.log(10.0)))
+        self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
+                                     nn.Linear(512, num_heads, bias=False))
+        self.register_buffer("relative_coords_table",
+                             relative_coords_table(window_size),
+                             persistent=False)
+        rpi = relative_position_index(window_size, window_size)
+        self.register_buffer("rpi", torch.from_numpy(rpi.reshape(-1)).long(),
+                             persistent=False)
+        self.n = window_size * window_size
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.q_bias = nn.Parameter(torch.zeros(dim))
+        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.proj = nn.Linear(dim, dim)
+
+    def qkv_bias(self) -> torch.Tensor:
+        """``[3C]``: q's bias, zeros for k, v's bias."""
+        return torch.cat([self.q_bias, torch.zeros_like(self.v_bias),
+                          self.v_bias])
+
+    def rel_bias(self) -> torch.Tensor:
+        """``[heads, n, n]`` f32: ``16 sigmoid(cpb_mlp(coords))`` gathered
+        by the relative-position index."""
+        table = self.cpb_mlp(self.relative_coords_table)
+        rel = table[self.rpi].reshape(self.n, self.n, -1).permute(2, 0, 1)
+        return 16.0 * torch.sigmoid(rel).contiguous()
+
+
+class SwinV2TransformerBlock(nn.Module):
+    """(shifted) scaled cosine W-MSA -> LN -> residual -> MLP -> LN ->
+    residual (SwinV2's post-norm), with the continuous position bias.
+
+    The bias ``[heads, n, n]`` is computed once a forward, inside the span
+    ``strajnet.swinv2_cpb``, and handed to the block as the Swin-v1 block
+    hands its table's gather; autograd of the MLP, the sigmoid and the
+    gather carries its gradient. ``kernel_mode`` "block" runs :func:`~strajnet_tpu_torch.
+    ops.swinv2_block.swinv2_block` (the kernels on CUDA tensors, the plain
+    block on the CPU), False the plain block everywhere; the ``"attn"`` and
+    ``"block_fwd"`` modes, ``remat`` and a ``('data', 'model')`` mesh are
+    Swin-v1's alone and raise (the kernels' backward recomputes the block
+    already). Drop-path draws two multipliers a block, as Swin-v1.
+    """
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 num_heads: int, window_size: int = 7, shift_size: int = 0,
+                 mlp_ratio: float = 4.0, kernel_mode="block",
+                 dtype: torch.dtype = torch.float32,
+                 drop_path: float = 0.0, remat: bool = False):
+        super().__init__()
+        if kernel_mode not in ("block", False):
+            raise ValueError(f"the SwinV2 block runs in the 'block' and "
+                             f"plain kernel modes, got {kernel_mode!r}")
+        if remat:
+            raise ValueError("the SwinV2 block takes no remat")
+        if min(input_resolution) <= window_size:
+            window_size = min(input_resolution)
+            shift_size = 0
+        if not 0 <= shift_size < window_size:
+            raise ValueError(f"shift {shift_size} outside [0, {window_size})")
+        self.dim, self.num_heads = dim, num_heads
+        self.input_resolution = input_resolution
+        self.window_size, self.shift_size = window_size, shift_size
+        self.kernel_mode, self.dtype = kernel_mode, dtype
+        self.drop_path = float(drop_path)
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = WindowAttentionV2(dim, window_size, num_heads)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        h, w = input_resolution
+        mask = (torch.from_numpy(shifted_window_mask(h, w, window_size,
+                                                     shift_size).copy())
+                if shift_size > 0 else None)
+        self.register_buffer("attn_mask", mask, persistent=False)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if tp.active_mesh() is not None:
+            raise NotImplementedError(
+                "the SwinV2 block runs without a ('data', 'model') mesh")
+        h, w = self.input_resolution
+        c = x.shape[-1]
+        dpm = drop_path_multipliers(x.numel() // (h * w * c), self.drop_path,
+                                    self.training, generator, x.device)
+        s, dt = self.shift_size, self.dtype
+        attn, mlp = self.attn, self.mlp
+        with span("strajnet.swinv2_cpb"):
+            rel = attn.rel_bias()
+        xb = x.reshape(-1, h, w, c).to(dt)
+        if s > 0:
+            xb = torch.roll(xb, shifts=(-s, -s), dims=(1, 2))
+        block = swinv2_block if self.kernel_mode else swinv2_block_reference
+
+        def operand(wt):
+            return wt.t().to(dt).contiguous()
+
+        y = block(xb.contiguous(), operand(attn.qkv.weight),
+                  attn.qkv_bias().to(dt), operand(attn.proj.weight),
+                  attn.proj.bias.to(dt), rel, attn.logit_scale.reshape(-1),
+                  self.norm1.weight, self.norm1.bias, self.norm2.weight,
+                  self.norm2.bias, operand(mlp.fc1.weight), mlp.fc1.bias,
+                  operand(mlp.fc2.weight), mlp.fc2.bias, self.attn_mask, dpm,
+                  window_size=self.window_size, num_heads=self.num_heads,
+                  eps=1e-5)
+        if s > 0:
+            y = torch.roll(y, shifts=(s, s), dims=(1, 2))
+        return y.reshape(-1, h * w, c)
+
+
+class PatchMergingV2(nn.Module):
+    """SwinV2's 2x downsampling: 4-way strided concat -> Linear(4C -> 2C)
+    -> LN(2C) (Swin-v1 normalises first)."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_resolution, self.dtype = input_resolution, dtype
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(2 * dim, 1e-5, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = self.input_resolution
+        c = x.shape[-1]
+        x = x.reshape(-1, h, w, c)
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        x = x.reshape(-1, (h // 2) * (w // 2), 4 * c)
+        return self.norm(dense(self.reduction, x, self.dtype))
+
+
 class BasicLayer(nn.Module):
     """One Swin stage: ``depth`` blocks alternating shift 0 / ws//2, then an
     optional PatchMerging. Returns (x_down, pre-downsample residual)."""
@@ -330,16 +493,22 @@ class BasicLayer(nn.Module):
                  downsample: bool = False, kernel_mode="block",
                  dtype: torch.dtype = torch.float32,
                  drop_path: Sequence[float] = (), remat: bool = False,
-                 spatial_shard: bool = False):
+                 spatial_shard: bool = False, block: str = "swin"):
         super().__init__()
+        if block not in BLOCKS:
+            raise ValueError(f"unknown block {block!r}, not in {BLOCKS}")
         self.depth, self.spatial_shard = depth, spatial_shard
         for i in range(depth):
+            shift = 0 if i % 2 == 0 else window_size // 2
+            rate = drop_path[i] if len(drop_path) else 0.0
             self.add_module(f"blocks{i}", SwinTransformerBlock(
-                dim, input_resolution, num_heads, window_size,
-                0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                kernel_mode, dtype, drop_path[i] if len(drop_path) else 0.0,
-                remat))
-        self.downsample = (PatchMerging(input_resolution, dim, dtype)
+                dim, input_resolution, num_heads, window_size, shift,
+                mlp_ratio, qkv_bias, kernel_mode, dtype, rate, remat)
+                if block == "swin" else SwinV2TransformerBlock(
+                dim, input_resolution, num_heads, window_size, shift,
+                mlp_ratio, kernel_mode, dtype, rate, remat))
+        merging = PatchMerging if block == "swin" else PatchMergingV2
+        self.downsample = (merging(input_resolution, dim, dtype)
                            if downsample else None)
 
     def forward(self, x: torch.Tensor,
@@ -467,7 +636,8 @@ class SwinTransformerEncoder(nn.Module):
                  ape: bool = False, sep_encode: bool = True,
                  no_map: bool = False, flow_sep: bool = True,
                  use_flow: bool = True, large_input: bool = True,
-                 ogm_classes: int = 2, spatial_shard: bool = False):
+                 ogm_classes: int = 2, spatial_shard: bool = False,
+                 block: str = "swin"):
         super().__init__()
         if drop_rate or attn_drop_rate:
             raise NotImplementedError(
@@ -491,7 +661,7 @@ class SwinTransformerEncoder(nn.Module):
                 num_heads[i], window_size, mlp_ratio, qkv_bias, downsample,
                 kernel_mode, dtype,
                 tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]), remat,
-                spatial_shard)
+                spatial_shard, block)
 
         def embed(in_chans: int) -> PatchEmbed:
             return PatchEmbed(patch_size, in_chans, embed_dim, patch_norm,

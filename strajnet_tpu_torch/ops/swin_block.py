@@ -529,7 +529,8 @@ def window_any_lib():
 
 def window_any_launches() -> int:
     """Kernels the general route's library has launched since it was
-    loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call."""
+    loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call, 8 and 18
+    a SwinV2 block's forward and backward call."""
     return int(window_any_lib().window_any_launches())
 
 
@@ -577,7 +578,7 @@ def any_scratch(kind: int, x: torch.Tensor, num_heads: int,
                 window_size: int, hidden: int = 1) -> torch.Tensor:
     """The general route's scratch for a launch of ``kind`` (0 block
     forward, 1 block backward, 2 attention forward, 3 attention
-    backward)."""
+    backward, 4 and 5 the SwinV2 block's forward and backward)."""
     b, h, w, c = x.shape
     nbytes = window_any_lib().window_any_scratch_bytes(
         kind, int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,

@@ -2,9 +2,10 @@
 
 ``span(name)`` marks a part of a step: the training and predict steps and
 their phases (``train/step.py``), the model's four layers
-(``models/strajnet.py``). While no ``torch.profiler`` runs it returns a
-shared no-op context, at the cost of one check. While one runs it does two
-things:
+(``models/strajnet.py``), each SwinV2 block's position bias
+(``strajnet.swinv2_cpb``, ``models/swin.py``). While no ``torch.profiler``
+runs it returns a shared no-op context, at the cost of one check. While one
+runs it does two things:
 
 - it opens a profiler range of the name, recorded as a host operation
   (``cpu_op``), never as a user annotation, so that nothing of it is

@@ -114,9 +114,14 @@ def test_package_imports_without_triton_or_nvcc():
 @pytest.mark.parametrize("name", ["TaskConfig", "ModelConfig", "LossConfig",
                                   "TrainConfig"])
 def test_config_copy_has_the_fields_and_defaults_of_the_jax_package(name):
+    # the port's own fields (SwinV2's block kind) come after the JAX
+    # package's, which stay as they are
     ours, ref = getattr(tconfig, name), getattr(jconfig, name)
-    assert ([(f.name, f.default) for f in dataclasses.fields(ours)]
-            == [(f.name, f.default) for f in dataclasses.fields(ref)])
+    extra = tconfig.PORT_ONLY_MODEL_FIELDS if name == "ModelConfig" else ()
+    fields = [(f.name, f.default) for f in dataclasses.fields(ours)]
+    assert fields[:len(fields) - len(extra)] == [
+        (f.name, f.default) for f in dataclasses.fields(ref)]
+    assert [k for k, _ in fields[len(fields) - len(extra):]] == list(extra)
 
 
 @pytest.mark.parametrize("name", ["STRAJNET_CONFIG", "TINY_MODEL_CONFIG",
@@ -126,7 +131,13 @@ def test_config_copy_has_the_fields_and_defaults_of_the_jax_package(name):
                                   "WAYMO_OGM_TASK_CONFIG"])
 def test_config_copy_has_the_presets_of_the_jax_package(name):
     ours, ref = getattr(tconfig, name), getattr(jconfig, name)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    got = dataclasses.asdict(ours)
+    defaults = {f.name: f.default
+                for f in dataclasses.fields(tconfig.ModelConfig)}
+    for k in tconfig.PORT_ONLY_MODEL_FIELDS:
+        if k in got:   # at its default: the JAX package's blocks
+            assert got.pop(k) == defaults[k]
+    assert got == dataclasses.asdict(ref)
     if hasattr(ours, "output_size"):
         assert ours.output_size == ref.output_size
         assert ours.bottleneck_size == ref.bottleneck_size

@@ -25,7 +25,8 @@ from strajnet_tpu.config import STRAJNET_CONFIG as JFLAG
 from strajnet_tpu.models.strajnet import STrajNet as JaxSTrajNet
 from strajnet_tpu.models.strajnet import dummy_inputs as jax_dummy_inputs
 from strajnet_tpu.parallel import mesh as jmesh
-from strajnet_tpu_torch.config import STRAJNET_CONFIG, ULTRA_TINY_MODEL_CONFIG
+from strajnet_tpu_torch.config import (PORT_ONLY_MODEL_FIELDS, STRAJNET_CONFIG,
+                                       ULTRA_TINY_MODEL_CONFIG, ModelConfig)
 from strajnet_tpu_torch.interop.from_flax import convert_leaf
 from strajnet_tpu_torch.models.strajnet import STrajNet
 from strajnet_tpu_torch.parallel import mesh as tp
@@ -312,6 +313,9 @@ def test_dryrun_steps_are_jaxs_on_the_card_and_on_the_cpu():
             (label, batch) for label, _, batch in jax_steps]
         for (label, cfg, _), (_, want, _) in zip(steps, jax_steps):
             got = dataclasses.asdict(cfg)
+            # the port's own fields at their defaults (Swin-v1 blocks)
+            for k in PORT_ONLY_MODEL_FIELDS:
+                assert got.pop(k) == getattr(ModelConfig, k), (device, k)
             if label != "kernels-on ok":
                 assert got["use_pallas_attention"] is plain, (device, label)
                 got["use_pallas_attention"] = want["use_pallas_attention"]
