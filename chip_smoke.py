@@ -44,8 +44,8 @@ PyTorch version at the shapes of the flagship model (batch 16, bf16):
   shifted 128^2 grid, C 512 with 16 heads, C 1024 in one unshifted 16x16
   window), a head of each past the logit scale's clamp, against the plain
   block (``V2_BF16_*``, ``V2_DTAU_*``), the kernels of one call counted
-  from counters zeroed just before (8 and 18), timed beside the plain
-  block and broken down by kernel at C 128.
+  from counters zeroed just before (7 and 17: the attention stage fused),
+  timed beside the plain block and broken down by kernel at C 128.
 
 Then it drives the port's paths through their entry points with seeded
 random weights at ``STRAJNET_CONFIG``, batch 16: the forward through the
@@ -128,9 +128,14 @@ and K2), TINY in the ``"block"`` and ``"attn"`` modes with the tail kernel
 (forward and a step each at batch 4: general K1/K2 or K3/K4, 2 general K7 a
 forward), and the SwinV2-B preset (``STRAJNET_SWINV2_B_CONFIG``; forward and
 one training step at batch 2, 26 SwinV2 blocks on the general route, no
-Swin-v1 block). The kernels line also lists the general route of each kernel
-and the SwinV2 block's forward and backward with their launches on these
-paths.
+Swin-v1 block; 26 fused attention stages a forward, 52 a step). Then the
+SwinV2 block's attention stage alone at
+``V2_GEOMETRIES`` (batch 16, shifted and not): the fused kernel against the
+two launches it replaced (q', k' and raw q, k bit for bit, merged and the
+row statistics as ``v2_held`` holds a block), both timed in turns, with the
+stage's bound by bytes and by operations, and summed over a pass of the 26
+blocks. The kernels line also lists the general route of each kernel and the
+SwinV2 block's forward and backward with their launches on these paths.
 
 ``--phases`` runs a subset (kernels, forward, serve, train, eval, loop,
 variants, ddp, tp, preprocess, tools, widths) while developing; with no
@@ -200,7 +205,8 @@ from strajnet_tpu_torch.ops.decoder_tail import (  # noqa: E402
 from strajnet_tpu_torch.ops.swin_block import (  # noqa: E402
     GRAD_NAMES, atb_accum, kernel_route, kernel_smem_bytes, swin_block,
     swin_block_backward_reference, swin_block_bwd, swin_block_reference,
-    token_blocked, window_any_fwd_launches, window_any_launches)
+    token_blocked, window_any_fwd_launches, window_any_launches,
+    window_any_v2_attn_launches)
 from strajnet_tpu_torch.ops.warp_gather import (  # noqa: E402
     band_edge_rows, bwd_band_rows, gather_corners_reference, scatter_corners_reference,
     warp_gather_bwd, warp_gather_fwd)
@@ -1462,6 +1468,7 @@ WINDOW_ANY_KERNELS = ("fwd_product_kernel", "gemm_kernel", "gemm_sm90_kernel",
                       "gemm_tf32x3_kernel", "atb_kernel", "attn_fwd_kernel",
                       "attn_bwd_kernel", "ln_bwd_kernel", "reduce_kernel",
                       "qk_norm_kernel", "qk_norm_bwd_kernel",
+                      "swinv2_attn_kernel",
                       "postnorm_kernel", "postnorm_bwd_kernel",
                       "add_rows_kernel")
 DECODER_TAIL_ANY_KERNELS = ("fold_tail_weights_kernel",
@@ -1640,6 +1647,100 @@ def v2_call(fn, counter, want: int, what: str):
 
 def as_f32(args):
     return [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+
+
+def v2_stage_work(h: int, c: int, heads: int, shift: int, save: bool):
+    """FLOPs and bytes of the SwinV2 attention stage at batch 16 and window
+    16: q k^T and p @ v, 4 n hd flops a query and head; q, k, v read and
+    merged written in bf16, rel and the mask (where shifted) read once in
+    f32; with ``save`` raw q, k and q', k' written (bf16) and the row
+    statistics (f32 pairs)."""
+    n, hd, tokens = 256, c // heads, BATCH * h * h
+    flops = 4 * tokens * heads * n * hd
+    nbytes = (4 * tokens * c * 2 + heads * n * n * 4
+              + (h // 16) ** 2 * n * n * 4 * bool(shift))
+    if save:
+        nbytes += 4 * tokens * c * 2 + tokens * heads * 8
+    return flops, nbytes
+
+
+def check_swinv2_attention_stage(g: torch.Generator) -> dict:
+    """The SwinV2 block's attention stage alone at V2_GEOMETRIES, shifted
+    and not: the fused kernel (``swinv2_attn_kernel``) against the two
+    launches it replaced (``qk_norm_kernel``, ``attn_fwd_kernel``) on the
+    same bf16 qkv, with the backward's saves: q', k' and raw q, k bit for
+    bit, merged and the row statistics held against the plain stage in f32
+    as ``v2_held`` holds a block (within twice the two launches' distance).
+    Device times in turns (two launches, fused, fused, two launches), the
+    forward's and the recompute's; bounds by bytes and by operations.
+    Returns the sums over a pass of the 26 blocks (half of them shifted)."""
+    total = dict(fused_ms=0.0, two_launch_ms=0.0, fused_save_ms=0.0,
+                 two_launch_save_ms=0.0, bound_ms=0.0, bound_save_ms=0.0)
+    for h, c, heads, shift0, count in V2_GEOMETRIES:
+        for shift in sorted({0, shift0}):
+            n = 256
+            qkv = torch.randn(BATCH * h * h, 3 * c, generator=g,
+                              device="cuda").to(torch.bfloat16)
+            tau = math.log(10.0) + 1.5 * (torch.rand(
+                heads, generator=g, device="cuda") * 2 - 1)
+            tau[0] = 5.0
+            rel = 16.0 * torch.sigmoid(torch.randn(heads, n, n, generator=g,
+                                                   device="cuda"))
+            mask = (torch.from_numpy(shifted_window_mask(h, h, 16, shift))
+                    .cuda() if shift else None)
+            kw = dict(window_size=16, num_heads=heads)
+            geo = dict(batch=BATCH, height=h, width=h, **kw)
+            what = (f"SwinV2 attention stage [{BATCH},{h},{h},{c}] "
+                    f"shift={shift}")
+            check(v2.fused_attention(qkv.dtype, c // heads),
+                  f"{what}: the route fuses the stage")
+            fq, tq = qkv.clone(), qkv.clone()
+            fused = v2.attention_stage(fq, tau, rel, mask, fused=True,
+                                       save=True, **geo)
+            two = v2.attention_stage(tq, tau, rel, mask, fused=False,
+                                     save=True, **geo)
+            torch.cuda.synchronize()
+            check(torch.equal(fq, tq) and torch.equal(fused[1], two[1]),
+                  f"{what}: q', k' and raw q, k bit for bit")
+            exact = v2.attention_stage_reference(qkv.float(), tau, rel, mask,
+                                                 **kw)
+            errs = [v2_held(f"{what} {name}", a, b, e) for name, a, b, e in (
+                ("merged", fused[0], two[0], exact[1]),
+                ("max", fused[2][..., 0], two[2][..., 0], exact[3][..., 0]),
+                ("sum", fused[2][..., 1], two[2][..., 1], exact[3][..., 1]))]
+            del fused, two, exact, fq, tq
+            times = {}
+            for name, fz in (("two", False), ("fused", True), ("fused", True),
+                             ("two", False)):
+                for save in (False, True):
+                    x = qkv.clone()
+                    times.setdefault((name, save), []).append(kernel_ms(
+                        lambda: v2.attention_stage(x, tau, rel, mask,
+                                                   fused=fz, save=save,
+                                                   **geo), iters=10))
+            ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+            b0, by0 = bound(*v2_stage_work(h, c, heads, shift, False))
+            b1, _ = bound(*v2_stage_work(h, c, heads, shift, True))
+            print(f"{what}: err/max|f32| merged {errs[0]:.3e} max "
+                  f"{errs[1]:.3e} sum {errs[2]:.3e}; kernel_ms fused "
+                  f"{ms[('fused', False)]:.4f} (save "
+                  f"{ms[('fused', True)]:.4f}), two launches "
+                  f"{ms[('two', False)]:.4f} ({ms[('two', True)]:.4f}); "
+                  f"bound {b0:.4f} ms by {by0} ({b1:.4f} with the saves): "
+                  f"{100 * b0 / ms[('fused', False)]:.1f} % "
+                  f"({100 * b1 / ms[('fused', True)]:.1f} %)")
+            share = count / 2 if shift0 else count   # half the blocks shift
+            total["fused_ms"] += share * ms[("fused", False)]
+            total["two_launch_ms"] += share * ms[("two", False)]
+            total["fused_save_ms"] += share * ms[("fused", True)]
+            total["two_launch_save_ms"] += share * ms[("two", True)]
+            total["bound_ms"] += share * b0
+            total["bound_save_ms"] += share * b1
+            del qkv, rel, mask
+            torch.cuda.empty_cache()
+    print("SwinV2 attention stage over a pass of the 26 blocks: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in total.items()))
+    return total
 
 
 def check_swinv2_block(g: torch.Generator) -> dict:
@@ -3632,25 +3733,32 @@ def swin_block_count(model) -> int:
 V2_COUNTERS = (v2.swinv2_block, v2.swinv2_block_bwd)
 
 
+_V2_STAGE_BASE = [0]
+
+
 def reset_v2_counters() -> None:
     for fn in V2_COUNTERS:
         fn.launches_any = 0
+    _V2_STAGE_BASE[0] = window_any_v2_attn_launches()
 
 
 def read_v2_counters() -> tuple:
-    """The SwinV2 block's forward and backward calls since
+    """The SwinV2 block's forward and backward calls and the fused attention
+    stage's launches (one a call each way in bf16 at head size 32) since
     ``reset_v2_counters``."""
-    return tuple(fn.launches_any for fn in V2_COUNTERS)
+    return tuple(fn.launches_any for fn in V2_COUNTERS) + (
+        window_any_v2_attn_launches() - _V2_STAGE_BASE[0],)
 
 
 def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel,
-                   expect=None, expect_v2=(0, 0)):
+                   expect=None, expect_v2=(0, 0, 0)):
     """One eval-mode forward of ``cfg`` through the kernels against
     ``plain_cfg`` on the same seed-0 weights and batch; times both in
     TIMING_ROUNDS rounds of turns. The kernel forward's launches: the
     general route's ``expect_any``, the wgmma route's ``expect`` (none by
-    default), the SwinV2 block's ``expect_v2``. Returns the general route's
-    launches of the kernel forward."""
+    default), the SwinV2 block's forward and backward calls and fused
+    attention stages ``expect_v2``. Returns the general route's launches of
+    the kernel forward."""
     expect = counts() if expect is None else expect
     state = init_params(cfg, torch.Generator().manual_seed(0))
     model, plain = (bench.load_model(c, state, "cuda")
@@ -3695,7 +3803,7 @@ def widths_forward(name, cfg, plain_cfg, batch_size, expect_any, f32_rel,
 
 
 def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect,
-                expect_v2=(0, 0), exact_cfg=None):
+                expect_v2=(0, 0, 0), exact_cfg=None):
     """The first training step of ``cfg`` through the kernels against the
     plain path's from the same weights, batch and noise: loss and whole
     gradient; then the later steps of each, timed on the host's clock in
@@ -3704,9 +3812,9 @@ def widths_step(name, cfg, plain_cfg, batch_size, expect_any, expect,
     from it than V2_BF16_FACTOR times the plain path's (floor
     V2_BF16_COS_FLOOR), as the SwinV2 block's checks hold the block. The
     kernel step's launches: the general route's ``expect_any``, the wgmma
-    route's ``expect``, the SwinV2 block's forward and backward
-    ``expect_v2``. Returns the general route's launches of the kernel
-    step."""
+    route's ``expect``, the SwinV2 block's forward and backward calls and
+    fused attention stages ``expect_v2``. Returns the general route's
+    launches of the kernel step."""
     task = TaskConfig(grid_height_cells=cfg.output_size[0],
                       grid_width_cells=cfg.output_size[1],
                       num_waypoints=cfg.num_waypoints)
@@ -3824,12 +3932,14 @@ def widths_phase() -> tuple:
     check(blocks == 26, f"SwinV2-B has 26 SwinV2 blocks, got {blocks}")
     v2_plain = dataclasses.replace(v2_cfg, **plain)
     add(widths_forward("SwinV2-B", v2_cfg, v2_plain, 2, general(), False,
-                       counts(k7=2), (blocks, 0)))
+                       counts(k7=2), (blocks, 0, blocks)))
     add(widths_step("SwinV2-B", v2_cfg, v2_plain, 2, general(), counts(k5=1),
-                    (blocks, blocks),
+                    (blocks, blocks, 2 * blocks),
                     dataclasses.replace(v2_plain, dtype="float32")))
     total += [2 * blocks, blocks]   # the forward's and the step's
     torch.cuda.empty_cache()
+    check_swinv2_attention_stage(
+        torch.Generator(device="cuda").manual_seed(24))
     print(f"widths phase: {time.perf_counter() - t0:.1f} s; general "
           f"launches K1-K4,K7 {tuple(total[:-2])}, SwinV2 forward and "
           f"backward calls {tuple(total[-2:])}")

@@ -58,8 +58,9 @@
 //   memory), p rounded to T in a per-warp staging tile. p never reaches
 //   device memory; the row max and sum do (8 bytes a row) for the backward.
 //   k and v are held whole, not streamed: 174 KB of shared memory at n =
-//   256, hd = 64 in f32. It reads qkv in window order (K1, K2) or gathers
-//   each window's rows from grid order (K3, K4).
+//   256, hd = 64 in f32. It reads qkv in window order (K1, K2, SwinV2's
+//   unfused attention stage) or gathers each window's rows from grid order
+//   (K3, K4).
 // - attn_bwd_kernel (K2 and K4): a block per (head, group of windows), a
 //   warp per 16 keys, k and v of the window whole in shared memory, the
 //   16-query tiles of q and dO streamed through a double buffer: p and dp
@@ -74,12 +75,17 @@
 //   reduce_kernel (every per-split partial added in a fixed order, one
 //   launch).
 // - SwinV2's block (swinv2_any_fwd, swinv2_any_bwd) on the same products
-//   (none with a prologue) and attention (scale 1), around kernels of its
-//   own: qk_norm_kernel (q and k normalised per head, q times its logit
-//   scale exp(min(tau, ln 100))) and its backward (with dtau's partials),
-//   postnorm_kernel (x + dp LN(y), the post-norm residuals) and its
-//   backward, add_rows_kernel (dx's last sum). 8 launches a forward, 18 a
-//   backward; the Swin-v1 kernels' code is as it was.
+//   (none with a prologue), around kernels of its own. Its attention stage
+//   (q and k normalised per head, q times its logit scale exp(min(tau, ln
+//   100)), then the window attention at scale 1) is one launch in bf16 at
+//   head size 32, swinv2_attn_kernel (wgmma, a block per window and head,
+//   the normalisation in shared memory); at other head sizes and in f32 it
+//   is two, qk_norm_kernel (a thread a row and head) and attn_fwd_kernel
+//   (v2_attn_fused chooses from the type and head size). Further:
+//   qk_norm_bwd_kernel (with dtau's partials), postnorm_kernel (x + dp
+//   LN(y), the post-norm residuals) and its backward, add_rows_kernel (dx's
+//   last sum). 7 launches a forward and 17 a backward fused, 8 and 18 not;
+//   the Swin-v1 kernels' code is as it was.
 //
 // Why mma.sync for the backward's products: their operands pass through a
 // per-element step between shared memory and the tensor cores that is done
@@ -102,8 +108,8 @@
 // (LayerNorm, qkv, q k^T, p v, the MLP) runs in f32.
 //
 // Launches: K1 5 (qkv, attention, proj, fc1, fc2), K2 13, K3 3 (qkv, the
-// attention, proj), K4 7, SwinV2's block 8 and 18 (window_any_launches
-// counts them). Rounding
+// attention, proj), K4 7, SwinV2's block 7 and 17 (8 and 18 where its
+// attention stage is not fused; window_any_launches counts them). Rounding
 // follows the plain versions (ops/swin_block.py::swin_block_reference and
 // swin_block_backward_reference, ops/window_attention.py's two references):
 // to T after qkv's bias, p before p @ v, the merged heads, r1, both
@@ -139,6 +145,7 @@ constexpr long long kTargetBlocks = 528;   // four blocks an SM
 
 long long g_launches = 0;       // kernels launched by this library
 long long g_fwd_launches = 0;   // of them, fwd_product_kernel's
+long long g_v2_attn_launches = 0;   // of them, swinv2_attn_kernel's
 
 // ------------------------------------------------------------ elements
 
@@ -2250,6 +2257,312 @@ __global__ void __launch_bounds__(kRowThreads) qk_norm_bwd_kernel(QkNormBwdArgs 
   }
 }
 
+// SwinV2's attention stage in bf16 at head size 32, one launch: the
+// normalisation of q and k (qk_norm_kernel's arithmetic, bit for bit), the
+// logits, the softmax and p @ v of attn_fwd_kernel's cosine form, fused.
+// Replaces no TPU kernel (the JAX package has no SwinV2 block); it takes
+// the place of the pair qk_norm_kernel -> attn_fwd_kernel on the route's
+// main type. A block per (window, head), one warpgroup, two blocks an SM
+// (255 registers a thread, 113 KB of shared memory):
+// - q, k and v of the head (at most 256 rows of 32) land by cp.async in
+//   shared memory as wgmma's 8 x 8 core matrices: the 16 bytes of chunk c of
+//   row r at c * kV2Chunk + r * 16, rows past the window zero. q and k are
+//   K-major operands in that layout, and v is the MN-major B of p @ v as it
+//   stands, so nothing is transposed.
+// - A thread a row normalises q and k in place, summing the squares in the
+//   order e = 0 .. 31 as qk_norm_kernel does; with `save` it also stores q
+//   and k as they were (raw) and as normalised (back into qkv), which the
+//   backward reads, and the softmax's row statistics.
+// - The warpgroup walks the window's 64-query tiles (in an order rotated by
+//   the window): S = q' k'^T on wgmma (A and B from shared memory, two
+//   m64n128 halves of the keys, 128 f32 registers a thread); the bias and
+//   the mask of each warp's 16 rows stream in through a ring of its own
+//   (below) and are added as Bias::logit adds them; the row max, exp once a
+//   logit (expf) and the row sums in attn_fwd_kernel's order (eight partial
+//   sums over 64-key chunks, then the tree and the quad), so the statistics
+//   are the two launches' bit for bit; p = e times the row's 1 / sum,
+//   rounded to bf16 into the A fragments of p @ v (wgmma, A from
+//   registers); merged rounded to bf16. (A division a logit, as
+//   attn_fwd_kernel's p = e / sum, took 40 % of a first version's time on
+//   an H100; p moves by at most an f32 rounding before its bf16 one.)
+// Bound: the bias and mask reads from L2 (f32; 8 bytes a logit in a shifted
+// window, 4 in an unshifted one), then q, k, v from device memory; the
+// products are 4 n hd flops a query, far below the card's rate. No atomics:
+// each (window, head) slice has one owner block.
+constexpr int kV2Hd = 32;                  // the head size it is built for
+constexpr int kV2Threads = 128;            // one warpgroup
+constexpr int kV2Chunk = kMaxN * 16;       // bytes of one 8-column chunk of 256 rows
+constexpr int kV2Part = 4 * kV2Chunk;      // q, k or v of the head
+
+struct V2AttnArgs {
+  bf16* qkv;           // [M, 3C], window order
+  bf16* raw;           // save: q and k as they were, [M, 2C]; else null
+  float* stats;        // save: [Z, n, 2] row max and sum; else null
+  bf16* out;           // the merged heads [M, C]
+  const float* tau;    // [heads]
+  const float* rel;    // [heads, n, n]
+  const float* mask;   // [n_mask, n, n] or null
+  int n_mask, n, heads, C;
+};
+
+// The bias and mask stream through shared memory: each warp stages the 16
+// rows of its accumulator, chunk by chunk of 32 keys, through a ring of its
+// own (kV2Stages chunks in flight, each stage's mbarrier counting the
+// warp's 32 lanes and the bytes; [stage][rel, mask][16 rows][32 keys] f32),
+// so that no barrier of the block paces the loads. Tensor-map copies (TMA)
+// where n % 4 == 0, else element cp.async (16-byte cp.async by every lane
+// made the kernel 28 % slower than TMA on an H100). The 16-byte unit u of
+// row r sits at u ^ (r % 8) (TMA's 128-byte swizzle): a warp's reads of its
+// accumulator's pairs take two wavefronts.
+constexpr int kV2Keys = 32;                                 // keys a chunk
+constexpr int kV2Stages = 4;
+constexpr int kV2BiasRow = kV2Keys * 4;                     // 128 bytes
+constexpr int kV2BiasMat = 16 * kV2BiasRow;                 // 2 KB
+constexpr int kV2BiasStage = 2 * kV2BiasMat;                // rel and mask
+constexpr int kV2WarpRing = kV2Stages * kV2BiasStage;       // 16 KB
+constexpr int kV2Smem = 4 * kV2WarpRing + 3 * kV2Part + 4 * kV2Stages * 8;   // two blocks an SM
+
+// Rows r0 .. r0 + 15 x keys 32 c .. 32 c + 31 of rel (and mask) into a
+// stage of the warp's ring by element cp.async (rows of n % 4 != 0 floats,
+// which no tensor map takes), the window's rows and keys only: none past
+// them, which the logits never read.
+__device__ __forceinline__ void v2_stage_bias(uint8_t* st, const float* rel, const float* mask,
+                                              int n, int r0, int c, int lane) {
+  const int units = (mask ? 2 : 1) * 16 * 8, k0 = c * kV2Keys;
+  for (int i = lane; i < units; i += 32) {
+    const int m = i >> 7, r = (i >> 3) & 15, u = i & 7;
+    const int qi = r0 + r, kj = k0 + u * 4;
+    if (qi >= n || kj >= n) continue;
+    const float* src = (m ? mask : rel) + (long long)qi * n + kj;
+    uint8_t* d = st + m * kV2BiasMat + r * kV2BiasRow + ((u ^ (r & 7)) << 4);
+    for (int e = 0; e < 4 && kj + e < n; ++e) cp_async4(d + 4 * e, src + e);
+  }
+}
+
+// The tensor maps of rel ([heads * n, n]) and mask ([nW * n, n]) in boxes
+// of 16 rows x 32 keys, swizzled by 128 bytes (unit u of row r at u ^ (r %
+// 8), as v2_stage_bias lays them), where n % 4 == 0 (tma); else the stages
+// go by cp.async. Past the tensors' edges the boxes read zeros.
+struct V2Maps {
+  CUtensorMap rel, mask;
+  int tma;
+};
+
+// kFull: windows of 256 tokens, n a constant (its bounds checks compiled
+// away: 26 % of the time at SwinV2-B's widths on an H100)
+template <bool kFull>
+__global__ void __launch_bounds__(kV2Threads, 2)
+    swinv2_attn_kernel(V2AttnArgs a, const __grid_constant__ V2Maps maps) {
+  // [the warps' rings][q, k, v][the rings' mbarriers]
+  extern __shared__ __align__(1024) uint8_t v2_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3, warp = tid >> 5;
+  const int row0 = warp * 16 + (lane >> 2);   // first row of a tile's accumulator
+  const long long z = blockIdx.x, w = z / a.heads;
+  const int h = (int)(z - w * a.heads), n = kFull ? kMaxN : a.n, wi = (int)(w % a.n_mask);
+  const long long ld = 3LL * a.C, m0 = w * n;
+  const float* rel = a.rel + (long long)h * n * n;
+  const float* mask = a.mask ? a.mask + (long long)wi * n * n : nullptr;
+  uint8_t* ring = v2_smem + warp * kV2WarpRing;
+  uint8_t* qkv_s = v2_smem + 4 * kV2WarpRing;
+  const uint32_t bar0 = sm90::smem_u32(qkv_s + 3 * kV2Part) + warp * kV2Stages * 8;
+  if (lane == 0) {
+    for (int s = 0; s < kV2Stages; ++s) sm90::mbar_init(bar0 + 8 * s, 32);
+    sm90::fence_barrier_init();
+  }
+  __syncwarp();
+  // the warp's bias chunks in order (tile, chunk), nch chunks a tile; the
+  // tiles in an order rotated by the window, so that the blocks in flight
+  // read different rows of the bias
+  const int nch = (n + kV2Keys - 1) / kV2Keys, ntiles = (n + 63) / 64, nq = ntiles * nch;
+  const int rot = (int)(w % ntiles);
+  auto tile_row = [&](int i) { return (i + rot) % ntiles * 64; };
+  auto issue = [&](int q) {
+    if (q >= nq) return;
+    const int s = q % kV2Stages, r0 = tile_row(q / nch) + warp * 16, c = q % nch;
+    uint8_t* st = ring + s * kV2BiasStage;
+    const uint32_t bar = bar0 + 8 * s;
+    if (maps.tma) {
+      if (lane == 0) {
+        sm90::fence_proxy_async();
+        sm90::mbar_expect_tx_only(bar, mask ? 2 * kV2BiasMat : kV2BiasMat);
+        sm90::tma_load_2d(sm90::smem_u32(st), &maps.rel, c * kV2Keys, h * n + r0, bar);
+        if (mask)
+          sm90::tma_load_2d(sm90::smem_u32(st + kV2BiasMat), &maps.mask, c * kV2Keys,
+                            wi * n + r0, bar);
+      }
+      sm90::mbar_arrive(bar);
+    } else {
+      v2_stage_bias(st, rel, mask, n, r0, c, lane);
+      sm90::cp_async_mbar_arrive(bar);
+    }
+  };
+  // q, k, v: [part][chunk][row] 16-byte units, zeros past the window
+  for (int i = tid; i < 3 * 4 * kMaxN; i += kV2Threads) {
+    const int part = i / (4 * kMaxN), r = (i >> 2) & (kMaxN - 1), c = i & 3;
+    uint8_t* d = qkv_s + part * kV2Part + c * kV2Chunk + r * 16;
+    if (r < n)
+      cp_async16(d, a.qkv + (m0 + r) * ld + part * a.C + h * kV2Hd + c * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < kV2Stages; ++q) issue(q);
+  cp_async_wait<0>();
+  __syncthreads();
+  // q <- q / max(|q|, eps) * exp(min(tau_h, ln 100)), k <- k / max(|k|, eps)
+  const float scale = logit_scale(a.tau, h);
+  for (int i = tid; i < 2 * kMaxN; i += kV2Threads) {
+    const int part = i / kMaxN, r = i & (kMaxN - 1);
+    if (r >= n) continue;
+    uint8_t* row = qkv_s + part * kV2Part + r * 16;
+    uint4 u[4], o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) u[c] = *reinterpret_cast<const uint4*>(row + c * kV2Chunk);
+    const bf16* x = reinterpret_cast<const bf16*>(u);
+    bf16* y = reinterpret_cast<bf16*>(o);
+    float ss = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kV2Hd; ++e) {
+      const float v = to_f(x[e]);
+      ss += v * v;
+    }
+    const float den = fmaxf(sqrtf(ss), kNormEps), g = part == 0 ? scale : 1.0f;
+#pragma unroll
+    for (int e = 0; e < kV2Hd; ++e) y[e] = from_f<bf16>(to_f(x[e]) / den * g);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) *reinterpret_cast<uint4*>(row + c * kV2Chunk) = o[c];
+    if (a.raw) {
+      const long long col = part * a.C + h * kV2Hd;
+      uint4* dq = reinterpret_cast<uint4*>(a.qkv + (m0 + r) * ld + col);
+      uint4* dr = reinterpret_cast<uint4*>(a.raw + (m0 + r) * 2LL * a.C + col);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dr[c] = u[c];
+        dq[c] = o[c];
+      }
+    }
+  }
+  sm90::fence_proxy_async();   // q', k' in place, visible to wgmma
+  __syncthreads();
+  const uint32_t sq = sm90::smem_u32(qkv_s), sk = sq + kV2Part, sv = sk + kV2Part;
+  const bool two = n > 128;   // keys in both halves
+  int q = 0;                  // the next bias chunk to consume
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = tile_row(it);
+    float s[2][64];   // keys 0-127 and 128-255 of rows row0, row0 + 8
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      if (hk == 1 && !two) break;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        sm90::wgmma_ss_n128<0, 0>(
+            s[hk], sm90::make_desc(sq + q0 * 16 + kk * 2 * kV2Chunk, kV2Chunk, 128),
+            sm90::make_desc(sk + hk * 128 * 16 + kk * 2 * kV2Chunk, kV2Chunk, 128), kk);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+    // the logits, chunk by chunk as the warp's bias lands: -inf past the
+    // window's keys, 0 on rows past its queries; acc * 1 + rel (+ mask) as
+    // Bias::logit adds them
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < kMaxN / kV2Keys; ++c) {
+      if (c < nch) sm90::mbar_wait(bar0 + 8 * (q % kV2Stages), (q / kV2Stages) & 1);
+      const uint8_t* st = ring + (q % kV2Stages) * kV2BiasStage;
+#pragma unroll
+      for (int jj = 0; jj < kV2Keys / 8; ++jj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = (lane >> 2) + 8 * hf, qi = q0 + row0 + 8 * hf;
+          const int kj = c * kV2Keys + jj * 8 + 2 * t;
+          float* v = &s[c >> 2][4 * ((c & 3) * 4 + jj) + 2 * hf];
+          if (kj >= n) {
+            v[0] = v[1] = -INFINITY;
+          } else if (qi >= n) {
+            v[0] = 0.0f;
+            v[1] = kj + 1 < n ? 0.0f : -INFINITY;
+          } else {
+            const int off = r * kV2BiasRow + (((2 * jj + (t >> 1)) ^ (r & 7)) << 4) + (t & 1) * 8;
+            const float2 b = *reinterpret_cast<const float2*>(st + off);
+            float v0 = v[0] * 1.0f + b.x, v1 = v[1] * 1.0f + b.y;
+            if (mask) {
+              const float2 m = *reinterpret_cast<const float2*>(st + kV2BiasMat + off);
+              v0 += m.x;
+              v1 += m.y;
+            }
+            v[0] = v0;
+            v[1] = kj + 1 < n ? v1 : -INFINITY;
+          }
+          mx[hf] = fmaxf(mx[hf], fmaxf(v[0], v[1]));
+        }
+      if (c < nch) {
+        __syncwarp();   // every lane has read the stage
+        issue(q + kV2Stages);
+        ++q;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) mx[hf] = quad_max(mx[hf]);
+    // e = exp(s - max) in place, once a logit; the row sums in
+    // attn_fwd_kernel's order (eight partial sums over 64-key chunks)
+    float part[2][8];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[hf][j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c >= 2 && !two) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[c >> 1][4 * ((c & 1) * 8 + j) + 2 * hf + e];
+            v = expf(v - mx[hf]);
+            part[hf][j] += v;
+          }
+    }
+    float sum[2], inv[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      sum[hf] = quad_sum(sum8(part[hf]));
+      inv[hf] = 1.0f / sum[hf];
+    }
+    // p = e / sum (as e times the row's 1 / sum) in bf16, the A operand of
+    // p @ v, 16 keys a step
+    float o[16];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      if (kk >= 8 && !two) break;
+      const float* e0 = &s[kk >> 3][8 * (kk & 7)];
+      const uint32_t fa[4] = {pack_bf16(e0[0] * inv[0], e0[1] * inv[0]),
+                              pack_bf16(e0[2] * inv[1], e0[3] * inv[1]),
+                              pack_bf16(e0[4] * inv[0], e0[5] * inv[0]),
+                              pack_bf16(e0[6] * inv[1], e0[7] * inv[1])};
+      sm90::wgmma_rs_n32<1>(o, fa, sm90::make_desc(sv + kk * 256, 128, kV2Chunk), kk);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait0();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qi = q0 + row0 + 8 * hf;
+      if (qi >= n) continue;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(a.out + (m0 + qi) * a.C + h * kV2Hd + 2 * t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[4 * j] = pack_bf16(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
+      if (a.stats && t == 0) {
+        a.stats[(z * n + qi) * 2] = mx[hf];
+        a.stats[(z * n + qi) * 2 + 1] = sum[hf];
+      }
+    }
+  }
+}
+
 // A post-norm residual: out[row(m)] = res[row(m)] + dp[sample, dp_col] *
 // (LN(y[m]) * s + b), y in T (window order), statistics in f32; a warp a row
 struct PostNormArgs {
@@ -3249,12 +3562,66 @@ cudaError_t fwd_product_v2(const Dims& d, int which, const BlockParams& w, bool 
     return launch_gemm<T, false, false>(g, st);
 }
 
+// Whether SwinV2's attention stage runs fused (swinv2_attn_kernel): in bf16
+// at head size 32, the widths it is built for; else qk_norm_kernel, then
+// attn_fwd_kernel. A function of the type and widths alone.
+bool v2_attn_fused(int bf, int hd) { return bf && hd == kV2Hd; }
+
+// SwinV2's attention stage: merged = attention(normalised q, k; v) from qkv
+// (window order); with raw and stats (the backward's recompute) q and k as
+// they were into raw, q' and k' into qkv and the softmax's statistics into
+// stats. `fused` runs swinv2_attn_kernel (bf16, v2_attn_fused widths only),
+// else the two launches.
 template <typename T>
-cudaError_t qk_norm(const Dims& d, const float* tau, void* raw, const Buffers& b,
-                    cudaStream_t st) {
-  const QkNormArgs a = {b.qkv, raw, tau, d.M, d.C, d.heads, d.hd};
-  qk_norm_kernel<T><<<(unsigned)qk_blocks(d), kRowThreads, 0, st>>>(a);
+cudaError_t v2_attention(const Dims& d, const float* tau, const float* rel, const float* mask,
+                         void* qkv, void* raw, float* stats, void* merged, bool fused,
+                         cudaStream_t st) {
+  if (!fused) {
+    const QkNormArgs q = {qkv, raw, tau, d.M, d.C, d.heads, d.hd};
+    qk_norm_kernel<T><<<(unsigned)qk_blocks(d), kRowThreads, 0, st>>>(q);
+    ++g_launches;
+    TRY(cudaGetLastError());
+    return attention_fwd<T>(d, qkv, rel, mask, merged, stats, st, true);
+  }
+  if (sizeof(T) != 2 || !v2_attn_fused(1, d.hd)) return cudaErrorInvalidValue;
+  V2AttnArgs a = {};
+  a.qkv = static_cast<bf16*>(qkv);
+  a.raw = static_cast<bf16*>(raw);
+  a.stats = stats;
+  a.out = static_cast<bf16*>(merged);
+  a.tau = tau;
+  a.rel = rel;
+  a.mask = mask;
+  a.n_mask = d.nW;
+  a.n = d.n;
+  a.heads = d.heads;
+  a.C = d.C;
+  V2Maps maps = {};
+  maps.tma = d.n % 4 == 0;
+  if (maps.tma) {
+    const EncodeTiled enc = encode_tiled();
+    if (!enc) return cudaErrorNotSupported;
+    const cuuint32_t box[2] = {(cuuint32_t)kV2Keys, 16}, step[2] = {1, 1};
+    const cuuint64_t stride[1] = {(cuuint64_t)d.n * 4};
+    const float* src[2] = {rel, mask};
+    const long long rows[2] = {(long long)d.heads * d.n, (long long)d.nW * d.n};
+    CUtensorMap* dst[2] = {&maps.rel, &maps.mask};
+    for (int i = 0; i < 2; ++i) {
+      if (!src[i]) continue;
+      const cuuint64_t dim[2] = {(cuuint64_t)d.n, (cuuint64_t)rows[i]};
+      if (enc(dst[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(src[i]), dim,
+              stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return cudaErrorNotSupported;
+    }
+  }
+  auto kernel = d.n == kMaxN ? swinv2_attn_kernel<true> : swinv2_attn_kernel<false>;
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kV2Smem));
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100));
+  kernel<<<(unsigned)d.Z, kV2Threads, kV2Smem, st>>>(a, maps);
   ++g_launches;
+  ++g_v2_attn_launches;
   return cudaGetLastError();
 }
 
@@ -3308,18 +3675,19 @@ cudaError_t postnorm_bwd(const Dims& d, const void* y, const float* s, const voi
   return cudaGetLastError();
 }
 
-// SwinV2's block forward (8 launches): qkv, the normalisation of q and k,
-// the attention, the projection, LN1's residual, fc1, fc2, LN2's residual;
-// `save` keeps what the backward needs (q and k as they were, the softmax's
-// statistics, z1), and without `out` it stops before the last pass.
+// SwinV2's block forward (7 launches, 8 where the attention stage is not
+// fused: v2_attn_fused): qkv, the attention stage (the normalisation of q
+// and k, the attention), the projection, LN1's residual, fc1, fc2, LN2's
+// residual; `save` keeps what the backward needs (q and k as they were and
+// normalised, the softmax's statistics, z1), and without `out` it stops
+// before the last pass.
 template <typename T>
 cudaError_t block_forward_v2(const Dims& d, const BlockParams& w, const float* tau, bool save,
                              void* out, const Buffers& b, cudaStream_t st) {
   const int C = d.C, bf = sizeof(T) == 2;
   TRY(fwd_product_v2<T>(d, kQkv, w, save, b, st));
-  TRY(qk_norm<T>(d, tau, save ? b.qkraw : nullptr, b, st));
-  TRY(attention_fwd<T>(d, b.qkv, w.rel, w.mask, b.merged, save ? b.astats : nullptr, st,
-                       true));
+  TRY(v2_attention<T>(d, tau, w.rel, w.mask, b.qkv, save ? b.qkraw : nullptr,
+                      save ? b.astats : nullptr, b.merged, v2_attn_fused(bf, d.hd), st));
   TRY(fwd_product_v2<T>(d, kProj, w, save, b, st));
   // r1 = x + dp1 * LN1(y1), x read at the grid rows
   TRY(postnorm<T>(d, b.y1, w.ln1s, w.ln1b, src_of<T>(w.x, C, 1), Out{b.r1, C, bf, 0}, w, 0,
@@ -3332,7 +3700,8 @@ cudaError_t block_forward_v2(const Dims& d, const BlockParams& w, const float* t
                      st);
 }
 
-// SwinV2's block backward (18 launches): the forward recomputed (7), then
+// SwinV2's block backward (17 launches, 18 where the attention stage is not
+// fused): the forward recomputed (6 or 7), then
 // every product on operands rounded to bf16 as the Swin-v1 backward's
 template <typename T>
 cudaError_t block_backward_v2(const Dims& d, const BlockParams& w, const float* tau,
@@ -3412,12 +3781,38 @@ cudaError_t block_backward_v2(const Dims& d, const BlockParams& w, const float* 
 extern "C" {
 
 // Kernels this library has launched since it was loaded (K1 5 a call, K2 13,
-// K3 3, K4 7, SwinV2's block 8 and 18).
+// K3 3, K4 7, SwinV2's block 7 and 17, or 8 and 18 unfused).
 long long window_any_launches(void) { return g_launches; }
 
 // Of them, fwd_product_kernel's: every product of a block's forward in f32
 // (4 a K1 call, 3 in a K2 call's recompute).
 long long window_any_fwd_launches(void) { return g_fwd_launches; }
+
+// Of them, swinv2_attn_kernel's: SwinV2's fused attention stage, one a block
+// forward and one a backward (its recompute) in bf16 at head size 32.
+long long window_any_v2_attn_launches(void) { return g_v2_attn_launches; }
+
+// For the tests: SwinV2's attention stage alone, as swinv2_any_fwd (raw and
+// stats null) or its backward's recompute (both given) runs it, on qkv (T
+// [B * H * W, 3C], window order; q and k are normalised in place where raw
+// is given or the two launches run), tau [heads], rel [heads, n, n], mask
+// [nW, n, n] (or null), into merged (T [B * H * W, C]), raw (T [.., 2C])
+// and stats ([B * nW * heads, n, 2]). `fused` 1 launches
+// swinv2_attn_kernel (bf16 at head size 32 only), 0 the two launches.
+// Returns the CUDA error of the first failed launch.
+int swinv2_any_attn(void* qkv, const void* tau, const void* rel, const void* mask,
+                    void* merged, void* raw, float* stats, int fused, int bf, int B, int H,
+                    int W, int C, int heads, int ws, void* stream) {
+  if (!valid(B, H, W, C, heads, ws, 1) || (raw == nullptr) != (stats == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(B, H, W, C, heads, ws, 1);
+  const float* t = static_cast<const float*>(tau);
+  const float* r = static_cast<const float*>(rel);
+  const float* m = static_cast<const float*>(mask);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(bf ? v2_attention<bf16>(d, t, r, m, qkv, raw, stats, merged, fused != 0, st)
+                  : v2_attention<float>(d, t, r, m, qkv, raw, stats, merged, fused != 0, st));
+}
 
 // The forward attention's grid at these widths (attn_plan): the strips of 16
 // queries a block into out[0], the parts of the keys into out[1]. Returns 0,

@@ -474,6 +474,8 @@ def _lib(name: str):
             lib.window_any_attn_plan.restype = ctypes.c_int
             lib.window_any_fwd_launches.argtypes = []
             lib.window_any_fwd_launches.restype = ctypes.c_longlong
+            lib.window_any_v2_attn_launches.argtypes = []
+            lib.window_any_v2_attn_launches.restype = ctypes.c_longlong
             lib.window_any_fwd_product.argtypes = (
                 [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_void_p])
@@ -529,8 +531,10 @@ def window_any_lib():
 
 def window_any_launches() -> int:
     """Kernels the general route's library has launched since it was
-    loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call, 8 and 18
-    a SwinV2 block's forward and backward call."""
+    loaded: 5 a K1 call, 13 a K2 call, 3 a K3 call, 7 a K4 call, 7 and 17
+    a SwinV2 block's forward and backward call (8 and 18 where its
+    attention stage is not fused, ``ops/swinv2_block.py::
+    fused_attention``)."""
     return int(window_any_lib().window_any_launches())
 
 
@@ -539,6 +543,13 @@ def window_any_fwd_launches() -> int:
     kernel (``fwd_product_kernel``): 4 a K1 call in f32, 3 in a K2 call's
     recompute, none in bf16."""
     return int(window_any_lib().window_any_fwd_launches())
+
+
+def window_any_v2_attn_launches() -> int:
+    """Of :func:`window_any_launches`, those of SwinV2's fused attention
+    stage (``swinv2_attn_kernel``): one a SwinV2 block's forward call and
+    one a backward call (its recompute), in bf16 at head size 32."""
+    return int(window_any_lib().window_any_v2_attn_launches())
 
 
 # the four products of a block's forward, as window_any_fwd_product numbers

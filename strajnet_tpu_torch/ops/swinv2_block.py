@@ -21,13 +21,18 @@ PyTorch version, under autograd. A CUDA tensor goes through
 ``csrc/window_any.cu`` (the general route, f32 or bf16, at every width the
 route takes) and saves only its inputs; the backward launches
 ``swinv2_any_bwd``, which recomputes the forward and returns dx and the 14
-parameter gradients. The blocks reuse the route's products and fused
-window attention (run with scale 1 on q and k normalised beforehand),
-around kernels of their own: the normalisation of q and k and its
-backward, the post-norms and their backward, and dx's last sum (eight
-launches a forward, 18 a backward, :data:`FWD_LAUNCHES` and
-:data:`BWD_LAUNCHES`). As on the Swin-v1 general route, every backward
-product takes operands rounded to bf16 whatever the element type.
+parameter gradients. The blocks reuse the route's products, around kernels
+of their own: the attention stage, the normalisation's backward, the
+post-norms and their backward, and dx's last sum. The attention stage (q
+and k normalised, q scaled, the window attention at scale 1) is one kernel
+in bf16 at head size 32 (``swinv2_attn_kernel``; seven launches a forward,
+17 a backward, :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES`), and two
+elsewhere (the normalisation, then the route's fused window attention; one
+launch more each way): :func:`fused_attention` and :func:`launches` state
+the choice, :func:`attention_stage` runs the stage alone for the tests,
+:func:`attention_stage_reference` is its plain version. As on the Swin-v1
+general route, every backward product takes operands rounded to bf16
+whatever the element type.
 
 ``swinv2_block.launches_any`` and ``swinv2_block_bwd.launches_any`` count
 the calls. A failed build or launch, or a shape the route does not take,
@@ -51,8 +56,9 @@ from strajnet_tpu_torch.ops.swin_block import (_attention_tensors,
 
 LOGIT_SCALE_MAX = math.log(100.0)   # the logit scale's clamp, ln 100
 NORM_EPS = 1e-12                    # F.normalize's
-FWD_LAUNCHES = 8                    # kernels a forward call
-BWD_LAUNCHES = 18                   # kernels a backward call
+FWD_LAUNCHES = 7                    # kernels a forward call, the stage fused
+BWD_LAUNCHES = 17                   # kernels a backward call, the stage fused
+FUSED_HEAD_DIM = 32                 # the head size swinv2_attn_kernel takes
 # window_any_scratch_bytes' kinds of the SwinV2 block's launches
 _KIND_FWD, _KIND_BWD = 4, 5
 
@@ -63,6 +69,66 @@ GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "drel", "dtau", "dln1s",
 def logit_scales(tau: torch.Tensor) -> torch.Tensor:
     """``exp(min(tau, ln 100))`` in f32: the heads' logit scales."""
     return torch.exp(torch.clamp(tau.float(), max=LOGIT_SCALE_MAX))
+
+
+def fused_attention(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the block's attention stage runs as one kernel
+    (``swinv2_attn_kernel``) at this element type and head size: bf16 at
+    head size 32. Elsewhere it runs as two, the normalisation of q and k,
+    then the route's window attention (``csrc/window_any.cu::
+    v2_attn_fused``, the same rule)."""
+    return dtype == torch.bfloat16 and head_dim == FUSED_HEAD_DIM
+
+
+def launches(dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
+    """Kernels a forward and a backward call launch at this element type
+    and head size: :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES` with the
+    stage fused, one more each without."""
+    more = 0 if fused_attention(dtype, head_dim) else 1
+    return FWD_LAUNCHES + more, BWD_LAUNCHES + more
+
+
+def attention_stage_reference(qkv, tau, rel_bias, mask=None, *,
+                              window_size: int, num_heads: int):
+    """Plain PyTorch attention stage of the block, the kernels' arithmetic.
+
+    ``qkv`` is ``[M, 3C]`` in window order (window after window, each of
+    ``window_size ** 2`` tokens), ``tau`` ``[heads]``, ``rel_bias``
+    ``[heads, n, n]``, ``mask`` ``[nW, n, n]`` or None. Returns ``(qkv'``
+    (q and k normalised and q scaled, in qkv's type), ``merged`` ``[M, C]``,
+    ``raw`` ``[M, 2C]`` (q and k as they were), ``stats`` ``[windows *
+    heads, n, 2]`` (each row's logit max and sum of exp(logit - max))).
+    The squares of a row are summed in order over the head's elements as
+    the kernels sum them; a bf16 square is exact in f32, so in bf16 q' and
+    k' are the kernels' bit for bit. The logits, softmax and p @ v run in
+    f32 on q', k' and p rounded to qkv's type."""
+    m, c3 = qkv.shape
+    c, n, heads = c3 // 3, window_size * window_size, num_heads
+    hd, dt = c // heads, qkv.dtype
+    x = qkv.reshape(-1, n, 3, heads, hd)
+    qk = x[:, :, :2].float()
+    ss = torch.zeros(qk.shape[:-1], dtype=torch.float32, device=qkv.device)
+    for e in range(hd):
+        ss = ss + qk[..., e] * qk[..., e]
+    den = torch.sqrt(ss).clamp_min(NORM_EPS)
+    g = torch.stack([logit_scales(tau), torch.ones_like(tau.float())])
+    qkn = (qk / den[..., None] * g[:, :, None]).to(dt)
+    out = qkv.clone()
+    out.view(-1, n, 3, heads, hd)[:, :, :2] = qkn
+    raw = qkv.reshape(m, 3, c)[:, :2].reshape(m, 2 * c).clone()
+    q, k = (qkn[:, :, i].float().transpose(1, 2) for i in (0, 1))
+    logits = q @ k.transpose(-1, -2) + rel_bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(-1, nw, heads, n, n)
+                  + mask.float()[None, :, None]).reshape(-1, heads, n, n)
+    mx = logits.amax(-1)
+    e = torch.exp(logits - mx[..., None])
+    sm = e.sum(-1)
+    p = (e / sm[..., None]).to(dt)
+    merged = (p.float() @ x[:, :, 2].float().transpose(1, 2)).to(dt)
+    merged = merged.transpose(1, 2).reshape(m, c)
+    return out, merged, raw, torch.stack([mx, sm], -1).reshape(-1, n, 2)
 
 
 def swinv2_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, tau, ln1s,
@@ -119,8 +185,50 @@ def _bind(lib):
             [ctypes.c_void_p] * 34 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.swinv2_any_bwd.restype = ctypes.c_int
+        lib.swinv2_any_attn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.swinv2_any_attn.restype = ctypes.c_int
         lib._bound_v2 = True
     return lib
+
+
+def attention_stage(qkv, tau, rel_bias, mask=None, *, batch: int,
+                    height: int, width: int, window_size: int,
+                    num_heads: int, save: bool = False,
+                    fused: Optional[bool] = None):
+    """For the tests: the block's attention stage alone on CUDA tensors,
+    as the block's forward (``save`` False) or its backward's recompute
+    (``save``) runs it. ``qkv`` ``[M, 3C]`` in window order (M = batch *
+    height * width) and the rest as :func:`attention_stage_reference` takes
+    them. ``fused`` None takes the route's choice (:func:`fused_attention`),
+    True the fused kernel (bf16 at head size 32 only), False the two
+    launches. Returns ``(merged, raw, stats)``, raw and stats None without
+    ``save``; q and k in ``qkv`` are left normalised where ``save`` or the
+    two launches."""
+    m, c3 = qkv.shape
+    c, n = c3 // 3, window_size * window_size
+    expect = {"qkv": (qkv, qkv.dtype, (batch * height * width, 3 * c)),
+              "tau": (tau, torch.float32, (num_heads,)),
+              "rel_bias": (rel_bias, torch.float32, (num_heads, n, n))}
+    if mask is not None:
+        nw = (height // window_size) * (width // window_size)
+        expect["mask"] = (mask, torch.float32, (nw, n, n))
+    check_tensors(expect, qkv.device)
+    if fused is None:
+        fused = fused_attention(qkv.dtype, c // num_heads)
+    merged = qkv.new_empty(m, c)
+    raw = qkv.new_empty(m, 2 * c) if save else None
+    stats = (torch.empty(m // n * num_heads, n, 2, dtype=torch.float32,
+                         device=qkv.device) if save else None)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = _bind(window_any_lib()).swinv2_any_attn(
+        ptr(qkv), ptr(tau), ptr(rel_bias), ptr(mask), ptr(merged), ptr(raw),
+        ptr(stats), int(fused), int(qkv.dtype == torch.bfloat16), batch,
+        height, width, c, num_heads, window_size, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"SwinV2 attention stage failed with CUDA error "
+                           f"{err}")
+    return merged, raw, stats
 
 
 def check_args(x, wqkv, bqkv, wproj, bproj, rel_bias, tau, ln1s, ln1b, ln2s,

@@ -9,7 +9,10 @@ no JAX). The forward (``swinv2_any_fwd``) and the backward
 autograd on the same card: in f32 directly, in bf16 by their distance from
 the plain block computed in f32, against the plain bf16 block's own; at the
 geometries of the SwinV2-B configuration's blocks, with a head of each
-block past the logit scale's clamp (whose gradient is zero there).
+block past the logit scale's clamp (whose gradient is zero there). The
+block's attention stage alone (``attention_stage``), fused in bf16 at head
+size 32, is held against the two launches it replaces and against its
+plain version (``attention_stage_reference``).
 """
 
 import math
@@ -99,11 +102,14 @@ def _gaps(got, want):
 
 
 # (B, H = W, C, heads, window, MLP width, shift): SwinV2-B's first stage
-# (and the flow stage) at 128^2 shifted, its third at C 512 with 16 heads,
-# its last at C 1024 with 32 heads in one unshifted 16x16 window; and a
-# small case of windows of 4.
+# (and the flow stage) at 128^2 shifted, its second at C 256 with 8 heads,
+# its third at C 512 with 16 heads, its last at C 1024 with 32 heads in one
+# unshifted 16x16 window (head size 32 throughout: in bf16 the attention
+# stage runs fused); and a small case of windows of 4 (head size 16: two
+# launches).
 GEOMETRIES = [
     (2, 128, 128, 4, 16, 512, 8),
+    (2, 64, 256, 8, 16, 1024, 8),
     (2, 32, 512, 16, 16, 2048, 8),
     (2, 16, 1024, 32, 16, 4096, 0),
     (2, 8, 32, 2, 4, 64, 2),
@@ -179,15 +185,136 @@ def test_swinv2_kernels_match_plain(card, b, h, c, heads, ws, hidden, shift,
 
 
 def test_swinv2_block_launch_counts(card):
-    """Eight kernels a forward and 18 a backward in the library's own
-    count (``FWD_LAUNCHES``, ``BWD_LAUNCHES``)."""
-    from strajnet_tpu_torch.ops.swin_block import window_any_launches
-    args, mask, dp, dy = _case(card, 1, 8, 32, 2, 4, 64, 2, torch.bfloat16)
-    kw = dict(window_size=4, num_heads=2)
-    v2.swinv2_block(*args, mask, dp, **kw)
-    n0 = window_any_launches()
-    v2.swinv2_block(*args, mask, dp, **kw)
-    n1 = window_any_launches()
-    v2.swinv2_block_bwd(*args, mask, dp, dy, **kw)
-    assert (n1 - n0, window_any_launches() - n1) == (v2.FWD_LAUNCHES,
-                                                      v2.BWD_LAUNCHES)
+    """Seven kernels a forward and 17 a backward in the library's own count
+    (``FWD_LAUNCHES``, ``BWD_LAUNCHES``) in bf16 at head size 32, one of
+    them the fused attention stage each way
+    (``window_any_v2_attn_launches``); at head size 16 one more each way
+    and no fused stage (``launches``)."""
+    from strajnet_tpu_torch.ops.swin_block import (
+        window_any_launches, window_any_v2_attn_launches)
+
+    def counted(c, heads):
+        args, mask, dp, dy = _case(card, 1, 8, c, heads, 4, 2 * c, 2,
+                                   torch.bfloat16)
+        kw = dict(window_size=4, num_heads=heads)
+        v2.swinv2_block(*args, mask, dp, **kw)
+        n0 = window_any_launches(), window_any_v2_attn_launches()
+        v2.swinv2_block(*args, mask, dp, **kw)
+        n1 = window_any_launches(), window_any_v2_attn_launches()
+        v2.swinv2_block_bwd(*args, mask, dp, dy, **kw)
+        n2 = window_any_launches(), window_any_v2_attn_launches()
+        return tuple(b[i] - a[i] for i in (0, 1) for a, b in ((n0, n1),
+                                                               (n1, n2)))
+
+    assert counted(64, 2) == (v2.FWD_LAUNCHES, v2.BWD_LAUNCHES, 1, 1)
+    assert v2.launches(torch.bfloat16, 32) == (7, 17)
+    assert counted(32, 2) == v2.launches(torch.bfloat16, 16) + (0, 0)
+    assert v2.launches(torch.bfloat16, 16) == (8, 18)
+
+
+# (H = W, C, heads, window, shift) of the attention stage at batch 2: the
+# SwinV2-B configuration's four widths (the first also the flow stage's),
+# shifted and not, and the last in its one unshifted window; and windows of
+# 16, 49 (rows of n % 4 != 0 floats: the bias staged by cp.async, not by
+# tensor maps) and 144 tokens (a second half of the keys in part)
+STAGE_GEOMETRIES = [
+    (128, 128, 4, 16, 8), (128, 128, 4, 16, 0), (64, 256, 8, 16, 8),
+    (64, 256, 8, 16, 0), (32, 512, 16, 16, 8), (32, 512, 16, 16, 0),
+    (16, 1024, 32, 16, 0), (8, 64, 2, 4, 2), (14, 64, 2, 7, 3),
+    (24, 96, 3, 12, 6),
+]
+
+
+def _stage_case(card, h, c, heads, shift, dtype, b=2, ws=16):
+    g = torch.Generator().manual_seed(1)
+    tau = math.log(10.0) + 1.5 * (torch.rand(heads, generator=g) * 2 - 1)
+    tau[0] = 5.0
+    qkv = torch.randn(b * h * h, 3 * c, generator=g).to(dtype)
+    rel = 16.0 * torch.sigmoid(torch.randn(heads, ws * ws, ws * ws,
+                                           generator=g))
+    mask = (torch.from_numpy(shifted_window_mask(h, h, ws, shift)).to(card)
+            if shift else None)
+    kw = dict(window_size=ws, num_heads=heads)
+    return qkv.to(card), tau.to(card), rel.to(card), mask, kw
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("h,c,heads,ws,shift", STAGE_GEOMETRIES)
+def test_swinv2_fused_attention_stage_matches_two_launches(card, h, c, heads,
+                                                           ws, shift, save):
+    """The fused attention stage (``swinv2_attn_kernel``) against the two
+    launches it replaces (``qk_norm_kernel``, ``attn_fwd_kernel``) on the
+    same bf16 qkv: q', k' (left in qkv) and raw q, k bit for bit, and those
+    of the plain stage too; without ``save`` qkv left as it was. merged and
+    the row statistics held as the block is: against the plain stage in
+    f32, no further than BF16_FACTOR times the two launches are."""
+    from strajnet_tpu_torch.ops.swin_block import window_any_v2_attn_launches
+    qkv, tau, rel, mask, kw = _stage_case(card, h, c, heads, shift,
+                                          torch.bfloat16, ws=ws)
+    geo = dict(batch=2, height=h, width=h, save=save, **kw)
+    got_qkv, two_qkv = qkv.clone(), qkv.clone()
+    n0 = window_any_v2_attn_launches()
+    got = v2.attention_stage(got_qkv, tau, rel, mask, fused=True, **geo)
+    assert window_any_v2_attn_launches() == n0 + 1
+    two = v2.attention_stage(two_qkv, tau, rel, mask, fused=False, **geo)
+    assert window_any_v2_attn_launches() == n0 + 1
+    ref_qkv, ref_merged, ref_raw, ref_stats = v2.attention_stage_reference(
+        qkv, tau, rel, mask, **kw)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, exact_merged, _, exact_stats = v2.attention_stage_reference(
+            qkv.float(), tau, rel, mask, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(two_qkv, ref_qkv)
+    if save:
+        assert torch.equal(got_qkv, two_qkv)
+        assert torch.equal(got[1], two[1]) and torch.equal(got[1], ref_raw)
+    else:
+        assert torch.equal(got_qkv, qkv)
+        assert got[1] is None and got[2] is None
+    pairs = [("merged", got[0], two[0], exact_merged)]
+    if save:
+        pairs += [("max", got[2][..., 0], two[2][..., 0], exact_stats[..., 0]),
+                  ("sum", got[2][..., 1], two[2][..., 1], exact_stats[..., 1])]
+    bad = []
+    for name, a, p, e in pairs:
+        err, omc = _gaps(a.float(), e.float())
+        perr, pomc = _gaps(p.float(), e.float())
+        lim = (max(BF16_FACTOR * perr, BF16_FLOOR),
+               max(BF16_FACTOR * pomc, BF16_COS_FLOOR))
+        print(f"stage C {c} ws {ws} shift {shift} save {save} {name}: err "
+              f"{err:.3e} 1-cos {omc:.3e} (two launches {perr:.3e} "
+              f"{pomc:.3e}); "
+              f"bit-identical to the two launches: {torch.equal(a, p)}")
+        if err > lim[0] or omc > lim[1]:
+            bad.append(name)
+    assert not bad, bad
+
+
+def test_swinv2_attention_stage_unfused_in_f32(card):
+    """f32, a type the fused stage is not built for: the route runs the two
+    launches (no fused launch, two kernels), matching the plain stage, and
+    asking for the fused kernel raises."""
+    from strajnet_tpu_torch.ops.swin_block import (
+        window_any_launches, window_any_v2_attn_launches)
+    qkv, tau, rel, mask, kw = _stage_case(card, 32, 128, 4, 8, torch.float32)
+    geo = dict(batch=2, height=32, width=32, save=True, **kw)
+    assert not v2.fused_attention(torch.float32, 32)
+    n0 = window_any_launches(), window_any_v2_attn_launches()
+    got_qkv = qkv.clone()
+    merged, raw, stats = v2.attention_stage(got_qkv, tau, rel, mask, **geo)
+    assert (window_any_launches() - n0[0],
+            window_any_v2_attn_launches() - n0[1]) == (2, 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = v2.attention_stage_reference(qkv, tau, rel, mask, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(raw, ref[2])
+    for a, e in ((got_qkv, ref[0]), (merged, ref[1]), (stats, ref[3])):
+        assert _gaps(a, e)[0] <= F32_FWD_TOL
+    with pytest.raises(RuntimeError):
+        v2.attention_stage(qkv.clone(), tau, rel, mask, fused=True, **geo)
