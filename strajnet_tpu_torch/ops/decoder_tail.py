@@ -40,13 +40,12 @@ zero outside the ``2H x 2W`` image. Kernels keep the JAX layout, HWIO:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from strajnet_tpu_torch.ops.swin_block import check_tensors, ptr
+from strajnet_tpu_torch._build import check_tensors, launch, load_library
 from strajnet_tpu_torch.ops.upconv import conv2d_nhwc, upsample2x_conv3x3
 
 # _ROW_SETS[a][r]: rows of the 3x3 kernel folded into low-resolution tap r of
@@ -184,40 +183,10 @@ def kernel_route(dtype: torch.dtype, cin: int, cmid: int, cout: int) -> str:
     return "any"
 
 
-def _lib_any():
-    from strajnet_tpu_torch._build import load_library
-
-    lib = load_library("decoder_tail_any")
-    if not getattr(lib, "_bound", False):
-        lib.decoder_tail_any_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.decoder_tail_any_fwd.restype = ctypes.c_int
-        lib.decoder_tail_any_scratch_bytes.argtypes = [ctypes.c_int] * 3
-        lib.decoder_tail_any_scratch_bytes.restype = ctypes.c_longlong
-        lib._bound = True
-    return lib
-
-
-def _lib():
-    from strajnet_tpu_torch._build import load_library
-
-    lib = load_library("decoder_tail")
-    if not getattr(lib, "_bound", False):
-        lib.decoder_tail_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.decoder_tail_fwd.restype = ctypes.c_int
-        lib.decoder_tail_scratch_bytes.argtypes = []
-        lib.decoder_tail_scratch_bytes.restype = ctypes.c_longlong
-        lib.decoder_tail_smem_bytes.argtypes = []
-        lib.decoder_tail_smem_bytes.restype = ctypes.c_size_t
-        lib._bound = True
-    return lib
-
-
 def kernel_smem_bytes() -> int:
     """Dynamic shared memory of one block of the kernel (builds it; needs
     nvcc)."""
-    return int(_lib().decoder_tail_smem_bytes())
+    return int(load_library("decoder_tail").decoder_tail_smem_bytes())
 
 
 def _check_4d(x, w_up, w_out) -> None:
@@ -281,7 +250,7 @@ def _launch_any(x, w_up, b_up, w_out, b_out):
     wu, bu, wo, bo = (t.to(f32).contiguous()
                       for t in (w_up, b_up, w_out, b_out))
     bf = int(x.dtype == torch.bfloat16)
-    lib = _lib_any()
+    lib = load_library("decoder_tail_any")
     out = torch.empty(n, 2 * h, 2 * w, 2, dtype=x.dtype, device=x.device)
     # the folded weights, padded to the products' tiles
     scratch = torch.empty(lib.decoder_tail_any_scratch_bytes(bf, cin, cmid),
@@ -291,13 +260,8 @@ def _launch_any(x, w_up, b_up, w_out, b_out):
                    "b_up": (bu, f32, (cmid,)),
                    "w_out": (wo, f32, (3, 3, cmid, 2)),
                    "b_out": (bo, f32, (2,))}, x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.decoder_tail_any_fwd(
-        ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo), ptr(out), ptr(scratch),
-        bf, n, h, w, cin, cmid, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"decoder_tail general kernel launch failed with "
-                           f"CUDA error {err}")
+    launch(lib, "decoder_tail_any_fwd", x, wu, bu, wo, bo, out, scratch, bf,
+           n, h, w, cin, cmid)
     decoder_tail.launches_any += 1
     return out
 
@@ -309,7 +273,7 @@ def _launch_wgmma(x, w_up, b_up, w_out, b_out):
     bf, f32 = torch.bfloat16, torch.float32
     wu, bu, wo, bo = (t.to(f32).contiguous()
                       for t in (w_up, b_up, w_out, b_out))
-    lib = _lib()
+    lib = load_library("decoder_tail")
     out = torch.empty(n, 2 * h, 2 * w, 2, dtype=bf, device=x.device)
     # the kernel's copy of both kernels, folded and packed into its tiles
     scratch = torch.empty(lib.decoder_tail_scratch_bytes(), dtype=torch.uint8,
@@ -319,13 +283,8 @@ def _launch_wgmma(x, w_up, b_up, w_out, b_out):
                    "b_up": (bu, f32, (cmid,)),
                    "w_out": (wo, f32, (3, 3, cmid, 2)),
                    "b_out": (bo, f32, (2,))}, x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.decoder_tail_fwd(ptr(x), ptr(wu), ptr(bu), ptr(wo), ptr(bo),
-                               ptr(out), ptr(scratch), n, h, w, cin, cmid,
-                               ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"decoder_tail kernel launch failed with CUDA "
-                           f"error {err}")
+    launch(lib, "decoder_tail_fwd", x, wu, bu, wo, bo, out, scratch, n, h, w,
+           cin, cmid)
     decoder_tail.launches += 1
     return out
 

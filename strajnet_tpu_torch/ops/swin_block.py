@@ -44,12 +44,13 @@ route's.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from strajnet_tpu_torch._build import check_tensors, launch, load_library
 
 _KERNEL_WINDOW = 8   # ws * ws == 64 tokens: one wgmma M tile per window
 _BLOCK_CHANNELS = (96, 192, 384)   # widths the wgmma window kernels are built for
@@ -62,7 +63,7 @@ ANY_MAX_CHANNELS = 1024
 ANY_MAX_HIDDEN = 4096
 
 
-def _ln_f32(x, scale, bias, eps):
+def ln_f32(x, scale, bias, eps):
     return F.layer_norm(x.float(), (x.shape[-1],), scale.float(),
                         bias.float(), eps)
 
@@ -90,7 +91,7 @@ def swin_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     dp = (torch.ones(b_, 2, dtype=torch.float32, device=x.device)
           if drop_path is None else drop_path.float())
 
-    xn = _ln_f32(x, ln1s, ln1b, eps).to(dt)
+    xn = ln_f32(x, ln1s, ln1b, eps).to(dt)
     xw = xn.reshape(b_, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     xw = xw.reshape(-1, n, c)
     qkv = xw @ wqkv.to(dt) + bqkv.to(dt)
@@ -108,7 +109,7 @@ def swin_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     out = out.reshape(b_, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
     out = out.reshape(b_, h, w, c)
     r1 = (x.float() + dp[:, 0, None, None, None] * out.float()).to(dt)
-    y = _ln_f32(r1, ln2s, ln2b, eps).to(dt)
+    y = ln_f32(r1, ln2s, ln2b, eps).to(dt)
     if ffn is None:
         y = F.gelu((y @ w1.to(dt) + b1.to(dt)).float(),
                    approximate="tanh").to(dt)
@@ -268,25 +269,6 @@ def swin_block_backward_reference(
                 dln2b, dw1, db1, dw2, db2)
 
 
-def check_tensors(expect, device) -> None:
-    """Raises ValueError unless every ``name: (tensor, dtype, shape)`` of
-    ``expect`` is a contiguous, 32-byte aligned tensor of that dtype and
-    shape on ``device``: what the CUDA kernels read through raw pointers."""
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes "
-                             f"{dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, x on {device}")
-        if t.data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned")
-
-
 def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
                          window_size: int, num_heads: int,
                          what: str = "the window kernels") -> None:
@@ -305,9 +287,9 @@ def check_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
     if h % window_size or w % window_size:
         raise ValueError(f"H={h}, W={w} must be multiples of {window_size}")
     check_wgmma_widths(c, num_heads, what)
-    check_tensors(_attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
-                                     mask, window_size, num_heads,
-                                     torch.bfloat16), x.device)
+    check_tensors(attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                    mask, window_size, num_heads,
+                                    torch.bfloat16), x.device)
 
 
 def check_wgmma_widths(c: int, num_heads: int, what: str) -> None:
@@ -337,11 +319,11 @@ def check_kernel_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     if hidden <= 0 or hidden % 64:
         raise ValueError(f"MLP hidden width {hidden} must be a multiple of "
                          f"64")
-    check_tensors(_mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
-                               drop_path, torch.bfloat16), x.device)
+    check_tensors(mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                              drop_path, torch.bfloat16), x.device)
 
 
-def _mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, drop_path, dt):
+def mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2, drop_path, dt):
     """``check_tensors``' table of the block's other arguments: ``w1`` and
     ``w2`` in ``dt``, the LayerNorm parameters, ``b1``, ``b2`` and the
     drop-path multipliers (which may be None) in f32."""
@@ -394,8 +376,8 @@ def kernel_route(dtype: torch.dtype, c: int, heads: int, window_size: int,
     return "any"
 
 
-def _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                       window_size, num_heads, dt):
+def attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                      window_size, num_heads, dt):
     """``check_tensors``' table of the attention arguments in element type
     ``dt`` (f32 rel_bias and mask)."""
     b, h, w, c = x.shape
@@ -415,7 +397,7 @@ def _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
     return expect
 
 
-def _grid_check(x, window_size: int) -> None:
+def check_grid(x, window_size: int) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     _, h, w, _ = x.shape
@@ -431,10 +413,10 @@ def check_general_attention_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
     ``bqkv`` and ``bproj`` (which may be None) in one element type, f32 or
     bf16; f32 ``rel_bias [heads, n, n]`` and mask; the limits of
     :func:`kernel_route`. Touches no kernel."""
-    _grid_check(x, window_size)
+    check_grid(x, window_size)
     kernel_route(x.dtype, x.shape[-1], num_heads, window_size)
-    check_tensors(_attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
-                                     mask, window_size, num_heads, x.dtype),
+    check_tensors(attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                    mask, window_size, num_heads, x.dtype),
                   x.device)
 
 
@@ -445,88 +427,20 @@ def check_general_args(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b,
     arguments: what :func:`check_general_attention_args` asks, ``w1`` and
     ``w2`` in x's element type, f32 LayerNorm parameters, ``b1``, ``b2``
     and drop-path multipliers. Touches no kernel."""
-    _grid_check(x, window_size)
+    check_grid(x, window_size)
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
     kernel_route(x.dtype, x.shape[-1], num_heads, window_size, hidden)
-    expect = _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                                window_size, num_heads, x.dtype)
-    expect.update(_mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
-                               drop_path, x.dtype))
+    expect = attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                               window_size, num_heads, x.dtype)
+    expect.update(mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                              drop_path, x.dtype))
     check_tensors(expect, x.device)
-
-
-def ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
-def _lib(name: str):
-    from strajnet_tpu_torch._build import load_library
-
-    lib = load_library(name)
-    if not getattr(lib, "_bound", False):
-        if name == "window_any":
-            lib.window_any_scratch_bytes.argtypes = [ctypes.c_int] * 9
-            lib.window_any_scratch_bytes.restype = ctypes.c_longlong
-            lib.window_any_launches.argtypes = []
-            lib.window_any_launches.restype = ctypes.c_longlong
-            lib.window_any_attn_plan.argtypes = (
-                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
-            lib.window_any_attn_plan.restype = ctypes.c_int
-            lib.window_any_fwd_launches.argtypes = []
-            lib.window_any_fwd_launches.restype = ctypes.c_longlong
-            lib.window_any_v2_attn_launches.argtypes = []
-            lib.window_any_v2_attn_launches.restype = ctypes.c_longlong
-            lib.window_any_fwd_product.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_void_p])
-            lib.window_any_fwd_product.restype = ctypes.c_int
-            lib.swin_any_fwd.argtypes = (
-                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
-                + [ctypes.c_float, ctypes.c_void_p])
-            lib.swin_any_fwd.restype = ctypes.c_int
-            lib.swin_any_bwd.argtypes = (
-                [ctypes.c_void_p] * 32 + [ctypes.c_int] * 9
-                + [ctypes.c_float, ctypes.c_void_p])
-            lib.swin_any_bwd.restype = ctypes.c_int
-            lib.attn_any_fwd.argtypes = (
-                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-            lib.attn_any_fwd.restype = ctypes.c_int
-            lib.attn_any_bwd.argtypes = (
-                [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
-                + [ctypes.c_void_p])
-            lib.attn_any_bwd.restype = ctypes.c_int
-        elif name == "swin_block":
-            lib.swin_block_fwd.argtypes = (
-                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_void_p])
-            lib.swin_block_fwd.restype = ctypes.c_int
-            lib.swin_block_fwd_scratch_bytes.argtypes = [ctypes.c_int] * 5
-            lib.swin_block_fwd_scratch_bytes.restype = ctypes.c_longlong
-            lib.swin_block_smem_bytes.argtypes = [ctypes.c_int]
-            lib.swin_block_smem_bytes.restype = ctypes.c_size_t
-        else:
-            lib.swin_block_bwd.argtypes = (
-                [ctypes.c_void_p] * 33 + [ctypes.c_int] * 6
-                + [ctypes.c_float, ctypes.c_void_p])
-            lib.swin_block_bwd.restype = ctypes.c_int
-            lib.swin_block_bwd_scratch_bf16.argtypes = [ctypes.c_int] * 5
-            lib.swin_block_bwd_scratch_bf16.restype = ctypes.c_longlong
-            lib.swin_block_bwd_scratch_f32.argtypes = [ctypes.c_int] * 4
-            lib.swin_block_bwd_scratch_f32.restype = ctypes.c_longlong
-            lib.swin_block_atb_accum.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                + [ctypes.c_longlong, ctypes.c_void_p])
-            lib.swin_block_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-            lib.swin_block_bwd_smem_bytes.restype = ctypes.c_size_t
-            lib.swin_block_atb_accum.restype = ctypes.c_int
-        lib._bound = True
-    return lib
 
 
 def window_any_lib():
     """The general route's library, ``csrc/window_any.cu``, built and
     bound (needs nvcc)."""
-    return _lib("window_any")
+    return load_library("window_any")
 
 
 def window_any_launches() -> int:
@@ -574,15 +488,9 @@ def window_any_fwd_product(which: str, a, w, bias, out, *, window_size: int,
                  "fc2": (n, k)}[which]
     if w.shape[0] != k or n != {"qkv": 3 * k, "proj": k}.get(which, n):
         raise ValueError(f"{which}: w {tuple(w.shape)} at depth {k}")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = window_any_lib().window_any_fwd_product(
-        FWD_PRODUCTS.index(which), ptr(a), ptr(res), ptr(w), ptr(bias),
-        ptr(ln_s), ptr(ln_b), ptr(drop_path), ptr(out), ptr(stats),
-        ptr(side), ptr(aux), b, h, w_, c, window_size, hidden, eps,
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fwd_product_kernel ({which}) failed with CUDA "
-                           f"error {err}")
+    launch(window_any_lib(), "window_any_fwd_product",
+           FWD_PRODUCTS.index(which), a, res, w, bias, ln_s, ln_b, drop_path,
+           out, stats, side, aux, b, h, w_, c, window_size, hidden, eps)
 
 
 def any_scratch(kind: int, x: torch.Tensor, num_heads: int,
@@ -616,14 +524,9 @@ def _launch_any_fwd(args, mask, drop_path, window_size, num_heads, eps):
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     scratch = any_scratch(0, x, num_heads, window_size, w1.shape[1])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = window_any_lib().swin_any_fwd(
-        *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
-        ptr(scratch), int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
-        window_size, w1.shape[1], eps, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"swin_block general kernels failed with CUDA "
-                           f"error {err}")
+    launch(window_any_lib(), "swin_any_fwd", *args, mask, drop_path, out,
+           scratch, int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
+           window_size, w1.shape[1], eps)
     swin_block.launches_any += 1
     return out
 
@@ -634,20 +537,14 @@ def _launch_wgmma_fwd(args, mask, drop_path, window_size, num_heads, eps):
                       num_heads=num_heads)
     b, h, w, c = x.shape
     out = torch.empty_like(x)
-    lib = _lib("swin_block")
+    lib = load_library("swin_block")
     # the kernel's copy of the four weights, packed into its tiles, and its
     # parking space for r1
     scratch = torch.empty(
         lib.swin_block_fwd_scratch_bytes(b, h, w, c, w1.shape[1]),
         dtype=torch.uint8, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.swin_block_fwd(
-        *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
-        ptr(scratch), b, h, w, c, num_heads, w1.shape[1], eps,
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"swin_block kernel launch failed with CUDA error "
-                           f"{err}")
+    launch(lib, "swin_block_fwd", *args, mask, drop_path, out, scratch, b, h,
+           w, c, num_heads, w1.shape[1], eps)
     swin_block.launches += 1
     return out
 
@@ -695,33 +592,21 @@ def swin_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, ln1s, ln1b, ln2s,
     sizes = [math.prod(sh) for sh in shapes]
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     grads = tuple(v.view(sh) for v, sh in zip(flat.split(sizes), shapes))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "any":
         bf = int(x.dtype == torch.bfloat16)
         scratch = any_scratch(1, x, num_heads, window_size, hidden)
-        err = window_any_lib().swin_any_bwd(
-            ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
-            ptr(drop_path), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
-            bf, 1, b, h, w, c, num_heads, window_size, hidden, eps,
-            ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"swin_block_bwd general kernels failed with "
-                               f"CUDA error {err}")
+        launch(window_any_lib(), "swin_any_bwd", x, dy, *args[1:], mask,
+               drop_path, dx, *grads, scratch, bf, 1, b, h, w, c, num_heads,
+               window_size, hidden, eps)
         swin_block_bwd.launches_any += 1
         return dx, grads
-    lib = _lib("swin_block_bwd")
+    lib = load_library("swin_block_bwd")
     scratch16 = torch.empty(lib.swin_block_bwd_scratch_bf16(b, h, w, c, hidden),
                             dtype=torch.bfloat16, device=dev)
     scratch32 = torch.empty(lib.swin_block_bwd_scratch_f32(b, h, w, c),
                             dtype=torch.float32, device=dev)
-    err = lib.swin_block_bwd(
-        ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
-        ptr(drop_path), ptr(dx), *(ptr(g) for g in grads),
-        ptr(scratch16), ptr(scratch32), b, h, w, c, num_heads, hidden, eps,
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"swin_block_bwd kernel launch failed with CUDA "
-                           f"error {err}")
+    launch(lib, "swin_block_bwd", x, dy, *args[1:], mask, drop_path, dx,
+           *grads, scratch16, scratch32, b, h, w, c, num_heads, hidden, eps)
     swin_block_bwd.launches += 1
     return dx, grads
 
@@ -759,20 +644,17 @@ def atb_accum(a: torch.Tensor, b: torch.Tensor,
     check_tensors({"a": (a, torch.bfloat16, a.shape),
                    "b": (b, torch.bfloat16, b.shape),
                    "out": (out, torch.float32, (m, n))}, a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib("swin_block_bwd").swin_block_atb_accum(
-        ptr(a), ptr(b), ptr(out), m, n, ntok, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"atb_accum kernel launch failed with CUDA error "
-                           f"{err}")
+    launch(load_library("swin_block_bwd"), "swin_block_atb_accum", a, b, out,
+           m, n, ntok)
     return out
 
 
 def kernel_smem_bytes(c: int, hidden: int) -> Tuple[int, int]:
     """Dynamic shared memory of one block of the forward and of the backward
     window kernel at channel width ``c`` (builds the kernels; needs nvcc)."""
-    return (int(_lib("swin_block").swin_block_smem_bytes(c)),
-            int(_lib("swin_block_bwd").swin_block_bwd_smem_bytes(c, hidden)))
+    return (int(load_library("swin_block").swin_block_smem_bytes(c)),
+            int(load_library("swin_block_bwd").swin_block_bwd_smem_bytes(
+                c, hidden)))
 
 
 class _SwinBlockFn(torch.autograd.Function):

@@ -41,18 +41,17 @@ raises; there is no fallback.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from strajnet_tpu_torch.ops.swin_block import (_attention_tensors,
-                                               _grid_check, _ln_f32,
-                                               _mlp_tensors, any_scratch,
-                                               check_tensors, kernel_route,
-                                               ptr, window_any_lib)
+from strajnet_tpu_torch._build import check_tensors, launch
+from strajnet_tpu_torch.ops.swin_block import (any_scratch,
+                                               attention_tensors, check_grid,
+                                               kernel_route, ln_f32,
+                                               mlp_tensors, window_any_lib)
 
 LOGIT_SCALE_MAX = math.log(100.0)   # the logit scale's clamp, ln 100
 NORM_EPS = 1e-12                    # F.normalize's
@@ -167,29 +166,12 @@ def swinv2_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, tau, ln1s,
     out = out.reshape(b_, h // ws, w // ws, ws, ws, c)
     y1 = out.permute(0, 1, 3, 2, 4, 5).reshape(b_, h, w, c)
     r1 = (x.float() + dp[:, 0, None, None, None]
-          * _ln_f32(y1, ln1s, ln1b, eps)).to(dt)
+          * ln_f32(y1, ln1s, ln1b, eps)).to(dt)
     y = F.gelu((r1 @ w1.to(dt) + b1.to(dt)).float(),
                approximate="tanh").to(dt)
     y2 = y @ w2.to(dt) + b2.to(dt)
     return (r1.float() + dp[:, 1, None, None, None]
-            * _ln_f32(y2, ln2s, ln2b, eps)).to(dt)
-
-
-def _bind(lib):
-    if not getattr(lib, "_bound_v2", False):
-        lib.swinv2_any_fwd.argtypes = (
-            [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.swinv2_any_fwd.restype = ctypes.c_int
-        lib.swinv2_any_bwd.argtypes = (
-            [ctypes.c_void_p] * 34 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.swinv2_any_bwd.restype = ctypes.c_int
-        lib.swinv2_any_attn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        lib.swinv2_any_attn.restype = ctypes.c_int
-        lib._bound_v2 = True
-    return lib
+            * ln_f32(y2, ln2s, ln2b, eps)).to(dt)
 
 
 def attention_stage(qkv, tau, rel_bias, mask=None, *, batch: int,
@@ -220,14 +202,9 @@ def attention_stage(qkv, tau, rel_bias, mask=None, *, batch: int,
     raw = qkv.new_empty(m, 2 * c) if save else None
     stats = (torch.empty(m // n * num_heads, n, 2, dtype=torch.float32,
                          device=qkv.device) if save else None)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = _bind(window_any_lib()).swinv2_any_attn(
-        ptr(qkv), ptr(tau), ptr(rel_bias), ptr(mask), ptr(merged), ptr(raw),
-        ptr(stats), int(fused), int(qkv.dtype == torch.bfloat16), batch,
-        height, width, c, num_heads, window_size, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"SwinV2 attention stage failed with CUDA error "
-                           f"{err}")
+    launch(window_any_lib(), "swinv2_any_attn", qkv, tau, rel_bias, mask,
+           merged, raw, stats, int(fused), int(qkv.dtype == torch.bfloat16),
+           batch, height, width, c, num_heads, window_size)
     return merged, raw, stats
 
 
@@ -241,13 +218,13 @@ def check_args(x, wqkv, bqkv, wproj, bproj, rel_bias, tau, ln1s, ln1b, ln2s,
     drop-path multipliers; :func:`~strajnet_tpu_torch.ops.swin_block.
     kernel_route`'s limits), and an f32 ``tau [heads]``. Touches no
     kernel."""
-    _grid_check(x, window_size)
+    check_grid(x, window_size)
     hidden = w1.shape[-1] if w1.dim() == 2 else -1
     kernel_route(x.dtype, x.shape[-1], num_heads, window_size, hidden)
-    expect = _attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                                window_size, num_heads, x.dtype)
-    expect.update(_mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
-                               drop_path, x.dtype))
+    expect = attention_tensors(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                               window_size, num_heads, x.dtype)
+    expect.update(mlp_tensors(x, ln1s, ln1b, ln2s, ln2b, w1, b1, w2, b2,
+                              drop_path, x.dtype))
     expect["tau"] = (tau, torch.float32, (num_heads,))
     check_tensors(expect, x.device)
 
@@ -259,14 +236,9 @@ def _launch_fwd(args, mask, drop_path, window_size, num_heads, eps):
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     scratch = any_scratch(_KIND_FWD, x, num_heads, window_size, w1.shape[1])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _bind(window_any_lib()).swinv2_any_fwd(
-        *(ptr(t) for t in args), ptr(mask), ptr(drop_path), ptr(out),
-        ptr(scratch), int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
-        window_size, w1.shape[1], eps, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"SwinV2 block general kernels failed with CUDA "
-                           f"error {err}")
+    launch(window_any_lib(), "swinv2_any_fwd", *args, mask, drop_path, out,
+           scratch, int(x.dtype == torch.bfloat16), b, h, w, c, num_heads,
+           window_size, w1.shape[1], eps)
     swinv2_block.launches_any += 1
     return out
 
@@ -300,15 +272,9 @@ def swinv2_block_bwd(x, wqkv, bqkv, wproj, bproj, rel_bias, tau, ln1s, ln1b,
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=x.device)
     grads = tuple(v.view(sh) for v, sh in zip(flat.split(sizes), shapes))
     scratch = any_scratch(_KIND_BWD, x, num_heads, window_size, hidden)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _bind(window_any_lib()).swinv2_any_bwd(
-        ptr(x), ptr(dy), *(ptr(t) for t in args[1:]), ptr(mask),
-        ptr(drop_path), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
-        int(x.dtype == torch.bfloat16), b, h, w, c, num_heads, window_size,
-        hidden, eps, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"SwinV2 block backward general kernels failed "
-                           f"with CUDA error {err}")
+    launch(window_any_lib(), "swinv2_any_bwd", x, dy, *args[1:], mask,
+           drop_path, dx, *grads, scratch, int(x.dtype == torch.bfloat16), b,
+           h, w, c, num_heads, window_size, hidden, eps)
     swinv2_block_bwd.launches_any += 1
     return dx, grads
 

@@ -23,12 +23,13 @@ weights by autograd, as on the portable path. ``warp_gather_fwd.launches`` and
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from strajnet_tpu_torch._build import launch, load_library
 
 Corners = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 # Bands of rows per image slice in the backward kernel, at least: each band
@@ -88,29 +89,6 @@ def _check(img, x0f, y0f, extra=()):
             raise ValueError(f"{name} is on {t.device}, img on {img.device}")
 
 
-def _lib():
-    from strajnet_tpu_torch._build import load_library
-
-    lib = load_library("warp_gather")
-    if not getattr(lib, "_bound", False):
-        lib.warp_gather_fwd.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p])
-        lib.warp_gather_fwd.restype = ctypes.c_int
-        lib.warp_gather_bwd.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p])
-        lib.warp_gather_bwd.restype = ctypes.c_int
-        lib._bound = True
-    return lib
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def warp_gather_fwd(img: torch.Tensor, x0f: torch.Tensor,
                     y0f: torch.Tensor) -> Corners:
     """The four corners of every query; the kernel on CUDA, plain on the CPU.
@@ -133,13 +111,8 @@ def warp_gather_fwd(img: torch.Tensor, x0f: torch.Tensor,
     n = x0f.shape[1]
     out = tuple(torch.empty(s, n, dtype=torch.float32, device=img.device)
                 for _ in range(4))
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = _lib().warp_gather_fwd(_ptr(img), _ptr(x0f), _ptr(y0f),
-                                 *(_ptr(o) for o in out), s, n, hp, wp,
-                                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"warp_gather_fwd kernel launch failed with CUDA "
-                           f"error {err}")
+    launch(load_library("warp_gather"), "warp_gather_fwd", img, x0f, y0f,
+           *out, s, n, hp, wp)
     warp_gather_fwd.launches += 1
     return out
 
@@ -188,13 +161,8 @@ def warp_gather_bwd(img_shape: Sequence[int], x0f: torch.Tensor,
     dimg = torch.empty(s, hp, wp, dtype=torch.float32, device=x0f.device)
     _check(dimg, x0f, y0f, tuple((f"g{i}", g) for i, g in enumerate(gs)))
     n = x0f.shape[1]
-    stream = torch.cuda.current_stream(x0f.device).cuda_stream
-    err = _lib().warp_gather_bwd(_ptr(x0f), _ptr(y0f),
-                                 *(_ptr(g) for g in gs), _ptr(dimg), s, n,
-                                 hp, wp, rows, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"warp_gather_bwd kernel launch failed with CUDA "
-                           f"error {err}")
+    launch(load_library("warp_gather"), "warp_gather_bwd", x0f, y0f, *gs,
+           dimg, s, n, hp, wp, rows)
     warp_gather_bwd.launches += 1
     return dimg
 

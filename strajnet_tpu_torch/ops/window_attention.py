@@ -44,9 +44,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from strajnet_tpu_torch._build import check_tensors, launch, load_library
 from strajnet_tpu_torch.ops.swin_block import (
     any_scratch, check_attention_args, check_general_attention_args,
-    check_tensors, kernel_route, ptr, window_any_lib)
+    kernel_route, window_any_lib)
 from strajnet_tpu_torch.ops.windows import window_partition, window_reverse
 
 GRAD_NAMES = ("dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
@@ -190,39 +191,18 @@ def attention_plan_of_kernel(b: int, h: int, w: int, c: int, heads: int,
     return out[0], out[1]
 
 
-def _lib():
-    from strajnet_tpu_torch._build import load_library
-
-    lib = load_library("window_attention")
-    if not getattr(lib, "_bound", False):
-        lib.window_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.window_attention_fwd.restype = ctypes.c_int
-        lib.window_attention_fwd_scratch_bytes.argtypes = [ctypes.c_int]
-        lib.window_attention_fwd_scratch_bytes.restype = ctypes.c_longlong
-        lib.window_attention_fwd_smem_bytes.argtypes = [ctypes.c_int]
-        lib.window_attention_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.window_attention_bwd.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.window_attention_bwd.restype = ctypes.c_int
-        lib.window_attention_bwd_scratch_bf16.argtypes = [ctypes.c_int] * 4
-        lib.window_attention_bwd_scratch_bf16.restype = ctypes.c_longlong
-        lib.window_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
-        lib.window_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib._bound = True
-    return lib
-
-
 def fwd_kernel_smem_bytes(c: int) -> int:
     """Dynamic shared memory of one block of the forward window kernel at
     channel width ``c`` (builds the kernels; needs nvcc)."""
-    return int(_lib().window_attention_fwd_smem_bytes(c))
+    lib = load_library("window_attention")
+    return int(lib.window_attention_fwd_smem_bytes(c))
 
 
 def bwd_kernel_smem_bytes(c: int) -> int:
     """Dynamic shared memory of one block of the backward window kernel at
     channel width ``c`` (builds the kernels; needs nvcc)."""
-    return int(_lib().window_attention_bwd_smem_bytes(c))
+    lib = load_library("window_attention")
+    return int(lib.window_attention_bwd_smem_bytes(c))
 
 
 def check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, *,
@@ -250,14 +230,9 @@ def _launch_any_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, window_size,
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     scratch = any_scratch(2, x, num_heads, window_size)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = window_any_lib().attn_any_fwd(
-        ptr(x), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj), ptr(rel_bias),
-        ptr(mask), ptr(out), ptr(scratch), int(x.dtype == torch.bfloat16),
-        b, h, w, c, num_heads, window_size, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"window_attention general kernels failed with "
-                           f"CUDA error {err}")
+    launch(window_any_lib(), "attn_any_fwd", x, wqkv, bqkv, wproj, bproj,
+           rel_bias, mask, out, scratch, int(x.dtype == torch.bfloat16), b, h,
+           w, c, num_heads, window_size)
     window_attention.launches_any += 1
     return out
 
@@ -267,18 +242,12 @@ def _launch_wgmma_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
     check_fwd_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                    window_size=window_size, num_heads=num_heads)
     b, h, w, c = x.shape
-    lib = _lib()
+    lib = load_library("window_attention")
     out = torch.empty_like(x)
     scratch = torch.empty(lib.window_attention_fwd_scratch_bytes(c),
                           dtype=torch.uint8, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.window_attention_fwd(
-        ptr(x), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj), ptr(rel_bias),
-        ptr(mask), ptr(out), ptr(scratch), b, h, w, c, num_heads,
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"window_attention kernel launch failed with CUDA "
-                           f"error {err}")
+    launch(lib, "window_attention_fwd", x, wqkv, bqkv, wproj, bproj, rel_bias,
+           mask, out, scratch, b, h, w, c, num_heads)
     window_attention.launches += 1
     return out
 
@@ -329,29 +298,19 @@ def window_attention_bwd(x, wqkv, bqkv, wproj, rel_bias, mask, dy, *,
     shapes = ((c, 3 * c), (3 * c,), (c, c), (c,), tuple(rel_bias.shape))
     grads = tuple(torch.zeros(sh, dtype=torch.float32, device=dev)
                   for sh in shapes)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "any":
         scratch = any_scratch(3, x, num_heads, window_size)
-        err = window_any_lib().attn_any_bwd(
-            ptr(x), ptr(dy), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(rel_bias),
-            ptr(mask), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
-            int(x.dtype == torch.bfloat16), 1, b, h, w, c, num_heads,
-            window_size, ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"window_attention_bwd general kernels failed "
-                               f"with CUDA error {err}")
+        launch(window_any_lib(), "attn_any_bwd", x, dy, wqkv, bqkv, wproj,
+               rel_bias, mask, dx, *grads, scratch,
+               int(x.dtype == torch.bfloat16), 1, b, h, w, c, num_heads,
+               window_size)
         window_attention_bwd.launches_any += 1
         return dx, grads
-    lib = _lib()
+    lib = load_library("window_attention")
     scratch = torch.empty(lib.window_attention_bwd_scratch_bf16(b, h, w, c),
                           dtype=torch.bfloat16, device=dev)
-    err = lib.window_attention_bwd(
-        ptr(x), ptr(dy), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(rel_bias),
-        ptr(mask), ptr(dx), *(ptr(g) for g in grads), ptr(scratch),
-        b, h, w, c, num_heads, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"window_attention_bwd kernel launch failed with "
-                           f"CUDA error {err}")
+    launch(lib, "window_attention_bwd", x, dy, wqkv, bqkv, wproj, rel_bias,
+           mask, dx, *grads, scratch, b, h, w, c, num_heads)
     window_attention_bwd.launches += 1
     return dx, grads
 

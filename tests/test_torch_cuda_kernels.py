@@ -7,7 +7,6 @@ card from the JAX tests unless the variable is set).
 ``chip_smoke.py`` makes the same comparisons at the flagship shapes.
 """
 
-import ctypes
 import os
 import sys
 
@@ -15,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from strajnet_tpu_torch._build import launch, load_library
 from strajnet_tpu_torch.ops import decoder_tail as dtl
 from strajnet_tpu_torch.ops import swin_block as sb
 from strajnet_tpu_torch.ops import warp_gather as wg
@@ -145,20 +145,13 @@ def test_wgmma_operand_layouts_one_product_each(card):
     product's A fragments, B written by the transposed store, and both
     operands MN-major from the token-blocked layout. bf16 inputs, f32 sums:
     only the order of the sums differs."""
-    from strajnet_tpu_torch._build import load_library
     lib = load_library("sm90_selftest")
-    lib.sm90_layout_selftest.argtypes = [ctypes.c_void_p] * 6
-    lib.sm90_blocked_selftest.argtypes = ([ctypes.c_void_p] * 3
-                                          + [ctypes.c_int, ctypes.c_void_p])
     g = torch.Generator().manual_seed(0)
     a = torch.randn(64, 64, generator=g).to(torch.bfloat16).to(card)
     w = torch.randn(64, 96, generator=g).to(torch.bfloat16).to(card)
     outs = [torch.zeros(64, n, device=card) for n in (96, 96, 64, 64)]
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    assert lib.sm90_layout_selftest(p(a), p(w), *(p(o) for o in outs[:3]),
-                                    stream) == 0
-    assert lib.sm90_blocked_selftest(p(a), p(a), p(outs[3]), 0, stream) == 0
+    launch(lib, "sm90_layout_selftest", a, w, *outs[:3])
+    launch(lib, "sm90_blocked_selftest", a, a, outs[3], 0)
     torch.cuda.synchronize()
     af, wf = a.float(), w.float()
     for got, want in zip(outs, (af @ wf, af @ wf, af @ af, af.t() @ af)):
@@ -172,23 +165,17 @@ def test_decoder_tail_operand_layouts_one_product_each(card):
     pixel rows and whose taps are offsets of the start address; and the
     intermediate read by ``wgmma.m64n8k16`` at an offset of ``8 u + v``
     entries. For both warpgroups of a block (rows 0-7 and 8-15)."""
-    from strajnet_tpu_torch._build import load_library
     lib = load_library("sm90_selftest")
-    lib.sm90_tail_selftest.argtypes = ([ctypes.c_void_p] * 6
-                                       + [ctypes.c_int, ctypes.c_void_p])
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     x = torch.randn(17, 9, 16, generator=g).to(bf).to(card)
     w = torch.randn(64, 96, generator=g).to(bf).to(card)
     e = torch.randn(144, 16, generator=g).to(bf).to(card)
     ky = torch.randn(64, 8, generator=g).to(bf).to(card)
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     for wg in (0, 1):
         out_main = torch.zeros(64, 96, device=card)
         out_conv = torch.zeros(64, 8, device=card)
-        assert lib.sm90_tail_selftest(p(x), p(w), p(e), p(ky), p(out_main),
-                                      p(out_conv), wg, stream) == 0
+        launch(lib, "sm90_tail_selftest", x, w, e, ky, out_main, out_conv, wg)
         torch.cuda.synchronize()
         want_main = torch.zeros(64, 96, device=card)
         want_conv = torch.zeros(64, 8, device=card)

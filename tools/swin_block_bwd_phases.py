@@ -105,8 +105,7 @@ def windows_of_block0(h):
 
 
 def swin_block_bwd_phases(g):
-    lib = sb._lib("swin_block_bwd")
-    lib.swin_block_bwd_phase_clocks.argtypes = [ctypes.c_void_p]
+    lib = _build.load_library("swin_block_bwd")
     for h, c, heads in GEOMETRIES:
         args, mask, dp, dy = block_inputs(h, c, heads, g)
         kw = dict(window_size=8, num_heads=heads)
@@ -143,8 +142,7 @@ def swin_block_bwd_phases(g):
 
 
 def window_attention_bwd_phases(g):
-    lib = wa._lib()
-    lib.window_attention_bwd_phase_clocks.argtypes = [ctypes.c_void_p]
+    lib = _build.load_library("window_attention")
     for h, c, heads in GEOMETRIES:
         args, mask, _, dy = block_inputs(h, c, heads, g)
         x, wqkv, bqkv, wproj, _, rel_bias = args[:6]
@@ -158,8 +156,7 @@ def window_attention_bwd_phases(g):
 
 
 def decoder_tail_phases(g):
-    lib = dtl._lib()
-    lib.decoder_tail_phase_clocks.argtypes = [ctypes.c_void_p]
+    lib = _build.load_library("decoder_tail")
     n, h, cin, cmid = BATCH * 8, 128, 96, 48
 
     def r(*shape, scale=1.0):
